@@ -1,0 +1,531 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's detection forward on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA device; it needs
+one card and exits non-zero on any failure (there is no CPU mode).  It
+imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
+
+1. device: the card's name and power limit (``nvidia-smi``), then one
+   ``nvcc`` per kernel source, all started together;
+2. K1, the NMS sweep (``csrc/nms_sweep.cu``), against its plain version on
+   the card at the proposal shape (B=2, K=6144, thr 0.7), the
+   postprocess shape (B=2*21, K=512, thr 0.3) and on integer boxes whose
+   IoUs sit exactly on the threshold: keep masks must be equal;
+3. K2, the ROIAlign forward (``csrc/roi_align_fwd.cu``), against its plain
+   version at 300 rois over a 38x64x1024 map, fp32 and bf16;
+4. the whole ResNet-101 forward at 608x1024 in fp32 (TF32 off), once
+   through the kernels and once through the plain versions: rois and
+   ``roi_valid`` equal, ``cls_prob`` and deltas close;
+5. serving: ``tools/demo.py``'s path in bf16 on 4 seeded synthetic images
+   at batch 1 and 2 -- the main path.  Every launch count is set to 0
+   just before it and read just after; each kernel must have launched.
+   Per-stage CUDA-event times and images/s are printed.
+
+The lines before the last are the card's name and power limit and one
+``{"kernels": [...]}`` JSON object; the last line is
+``{"ok": true, "device": {...}}``.  Longer records (build logs, the full
+results) go to ``chiprun_out/chip_smoke/``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 outside the tensor
+# cores.  Both kernels do fp32 arithmetic on CUDA cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+# fp32 operations per IoU test as the kernel and the reference do it:
+# 2 min, 2 max, 2 sub, 2 add, 2 clamp, 1 mul, add+sub, 1 compare, 1 max,
+# 1 div, 1 compare
+IOU_OPS = 17
+# fp32 operations per ROIAlign sample: 4 taps, one multiply-add each
+ROI_SAMPLE_OPS = 8
+
+VOC_CLASSES = 21
+BUCKET = (608, 1024)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---- phase 2: K1 -----------------------------------------------------------
+
+def nms_inputs(batch: int, k: int, seed: int, dev):
+    """Score-sorted, padded boxes as the proposal stage hands them to K1:
+    random proposals on the bucket canvas with planted exact duplicates,
+    near-duplicates and tied scores, some slots invalid."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.nms import _mask_pad_sort
+
+    rng = np.random.RandomState(seed)
+    h, w = BUCKET
+    xy = rng.uniform(0, [w - 16, h - 16], (batch, k, 2))
+    wh = rng.uniform(16, 400, (batch, k, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [w - 1, h - 1])], -1)
+    scores = rng.uniform(size=(batch, k))
+    dup = rng.randint(0, k, (batch, k // 20))
+    for b in range(batch):
+        src = rng.randint(0, k, dup.shape[1])
+        boxes[b, dup[b]] = boxes[b, src]                 # exact duplicates
+        scores[b, dup[b][::2]] = scores[b, src[::2]]     # and tied scores
+        near = rng.randint(0, k, k // 20)
+        boxes[b, near] = boxes[b, rng.randint(0, k, near.size)] + \
+            rng.uniform(-2, 2, (near.size, 4))
+    scores = np.round(scores * 512) / 512                # many score ties
+    valid = rng.uniform(size=(batch, k)) > 0.05
+    return _mask_pad_sort(
+        torch.tensor(boxes, dtype=torch.float32, device=dev),
+        torch.tensor(scores, dtype=torch.float32, device=dev),
+        torch.tensor(valid, device=dev), 256)
+
+
+def boundary_inputs(batch: int, k: int, seed: int, dev):
+    """Integer boxes on a small canvas with quantised scores: many IoUs
+    are simple fractions that land exactly on a threshold (7/10 rounds to
+    the same fp32 as 0.7), so only an identical IoU rounding keeps the
+    ``iou > thr`` decisions equal."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.nms import _mask_pad_sort
+
+    rng = np.random.RandomState(seed)
+    xy = rng.randint(0, 48, (batch, k, 2))
+    wh = rng.randint(0, 24, (batch, k, 2))
+    boxes = np.concatenate([xy, xy + wh], -1)
+    scores = rng.randint(0, 8, (batch, k)) / 8.0
+    return _mask_pad_sort(
+        torch.tensor(boxes, dtype=torch.float32, device=dev),
+        torch.tensor(scores, dtype=torch.float32, device=dev), None, 256)
+
+
+def greedy_pairs(keep, alive) -> int:
+    """IoU tests greedy NMS needs on this data: each kept box against
+    every live box after it."""
+    import torch
+
+    after = alive.flip(-1).cumsum(-1).flip(-1) - alive.to(torch.int64)
+    return int((after * keep).sum())
+
+
+def phase_k1(dev) -> dict:
+    import torch
+
+    from mx_rcnn_tpu_torch.kernels import NMS_SWEEP
+    from mx_rcnn_tpu_torch.ops.nms import (suppression_sweep_cuda,
+                                           suppression_sweep_plain)
+
+    shapes = {"proposal": (2, 6000, 0.7), "postprocess": (2 * VOC_CLASSES,
+                                                          300, 0.3)}
+    res = {}
+    for i, (name, (b, k, thr)) in enumerate(shapes.items()):
+        boxes, _, alive, _, t = nms_inputs(b, k, seed=10 + i, dev=dev)
+        keep = suppression_sweep_cuda(boxes, alive, thr)
+        torch.cuda.synchronize()
+        want = suppression_sweep_plain(boxes, alive, thr, t)
+        diff = int((keep != want).sum())
+        log(f"K1 {name}: B={b} K={boxes.shape[1]} thr={thr} kept "
+            f"{int(keep.sum())}/{int(alive.sum())} mismatches={diff}")
+        if diff:
+            raise AssertionError(f"K1 keep mask differs from the plain "
+                                 f"sweep at the {name} shape ({diff})")
+        ms = time_ms(lambda: suppression_sweep_cuda(boxes, alive, thr), 50)
+        plain_ms = time_ms(
+            lambda: suppression_sweep_plain(boxes, alive, thr, t), 3, 1)
+        nbytes = boxes.numel() * 4 + alive.numel() + keep.numel()
+        bound_ms, bound_by = bound(nbytes, IOU_OPS * greedy_pairs(keep,
+                                                                  alive))
+        res[name] = dict(shape=[b, boxes.shape[1]], thr=thr, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, max_abs_err=float(diff))
+        log(f"K1 {name}: {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+    for thr in (0.3, 0.5, 0.7):
+        boxes, _, alive, _, t = boundary_inputs(8, 1000, seed=int(thr * 10),
+                                                dev=dev)
+        keep = suppression_sweep_cuda(boxes, alive, thr)
+        torch.cuda.synchronize()
+        diff = int((keep != suppression_sweep_plain(boxes, alive, thr,
+                                                    t)).sum())
+        log(f"K1 integer boxes: B=8 K={boxes.shape[1]} thr={thr} kept "
+            f"{int(keep.sum())} mismatches={diff}")
+        if diff:
+            raise AssertionError(f"K1 differs on integer boxes at {thr}")
+    if NMS_SWEEP.launches == 0:
+        raise AssertionError("K1 never launched")
+    return res
+
+
+# ---- phase 3: K2 -----------------------------------------------------------
+
+def roi_inputs(n: int, r: int, seed: int, dev):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    fh, fw, c = BUCKET[0] // 16, BUCKET[1] // 16, 1024
+    feat = torch.tensor(rng.standard_normal((n, fh, fw, c)),
+                        dtype=torch.float32, device=dev)
+    xy = rng.uniform(-8, [BUCKET[1], BUCKET[0]], (n, r, 2))
+    wh = rng.uniform(0, 500, (n, r, 2))
+    rois = torch.tensor(np.concatenate([xy, xy + wh], -1),
+                        dtype=torch.float32, device=dev)
+    return feat, rois
+
+
+def phase_k2(dev) -> dict:
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_cuda, roi_align_plain
+
+    n, r, size, sr = 2, 300, (14, 14), 2
+    feat, rois = roi_inputs(n, r, seed=20, dev=dev)
+    got = roi_align_cuda(feat, rois, size, 1 / 16, sr)
+    torch.cuda.synchronize()
+    want = roi_align_plain(feat, rois, size, 1 / 16, sr)
+    err32 = float((got - want).abs().max())
+    log(f"K2 fp32: N={n} R={r} {tuple(feat.shape[1:])} max|err|={err32:.3e}"
+        f" (atol 1e-4)")
+    if not err32 <= 1e-4:
+        raise AssertionError(f"K2 fp32 max error {err32} > 1e-4")
+    # bf16: the kernel accumulates the bf16 taps in fp32 and rounds once,
+    # so against the fp32 plain version on the same bf16 inputs it is off
+    # by the final rounding alone: half a bf16 ulp, |err| <= 2^-8 |ref|
+    # (8 significant bits), plus the fp32 check's 1e-4 for the order of
+    # summation, which differs between the gather and the einsum pair
+    feat16 = feat.to(torch.bfloat16)
+    got16 = roi_align_cuda(feat16, rois, size, 1 / 16, sr)
+    torch.cuda.synchronize()
+    ref16 = roi_align_plain(feat16.float(), rois, size, 1 / 16, sr)
+    excess = float(((got16.float() - ref16).abs()
+                    - (2.0 ** -8 * ref16.abs() + 1e-4)).max())
+    err16 = float((got16.float() - ref16).abs().max())
+    log(f"K2 bf16: max|err|={err16:.3e}, worst excess over 2^-8|ref|+1e-4 "
+        f"= {excess:.3e}")
+    if excess > 0:
+        raise AssertionError("K2 bf16 beyond half a bf16 ulp of the fp32 "
+                             "plain version")
+    res = {}
+    for tag, f in (("bf16", feat16), ("fp32", feat)):
+        ms = time_ms(lambda: roi_align_cuda(f, rois, size, 1 / 16, sr), 50)
+        plain_ms = time_ms(lambda: roi_align_plain(f, rois, size, 1 / 16,
+                                                   sr), 5)
+        out_elems = n * r * size[0] * size[1] * f.shape[-1]
+        nbytes = (f.numel() + out_elems) * f.element_size() + rois.numel() * 4
+        ops = out_elems * sr * sr * ROI_SAMPLE_OPS
+        bound_ms, bound_by = bound(nbytes, ops)
+        res[tag] = dict(shape=[n, r] + list(f.shape[1:]), ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by,
+                        max_abs_err=err16 if tag == "bf16" else err32)
+        log(f"K2 {tag}: {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    return res
+
+
+# ---- phase 4: whole forward, kernels against plain versions ----------------
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the forward through the plain versions on the card, for the
+    comparison only (the port itself never does)."""
+    import mx_rcnn_tpu_torch.models.faster_rcnn as frcnn
+    import mx_rcnn_tpu_torch.ops.nms as nms
+    from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_plain
+
+    saved = nms.suppression_sweep, frcnn.roi_align
+    nms.suppression_sweep = nms.suppression_sweep_plain
+    frcnn.roi_align = roi_align_plain
+    try:
+        yield
+    finally:
+        nms.suppression_sweep, frcnn.roi_align = saved
+
+
+def phase_forward_parity(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.tools import demo
+
+    torch.backends.cudnn.deterministic = True
+    cfg = generate_config("resnet101", "PascalVOC",
+                          network__compute_dtype="float32")
+    predictor = Predictor(build_model(cfg, dev, seed=1), cfg, dev)
+    canvases, info = [], []
+    for img in demo.synthetic_images(2, seed=5):
+        canvas, im_info, _ = demo.prepare(img, cfg)
+        canvases.append(canvas)
+        info.append(im_info)
+    images, im_info = np.stack(canvases), np.stack(info)
+    got = [t.float().cpu() for t in predictor.raw(images, im_info)]
+    with plain_versions():
+        want = [t.float().cpu() for t in predictor.raw(images, im_info)]
+    names = ("rois", "roi_valid", "cls_prob", "bbox_deltas")
+    errs = {k: float((g - w).abs().max()) for k, g, w in zip(names, got,
+                                                             want)}
+    log(f"forward fp32 608x1024 batch 2: kernels vs plain max|diff| {errs}")
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("rois / roi_valid differ between the kernel "
+                             "and plain paths")
+    if errs["cls_prob"] > 1e-4 or errs["bbox_deltas"] > 1e-3:
+        raise AssertionError(f"head outputs differ: {errs}")
+    torch.backends.cudnn.deterministic = False
+    return errs
+
+
+# ---- phase 5: serving, the main path ---------------------------------------
+
+def stage_times(predictor, images, im_info, iters: int, warmup: int = 2
+                ) -> dict:
+    """Per-stage times of one forward + postprocess, from CUDA events
+    recorded as each stage ends (the device timeline, gaps included)."""
+    import torch
+
+    from mx_rcnn_tpu_torch.models.faster_rcnn import to_device_batch
+    from mx_rcnn_tpu_torch.tools import demo
+
+    imgs, info = to_device_batch(images, im_info, predictor.device)
+    order = ("backbone", "proposal", "roi_align", "head", "postprocess")
+    sums = dict.fromkeys(order, 0.0)
+    for it in range(warmup + iters):
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(_name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        with torch.inference_mode():
+            out = predictor.model(imgs, info, stage_hook=mark)
+        demo.postprocess(predictor, out, info, predictor.cfg.test.score_thresh)
+        mark("postprocess")
+        torch.cuda.synchronize()
+        if it >= warmup:
+            for name, a, b in zip(order, events, events[1:]):
+                sums[name] += a.elapsed_time(b)
+    return {k: v / iters for k, v in sums.items()}
+
+
+def device_busy(predictor, canv, info, iters: int) -> dict:
+    """Device time per forward + postprocess from a ``torch.profiler``
+    trace (sum of kernel and copy times), and the top kernels by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mx_rcnn_tpu_torch.tools import demo
+
+    thresh = predictor.cfg.test.score_thresh
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        for _ in range(iters):
+            out = predictor.raw(canv, info)
+            demo.postprocess(predictor, out, out[0].new_tensor(info), thresh)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    total_us = sum(r[1] for r in rows)
+    return dict(device_ms_per_iter=total_us / 1e3 / iters,
+                top=[dict(name=k[:90], ms_per_iter=t / 1e3 / iters,
+                          calls_per_iter=c / iters) for k, t, c in rows[:20]],
+                kernels_per_iter=sum(r[2] for r in rows) / iters)
+
+
+def phase_serving(dev, card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.tools import demo
+
+    cfg = generate_config("resnet101", "PascalVOC")     # bf16 by default
+    if cfg.network.compute_dtype != "bfloat16":
+        raise AssertionError("the flagship preset must serve in bf16")
+    predictor = Predictor(build_model(cfg, dev, seed=0), cfg, dev)
+    images = demo.synthetic_images(4, seed=0)
+    thresh = cfg.test.score_thresh
+    demo.detect(predictor, images, 2, thresh)            # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    # the demo's own command line first (its detections go to a file),
+    # then its path timed per batch
+    with open(OUT_DIR / "demo.txt", "w") as f, \
+            contextlib.redirect_stdout(f):
+        demo.main(["--synthetic", "4", "--batch", "2", "--seed", "0"])
+    log("demo: " + (OUT_DIR / "demo.txt").read_text().splitlines()[0])
+    forwards, runs = 2, {}
+    for batch in (1, 2):
+        t0 = time.perf_counter()
+        dets = demo.detect(predictor, images, batch, thresh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        forwards += len(images) // batch
+        ndet = sum(len(v) for d in dets for v in d.values())
+        finite = all(np.isfinite(v).all() for d in dets for v in d.values())
+        if not finite or ndet == 0:
+            raise AssertionError(f"batch {batch}: {ndet} detections, "
+                                 f"finite={finite}")
+        runs[batch] = dict(images_per_s=len(images) / wall,
+                           wall_s=wall, detections=ndet)
+    launches = kernels.launch_counts()
+    log(f"serving launches over {forwards} forwards: {launches}; per "
+        f"forward: " + ", ".join(f"{k} {v / forwards:g}"
+                                 for k, v in launches.items()))
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+
+    prepared = [demo.prepare(img, cfg) for img in images]
+    for batch in (1, 2):
+        canv = np.stack([p[0] for p in prepared[:batch]])
+        info = np.stack([p[1] for p in prepared[:batch]])
+        raw = predictor.raw(canv, info)
+        if not all(bool(torch.isfinite(t.float()).all()) for t in raw):
+            raise AssertionError("non-finite forward output")
+        runs[batch]["stage_ms"] = stage_times(predictor, canv, info, 10)
+        # steady state: forward + postprocess back to back, host clock
+        iters = 10
+        for it in range(iters + 2):
+            if it == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = predictor.raw(canv, info)
+            demo.postprocess(predictor, out, out[0].new_tensor(info), thresh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters
+        runs[batch]["steady_images_per_s"] = batch / wall
+        busy = device_busy(predictor, canv, info, 5)
+        # a trace with no device events measures nothing: say so
+        busy["busy_share"] = (busy["device_ms_per_iter"] / (wall * 1e3)
+                              if busy["device_ms_per_iter"] > 0 else None)
+        runs[batch]["device"] = busy
+        log(f"serving bf16 batch {batch}: device busy "
+            f"{busy['device_ms_per_iter']:.3f} ms of {wall * 1e3:.3f} ms per "
+            f"forward+postprocess ({busy['kernels_per_iter']:.0f} device "
+            f"ops), busy share {busy['busy_share'] or 'not measured'}")
+        log(f"serving bf16 batch {batch} on {card}: demo path "
+            f"{runs[batch]['images_per_s']:.2f} img/s, steady "
+            f"{runs[batch]['steady_images_per_s']:.2f} img/s, stages (ms) "
+            + json.dumps({k: round(v, 3) for k, v in
+                          runs[batch]["stage_ms"].items()}))
+    return dict(launches=launches, forwards=forwards, runs=runs,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script runs only on the card", file=sys.stderr)
+        return 2
+    if not (REPO / "mx_rcnn_tpu_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(mx_rcnn_tpu_torch/ not found beside it)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from mx_rcnn_tpu_torch import kernels
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    # fp32 comparisons run in full fp32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    build_logs = kernels.build_all()
+    build_s = time.perf_counter() - t0
+    (OUT_DIR / "build.log").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in build_logs.items()))
+    log(f"built {len(build_logs)} kernels in {build_s:.1f} s")
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if "Used" in line:
+                log(f"  {name}: {line.strip()}")
+
+    k1 = phase_k1(dev)
+    k2 = phase_k2(dev)
+    parity = phase_forward_parity(dev)
+    serving = phase_serving(dev, card)
+
+    nms_k, roi_k = kernels.NMS_SWEEP, kernels.ROI_ALIGN_FWD
+    lines = []
+    for kern, res in ((nms_k, k1["proposal"]), (roi_k, k2["bf16"])):
+        lines.append(dict(
+            name=kern.name, route="cuda",
+            source=str(kern.source.relative_to(REPO)),
+            replaces=kern.replaces,
+            launches=serving["launches"][kern.name],
+            max_abs_err=res["max_abs_err"], ms=res["ms"],
+            plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+            bound_by=res["bound_by"], library_ms=None))
+    (OUT_DIR / "results.json").write_text(json.dumps(dict(
+        card=card, build_s=build_s, k1=k1, k2=k2, forward_parity=parity,
+        serving=serving), indent=1))
+    print(card)
+    print(json.dumps({"kernels": lines}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

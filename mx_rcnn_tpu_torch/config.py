@@ -1,0 +1,207 @@
+"""Immutable configuration for the PyTorch port.
+
+The port's own copy of the config fields and presets the detection
+forward reads, with the JAX package's key names and default values, so a
+config built here and one built by ``mx_rcnn_tpu.config`` agree on every
+field they share.  The training slice adds its fields.
+Three-level precedence: hardcoded defaults < network/dataset presets <
+``section__field`` overrides (the CLIs' ``--set``).
+"""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Iterable, Mapping, Tuple
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Mirrors reference ``config.TRAIN``: the bbox normalisation stats the
+    decode reads.  The training fields come with the training slice."""
+
+    bbox_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
+    bbox_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
+
+
+@dataclass(frozen=True)
+class TestConfig:
+    """Mirrors reference ``config.TEST``."""
+
+    nms: float = 0.3                # per-class NMS threshold at eval
+    score_thresh: float = 1e-3
+    rpn_pre_nms_top_n: int = 6000
+    rpn_post_nms_top_n: int = 300
+    rpn_nms_thresh: float = 0.7
+    rpn_min_size: int = 16
+
+
+@dataclass(frozen=True)
+class NetworkConfig:
+    """Per-network preset (anchor geometry, stride, pooled size, dtype)."""
+
+    name: str = "resnet101"
+    pixel_means: Tuple[float, ...] = (123.68, 116.779, 103.939)  # RGB
+    rpn_feat_stride: int = 16
+    anchor_scales: Tuple[int, ...] = (8, 16, 32)
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    rcnn_pooled_size: Tuple[int, int] = (14, 14)
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    name: str = "PascalVOC"
+    num_classes: int = 21
+
+
+@dataclass(frozen=True)
+class BucketConfig:
+    """Static (H, W) canvases images are resized and padded into."""
+
+    scale: int = 600
+    max_size: int = 1000
+    shapes: Tuple[Tuple[int, int], ...] = ((608, 1024), (1024, 608))
+
+
+@dataclass(frozen=True)
+class Config:
+    train: TrainConfig = field(default_factory=TrainConfig)
+    test: TestConfig = field(default_factory=TestConfig)
+    network: NetworkConfig = field(default_factory=NetworkConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    bucket: BucketConfig = field(default_factory=BucketConfig)
+
+    @property
+    def num_classes(self) -> int:
+        return self.dataset.num_classes
+
+    def replace_in(self, section: str, **kw: Any) -> "Config":
+        """New Config with fields replaced inside one section."""
+        return dataclasses.replace(
+            self, **{section: dataclasses.replace(getattr(self, section), **kw)})
+
+
+_NETWORKS: Mapping[str, Mapping[str, Any]] = {
+    "resnet50": dict(name="resnet50", rcnn_pooled_size=(14, 14)),
+    "resnet101": dict(name="resnet101", rcnn_pooled_size=(14, 14)),
+    # test-only miniature network (models/tiny.py)
+    "tiny": dict(name="tiny", rcnn_pooled_size=(7, 7),
+                 anchor_scales=(2, 4, 8), compute_dtype="float32"),
+}
+
+_DATASETS: Mapping[str, Mapping[str, Any]] = {
+    "PascalVOC": dict(name="PascalVOC", num_classes=21),
+    "coco": dict(name="coco", num_classes=81),
+    "synthetic": dict(name="synthetic", num_classes=4),
+    "synthetic_hard": dict(name="synthetic_hard", num_classes=9),
+    "synthetic_stream": dict(name="synthetic_stream", num_classes=81),
+}
+
+_DATASET_BUCKETS: Mapping[str, Mapping[str, Any]] = {
+    "synthetic": dict(scale=320, max_size=416,
+                      shapes=((320, 416), (416, 320))),
+    "synthetic_hard": dict(scale=240, max_size=320,
+                           shapes=((240, 320), (320, 240))),
+    "synthetic_stream": dict(scale=240, max_size=320,
+                             shapes=((240, 320), (320, 240))),
+}
+
+
+def generate_config(network: str = "resnet101", dataset: str = "PascalVOC",
+                    **overrides: Any) -> Config:
+    """Config from network+dataset presets plus ``section__field``
+    overrides, e.g. ``generate_config('tiny', test__rpn_post_nms_top_n=16)``.
+    """
+    if network not in _NETWORKS:
+        raise KeyError(f"unknown network {network!r}; have {sorted(_NETWORKS)}")
+    if dataset not in _DATASETS:
+        raise KeyError(f"unknown dataset {dataset!r}; have {sorted(_DATASETS)}")
+    cfg = Config(network=NetworkConfig(**_NETWORKS[network]),
+                 dataset=DatasetConfig(**_DATASETS[dataset]))
+    if dataset in _DATASET_BUCKETS:
+        cfg = cfg.replace_in("bucket", **_DATASET_BUCKETS[dataset])
+    by_section: dict = {}
+    for key, val in overrides.items():
+        if "__" not in key:
+            raise KeyError(f"override {key!r} must be 'section__field'")
+        section, fname = key.split("__", 1)
+        by_section.setdefault(section, {})[fname] = val
+    for section, kw in by_section.items():
+        node = getattr(cfg, section, None)
+        if node is None:
+            raise KeyError(f"unknown config section {section!r}")
+        kw = {f: _coerce_override(getattr(node, f, None), v,
+                                  f"{section}__{f}")
+              for f, v in kw.items()}
+        cfg = cfg.replace_in(section, **kw)
+    validate_dtype_string(cfg.network.compute_dtype, "network__compute_dtype")
+    return cfg
+
+
+def parse_set_overrides(items: Iterable[str]) -> dict:
+    """``--set section__field=value`` items → :func:`generate_config`
+    overrides; values parse as Python literals, else stay strings."""
+    overrides = {}
+    for item in items or ():
+        key, sep, val = item.partition("=")
+        if not sep or "__" not in key:
+            raise ValueError(
+                f"--set expects section__field=value, got {item!r}")
+        try:
+            overrides[key] = ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            overrides[key] = val
+    return overrides
+
+
+_BOOL_STRINGS = {"true": True, "yes": True, "1": True,
+                 "false": False, "no": False, "0": False}
+
+_DTYPE_STRINGS = ("float32", "bfloat16")
+
+
+def validate_dtype_string(val: str, key: str) -> str:
+    """Dtype fields accept exactly two spellings; a typo fails loudly."""
+    if val not in _DTYPE_STRINGS:
+        raise ValueError(
+            f"{key} must be one of {_DTYPE_STRINGS}, got {val!r}")
+    return val
+
+
+def _coerce_override(cur: Any, val: Any, key: str) -> Any:
+    """Coerce an override (possibly a CLI string) to the field's type."""
+    if val is None or cur is None:
+        return val
+    if isinstance(cur, bool):
+        if isinstance(val, bool):
+            return val
+        if isinstance(val, int) and val in (0, 1):
+            return bool(val)
+        if isinstance(val, str) and val.lower() in _BOOL_STRINGS:
+            return _BOOL_STRINGS[val.lower()]
+        raise TypeError(f"{key} expects a bool, got {val!r}")
+    if isinstance(cur, int):
+        if isinstance(val, bool) or (isinstance(val, float)
+                                     and not val.is_integer()):
+            raise TypeError(f"{key} expects an int, got {val!r}")
+        try:
+            return int(val)
+        except (TypeError, ValueError):
+            raise TypeError(f"{key} expects an int, got {val!r}")
+    if isinstance(cur, float):
+        if isinstance(val, bool):
+            raise TypeError(f"{key} expects a float, got {val!r}")
+        try:
+            return float(val)
+        except (TypeError, ValueError):
+            raise TypeError(f"{key} expects a float, got {val!r}")
+    if isinstance(cur, tuple):
+        if isinstance(val, (list, tuple)):
+            return tuple(tuple(v) if isinstance(v, (list, tuple)) else v
+                         for v in val)
+        raise TypeError(f"{key} expects a tuple/list, got {val!r}")
+    if isinstance(cur, str) and not isinstance(val, str):
+        raise TypeError(f"{key} expects a string, got {val!r}")
+    return val

@@ -1,0 +1,158 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface, loaded with ``ctypes``
+(no PyTorch headers, so a build takes seconds).  Libraries land in
+``mx_rcnn_tpu_torch/_build/`` under a name that hashes the source and the
+flags, so an edited source is rebuilt and a stale library never loads.
+Nothing is built at import time: :func:`build_all` (or the first launch
+of a kernel) builds, and :func:`build_all` starts one ``nvcc`` per source
+in parallel.
+
+Every kernel keeps a plain integer launch count that its wrapper bumps
+once per successful launch; :func:`reset_launch_counts` zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+class CudaKernel:
+    """One ``csrc/`` source, its C entry point and its launch count."""
+
+    def __init__(self, name: str, source: str, symbol: str,
+                 argtypes: List, replaces: str,
+                 extra_flags: Tuple[str, ...] = ()):
+        self.name = name
+        self.source = CSRC / source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.replaces = replaces
+        self.flags = NVCC_FLAGS + tuple(extra_flags)
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(self.flags).encode()).hexdigest()
+        return BUILD_DIR / f"lib{self.name}-{digest[:16]}.so"
+
+    def start_build(self) -> Optional[Tuple[subprocess.Popen, Path, Path]]:
+        """Start ``nvcc`` unless the library is already built."""
+        lib = self.library_path()
+        if lib.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, lib
+
+    def finish_build(self, started) -> None:
+        if started is None:
+            return
+        proc, tmp, lib = started
+        out, _ = proc.communicate()
+        self.build_log = out
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {self.source.name} "
+                f"(exit {proc.returncode}):\n{out}")
+        os.replace(tmp, lib)
+
+    def fn(self):
+        """The loaded C entry point, building the library on first use."""
+        if self._fn is None:
+            self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the C entry point (which launches on the given stream and
+        returns ``cudaGetLastError()``); raise on a non-zero code, count
+        the launch otherwise."""
+        rc = self.fn()(*args)
+        if rc != 0:
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"cudaError {rc}")
+        self.launches += 1
+
+
+NMS_SWEEP = CudaKernel(
+    "nms_sweep", "nms_sweep.cu", "nms_sweep_launch",
+    # boxes, alive, batch, k, thr, mask scratch, keep, stream
+    [_P, _P, _I, _I, _F, _P, _P, _P],
+    replaces="mx_rcnn_tpu/ops/nms_pallas.py:34",  # _sweep_kernel
+    # the IoU test must round exactly like the reference: no contracted FMA
+    extra_flags=("--fmad=false",))
+
+ROI_ALIGN_FWD = CudaKernel(
+    "roi_align_fwd", "roi_align_fwd.cu", "roi_align_fwd_launch",
+    # feat, rois, out, is_bf16, n, r, h, w, c, ph, pw, sr, scale, stream
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    replaces="mx_rcnn_tpu/ops/roi_align_pallas.py:94")  # _fwd_kernel
+
+KERNELS: Tuple[CudaKernel, ...] = (NMS_SWEEP, ROI_ALIGN_FWD)
+
+
+def build_all() -> Dict[str, str]:
+    """Build every kernel, one ``nvcc`` per source started together, and
+    load them; returns each kernel's compiler output."""
+    started = [k.start_build() for k in KERNELS]
+    errors = []
+    for k, s in zip(KERNELS, started):
+        # wait for every nvcc before raising, so none is left running
+        try:
+            k.finish_build(s)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for k in KERNELS:
+        k.fn()
+    return {k.name: k.build_log for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}

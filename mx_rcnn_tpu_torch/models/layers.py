@@ -1,0 +1,120 @@
+"""Shared layers: frozen BatchNorm, flax-"SAME" convolution, dense.
+
+Counterpart of ``mx_rcnn_tpu/models/layers.py``.  Layers work on NCHW
+tensors (the backbone runs NCHW views of channels-last memory).  Weights
+are initialised by :meth:`init_` from an explicit ``torch.Generator`` with
+the flax initialisers the reference uses.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# std of a unit normal truncated to [-2, 2]: flax's truncated-normal
+# variance scaling divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
+def _variance_scaling_(w: torch.Tensor, scale: float, fan_in: int,
+                       generator: Optional[torch.Generator]) -> None:
+    """flax ``variance_scaling(scale, 'fan_in', 'truncated_normal')``."""
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+def _init_weight_(w: torch.Tensor, init: str,
+                  generator: Optional[torch.Generator]) -> None:
+    fan_in = w[0].numel()  # OIHW conv and (out, in) dense alike
+    with torch.no_grad():
+        if init == "he_normal":
+            _variance_scaling_(w, 2.0, fan_in, generator)
+        elif init == "lecun_normal":
+            _variance_scaling_(w, 1.0, fan_in, generator)
+        elif init == "zeros":
+            w.zero_()
+        elif init.startswith("normal:"):
+            w.normal_(0.0, float(init.split(":", 1)[1]), generator=generator)
+        else:
+            raise ValueError(f"unknown init {init!r}")
+
+
+class FrozenBatchNorm(nn.Module):
+    """Inference-mode BatchNorm (eps 2e-5): folded to one scale/shift in
+    fp32, applied to the fp32 input, then cast once to ``dtype``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 2e-5):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.register_buffer("weight", torch.ones(channels))
+        self.register_buffer("bias", torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = self.weight / torch.sqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * inv
+        y = x.to(torch.float32) * inv[:, None, None] + shift[:, None, None]
+        return y.to(self.dtype)
+
+
+def same_pads(size: int, kernel: int, stride: int):
+    """flax/XLA "SAME" padding for one axis: ``total = max((ceil(in/s) - 1)
+    * s + k - in, 0)``, ``total // 2`` before and the rest after.  On even
+    extents a stride-2 conv pads asymmetrically (7x7/2: (2, 3); 3x3/2:
+    (0, 1)), which torch's symmetric ``padding=`` cannot express."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2dSame(nn.Module):
+    """NCHW convolution with flax "SAME" padding."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 bias: bool = True, init: str = "he_normal"):
+        super().__init__()
+        self.kernel = kernel
+        self.stride = stride
+        self.init = init
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+
+    def init_(self, generator: Optional[torch.Generator]) -> None:
+        _init_weight_(self.weight, self.init, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (pt, pb), (pl, pr) = (same_pads(s, self.kernel, self.stride)
+                              for s in x.shape[-2:])
+        if pt == pb and pl == pr:
+            return F.conv2d(x, self.weight, self.bias, self.stride, (pt, pl))
+        return F.conv2d(F.pad(x, (pl, pr, pt, pb)), self.weight, self.bias,
+                        self.stride)
+
+
+class Dense(nn.Module):
+    """``(…, in) → (…, out)`` with a (out, in) weight."""
+
+    def __init__(self, cin: int, cout: int, init: str = "lecun_normal"):
+        super().__init__()
+        self.init = init
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def init_(self, generator: Optional[torch.Generator]) -> None:
+        _init_weight_(self.weight, self.init, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)

@@ -1,0 +1,112 @@
+"""ResNet-50/101 backbone (stride 16) and per-ROI head.
+
+Counterpart of ``mx_rcnn_tpu/models/resnet.py``: pre-activation bottleneck
+units with frozen BN (stride on ``conv2``, projection shortcut ``sc`` from
+the first activation), a 3x3/2 max-pool padded with −inf, and a head that
+runs the 2048-filter stage per ROI and closes with ``bn1`` → relu →
+spatial mean.  Module names match the flax names so the weight bridge is
+mechanical.  Layers run NCHW; the head takes NHWC pooled features.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mx_rcnn_tpu_torch.models.layers import Conv2dSame, FrozenBatchNorm
+
+STAGE_UNITS = {
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+}
+
+
+class BottleneckUnit(nn.Module):
+    """bn→relu→1x1(f/4) → bn→relu→3x3(f/4, stride) → bn→relu→1x1(f), plus
+    the identity or a 1x1 projection of the first activation."""
+
+    def __init__(self, cin: int, filters: int, stride: int, dim_match: bool,
+                 dtype: torch.dtype):
+        super().__init__()
+        mid = filters // 4
+        self.dim_match = dim_match
+        self.bn1 = FrozenBatchNorm(cin, dtype)
+        self.conv1 = Conv2dSame(cin, mid, 1, bias=False)
+        self.bn2 = FrozenBatchNorm(mid, dtype)
+        self.conv2 = Conv2dSame(mid, mid, 3, stride, bias=False)
+        self.bn3 = FrozenBatchNorm(mid, dtype)
+        # zero-init residual output: with frozen identity BN a he-init
+        # conv3 doubles the activation variance per unit (2^33 by the end
+        # of ResNet-101); pretrained weights overwrite it
+        self.conv3 = Conv2dSame(mid, filters, 1, bias=False, init="zeros")
+        if not dim_match:
+            self.sc = Conv2dSame(cin, filters, 1, stride, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act1 = F.relu(self.bn1(x))
+        c1 = self.conv1(act1)
+        c2 = self.conv2(F.relu(self.bn2(c1)))
+        c3 = self.conv3(F.relu(self.bn3(c2)))
+        shortcut = x if self.dim_match else self.sc(act1)
+        return c3 + shortcut
+
+
+def _add_stage(parent: nn.Module, cin: int, filters: int, units: int,
+               stride: int, dtype: torch.dtype, prefix: str) -> List[str]:
+    names = []
+    for u in range(units):
+        name = f"{prefix}_unit{u + 1}"
+        parent.add_module(name, BottleneckUnit(
+            cin if u == 0 else filters, filters, stride if u == 0 else 1,
+            dim_match=u != 0, dtype=dtype))
+        names.append(name)
+    return names
+
+
+class ResNetBackbone(nn.Module):
+    """(N, 3, H, W) mean-subtracted RGB → (N, 1024, H/16, W/16)."""
+
+    out_channels = 1024
+
+    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        units = STAGE_UNITS[depth]
+        self.dtype = dtype
+        self.bn_data = FrozenBatchNorm(3, dtype)
+        self.conv0 = Conv2dSame(3, 64, 7, 2, bias=False)
+        self.bn0 = FrozenBatchNorm(64, dtype)
+        self.units = (_add_stage(self, 64, 256, units[0], 1, dtype, "stage1")
+                      + _add_stage(self, 256, 512, units[1], 2, dtype, "stage2")
+                      + _add_stage(self, 512, 1024, units[2], 2, dtype, "stage3"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn_data(x.to(self.dtype))
+        x = F.relu(self.bn0(self.conv0(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for name in self.units:
+            x = getattr(self, name)(x)
+        return x
+
+
+class ResNetHead(nn.Module):
+    """(R, ph, pw, 1024) NHWC pooled features → (R, 2048): the stage-4
+    units (first stride 2) + bn1 + relu + global mean."""
+
+    out_channels = 2048
+
+    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.units = _add_stage(self, 1024, 2048, STAGE_UNITS[depth][3], 2,
+                                dtype, "stage4")
+        self.bn1 = FrozenBatchNorm(2048, dtype)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        x = pooled.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view
+        for name in self.units:
+            x = getattr(self, name)(x)
+        x = F.relu(self.bn1(x))
+        return x.mean(dim=(2, 3))

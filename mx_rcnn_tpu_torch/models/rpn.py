@@ -1,0 +1,37 @@
+"""Region Proposal Network head.
+
+Counterpart of ``mx_rcnn_tpu/models/rpn.py``: 3x3 conv (512) + relu, then
+1x1 convs to 2A scores and 4A deltas, Normal(0.01) init.  Outputs are
+ordered (H, W, A) with anchors innermost, so the NCHW conv output is
+permuted to NHWC before the ``(N, H*W*A, ·)`` reshape.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mx_rcnn_tpu_torch.models.layers import Conv2dSame
+
+
+class RPNHead(nn.Module):
+    def __init__(self, cin: int, num_anchors: int = 9, mid_channels: int = 512):
+        super().__init__()
+        self.num_anchors = num_anchors
+        self.rpn_conv_3x3 = Conv2dSame(cin, mid_channels, 3, init="normal:0.01")
+        self.rpn_cls_score = Conv2dSame(mid_channels, 2 * num_anchors, 1,
+                                        init="normal:0.01")
+        self.rpn_bbox_pred = Conv2dSame(mid_channels, 4 * num_anchors, 1,
+                                        init="normal:0.01")
+
+    def forward(self, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """feat (N, C, H, W) → (cls logits (N, H*W*A, 2), deltas (N, H*W*A, 4))."""
+        x = F.relu(self.rpn_conv_3x3(feat))
+        cls = self.rpn_cls_score(x).permute(0, 2, 3, 1)
+        box = self.rpn_bbox_pred(x).permute(0, 2, 3, 1)
+        n, h, w, _ = cls.shape
+        a = self.num_anchors
+        return (cls.reshape(n, h * w * a, 2), box.reshape(n, h * w * a, 4))

@@ -1,0 +1,128 @@
+"""ROIAlign over NHWC feature maps.
+
+Counterpart of ``mx_rcnn_tpu/ops/roi_pool.py``.  The bilinear weights are
+the repo's own (not torchvision's): sample positions clipped into
+``[0, size - 1]``, ``hi = min(lo + 1, size - 1)``, ROI extent
+``max(·, 1)`` at feature scale, pixel centres at integer coordinates
+(the −0.5 offset), and the sr×sr sample mean folded into per-axis
+interpolation matrices:
+
+    pooled[n, r, s, t, c] = Σ_h Σ_w wy[n, r, s, h] · feat[n, h, w, c] · wx[n, r, t, w]
+
+:func:`roi_align_plain` computes that as the reference's einsum pair and is
+the plain version of kernel K2 (``csrc/roi_align_fwd.cu``), which computes
+the same sum as a gather.  :func:`roi_align` dispatches: K2 for a CUDA
+tensor, the plain version for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mx_rcnn_tpu_torch.kernels import ROI_ALIGN_FWD
+
+
+def _interp_matrix(starts: torch.Tensor, bin_sizes: torch.Tensor,
+                   num_bins: int, sampling_ratio: int, size: int
+                   ) -> torch.Tensor:
+    """Pooled bilinear sampling matrices (R, num_bins, size) for one axis;
+    starts/bin_sizes are (R,)."""
+    s = num_bins * sampling_ratio
+    k = torch.arange(s, dtype=torch.float32, device=starts.device)
+    pos = starts[:, None] + (k + 0.5) * (bin_sizes[:, None] / sampling_ratio) - 0.5
+    pos = pos.clamp(0.0, size - 1.0)
+    lo = torch.floor(pos)
+    frac = pos - lo
+    lo_i = lo.to(torch.int64)
+    hi_i = (lo_i + 1).clamp_max(size - 1)
+    m = F.one_hot(lo_i, size).to(torch.float32) * (1.0 - frac)[..., None]
+    m = m + F.one_hot(hi_i, size).to(torch.float32) * frac[..., None]
+    return m.reshape(-1, num_bins, sampling_ratio, size).mean(dim=2)
+
+
+def interp_matrices(rois: torch.Tensor, ph: int, pw: int, h: int, w: int,
+                    spatial_scale: float, sampling_ratio: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-ROI (wy (R, ph, H), wx (R, pw, W)) fp32 interpolation matrices
+    for rois (R, 4) in input coordinates."""
+    x1 = rois[:, 0].to(torch.float32) * spatial_scale
+    y1 = rois[:, 1].to(torch.float32) * spatial_scale
+    x2 = rois[:, 2].to(torch.float32) * spatial_scale
+    y2 = rois[:, 3].to(torch.float32) * spatial_scale
+    roi_w = (x2 - x1).clamp_min(1.0)
+    roi_h = (y2 - y1).clamp_min(1.0)
+    wy = _interp_matrix(y1, roi_h / ph, ph, sampling_ratio, h)
+    wx = _interp_matrix(x1, roi_w / pw, pw, sampling_ratio, w)
+    return wy, wx
+
+
+def roi_align_plain(features: torch.Tensor, rois: torch.Tensor,
+                    output_size: Tuple[int, int] = (14, 14),
+                    spatial_scale: float = 1.0 / 16.0,
+                    sampling_ratio: int = 2) -> torch.Tensor:
+    """The plain version of K2: features (N, H, W, C), rois (N, R, 4) →
+    (N, R, ph, pw, C) in the feature dtype, as the reference's einsum pair
+    (the cheaper contraction first: ``rows_first = ph*w <= h*pw``)."""
+    ph, pw = output_size
+    n, h, w, _ = features.shape
+    r = rois.shape[1]
+    dtype = features.dtype
+    wy, wx = interp_matrices(rois.reshape(-1, 4), ph, pw, h, w,
+                             spatial_scale, sampling_ratio)
+    wy = wy.reshape(n, r, ph, h).to(dtype)
+    wx = wx.reshape(n, r, pw, w).to(dtype)
+    if ph * w <= h * pw:
+        rows = torch.einsum("nrsh,nhwc->nrswc", wy, features)
+        pooled = torch.einsum("nrswc,nrtw->nrstc", rows, wx)
+    else:
+        cols = torch.einsum("nhwc,nrtw->nrhtc", features, wx)
+        pooled = torch.einsum("nrhtc,nrsh->nrstc", cols, wy)
+    return pooled.to(dtype)
+
+
+def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor,
+                   output_size: Tuple[int, int] = (14, 14),
+                   spatial_scale: float = 1.0 / 16.0,
+                   sampling_ratio: int = 2) -> torch.Tensor:
+    """Kernel K2 on the card; same contract as :func:`roi_align_plain`."""
+    if not (features.is_cuda and rois.device == features.device):
+        raise ValueError("roi_align_cuda needs CUDA tensors on one device")
+    if features.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"features must be fp32 or bf16, got {features.dtype}")
+    if features.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4 or \
+            rois.shape[0] != features.shape[0]:
+        raise ValueError(f"bad shapes features {tuple(features.shape)} rois "
+                         f"{tuple(rois.shape)}")
+    ph, pw = output_size
+    n, h, w, c = features.shape
+    r = rois.shape[1]
+    if r > 65535 or n > 65535:
+        raise ValueError(f"{n} images x {r} rois exceed the kernel's grid")
+    features = features.contiguous()
+    rois = rois.to(torch.float32).contiguous()
+    out = torch.empty((n, r, ph, pw, c), dtype=features.dtype,
+                      device=features.device)
+    ROI_ALIGN_FWD.launch(
+        features.data_ptr(), rois.data_ptr(), out.data_ptr(),
+        int(features.dtype == torch.bfloat16), n, r, h, w, c, ph, pw,
+        sampling_ratio, float(spatial_scale),
+        torch.cuda.current_stream(features.device).cuda_stream)
+    return out
+
+
+def roi_align(features: torch.Tensor, rois: torch.Tensor,
+              output_size: Tuple[int, int] = (14, 14),
+              spatial_scale: float = 1.0 / 16.0,
+              sampling_ratio: int = 2) -> torch.Tensor:
+    """Batched ROIAlign: K2 for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    if features.is_cuda:
+        return roi_align_cuda(features, rois, output_size, spatial_scale,
+                              sampling_ratio)
+    if features.device.type == "cpu":
+        return roi_align_plain(features, rois, output_size, spatial_scale,
+                               sampling_ratio)
+    raise ValueError(f"unsupported device {features.device}")

@@ -1,0 +1,163 @@
+"""Detection demo: images in, per-image detections printed.
+
+Counterpart of ``mx_rcnn_tpu/tools/demo.py`` without the drawing: resize →
+bucket → batched test forward → decode + per-class NMS, printing each
+image's detections above ``--vis_thresh``.  Weights are random, made from
+``--seed`` (the checkpoint reader is not ported yet).
+
+    python -m mx_rcnn_tpu_torch.tools.demo --synthetic 4            # card
+    python -m mx_rcnn_tpu_torch.tools.demo --device cpu --network tiny \\
+        --synthetic 2
+    python -m mx_rcnn_tpu_torch.tools.demo a.jpg b.jpg --batch 2
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mx_rcnn_tpu_torch.config import Config, generate_config, parse_set_overrides
+from mx_rcnn_tpu_torch.core.tester import (Predictor, _postprocess_batch,
+                                           detections_from_keep,
+                                           tiled_bbox_stats)
+from mx_rcnn_tpu_torch.data.image import RESIZE_BACKEND, resize_to_bucket
+from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+
+
+def synthetic_images(n: int, seed: int, size: Tuple[int, int] = (375, 500)
+                     ) -> List[np.ndarray]:
+    """``n`` seeded RGB uint8 images of VOC-like size: noise plus a few
+    filled rectangles."""
+    rng = np.random.RandomState(seed)
+    h, w = size
+    out = []
+    for _ in range(n):
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        for _ in range(4):
+            y0, x0 = rng.randint(0, h - 40), rng.randint(0, w - 40)
+            y1, x1 = y0 + rng.randint(30, h - y0), x0 + rng.randint(30, w - x0)
+            img[y0:y1, x0:x1] = rng.randint(0, 256, 3)
+        out.append(img)
+    return out
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as RGB uint8 (H, W, 3)."""
+    try:
+        import cv2
+    except ImportError:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"))
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(f"cannot read image {path!r}")
+    return np.ascontiguousarray(img[:, :, ::-1])
+
+
+def prepare(img: np.ndarray, cfg: Config):
+    """One image → (canvas (bh, bw, 3) fp32, im_info (3,), bucket)."""
+    canvas, im_scale, bucket = resize_to_bucket(
+        img, cfg.network.pixel_means, cfg.bucket.scale, cfg.bucket.max_size,
+        tuple(tuple(s) for s in cfg.bucket.shapes))
+    h, w = img.shape[:2]
+    im_info = np.array([round(h * im_scale), round(w * im_scale), im_scale],
+                       np.float32)
+    return canvas, im_info, bucket
+
+
+def batches(prepared: Sequence, batch: int) -> List[List[int]]:
+    """Image indices grouped into batches of at most ``batch`` that share
+    a bucket, in input order."""
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for i, (_, _, bucket) in enumerate(prepared):
+        groups.setdefault(bucket, []).append(i)
+    out = []
+    for idx in groups.values():
+        out.extend(idx[k:k + batch] for k in range(0, len(idx), batch))
+    return sorted(out)
+
+
+def postprocess(predictor: Predictor, outputs, im_info: torch.Tensor,
+                score_thresh: float):
+    """Device postprocess of one forward's outputs: (boxes, scores, keep)."""
+    rois, roi_valid, cls_prob, deltas = outputs
+    stds, means = tiled_bbox_stats(predictor.cfg, cls_prob.shape[-1],
+                                   cls_prob.device)
+    with torch.inference_mode():
+        return _postprocess_batch(
+            rois, roi_valid, cls_prob, deltas, im_info, im_info[:, 2],
+            stds, means, nms_thresh=predictor.cfg.test.nms,
+            score_thresh=score_thresh)
+
+
+def detect(predictor: Predictor, images: Sequence[np.ndarray], batch: int,
+           score_thresh: float) -> List[Dict[int, np.ndarray]]:
+    """Detections for each image, ``{class_id: (k, 5)}`` in raw-image
+    coordinates, running ``batch`` images per forward."""
+    prepared = [prepare(img, predictor.cfg) for img in images]
+    dets: List[Dict[int, np.ndarray]] = [{} for _ in images]
+    for idx in batches(prepared, batch):
+        canvases = np.stack([prepared[i][0] for i in idx])
+        info = np.stack([prepared[i][1] for i in idx])
+        outputs = predictor.raw(canvases, info)
+        info_t = torch.from_numpy(info).to(predictor.device)
+        boxes_b, scores_b, keep_b = (
+            t.cpu().numpy() for t in postprocess(predictor, outputs, info_t,
+                                                 score_thresh))
+        for j, i in enumerate(idx):
+            dets[i] = detections_from_keep(boxes_b, scores_b, keep_b, j)
+    return dets
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("images", nargs="*", help="image files to detect on")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="add this many seeded synthetic images")
+    p.add_argument("--network", default="resnet101",
+                   choices=["resnet50", "resnet101", "tiny"])
+    p.add_argument("--dataset", default="PascalVOC")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--batch", type=int, default=1, help="images per forward")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights and synthetic images")
+    p.add_argument("--vis_thresh", type=float, default=0.5,
+                   help="score floor of the printed detections")
+    p.add_argument("--set", action="append", metavar="SEC__FIELD=VAL",
+                   help="override a config field (repeatable)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> List[Dict[int, np.ndarray]]:
+    args = parse_args(argv)
+    if not args.images and args.synthetic <= 0:
+        raise SystemExit("give image paths or --synthetic N")
+    cfg = generate_config(args.network, args.dataset,
+                          **parse_set_overrides(args.set))
+    images = [read_image(p) for p in args.images]
+    names = list(args.images)
+    images += synthetic_images(args.synthetic, args.seed)
+    names += [f"synthetic{i}" for i in range(args.synthetic)]
+    predictor = Predictor(build_model(cfg, args.device, args.seed), cfg,
+                          args.device)
+    print(f"network={cfg.network.name} dtype={cfg.network.compute_dtype} "
+          f"device={predictor.device} resize={RESIZE_BACKEND}")
+    dets = detect(predictor, images, args.batch, args.vis_thresh)
+    for name, d in zip(names, dets):
+        n = sum(len(v) for v in d.values())
+        print(f"{name}: {n} detections over {args.vis_thresh}")
+        for c, arr in sorted(d.items()):
+            for x1, y1, x2, y2, s in arr:
+                print(f"  class {c} score {s:.3f} box "
+                      f"[{x1:.1f} {y1:.1f} {x2:.1f} {y2:.1f}]")
+    return dets
+
+
+if __name__ == "__main__":
+    main()

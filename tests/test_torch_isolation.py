@@ -1,0 +1,109 @@
+"""The PyTorch port stands alone: no JAX, no JAX package, no CPU fallback.
+
+``mx_rcnn_tpu_torch`` and ``chip_smoke.py`` import ``torch`` and never
+``jax``, ``flax`` or ``mx_rcnn_tpu`` (the port keeps its own copies of the
+jax-free modules it needs).  Its entry points run on the card unless the
+caller names the CPU, and no kernel wrapper catches an error to fall back
+to its plain version.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "mx_rcnn_tpu_torch"
+_FORBIDDEN = ("jax", "jaxlib", "flax", "mx_rcnn_tpu")
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    offenders = {str(p.relative_to(REPO)): sorted(
+        _imported_roots(p) & set(_FORBIDDEN)) for p in _port_sources()}
+    assert not {k: v for k, v in offenders.items() if v}
+    assert len(offenders) > 20
+
+
+def test_importing_every_module_loads_no_jax():
+    """In a fresh interpreter (this one already imported jax in
+    conftest), import the package and every submodule."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mx_rcnn_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'mx_rcnn_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_kernel_wrappers_have_no_fallback():
+    """No ``try`` in the modules that dispatch between a kernel and its
+    plain version: a CUDA tensor launches the kernel or the call raises."""
+    for rel in ("ops/nms.py", "ops/roi_pool.py", "kernels.py"):
+        tree = ast.parse((PKG / rel).read_text())
+        tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        if rel == "kernels.py":
+            # build_all waits for every nvcc before it re-raises
+            assert len(tries) <= 1, tries
+        else:
+            assert not tries, (rel, tries)
+
+
+def test_entry_points_refuse_to_drop_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.tools import demo
+
+    cfg = generate_config("tiny", "PascalVOC")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(model, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo.main(["--synthetic", "1", "--network", "tiny"])
+    assert Predictor(model, cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(alone, tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result line when
+    there is no CUDA device, in the repo and alone in a directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = REPO / "chip_smoke.py"
+    if alone:
+        script = tmp_path / script.name
+        script.write_bytes((REPO / "chip_smoke.py").read_bytes())
+    out = subprocess.run([sys.executable, str(script)],
+                         cwd=script.parent, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
