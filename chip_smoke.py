@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detection forward on one NVIDIA card.
+"""Drive the PyTorch port's detection forward and training step on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -10,23 +11,37 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
 1. device: the card's name and power limit (``nvidia-smi``), then one
    ``nvcc`` per kernel source, all started together;
 2. K1, the NMS sweep (``csrc/nms_sweep.cu``), against its plain version on
-   the card at the proposal shape (B=2, K=6144, thr 0.7), the
-   postprocess shape (B=2*21, K=512, thr 0.3) and on integer boxes whose
-   IoUs sit exactly on the threshold: keep masks must be equal;
+   the card at the serving proposal shape (B=2, K=6144, thr 0.7), the
+   postprocess shape (B=2*21, K=512, thr 0.3), the training proposal shape
+   (B=2, K=12032, thr 0.7) and on integer boxes whose IoUs sit exactly on
+   the threshold: keep masks must be equal;
 3. K2, the ROIAlign forward (``csrc/roi_align_fwd.cu``), against its plain
-   version at 300 rois over a 38x64x1024 map, fp32 and bf16;
-4. the whole ResNet-101 forward at 608x1024 in fp32 (TF32 off), once
+   version at 2x300 rois (serving) and 2x128 rois (training) over a
+   38x64x1024 map, fp32 and bf16;
+4. K3, the ROIAlign backward (``csrc/roi_align_bwd.cu``), against its plain
+   version at the training shape, fp32 and bf16; two launches must give
+   the same bits;
+5. the whole ResNet-101 forward at 608x1024 in fp32 (TF32 off), once
    through the kernels and once through the plain versions: rois and
    ``roi_valid`` equal, ``cls_prob`` and deltas close;
-5. serving: ``tools/demo.py``'s path in bf16 on 4 seeded synthetic images
-   at batch 1 and 2 -- the main path.  Every launch count is set to 0
-   just before it and read just after; each kernel must have launched.
-   Per-stage CUDA-event times and images/s are printed.
+6. the ResNet-101 train step at 608x1024, batch 2, in fp32 (TF32 off),
+   from one set of weights and draws, once through the kernels and once
+   through the plain versions: sampled rois and labels equal, losses and
+   gradients close;
+7. serving: ``tools/demo.py``'s path in bf16 on 4 seeded synthetic images
+   at batch 1 and 2 -- the first main path;
+8. training: ``tools/train.py``'s path in bf16 on 8 seeded synthetic
+   375x500 images at batch 1 and 2 -- the second main path -- then
+   ms/step, images/s, per-stage CUDA-event times, the device busy share
+   and peak memory of the step at each batch size.
 
-The lines before the last are the card's name and power limit and one
-``{"kernels": [...]}`` JSON object; the last line is
-``{"ok": true, "device": {...}}``.  Longer records (build logs, the full
-results) go to ``chiprun_out/chip_smoke/``.
+Each main path is driven with every launch count set to 0 just before it
+and read just after; each of its kernels must have launched.  The lines
+before the last are the card's name and power limit and one
+``{"kernels": [...]}`` JSON object (launches from the training path, times
+at the training shapes); the last line is ``{"ok": true, "device":
+{...}}``.  Longer records (build logs, the full results, the two CLIs'
+output) go to ``chiprun_out/chip_smoke/``.
 """
 
 from __future__ import annotations
@@ -54,6 +69,8 @@ ROI_SAMPLE_OPS = 8
 
 VOC_CLASSES = 21
 BUCKET = (608, 1024)
+TRAIN_ROIS = 128           # train__batch_rois: sampled rois per image
+TRAIN_STEPS = 6            # steps of the training CLI run
 
 
 def log(msg: str) -> None:
@@ -160,8 +177,9 @@ def phase_k1(dev) -> dict:
     from mx_rcnn_tpu_torch.ops.nms import (suppression_sweep_cuda,
                                            suppression_sweep_plain)
 
-    shapes = {"proposal": (2, 6000, 0.7), "postprocess": (2 * VOC_CLASSES,
-                                                          300, 0.3)}
+    shapes = {"proposal": (2, 6000, 0.7),
+              "postprocess": (2 * VOC_CLASSES, 300, 0.3),
+              "train_proposal": (2, 12000, 0.7)}
     res = {}
     for i, (name, (b, k, thr)) in enumerate(shapes.items()):
         boxes, _, alive, _, t = nms_inputs(b, k, seed=10 + i, dev=dev)
@@ -223,68 +241,141 @@ def phase_k2(dev) -> dict:
 
     from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_cuda, roi_align_plain
 
-    n, r, size, sr = 2, 300, (14, 14), 2
-    feat, rois = roi_inputs(n, r, seed=20, dev=dev)
-    got = roi_align_cuda(feat, rois, size, 1 / 16, sr)
-    torch.cuda.synchronize()
-    want = roi_align_plain(feat, rois, size, 1 / 16, sr)
-    err32 = float((got - want).abs().max())
-    log(f"K2 fp32: N={n} R={r} {tuple(feat.shape[1:])} max|err|={err32:.3e}"
-        f" (atol 1e-4)")
-    if not err32 <= 1e-4:
-        raise AssertionError(f"K2 fp32 max error {err32} > 1e-4")
-    # bf16: the kernel accumulates the bf16 taps in fp32 and rounds once,
-    # so against the fp32 plain version on the same bf16 inputs it is off
-    # by the final rounding alone: half a bf16 ulp, |err| <= 2^-8 |ref|
-    # (8 significant bits), plus the fp32 check's 1e-4 for the order of
-    # summation, which differs between the gather and the einsum pair
-    feat16 = feat.to(torch.bfloat16)
-    got16 = roi_align_cuda(feat16, rois, size, 1 / 16, sr)
-    torch.cuda.synchronize()
-    ref16 = roi_align_plain(feat16.float(), rois, size, 1 / 16, sr)
-    excess = float(((got16.float() - ref16).abs()
-                    - (2.0 ** -8 * ref16.abs() + 1e-4)).max())
-    err16 = float((got16.float() - ref16).abs().max())
-    log(f"K2 bf16: max|err|={err16:.3e}, worst excess over 2^-8|ref|+1e-4 "
-        f"= {excess:.3e}")
-    if excess > 0:
-        raise AssertionError("K2 bf16 beyond half a bf16 ulp of the fp32 "
-                             "plain version")
+    size, sr = (14, 14), 2
     res = {}
-    for tag, f in (("bf16", feat16), ("fp32", feat)):
-        ms = time_ms(lambda: roi_align_cuda(f, rois, size, 1 / 16, sr), 50)
-        plain_ms = time_ms(lambda: roi_align_plain(f, rois, size, 1 / 16,
-                                                   sr), 5)
-        out_elems = n * r * size[0] * size[1] * f.shape[-1]
-        nbytes = (f.numel() + out_elems) * f.element_size() + rois.numel() * 4
-        ops = out_elems * sr * sr * ROI_SAMPLE_OPS
-        bound_ms, bound_by = bound(nbytes, ops)
-        res[tag] = dict(shape=[n, r] + list(f.shape[1:]), ms=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by,
+    for name, n, r in (("serving", 2, 300), ("train", 2, TRAIN_ROIS)):
+        feat, rois = roi_inputs(n, r, seed=20 if name == "serving" else 21,
+                                dev=dev)
+        got = roi_align_cuda(feat, rois, size, 1 / 16, sr)
+        torch.cuda.synchronize()
+        want = roi_align_plain(feat, rois, size, 1 / 16, sr)
+        err32 = float((got - want).abs().max())
+        log(f"K2 {name} fp32: N={n} R={r} {tuple(feat.shape[1:])} "
+            f"max|err|={err32:.3e} (atol 1e-4)")
+        if not err32 <= 1e-4:
+            raise AssertionError(f"K2 fp32 max error {err32} > 1e-4")
+        # bf16: the kernel accumulates the bf16 taps in fp32 and rounds
+        # once, so against the fp32 plain version on the same bf16 inputs
+        # it is off by the final rounding alone: half a bf16 ulp, |err| <=
+        # 2^-8 |ref| (8 significant bits), plus the fp32 check's 1e-4 for
+        # the order of summation, which differs between the gather and the
+        # einsum pair
+        feat16 = feat.to(torch.bfloat16)
+        got16 = roi_align_cuda(feat16, rois, size, 1 / 16, sr)
+        torch.cuda.synchronize()
+        ref16 = roi_align_plain(feat16.float(), rois, size, 1 / 16, sr)
+        excess = float(((got16.float() - ref16).abs()
+                        - (2.0 ** -8 * ref16.abs() + 1e-4)).max())
+        err16 = float((got16.float() - ref16).abs().max())
+        log(f"K2 {name} bf16: max|err|={err16:.3e}, worst excess over "
+            f"2^-8|ref|+1e-4 = {excess:.3e}")
+        if excess > 0:
+            raise AssertionError("K2 bf16 beyond half a bf16 ulp of the "
+                                 "fp32 plain version")
+        res[name] = {}
+        for tag, f in (("bf16", feat16), ("fp32", feat)):
+            ms = time_ms(lambda: roi_align_cuda(f, rois, size, 1 / 16, sr),
+                         50)
+            plain_ms = time_ms(lambda: roi_align_plain(f, rois, size, 1 / 16,
+                                                       sr), 5)
+            out_elems = n * r * size[0] * size[1] * f.shape[-1]
+            nbytes = ((f.numel() + out_elems) * f.element_size()
+                      + rois.numel() * 4)
+            bound_ms, bound_by = bound(nbytes,
+                                       out_elems * sr * sr * ROI_SAMPLE_OPS)
+            res[name][tag] = dict(
+                shape=[n, r] + list(f.shape[1:]), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err16 if tag == "bf16" else err32)
+            log(f"K2 {name} {tag}: {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+    return res
+
+
+# ---- phase 4: K3 -----------------------------------------------------------
+
+def phase_k3(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.roi_pool import (roi_align_bwd_cuda,
+                                                roi_align_bwd_plain)
+
+    n, r, size, sr = 2, TRAIN_ROIS, (14, 14), 2
+    feat, rois = roi_inputs(n, r, seed=30, dev=dev)
+    hw = tuple(feat.shape[1:3])
+    rng = np.random.RandomState(31)
+    g = torch.tensor(rng.standard_normal((n, r) + size + (feat.shape[-1],)),
+                     dtype=torch.float32, device=dev)
+    got = roi_align_bwd_cuda(g, rois, hw, 1 / 16, sr)
+    torch.cuda.synchronize()
+    want = roi_align_bwd_plain(g, rois, hw, 1 / 16, sr)
+    # fp32: both sum the same products in fp32 in other orders; |err| <=
+    # 1e-4 + 1e-5 |ref| (dfeat sums up to a few thousand terms)
+    excess32 = float(((got - want).abs() - (1e-4 + 1e-5 * want.abs())).max())
+    err32 = float((got - want).abs().max())
+    same32 = torch.equal(got, roi_align_bwd_cuda(g, rois, hw, 1 / 16, sr))
+    log(f"K3 fp32: N={n} R={r} {hw} max|err|={err32:.3e} (max|ref| "
+        f"{float(want.abs().max()):.3g}; tolerance 1e-4 + 1e-5|ref|, "
+        f"worst excess {excess32:.3e}); two launches bit-equal: {same32}")
+    if excess32 > 0 or not same32:
+        raise AssertionError("K3 fp32 differs from the plain version or "
+                             "between two launches")
+    # bf16 g: the kernel reads bf16, sums in fp32 and rounds once, so it is
+    # within half a bf16 ulp of the fp32 sum of the same bf16 values, plus
+    # the fp32 tolerance for the order of summation
+    g16 = g.to(torch.bfloat16)
+    got16 = roi_align_bwd_cuda(g16, rois, hw, 1 / 16, sr)
+    torch.cuda.synchronize()
+    ref16 = roi_align_bwd_plain(g16.float(), rois, hw, 1 / 16, sr)
+    excess16 = float(((got16.float() - ref16).abs()
+                      - (2.0 ** -8 * ref16.abs() + 1e-4 + 1e-5 * ref16.abs()))
+                     .max())
+    err16 = float((got16.float() - ref16).abs().max())
+    same16 = torch.equal(got16, roi_align_bwd_cuda(g16, rois, hw, 1 / 16, sr))
+    log(f"K3 bf16: max|err|={err16:.3e}, worst excess over 2^-8|ref| + "
+        f"1e-4 + 1e-5|ref| = {excess16:.3e}; two launches bit-equal: "
+        f"{same16}")
+    if excess16 > 0 or not same16:
+        raise AssertionError("K3 bf16 beyond half a bf16 ulp of the fp32 "
+                             "plain version, or not deterministic")
+    res = {}
+    for tag, gg in (("bf16", g16), ("fp32", g)):
+        ms = time_ms(lambda: roi_align_bwd_cuda(gg, rois, hw, 1 / 16, sr), 50)
+        plain_ms = time_ms(lambda: roi_align_bwd_plain(gg, rois, hw, 1 / 16,
+                                                       sr), 5)
+        nbytes = ((gg.numel() + n * hw[0] * hw[1] * gg.shape[-1])
+                  * gg.element_size() + rois.numel() * 4)
+        bound_ms, bound_by = bound(nbytes, gg.numel() * sr * sr
+                                   * ROI_SAMPLE_OPS)
+        res[tag] = dict(shape=list(gg.shape), ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
                         max_abs_err=err16 if tag == "bf16" else err32)
-        log(f"K2 {tag}: {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+        log(f"K3 {tag}: {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
             f"{bound_ms:.4f} ms ({bound_by})")
     return res
 
 
-# ---- phase 4: whole forward, kernels against plain versions ----------------
+# ---- phase 5: whole forward, kernels against plain versions ----------------
 
 @contextlib.contextmanager
 def plain_versions():
     """Route the forward through the plain versions on the card, for the
     comparison only (the port itself never does)."""
+    import mx_rcnn_tpu_torch.core.train as train
     import mx_rcnn_tpu_torch.models.faster_rcnn as frcnn
     import mx_rcnn_tpu_torch.ops.nms as nms
     from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_plain
 
-    saved = nms.suppression_sweep, frcnn.roi_align
+    saved = nms.suppression_sweep, frcnn.roi_align, train.roi_align_batched
     nms.suppression_sweep = nms.suppression_sweep_plain
-    frcnn.roi_align = roi_align_plain
+    # roi_align_plain is the einsum pair, differentiable by autograd
+    frcnn.roi_align = train.roi_align_batched = roi_align_plain
     try:
         yield
     finally:
-        nms.suppression_sweep, frcnn.roi_align = saved
+        (nms.suppression_sweep, frcnn.roi_align,
+         train.roi_align_batched) = saved
 
 
 def phase_forward_parity(dev) -> dict:
@@ -322,7 +413,7 @@ def phase_forward_parity(dev) -> dict:
     return errs
 
 
-# ---- phase 5: serving, the main path ---------------------------------------
+# ---- phase 7: serving, the first main path -------------------------------
 
 def stage_times(predictor, images, im_info, iters: int, warmup: int = 2
                 ) -> dict:
@@ -356,21 +447,17 @@ def stage_times(predictor, images, im_info, iters: int, warmup: int = 2
     return {k: v / iters for k, v in sums.items()}
 
 
-def device_busy(predictor, canv, info, iters: int) -> dict:
-    """Device time per forward + postprocess from a ``torch.profiler``
-    trace (sum of kernel and copy times), and the top kernels by time."""
+def device_profile(run, iters: int) -> dict:
+    """Device time per call of ``run()`` from a ``torch.profiler`` trace
+    (sum of kernel and copy times), and the top kernels by time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mx_rcnn_tpu_torch.tools import demo
-
-    thresh = predictor.cfg.test.score_thresh
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         for _ in range(iters):
-            out = predictor.raw(canv, info)
-            demo.postprocess(predictor, out, out[0].new_tensor(info), thresh)
+            run()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -380,6 +467,13 @@ def device_busy(predictor, canv, info, iters: int) -> dict:
                 top=[dict(name=k[:90], ms_per_iter=t / 1e3 / iters,
                           calls_per_iter=c / iters) for k, t, c in rows[:20]],
                 kernels_per_iter=sum(r[2] for r in rows) / iters)
+
+
+def busy_share(profiled: dict, wall_ms: float):
+    """Device busy share of a profiled call; a trace with no device events
+    measures nothing, so it says so."""
+    t = profiled["device_ms_per_iter"]
+    return t / wall_ms if t > 0 else None
 
 
 def phase_serving(dev, card: str) -> dict:
@@ -426,8 +520,10 @@ def phase_serving(dev, card: str) -> dict:
     log(f"serving launches over {forwards} forwards: {launches}; per "
         f"forward: " + ", ".join(f"{k} {v / forwards:g}"
                                  for k, v in launches.items()))
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: "
+    # the forward runs K1 and K2; the backward kernel K3 has no place in it
+    if not (launches["nms_sweep"] > 0 and launches["roi_align_fwd"] > 0
+            and launches["roi_align_bwd"] == 0):
+        raise AssertionError(f"the serving path's launches are wrong: "
                              f"{launches}")
 
     prepared = [demo.prepare(img, cfg) for img in images]
@@ -449,10 +545,10 @@ def phase_serving(dev, card: str) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / iters
         runs[batch]["steady_images_per_s"] = batch / wall
-        busy = device_busy(predictor, canv, info, 5)
-        # a trace with no device events measures nothing: say so
-        busy["busy_share"] = (busy["device_ms_per_iter"] / (wall * 1e3)
-                              if busy["device_ms_per_iter"] > 0 else None)
+        info_t = torch.from_numpy(info).to(dev)
+        busy = device_profile(lambda: demo.postprocess(
+            predictor, predictor.raw(canv, info), info_t, thresh), 5)
+        busy["busy_share"] = busy_share(busy, wall * 1e3)
         runs[batch]["device"] = busy
         log(f"serving bf16 batch {batch}: device busy "
             f"{busy['device_ms_per_iter']:.3f} ms of {wall * 1e3:.3f} ms per "
@@ -465,6 +561,218 @@ def phase_serving(dev, card: str) -> dict:
                           runs[batch]["stage_ms"].items()}))
     return dict(launches=launches, forwards=forwards, runs=runs,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+# ---- phase 6: fp32 train step, kernels against plain versions -------------
+
+@contextlib.contextmanager
+def captured_targets(into: list):
+    """Record every ``proposal_target`` result of the train step."""
+    import mx_rcnn_tpu_torch.core.train as train
+
+    original = train.proposal_target
+
+    def record(*args, **kw):
+        out = original(*args, **kw)
+        into.append(out)
+        return out
+
+    train.proposal_target = record
+    try:
+        yield
+    finally:
+        train.proposal_target = original
+
+
+def fixed_draws(site: str, image: int, shape, dev):
+    """Uniforms that depend only on (site, image): both passes of the
+    parity phase sample from the same draws."""
+    import torch
+
+    sites = ("anchor_fg", "anchor_bg", "proposal_fg", "proposal_bg")
+    gen = torch.Generator().manual_seed(1000 * image + sites.index(site))
+    return torch.rand(shape, generator=gen).to(dev)
+
+
+def synthetic_train_batches(cfg, batch: int, count: int):
+    """The training CLI's data: seeded synthetic 375x500 images through
+    the loader, as numpy batches."""
+    from mx_rcnn_tpu_torch.data.loader import AnchorLoader
+    from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from mx_rcnn_tpu_torch.tools.train import VOC_IMAGE_SIZE
+
+    ds = SyntheticDataset(cfg.dataset.image_set, batch * count,
+                          cfg.num_classes, VOC_IMAGE_SIZE)
+    return list(AnchorLoader(ds, cfg, batch_images=batch, seed=0))
+
+
+def phase_train_parity(dev) -> dict:
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core import train
+
+    torch.backends.cudnn.deterministic = True
+    cfg = generate_config("resnet101", "PascalVOC",
+                          network__compute_dtype="float32")
+    state = train.setup_training(cfg, dev, seed=1)
+    model = state.model
+    batch = train.to_device(synthetic_train_batches(cfg, 2, 1)[0], dev)
+    draws = lambda site, image, shape: fixed_draws(site, image, shape, dev)
+
+    def run():
+        targets = []
+        model.zero_grad(set_to_none=True)
+        with captured_targets(targets):
+            total, metrics = train.loss_and_metrics(model, batch, cfg, draws)
+        total.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return (targets[0], {k: float(v.detach()) for k, v in metrics.items()},
+                grads)
+
+    pt_k, m_k, g_k = run()
+    with plain_versions():
+        pt_p, m_p, g_p = run()
+    torch.backends.cudnn.deterministic = False
+    if not (torch.equal(pt_k.rois, pt_p.rois)
+            and torch.equal(pt_k.labels, pt_p.labels)):
+        raise AssertionError("sampled rois / labels differ between the "
+                             "kernel and plain paths")
+    # losses: the two ROIAligns sum in other orders (~1e-6 relative), which
+    # the head carries to the RCNN losses; the RPN losses do not depend on
+    # them.  Gradients: per tensor, the L2 norm of the difference against
+    # the plain path's norm
+    loss_err = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
+                for k in m_p}
+    grad_err = {n: float((g_k[n] - g_p[n]).norm()
+                         / g_p[n].norm().clamp_min(1e-30)) for n in g_p}
+    worst = max(grad_err, key=grad_err.get)
+    log(f"train step fp32 608x1024 batch 2: {len(g_p)} trainable tensors, "
+        f"sampled rois and labels equal ({int(pt_k.fg_mask.sum())} fg); "
+        f"loss {m_k['loss']:.6f} vs {m_p['loss']:.6f}; worst relative "
+        f"loss diff {max(loss_err.values()):.2e} (rtol 1e-4); worst "
+        f"gradient rel. L2 {grad_err[worst]:.2e} at {worst} (tol 1e-3)")
+    if g_k.keys() != g_p.keys() or max(loss_err.values()) > 1e-4 or \
+            grad_err[worst] > 1e-3:
+        raise AssertionError("the train step's losses or gradients differ "
+                             "between the kernel and plain paths")
+    return dict(metrics_kernels=m_k, metrics_plain=m_p,
+                loss_rel_err=loss_err, worst_grad_rel_l2=grad_err[worst],
+                worst_grad_tensor=worst, num_fg=int(pt_k.fg_mask.sum()))
+
+
+# ---- phase 8: training, the second main path -------------------------------
+
+def train_stage_times(state, step, batch, iters: int, warmup: int = 1
+                      ) -> dict:
+    """Per-stage times of one train step from CUDA events recorded as each
+    stage ends (the device timeline, gaps included)."""
+    import torch
+
+    from mx_rcnn_tpu_torch.core.train import STAGES
+
+    sums = dict.fromkeys(STAGES, 0.0)
+    for it in range(warmup + iters):
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(_name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        step(state, batch, stage_hook=mark)
+        torch.cuda.synchronize()
+        if it >= warmup:
+            for name, a, b in zip(STAGES, events, events[1:]):
+                sums[name] += a.elapsed_time(b)
+    return {k: v / iters for k, v in sums.items()}
+
+
+def phase_training(dev, card: str) -> dict:
+    import math
+
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core import train
+    from mx_rcnn_tpu_torch.tools import train as train_cli
+
+    cfg = generate_config("resnet101", "PascalVOC")     # bf16 by default
+    if cfg.network.compute_dtype != "bfloat16":
+        raise AssertionError("the flagship preset must train in bf16")
+    argv = ["--network", "resnet101", "--dataset", "PascalVOC",
+            "--synthetic", "8", "--steps", str(TRAIN_STEPS), "--frequent",
+            "1", "--seed", "0"]
+    runs = {}
+    for batch in (1, 2):
+        out = OUT_DIR / f"train_b{batch}.txt"
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with open(out, "w") as f, contextlib.redirect_stdout(f):
+            final = train_cli.main(argv + ["--batch_images", str(batch)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        if not all(n > 0 for n in launches.values()) or \
+                not all(math.isfinite(v) for v in final.values()):
+            raise AssertionError(f"training batch {batch}: launches "
+                                 f"{launches}, final metrics {final}")
+        log(f"train CLI batch {batch}: {TRAIN_STEPS} steps in {wall:.2f} s "
+            f"(model build and data included), launches {launches}, "
+            f"final loss {final['loss']:.4f}")
+        runs[batch] = dict(cli_wall_s=wall, launches=launches,
+                           launches_per_step={k: v / TRAIN_STEPS for k, v in
+                                              launches.items()},
+                           final_metrics=final)
+
+    for batch in (1, 2):
+        torch.cuda.reset_peak_memory_stats()
+        state = train.setup_training(cfg, dev, seed=0)
+        step = train.make_train_step(cfg)
+        batches = [train.to_device(b, dev)
+                   for b in synthetic_train_batches(cfg, batch, 4)]
+        for b in batches[:2]:                               # warm-up
+            step(state, b)
+        torch.cuda.synchronize()
+        iters, losses = 8, []
+        t0 = time.perf_counter()
+        for i in range(iters):
+            losses.append(step(state, batches[i % len(batches)])["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        losses = [float(v) for v in losses]
+        stage = train_stage_times(state, step, batches[0], 5)
+        busy = device_profile(lambda: step(state, batches[0]), 3)
+        busy["busy_share"] = busy_share(busy, ms)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"training batch {batch}: losses {losses}")
+        runs[batch].update(ms_per_step=ms, images_per_s=batch * 1e3 / ms,
+                           stage_ms=stage, device=busy, peak_mem_gib=peak,
+                           losses=losses)
+        log(f"training bf16 batch {batch} on {card}: {ms:.2f} ms/step, "
+            f"{batch * 1e3 / ms:.2f} img/s, device busy "
+            f"{busy['device_ms_per_iter']:.3f} ms/step (share "
+            f"{busy['busy_share'] or 'not measured'}, "
+            f"{busy['kernels_per_iter']:.0f} device ops), peak "
+            f"{peak:.2f} GiB, losses " + ", ".join(f"{v:.4g}" for v in losses))
+        log(f"training bf16 batch {batch} stages (ms) "
+            + json.dumps({k: round(v, 3) for k, v in stage.items()}))
+    return runs
+
+
+def kernel_line(kern, res: dict, launches: int) -> dict:
+    return dict(name=kern.name, route="cuda",
+                source=str(kern.source.relative_to(REPO)),
+                replaces=kern.replaces, launches=launches,
+                max_abs_err=res["max_abs_err"], ms=res["ms"],
+                plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+                bound_by=res["bound_by"], library_ms=None)
 
 
 def main() -> int:
@@ -502,23 +810,26 @@ def main() -> int:
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
+    k3 = phase_k3(dev)
     parity = phase_forward_parity(dev)
+    train_parity = phase_train_parity(dev)
     serving = phase_serving(dev, card)
+    training = phase_training(dev, card)
 
-    nms_k, roi_k = kernels.NMS_SWEEP, kernels.ROI_ALIGN_FWD
-    lines = []
-    for kern, res in ((nms_k, k1["proposal"]), (roi_k, k2["bf16"])):
-        lines.append(dict(
-            name=kern.name, route="cuda",
-            source=str(kern.source.relative_to(REPO)),
-            replaces=kern.replaces,
-            launches=serving["launches"][kern.name],
-            max_abs_err=res["max_abs_err"], ms=res["ms"],
-            plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
-            bound_by=res["bound_by"], library_ms=None))
+    # no single PyTorch call computes any of the three functions (the
+    # repo's bilinear rules are not torchvision's, which is absent), so
+    # library_ms is null; launches are the batch-2 training CLI run's
+    launches = training[2]["launches"]
+    lines = [kernel_line(kernels.NMS_SWEEP, k1["train_proposal"],
+                         launches["nms_sweep"]),
+             kernel_line(kernels.ROI_ALIGN_FWD, k2["train"]["bf16"],
+                         launches["roi_align_fwd"]),
+             kernel_line(kernels.ROI_ALIGN_BWD, k3["bf16"],
+                         launches["roi_align_bwd"])]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, k1=k1, k2=k2, forward_parity=parity,
-        serving=serving), indent=1))
+        card=card, build_s=build_s, k1=k1, k2=k2, k3=k3,
+        forward_parity=parity, train_parity=train_parity, serving=serving,
+        training=training), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -18,11 +18,40 @@ from typing import Any, Iterable, Mapping, Tuple
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Mirrors reference ``config.TRAIN``: the bbox normalisation stats the
-    decode reads.  The training fields come with the training slice."""
+    """Mirrors reference ``config.TRAIN``: sampling, RPN targets and the
+    train-time proposal numbers."""
 
+    batch_images: int = 1          # images per step
+    shuffle: bool = True
+
+    # R-CNN ROI sampling (proposal_target)
+    batch_rois: int = 128
+    fg_fraction: float = 0.25
+    fg_thresh: float = 0.5
+    bg_thresh_hi: float = 0.5
+    bg_thresh_lo: float = 0.0
+
+    # bbox regression target normalisation
     bbox_means: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0)
     bbox_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2)
+
+    # RPN anchor target assignment (anchor_target)
+    rpn_batch_size: int = 256
+    rpn_fg_fraction: float = 0.5
+    rpn_positive_overlap: float = 0.7
+    rpn_negative_overlap: float = 0.3
+    rpn_clobber_positives: bool = False
+    rpn_allowed_border: int = 0
+    rpn_bbox_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+
+    # RPN proposals at train time
+    rpn_pre_nms_top_n: int = 12000
+    rpn_post_nms_top_n: int = 2000
+    rpn_nms_thresh: float = 0.7
+    rpn_min_size: int = 16
+
+    max_gt_boxes: int = 100        # static pad for per-image gt boxes
+    gt_append: bool = True         # gt boxes join the sampled ROI pool
 
 
 @dataclass(frozen=True)
@@ -47,13 +76,39 @@ class NetworkConfig:
     anchor_scales: Tuple[int, ...] = (8, 16, 32)
     anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
     rcnn_pooled_size: Tuple[int, int] = (14, 14)
+    # parameter-name prefixes frozen in training; 'gamma'/'beta' freeze
+    # every BN affine (core/optim.py — frozen_mask)
+    fixed_params: Tuple[str, ...] = (
+        "conv0", "stage1", "bn0", "bn_data", "gamma", "beta")
+    fixed_params_shared: Tuple[str, ...] = (
+        "conv0", "stage1", "stage2", "stage3", "bn0", "bn_data",
+        "gamma", "beta")
     compute_dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)
 class DatasetConfig:
     name: str = "PascalVOC"
+    image_set: str = "2007_trainval"   # seeds the synthetic images
     num_classes: int = 21
+
+
+@dataclass(frozen=True)
+class DefaultConfig:
+    """Mirrors reference ``default.*``: the training schedule and the
+    optimizer constants (SGD, momentum 0.9, wd 5e-4, elementwise clip 5)."""
+
+    frequent: int = 20            # log period, steps
+    e2e_lr: float = 0.001
+    e2e_lr_step: str = "7"        # epochs at which lr drops by lr_factor
+    lr_factor: float = 0.1
+    momentum: float = 0.9
+    wd: float = 0.0005
+    clip_gradient: float = 5.0
+    warmup_step: int = 0
+    warmup_lr: float = 0.0
+    # dtype of the stored momentum trace; parameters always stay fp32
+    momentum_dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)
@@ -71,6 +126,7 @@ class Config:
     test: TestConfig = field(default_factory=TestConfig)
     network: NetworkConfig = field(default_factory=NetworkConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    default: DefaultConfig = field(default_factory=DefaultConfig)
     bucket: BucketConfig = field(default_factory=BucketConfig)
 
     @property
@@ -88,15 +144,20 @@ _NETWORKS: Mapping[str, Mapping[str, Any]] = {
     "resnet101": dict(name="resnet101", rcnn_pooled_size=(14, 14)),
     # test-only miniature network (models/tiny.py)
     "tiny": dict(name="tiny", rcnn_pooled_size=(7, 7),
-                 anchor_scales=(2, 4, 8), compute_dtype="float32"),
+                 anchor_scales=(2, 4, 8), fixed_params=(),
+                 fixed_params_shared=("conv1", "conv2"),
+                 compute_dtype="float32"),
 }
 
 _DATASETS: Mapping[str, Mapping[str, Any]] = {
-    "PascalVOC": dict(name="PascalVOC", num_classes=21),
-    "coco": dict(name="coco", num_classes=81),
-    "synthetic": dict(name="synthetic", num_classes=4),
-    "synthetic_hard": dict(name="synthetic_hard", num_classes=9),
-    "synthetic_stream": dict(name="synthetic_stream", num_classes=81),
+    "PascalVOC": dict(name="PascalVOC", image_set="2007_trainval",
+                      num_classes=21),
+    "coco": dict(name="coco", image_set="train2017", num_classes=81),
+    "synthetic": dict(name="synthetic", image_set="train", num_classes=4),
+    "synthetic_hard": dict(name="synthetic_hard", image_set="train",
+                           num_classes=9),
+    "synthetic_stream": dict(name="synthetic_stream", image_set="train",
+                             num_classes=81),
 }
 
 _DATASET_BUCKETS: Mapping[str, Mapping[str, Any]] = {
@@ -137,6 +198,8 @@ def generate_config(network: str = "resnet101", dataset: str = "PascalVOC",
               for f, v in kw.items()}
         cfg = cfg.replace_in(section, **kw)
     validate_dtype_string(cfg.network.compute_dtype, "network__compute_dtype")
+    validate_dtype_string(cfg.default.momentum_dtype,
+                          "default__momentum_dtype")
     return cfg
 
 

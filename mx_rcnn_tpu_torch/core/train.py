@@ -1,0 +1,250 @@
+"""The end-to-end training step.
+
+Counterpart of ``mx_rcnn_tpu/core/train.py`` for ``mode='e2e'`` and
+``grad_accum=1``: backbone → RPN head → anchor targets and the two RPN
+losses → proposals (no gradient; NMS kernel K1) → ``proposal_target``
+sampling → ROIAlign (K2 forward, K3 backward) → head → the two RCNN
+losses → backward → SGD.
+
+Loss layout as in the reference train symbol:
+  rpn_cls:  softmax CE, ignore -1, divided by the valid anchors,
+  rpn_bbox: smooth_l1(sigma=3) · weights / (rpn_batch_size · N),
+  rcnn_cls: softmax CE over the sampled ROIs, divided by the valid ones,
+  rcnn_bbox: smooth_l1(sigma=1) · weights / (batch_rois · N),
+summed; the six training metrics, ``num_fg`` and ``loss`` come back with
+them.
+
+``jax.random`` has no torch counterpart, so the subsampling takes its
+uniforms from ``draws(site, image, shape)``: by default the step's
+``torch.Generator``, in a test the JAX step's own uniforms.  Sites are
+``anchor_fg``/``anchor_bg`` (one uniform per anchor) and
+``proposal_fg``/``proposal_bg`` (one per pooled candidate).
+
+Unlike the JAX step, which returns a new state, this one updates the
+model's parameters and the optimizer's trace in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mx_rcnn_tpu_torch.config import Config
+from mx_rcnn_tpu_torch.core.optim import SGD, make_optimizer
+from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
+from mx_rcnn_tpu_torch.ops.losses import (accuracy_with_ignore,
+                                          softmax_cross_entropy_with_ignore,
+                                          weighted_smooth_l1)
+from mx_rcnn_tpu_torch.ops.proposal import propose_batch
+from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_batched
+from mx_rcnn_tpu_torch.ops.targets import (anchor_target, proposal_pool_size,
+                                           proposal_target)
+
+Draws = Callable[[str, int, Tuple[int, ...]], torch.Tensor]
+StageHook = Callable[[str], None]
+
+# the stages a ``stage_hook`` is called at, in order
+STAGES = ("backbone", "rpn", "proposal", "proposal_target", "roi_align",
+          "head", "backward", "optimizer")
+
+
+class Batch(NamedTuple):
+    """Static-shape training batch.
+
+    images (N, H, W, 3) uint8 RGB padded into the bucket (normalised on
+    the device) or fp32 mean-subtracted; im_info (N, 3) = (real_h, real_w,
+    scale); gt_boxes (N, G, 4) in input coordinates; gt_classes (N, G) class
+    ids (0 is background); gt_valid (N, G) bool."""
+
+    images: torch.Tensor
+    im_info: torch.Tensor
+    gt_boxes: torch.Tensor
+    gt_classes: torch.Tensor
+    gt_valid: torch.Tensor
+
+
+def to_device(batch: Batch, device: torch.device) -> Batch:
+    """A batch of numpy arrays → tensors on ``device`` (pinned and
+    non-blocking on CUDA)."""
+    out = []
+    for x in batch:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out.append(t.to(device, non_blocking=True))
+    return Batch(*out)
+
+
+def generator_draws(generator: torch.Generator) -> Draws:
+    """Uniforms in [0, 1) from ``generator``, on its device."""
+    return lambda site, image, shape: torch.rand(
+        shape, generator=generator, device=generator.device)
+
+
+def _stacked(draws: Draws, site: str, n: int, shape: Tuple[int, ...],
+             device: torch.device) -> torch.Tensor:
+    return torch.stack([draws(site, i, shape).to(device, torch.float32)
+                        for i in range(n)])
+
+
+def _rpn_losses(rpn_cls, rpn_box, anchors, batch: Batch, draws: Draws,
+                cfg: Config):
+    """Anchor targets and the two RPN losses → (cls, bbox, metrics)."""
+    tr = cfg.train
+    n, a = batch.images.shape[0], anchors.shape[0]
+    with torch.no_grad():
+        at = anchor_target(
+            anchors, batch.gt_boxes, batch.gt_valid, batch.im_info,
+            uniforms=tuple(_stacked(draws, f"anchor_{k}", n, (a,),
+                                    anchors.device) for k in ("fg", "bg")),
+            rpn_batch_size=tr.rpn_batch_size,
+            rpn_fg_fraction=tr.rpn_fg_fraction,
+            positive_overlap=tr.rpn_positive_overlap,
+            negative_overlap=tr.rpn_negative_overlap,
+            clobber_positives=tr.rpn_clobber_positives,
+            allowed_border=tr.rpn_allowed_border,
+            bbox_weights=tr.rpn_bbox_weights)
+    rpn_cls32 = rpn_cls.to(torch.float32).reshape(-1, 2)
+    labels = at.labels.reshape(-1)
+    cls_loss = softmax_cross_entropy_with_ignore(rpn_cls32, labels, -1,
+                                                 "valid")
+    bbox_loss = weighted_smooth_l1(rpn_box.to(torch.float32), at.bbox_targets,
+                                   at.bbox_weights, sigma=3.0,
+                                   grad_norm=tr.rpn_batch_size * n)
+    metrics = {"rpn_acc": accuracy_with_ignore(rpn_cls32, labels),
+               "rpn_logloss": cls_loss, "rpn_l1loss": bbox_loss}
+    return cls_loss, bbox_loss, metrics
+
+
+def _rcnn_losses(model: FasterRCNN, feat, rois, rois_valid, batch: Batch,
+                 draws: Draws, cfg: Config, mark: StageHook):
+    """ROI sampling, pooled head and the two RCNN losses → (cls, bbox,
+    metrics)."""
+    tr = cfg.train
+    n, r = rois.shape[:2]
+    pool = proposal_pool_size(r, batch.gt_boxes.shape[1], tr.batch_rois,
+                              tr.gt_append)
+    with torch.no_grad():
+        pt = proposal_target(
+            rois, rois_valid, batch.gt_boxes, batch.gt_classes,
+            batch.gt_valid,
+            uniforms=tuple(_stacked(draws, f"proposal_{k}", n, (pool,),
+                                    rois.device) for k in ("fg", "bg")),
+            num_classes=model.num_classes, batch_rois=tr.batch_rois,
+            fg_fraction=tr.fg_fraction, fg_thresh=tr.fg_thresh,
+            bg_thresh_hi=tr.bg_thresh_hi, bg_thresh_lo=tr.bg_thresh_lo,
+            bbox_means=tr.bbox_means, bbox_stds=tr.bbox_stds,
+            gt_append=tr.gt_append)
+    mark("proposal_target")
+    pooled = roi_align_batched(feat, pt.rois, model.pooled_size,
+                               1.0 / model.feat_stride)
+    mark("roi_align")
+    flat = pooled.reshape((-1,) + pooled.shape[2:])
+    cls_logits, bbox_deltas = model.roi_head(flat)
+    cls_logits = cls_logits.to(torch.float32)
+    bbox_deltas = bbox_deltas.to(torch.float32)
+    labels = pt.labels.reshape(-1)
+    cls_loss = softmax_cross_entropy_with_ignore(cls_logits, labels, -1,
+                                                 "valid")
+    bbox_loss = weighted_smooth_l1(
+        bbox_deltas, pt.bbox_targets.reshape(bbox_deltas.shape),
+        pt.bbox_weights.reshape(bbox_deltas.shape), sigma=1.0,
+        grad_norm=tr.batch_rois * n)
+    metrics = {"rcnn_acc": accuracy_with_ignore(cls_logits, labels),
+               "rcnn_logloss": cls_loss, "rcnn_l1loss": bbox_loss,
+               "num_fg": pt.fg_mask.sum().to(torch.float32)}
+    return cls_loss, bbox_loss, metrics
+
+
+def loss_and_metrics(model: FasterRCNN, batch: Batch, cfg: Config,
+                     draws: Draws, stage_hook: Optional[StageHook] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full train-mode forward → (total loss, metrics).  ``stage_hook``,
+    when given, is called as each of the first six :data:`STAGES` ends."""
+    tr = cfg.train
+    mark = stage_hook or (lambda name: None)
+    feat = model.features(batch.images, batch.im_info)
+    mark("backbone")
+    rpn_cls, rpn_box = model.rpn_raw(feat)
+    _, fh, fw, _ = feat.shape
+    anchors = model.anchors_for(fh, fw)
+    rpn_cls_loss, rpn_bbox_loss, rpn_metrics = _rpn_losses(
+        rpn_cls, rpn_box, anchors, batch, draws, cfg)
+    mark("rpn")
+    # proposals carry no gradient (the JAX step's stop_gradient)
+    with torch.no_grad():
+        fg_scores = torch.softmax(rpn_cls.detach().to(torch.float32),
+                                  dim=-1)[..., 1]
+        rois, _, rois_valid = propose_batch(
+            fg_scores, rpn_box.detach().to(torch.float32), anchors,
+            batch.im_info.to(torch.float32),
+            pre_nms_top_n=tr.rpn_pre_nms_top_n,
+            post_nms_top_n=tr.rpn_post_nms_top_n,
+            nms_thresh=tr.rpn_nms_thresh, min_size=tr.rpn_min_size)
+    mark("proposal")
+    rcnn_cls_loss, rcnn_bbox_loss, rcnn_metrics = _rcnn_losses(
+        model, feat, rois, rois_valid, batch, draws, cfg, mark)
+    total = rpn_cls_loss + rpn_bbox_loss + rcnn_cls_loss + rcnn_bbox_loss
+    mark("head")
+    return total, {**rpn_metrics, **rcnn_metrics, "loss": total}
+
+
+@dataclass
+class TrainState:
+    """The model (fp32 master weights), its optimizer, and the generator
+    the step draws its uniforms from by default."""
+
+    model: FasterRCNN
+    optimizer: SGD
+    generator: torch.Generator
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.count
+
+
+def init_state(model: FasterRCNN, cfg: Config, steps_per_epoch: int,
+               seed: int = 0, **optimizer_kw) -> TrainState:
+    """Optimizer and generator for a model built with ``train=True``;
+    ``optimizer_kw`` goes to :func:`make_optimizer` (``base_lr``,
+    ``lr_step``, ``frozen_prefixes``)."""
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(model, make_optimizer(cfg, model, steps_per_epoch,
+                                            **optimizer_kw), generator)
+
+
+def setup_training(cfg: Config, device="cuda", seed: int = 0,
+                   steps_per_epoch: int = 1, **optimizer_kw) -> TrainState:
+    """Build the model from ``seed`` with fp32 master weights on
+    ``device`` (CUDA by default; without a card this raises unless
+    ``device='cpu'``) and its optimizer."""
+    model = build_model(cfg, device, seed, train=True)
+    return init_state(model, cfg, steps_per_epoch, seed, **optimizer_kw)
+
+
+def make_train_step(cfg: Config):
+    """The end-to-end train step ``step(state, batch, draws=None,
+    stage_hook=None) → metrics``: one forward, backward and SGD update, in
+    place, without gradient accumulation (the JAX step's ``mode='e2e'``,
+    ``grad_accum=1``)."""
+
+    def step(state: TrainState, batch: Batch, draws: Optional[Draws] = None,
+             stage_hook: Optional[StageHook] = None
+             ) -> Dict[str, torch.Tensor]:
+        mark = stage_hook or (lambda name: None)
+        state.optimizer.zero_grad()
+        total, metrics = loss_and_metrics(
+            state.model, batch, cfg,
+            draws or generator_draws(state.generator), stage_hook)
+        total.backward()
+        mark("backward")
+        state.optimizer.step()
+        mark("optimizer")
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+

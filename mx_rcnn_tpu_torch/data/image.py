@@ -2,10 +2,11 @@
 
 Counterpart of ``mx_rcnn_tpu/data/image.py`` (``compute_scale``,
 ``resize_keep_ratio``, ``bucket_fit``, ``choose_bucket``,
-``pad_normalize``, ``resize_to_bucket``).  Images are RGB uint8 (H, W, 3).
-Resizing uses OpenCV's bilinear resize where ``cv2`` imports, else a numpy
-bilinear resize with the same half-pixel-centre convention;
-:data:`RESIZE_BACKEND` says which one this process uses.
+``pad_normalize``, ``resize_to_bucket``, and the loader's shrink-to-fit
+step of ``load_resized_uint8`` as ``fit_to_bucket``).  Images are RGB
+uint8 (H, W, 3).  Resizing uses OpenCV's bilinear resize where ``cv2``
+imports, else a numpy bilinear resize with the same half-pixel-centre
+convention; :data:`RESIZE_BACKEND` says which one this process uses.
 """
 
 from __future__ import annotations
@@ -110,10 +111,18 @@ def resize_to_bucket(img: np.ndarray, pixel_means: Sequence[float], scale: int,
     """Resize → choose bucket (shrinking to fit if needed) → pad and
     normalise.  Returns (canvas, im_scale, bucket)."""
     resized, im_scale = resize_keep_ratio(np.asarray(img), scale, max_size)
-    h, w = resized.shape[:2]
-    bucket = choose_bucket(h, w, buckets)
+    bucket = choose_bucket(*resized.shape[:2], buckets)
+    resized, im_scale = fit_to_bucket(resized, im_scale, bucket)
+    return pad_normalize(resized, pixel_means, bucket), im_scale, bucket
+
+
+def fit_to_bucket(img: np.ndarray, im_scale: float, bucket: Tuple[int, int]
+                  ) -> Tuple[np.ndarray, float]:
+    """Shrink a resized uint8 image that overflows ``bucket`` until it
+    fits; returns (image, updated im_scale)."""
+    h, w = img.shape[:2]
     fit = bucket_fit(h, w, bucket)
     if fit != 1.0:
-        resized = _resize(resized, int(w * fit), int(h * fit))
+        img = _resize(img, int(w * fit), int(h * fit))
         im_scale *= fit
-    return pad_normalize(resized, pixel_means, bucket), im_scale, bucket
+    return img, im_scale

@@ -1,4 +1,4 @@
-"""The composite Faster R-CNN model, test-mode forward.
+"""The composite Faster R-CNN model and its test-mode forward.
 
 Counterpart of ``mx_rcnn_tpu/models/faster_rcnn.py``: ``features``
 (backbone), ``rpn_raw`` (RPN head), ``roi_head`` (per-ROI classifier and
@@ -9,9 +9,11 @@ RPN → proposals (NMS kernel K1) → ROIAlign (kernel K2) → head →
 Public layouts are the JAX package's: NHWC images in, NHWC features,
 (N, R, ph, pw, C) pooled features.  Inside, the backbone runs NCHW views
 of channels-last memory, so each boundary is a permute and not a copy.
-Conv and dense weights are stored in the compute dtype (flax keeps fp32
-params and casts them per op, which rounds the same way); frozen-BN
-statistics stay fp32.
+Each conv and dense layer casts its weight to the activation dtype, as
+flax does.  For serving the weights are stored in the compute dtype, so
+the cast is free; for training they stay fp32 masters
+(``build_model(train=True)``) and the optimizer updates those.  Frozen-BN
+parameters and statistics stay fp32 either way.
 """
 
 from __future__ import annotations
@@ -92,9 +94,14 @@ class FasterRCNN(nn.Module):
             if isinstance(m, (Conv2dSame, Dense)):
                 for p in m.parameters(recurse=False):
                     p.data = p.data.to(self.dtype)
-                if isinstance(m, Conv2dSame):
-                    m.weight.data = m.weight.data.contiguous(
-                        memory_format=torch.channels_last)
+        return self.channels_last_()
+
+    def channels_last_(self) -> "FasterRCNN":
+        """Lay conv weights out channels-last, like the activations."""
+        for m in self.modules():
+            if isinstance(m, Conv2dSame):
+                m.weight.data = m.weight.data.contiguous(
+                    memory_format=torch.channels_last)
         return self
 
     # ---- pieces -----------------------------------------------------------
@@ -169,10 +176,15 @@ class FasterRCNN(nn.Module):
         return out
 
 
-def build_model(cfg: Config, device="cuda", seed: int = 0) -> FasterRCNN:
+def build_model(cfg: Config, device="cuda", seed: int = 0,
+                train: bool = False) -> FasterRCNN:
     """The model for a Config, randomly initialised from ``seed`` (an
-    explicit ``torch.Generator``), in eval mode on ``device``.  CUDA is the
-    default; without a card this raises unless ``device='cpu'``."""
+    explicit ``torch.Generator``), on ``device``.  CUDA is the default;
+    without a card this raises unless ``device='cpu'``.
+
+    ``train=False``: eval mode, weights stored in the compute dtype.
+    ``train=True``: train mode, fp32 master weights that each op casts to
+    the compute dtype."""
     dev = resolve_device(device)
     model = FasterRCNN(
         network=cfg.network.name,
@@ -189,8 +201,11 @@ def build_model(cfg: Config, device="cuda", seed: int = 0) -> FasterRCNN:
         dtype=_DTYPES[cfg.network.compute_dtype],
     )
     model.init_weights(torch.Generator().manual_seed(seed))
-    model.cast_compute_dtype()
-    return model.to(dev).eval()
+    if train:
+        model.channels_last_()
+    else:
+        model.cast_compute_dtype()
+    return model.to(dev).train(train)
 
 
 def to_device_batch(images: np.ndarray, im_info: np.ndarray,

@@ -3,7 +3,10 @@
 Counterpart of ``mx_rcnn_tpu/models/layers.py``.  Layers work on NCHW
 tensors (the backbone runs NCHW views of channels-last memory).  Weights
 are initialised by :meth:`init_` from an explicit ``torch.Generator`` with
-the flax initialisers the reference uses.
+the flax initialisers the reference uses.  Convolutions and dense layers
+cast their weights to the activation dtype inside ``forward``, as flax's
+``kernel.astype(dtype)`` does, so fp32 master weights train a bf16 model;
+a weight already stored in the activation dtype casts to itself.
 """
 
 from __future__ import annotations
@@ -46,15 +49,17 @@ def _init_weight_(w: torch.Tensor, init: str,
 
 class FrozenBatchNorm(nn.Module):
     """Inference-mode BatchNorm (eps 2e-5): folded to one scale/shift in
-    fp32, applied to the fp32 input, then cast once to ``dtype``."""
+    fp32, applied to the fp32 input, then cast once to ``dtype``.  The
+    affine ``weight``/``bias`` are parameters (the optimizer's frozen mask
+    decides whether they train); the running statistics are buffers."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  eps: float = 2e-5):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.register_buffer("weight", torch.ones(channels))
-        self.register_buffer("bias", torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
@@ -96,10 +101,11 @@ class Conv2dSame(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (pt, pb), (pl, pr) = (same_pads(s, self.kernel, self.stride)
                               for s in x.shape[-2:])
+        weight = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         if pt == pb and pl == pr:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (pt, pl))
-        return F.conv2d(F.pad(x, (pl, pr, pt, pb)), self.weight, self.bias,
-                        self.stride)
+            return F.conv2d(x, weight, bias, self.stride, (pt, pl))
+        return F.conv2d(F.pad(x, (pl, pr, pt, pb)), weight, bias, self.stride)
 
 
 class Dense(nn.Module):
@@ -117,4 +123,4 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))

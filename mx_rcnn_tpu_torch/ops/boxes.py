@@ -1,4 +1,4 @@
-"""Box geometry: IoU, decode, clipping.
+"""Box geometry: IoU, encode, decode, clipping.
 
 Counterpart of ``mx_rcnn_tpu/ops/boxes.py`` with the same operations in
 the same order, so fp32 results agree bit for bit: +1-pixel widths, the
@@ -29,6 +29,28 @@ def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor
         query_boxes[..., 3] - query_boxes[..., 1] + 1.0)
     union = area_b[..., :, None] + area_q[..., None, :] - inter
     return torch.where(union > 0, inter / union.clamp_min(1e-12), 0.0)
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor
+                   ) -> torch.Tensor:
+    """Encode gt boxes as (dx, dy, dw, dh) deltas w.r.t. example boxes:
+    (..., N, 4) x (..., N, 4) → (..., N, 4).  The 1e-14 guards and the
+    ``max(·, 1)`` in the logs are the reference's."""
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * (ex_w - 1.0)
+    ex_cy = ex_rois[..., 1] + 0.5 * (ex_h - 1.0)
+
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * (gt_w - 1.0)
+    gt_cy = gt_rois[..., 1] + 0.5 * (gt_h - 1.0)
+
+    dx = (gt_cx - ex_cx) / (ex_w + 1e-14)
+    dy = (gt_cy - ex_cy) / (ex_h + 1e-14)
+    dw = torch.log(gt_w.clamp_min(1.0) / ex_w.clamp_min(1.0))
+    dh = torch.log(gt_h.clamp_min(1.0) / ex_h.clamp_min(1.0))
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def bbox_pred(boxes: torch.Tensor, box_deltas: torch.Tensor) -> torch.Tensor:

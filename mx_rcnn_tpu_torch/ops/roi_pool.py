@@ -11,8 +11,14 @@ interpolation matrices:
 
 :func:`roi_align_plain` computes that as the reference's einsum pair and is
 the plain version of kernel K2 (``csrc/roi_align_fwd.cu``), which computes
-the same sum as a gather.  :func:`roi_align` dispatches: K2 for a CUDA
-tensor, the plain version for a CPU tensor.
+the same sum as a gather.  :func:`roi_align_bwd_plain` is the plain version
+of kernel K3 (``csrc/roi_align_bwd.cu``), the feature gradient
+
+    dfeat[n, h, w, c] = Σ_r Σ_s Σ_t wy[n, r, s, h] · g[n, r, s, t, c] · wx[n, r, t, w]
+
+:func:`roi_align` (the forward, for serving) and :func:`roi_align_batched`
+(differentiable, for training) dispatch: the kernels for a CUDA tensor,
+the plain versions for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from mx_rcnn_tpu_torch.kernels import ROI_ALIGN_FWD
+from mx_rcnn_tpu_torch.kernels import ROI_ALIGN_BWD, ROI_ALIGN_FWD
 
 
 def _interp_matrix(starts: torch.Tensor, bin_sizes: torch.Tensor,
@@ -125,4 +131,95 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
     if features.device.type == "cpu":
         return roi_align_plain(features, rois, output_size, spatial_scale,
                                sampling_ratio)
+    raise ValueError(f"unsupported device {features.device}")
+
+
+def roi_align_bwd_plain(g: torch.Tensor, rois: torch.Tensor,
+                        feat_hw: Tuple[int, int],
+                        spatial_scale: float = 1.0 / 16.0,
+                        sampling_ratio: int = 2) -> torch.Tensor:
+    """The plain version of K3: g (N, R, ph, pw, C), rois (N, R, 4) →
+    dfeat (N, H, W, C), summed in fp32 and cast once to ``g.dtype``
+    (the smaller intermediate first)."""
+    n, r, ph, pw, _ = g.shape
+    h, w = feat_hw
+    wy, wx = interp_matrices(rois.reshape(-1, 4), ph, pw, h, w,
+                             spatial_scale, sampling_ratio)
+    wy = wy.reshape(n, r, ph, h)
+    wx = wx.reshape(n, r, pw, w)
+    g32 = g.to(torch.float32)
+    if ph * w <= h * pw:
+        rows = torch.einsum("nrstc,nrtw->nrswc", g32, wx)
+        dfeat = torch.einsum("nrsh,nrswc->nhwc", wy, rows)
+    else:
+        cols = torch.einsum("nrstc,nrsh->nrhtc", g32, wy)
+        dfeat = torch.einsum("nrtw,nrhtc->nhwc", wx, cols)
+    return dfeat.to(g.dtype)
+
+
+def roi_align_bwd_cuda(g: torch.Tensor, rois: torch.Tensor,
+                       feat_hw: Tuple[int, int],
+                       spatial_scale: float = 1.0 / 16.0,
+                       sampling_ratio: int = 2) -> torch.Tensor:
+    """Kernel K3 on the card; same contract as :func:`roi_align_bwd_plain`."""
+    if not (g.is_cuda and rois.device == g.device):
+        raise ValueError("roi_align_bwd_cuda needs CUDA tensors on one device")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"g must be fp32 or bf16, got {g.dtype}")
+    if g.dim() != 5 or rois.dim() != 3 or rois.shape[-1] != 4 or \
+            tuple(rois.shape[:2]) != tuple(g.shape[:2]):
+        raise ValueError(f"bad shapes g {tuple(g.shape)} rois "
+                         f"{tuple(rois.shape)}")
+    n, r, ph, pw, c = g.shape
+    h, w = feat_hw
+    if n > 65535 or h > 65535:
+        raise ValueError(f"{n} images x {h} rows exceed the kernel's grid")
+    g = g.contiguous()
+    rois = rois.to(torch.float32).contiguous()
+    dfeat = torch.empty((n, h, w, c), dtype=g.dtype, device=g.device)
+    ROI_ALIGN_BWD.launch(
+        g.data_ptr(), rois.data_ptr(), dfeat.data_ptr(),
+        int(g.dtype == torch.bfloat16), n, r, h, w, c, ph, pw,
+        sampling_ratio, float(spatial_scale),
+        torch.cuda.current_stream(g.device).cuda_stream)
+    return dfeat
+
+
+class _RoIAlignFunction(torch.autograd.Function):
+    """K2 forward, K3 backward."""
+
+    @staticmethod
+    def forward(ctx, features, rois, output_size, spatial_scale,
+                sampling_ratio):
+        ctx.save_for_backward(rois)
+        ctx.geometry = (tuple(features.shape[1:3]), spatial_scale,
+                        sampling_ratio)
+        return roi_align_cuda(features, rois, output_size, spatial_scale,
+                              sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rois,) = ctx.saved_tensors
+        feat_hw, spatial_scale, sampling_ratio = ctx.geometry
+        dfeat = roi_align_bwd_cuda(g, rois, feat_hw, spatial_scale,
+                                   sampling_ratio)
+        # rois are data and get no gradient.  The JAX custom VJP returns an
+        # explicit zeros cotangent for them; autograd takes None as "no
+        # gradient" and never builds one.
+        return dfeat, None, None, None, None
+
+
+def roi_align_batched(features: torch.Tensor, rois: torch.Tensor,
+                      output_size: Tuple[int, int] = (14, 14),
+                      spatial_scale: float = 1.0 / 16.0,
+                      sampling_ratio: int = 2) -> torch.Tensor:
+    """Differentiable batched ROIAlign, features (N, H, W, C), rois
+    (N, R, 4) → (N, R, ph, pw, C).  A CUDA tensor runs K2 forward and K3
+    backward; a CPU tensor runs the einsum pair under plain autograd."""
+    if features.is_cuda:
+        return _RoIAlignFunction.apply(features, rois.detach(), output_size,
+                                       spatial_scale, sampling_ratio)
+    if features.device.type == "cpu":
+        return roi_align_plain(features, rois.detach(), output_size,
+                               spatial_scale, sampling_ratio)
     raise ValueError(f"unsupported device {features.device}")

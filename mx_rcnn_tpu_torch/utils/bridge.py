@@ -68,7 +68,7 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     for key, t in state_dict.items():
         mod, leaf = key.rsplit(".", 1)
         path = tuple(mod.split("."))
-        arr = t.detach().to(torch.float32).cpu().numpy()
+        arr = t.detach().to(torch.float32).cpu().numpy().copy()
         if leaf == "running_mean":
             _set(stats, path + ("mean",), arr)
         elif leaf == "running_var":

@@ -92,6 +92,24 @@ def test_entry_points_refuse_to_drop_to_the_cpu():
     assert Predictor(model, cfg, device="cpu").device.type == "cpu"
 
 
+def test_training_entry_points_refuse_to_drop_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.train import setup_training
+    from mx_rcnn_tpu_torch.tools import train
+
+    cfg = generate_config("tiny", "synthetic")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        setup_training(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--synthetic", "2", "--network", "tiny", "--dataset",
+                    "synthetic", "--steps", "1"])
+    state = setup_training(cfg, device="cpu")
+    assert next(state.model.parameters()).device.type == "cpu"
+    assert state.model.training and state.step == 0
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_card(alone, tmp_path):
     """``chip_smoke.py`` exits non-zero and prints no result line when

@@ -208,7 +208,8 @@ def test_config_presets_agree_with_jax(network, dataset):
     """Every field of the port's config equals the JAX package's."""
     ours = generate_config(network, dataset)
     theirs = j_generate_config(network, dataset)
-    for section in ("train", "test", "network", "dataset", "bucket"):
+    for section in ("train", "test", "network", "dataset", "default",
+                    "bucket"):
         node = getattr(ours, section)
         for f in dataclasses.fields(node):
             assert getattr(node, f.name) == \
