@@ -11,10 +11,13 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
 1. device: the card's name and power limit (``nvidia-smi``), then one
    ``nvcc`` per kernel source, all started together;
 2. K1, the NMS sweep (``csrc/nms_sweep.cu``), against its plain version on
-   the card at the serving proposal shape (B=2, K=6144, thr 0.7), the
-   postprocess shape (B=2*21, K=512, thr 0.3), the training proposal shape
-   (B=2, K=12032, thr 0.7) and on integer boxes whose IoUs sit exactly on
-   the threshold: keep masks must be equal;
+   the card at thresholds 0.3, 0.5 and 0.7: at the serving proposal shape
+   (B=2, K=6144), the postprocess shape (B=2*21, K=512), the training
+   proposal shape (B=2, K=12032) on random boxes (most kept) and on dense
+   clusters (almost all suppressed), at K = 1, 63, 65 and 130, with an
+   all-dead image, and on integer boxes whose IoUs sit exactly on the
+   threshold: keep masks must be equal.  Then K1's time at each main shape
+   and on the clusters, with each pass's own time from a profiler trace;
 3. K2, the ROIAlign forward (``csrc/roi_align_fwd.cu``), against its plain
    version at 2x300 rois (serving) and 2x128 rois (training) over a
    38x64x1024 map, fp32 and bf16;
@@ -32,8 +35,9 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    at batch 1 and 2 -- the first main path;
 8. training: ``tools/train.py``'s path in bf16 on 8 seeded synthetic
    375x500 images at batch 1 and 2 -- the second main path -- then
-   ms/step, images/s, per-stage CUDA-event times, the device busy share
-   and peak memory of the step at each batch size.
+   ms/step, images/s, per-stage CUDA-event times, the device busy share,
+   K1's two passes on the step's own proposals (profiler) and peak memory
+   of the step at each batch size.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -71,6 +75,9 @@ VOC_CLASSES = 21
 BUCKET = (608, 1024)
 TRAIN_ROIS = 128           # train__batch_rois: sampled rois per image
 TRAIN_STEPS = 6            # steps of the training CLI run
+THRESHOLDS = (0.3, 0.5, 0.7)   # every K1 check runs at each
+# K1's two kernels by name in a profiler trace
+K1_PASSES = {"mask": "nms_mask_kernel", "reduce": "nms_reduce_kernel"}
 
 
 def log(msg: str) -> None:
@@ -161,6 +168,31 @@ def boundary_inputs(batch: int, k: int, seed: int, dev):
         torch.tensor(scores, dtype=torch.float32, device=dev), None, 256)
 
 
+def cluster_inputs(batch: int, k: int, seed: int, dev):
+    """Score-sorted boxes in tight clusters of jittered copies, ~40 per
+    cluster, as an RPN proposes around few objects: almost every box is
+    suppressed."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.nms import _mask_pad_sort
+
+    rng = np.random.RandomState(seed)
+    h, w = BUCKET
+    m = max(k // 40, 1)
+    wh = rng.uniform(32, 300, (batch, m, 2))
+    xy = rng.uniform(0, [w - 300, h - 300], (batch, m, 2))
+    pick = rng.randint(0, m, (batch, k))
+    lo = np.take_along_axis(xy, pick[..., None], 1)
+    size = np.take_along_axis(wh, pick[..., None], 1)
+    boxes = np.concatenate([lo, lo + size], -1) + rng.uniform(
+        -4, 4, (batch, k, 4))
+    return _mask_pad_sort(
+        torch.tensor(boxes, dtype=torch.float32, device=dev),
+        torch.tensor(rng.uniform(size=(batch, k)), dtype=torch.float32,
+                     device=dev), None, 256)
+
+
 def greedy_pairs(keep, alive) -> int:
     """IoU tests greedy NMS needs on this data: each kept box against
     every live box after it."""
@@ -170,12 +202,55 @@ def greedy_pairs(keep, alive) -> int:
     return int((after * keep).sum())
 
 
-def phase_k1(dev) -> dict:
+def check_k1(label: str, boxes, alive, t: int) -> None:
+    """K1 against the plain sweep on one input at each of THRESHOLDS: the
+    keep masks must be equal."""
     import torch
 
-    from mx_rcnn_tpu_torch.kernels import NMS_SWEEP
     from mx_rcnn_tpu_torch.ops.nms import (suppression_sweep_cuda,
                                            suppression_sweep_plain)
+
+    b, k = alive.shape
+    for thr in THRESHOLDS:
+        keep = suppression_sweep_cuda(boxes, alive, thr)
+        torch.cuda.synchronize()
+        diff = int((keep != suppression_sweep_plain(boxes, alive, thr,
+                                                    t)).sum())
+        log(f"K1 {label}: B={b} K={k} thr={thr} kept {int(keep.sum())}/"
+            f"{int(alive.sum())} mismatches={diff}")
+        if diff:
+            raise AssertionError(f"K1 keep mask differs from the plain sweep "
+                                 f"on {label} at {thr} ({diff})")
+
+
+def time_k1(label: str, boxes, alive, t: int, thr: float) -> dict:
+    """K1's time (CUDA events over 50 launches), each pass's time (from a
+    profiler trace, by kernel name), the plain version's time and the
+    bound, at one threshold."""
+    from mx_rcnn_tpu_torch.ops.nms import (suppression_sweep_cuda,
+                                           suppression_sweep_plain)
+
+    keep = suppression_sweep_cuda(boxes, alive, thr)
+    ms = time_ms(lambda: suppression_sweep_cuda(boxes, alive, thr), 50)
+    passes = device_profile(lambda: suppression_sweep_cuda(boxes, alive, thr),
+                            20)["k1_ms_per_iter"]
+    plain_ms = time_ms(
+        lambda: suppression_sweep_plain(boxes, alive, thr, t), 3, 1)
+    nbytes = boxes.numel() * 4 + alive.numel() + keep.numel()
+    bound_ms, bound_by = bound(nbytes, IOU_OPS * greedy_pairs(keep, alive))
+    kept, live = int(keep.sum()), int(alive.sum())
+    log(f"K1 {label}: {ms:.4f} ms (mask pass {passes['mask']:.4f} ms, "
+        f"reduction {passes['reduce']:.4f} ms in the profiler), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); kept "
+        f"{kept} of {live}")
+    return dict(shape=list(alive.shape), thr=thr, ms=ms,
+                mask_pass_ms=passes["mask"], reduce_ms=passes["reduce"],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                kept=kept, alive=live, max_abs_err=0.0)
+
+
+def phase_k1(dev) -> dict:
+    from mx_rcnn_tpu_torch.kernels import NMS_SWEEP
 
     shapes = {"proposal": (2, 6000, 0.7),
               "postprocess": (2 * VOC_CLASSES, 300, 0.3),
@@ -183,37 +258,24 @@ def phase_k1(dev) -> dict:
     res = {}
     for i, (name, (b, k, thr)) in enumerate(shapes.items()):
         boxes, _, alive, _, t = nms_inputs(b, k, seed=10 + i, dev=dev)
-        keep = suppression_sweep_cuda(boxes, alive, thr)
-        torch.cuda.synchronize()
-        want = suppression_sweep_plain(boxes, alive, thr, t)
-        diff = int((keep != want).sum())
-        log(f"K1 {name}: B={b} K={boxes.shape[1]} thr={thr} kept "
-            f"{int(keep.sum())}/{int(alive.sum())} mismatches={diff}")
-        if diff:
-            raise AssertionError(f"K1 keep mask differs from the plain "
-                                 f"sweep at the {name} shape ({diff})")
-        ms = time_ms(lambda: suppression_sweep_cuda(boxes, alive, thr), 50)
-        plain_ms = time_ms(
-            lambda: suppression_sweep_plain(boxes, alive, thr, t), 3, 1)
-        nbytes = boxes.numel() * 4 + alive.numel() + keep.numel()
-        bound_ms, bound_by = bound(nbytes, IOU_OPS * greedy_pairs(keep,
-                                                                  alive))
-        res[name] = dict(shape=[b, boxes.shape[1]], thr=thr, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, max_abs_err=float(diff))
-        log(f"K1 {name}: {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
-            f"{bound_ms:.5f} ms ({bound_by})")
-    for thr in (0.3, 0.5, 0.7):
-        boxes, _, alive, _, t = boundary_inputs(8, 1000, seed=int(thr * 10),
-                                                dev=dev)
-        keep = suppression_sweep_cuda(boxes, alive, thr)
-        torch.cuda.synchronize()
-        diff = int((keep != suppression_sweep_plain(boxes, alive, thr,
-                                                    t)).sum())
-        log(f"K1 integer boxes: B=8 K={boxes.shape[1]} thr={thr} kept "
-            f"{int(keep.sum())} mismatches={diff}")
-        if diff:
-            raise AssertionError(f"K1 differs on integer boxes at {thr}")
+        check_k1(name, boxes, alive, t)
+        res[name] = time_k1(name, boxes, alive, t, thr)
+    # the training shape again, on clusters where almost every box is
+    # suppressed: the reduction's time must not follow the kept count
+    boxes, _, alive, _, t = cluster_inputs(2, 12000, seed=13, dev=dev)
+    check_k1("train_proposal clusters", boxes, alive, t)
+    res["train_proposal_clusters"] = time_k1("train_proposal clusters",
+                                             boxes, alive, t, 0.7)
+    # any K: under one block, ragged, and a few blocks
+    for k in (1, 63, 65, 130):
+        boxes, _, alive, _, t = nms_inputs(3, k, seed=k, dev=dev)
+        check_k1(f"edge K={k}", boxes, alive, t)
+    boxes, _, alive, _, t = nms_inputs(3, 700, seed=7, dev=dev)
+    alive[1] = False
+    check_k1("an all-dead image", boxes, alive, t)
+    for seed in (3, 5, 7):
+        boxes, _, alive, _, t = boundary_inputs(8, 1000, seed=seed, dev=dev)
+        check_k1(f"integer boxes (seed {seed})", boxes, alive, t)
     if NMS_SWEEP.launches == 0:
         raise AssertionError("K1 never launched")
     return res
@@ -449,7 +511,8 @@ def stage_times(predictor, images, im_info, iters: int, warmup: int = 2
 
 def device_profile(run, iters: int) -> dict:
     """Device time per call of ``run()`` from a ``torch.profiler`` trace
-    (sum of kernel and copy times), and the top kernels by time."""
+    (sum of kernel and copy times), the top kernels by time, and the time
+    of each of K1's two passes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -463,10 +526,13 @@ def device_profile(run, iters: int) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     total_us = sum(r[1] for r in rows)
+    k1 = {p: sum(t for k, t, _ in rows if name in k) / 1e3 / iters
+          for p, name in K1_PASSES.items()}
     return dict(device_ms_per_iter=total_us / 1e3 / iters,
                 top=[dict(name=k[:90], ms_per_iter=t / 1e3 / iters,
                           calls_per_iter=c / iters) for k, t, c in rows[:20]],
-                kernels_per_iter=sum(r[2] for r in rows) / iters)
+                kernels_per_iter=sum(r[2] for r in rows) / iters,
+                k1_ms_per_iter=k1)
 
 
 def busy_share(profiled: dict, wall_ms: float):
@@ -553,7 +619,9 @@ def phase_serving(dev, card: str) -> dict:
         log(f"serving bf16 batch {batch}: device busy "
             f"{busy['device_ms_per_iter']:.3f} ms of {wall * 1e3:.3f} ms per "
             f"forward+postprocess ({busy['kernels_per_iter']:.0f} device "
-            f"ops), busy share {busy['busy_share'] or 'not measured'}")
+            f"ops), busy share {busy['busy_share'] or 'not measured'}; "
+            f"K1 mask pass {busy['k1_ms_per_iter']['mask']:.4f} ms, "
+            f"reduction {busy['k1_ms_per_iter']['reduce']:.4f} ms")
         log(f"serving bf16 batch {batch} on {card}: demo path "
             f"{runs[batch]['images_per_s']:.2f} img/s, steady "
             f"{runs[batch]['steady_images_per_s']:.2f} img/s, stages (ms) "
@@ -763,6 +831,9 @@ def phase_training(dev, card: str) -> dict:
             f"{peak:.2f} GiB, losses " + ", ".join(f"{v:.4g}" for v in losses))
         log(f"training bf16 batch {batch} stages (ms) "
             + json.dumps({k: round(v, 3) for k, v in stage.items()}))
+        log(f"training bf16 batch {batch}: K1 on the step's proposals, "
+            f"mask pass {busy['k1_ms_per_iter']['mask']:.4f} ms, reduction "
+            f"{busy['k1_ms_per_iter']['reduce']:.4f} ms per step")
     return runs
 
 

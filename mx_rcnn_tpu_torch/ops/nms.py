@@ -89,8 +89,9 @@ def suppression_sweep_cuda(boxes: torch.Tensor, alive_init: torch.Tensor,
         raise ValueError(f"batch {b} exceeds the kernel's grid limit")
     boxes = boxes.contiguous()
     alive_init = alive_init.contiguous()
-    col_blocks = (k + 63) // 64
-    mask = torch.empty((b, k, col_blocks), dtype=torch.int64,
+    # the IoU words column-block-major: (image, col block, row padded to 64)
+    n = (k + 63) // 64
+    mask = torch.empty((b, n, 64 * n), dtype=torch.int64,
                        device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     NMS_SWEEP.launch(boxes.data_ptr(), alive_init.data_ptr(), b, k,
