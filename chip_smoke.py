@@ -19,8 +19,13 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    threshold: keep masks must be equal.  Then K1's time at each main shape
    and on the clusters, with each pass's own time from a profiler trace;
 3. K2, the ROIAlign forward (``csrc/roi_align_fwd.cu``), against its plain
-   version at 2x300 rois (serving) and 2x128 rois (training) over a
-   38x64x1024 map, fp32 and bf16;
+   version in fp32 and bf16 over a 38x64x1024 map: at 2x300 rois (serving)
+   and 2x128 rois (training), random and small (16-64 px), then on rois
+   covering the whole map, rois wholly outside it, R = 1, C = 1021 and a
+   features tensor whose base pointer is off 16 B (the last two on its
+   one-channel-per-thread path).  Then K2's time at the four timed sets,
+   with its own time from a profiler trace and the time of a plain write
+   of its output's bytes;
 4. K3, the ROIAlign backward (``csrc/roi_align_bwd.cu``), against its plain
    version at the training shape, fp32 and bf16; two launches must give
    the same bits;
@@ -32,12 +37,14 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    through the plain versions: sampled rois and labels equal, losses and
    gradients close;
 7. serving: ``tools/demo.py``'s path in bf16 on 4 seeded synthetic images
-   at batch 1 and 2 -- the first main path;
+   at batch 1 and 2 -- the first main path -- then images/s, per-stage
+   times, the device busy share and K1's and K2's time per forward
+   (profiler);
 8. training: ``tools/train.py``'s path in bf16 on 8 seeded synthetic
    375x500 images at batch 1 and 2 -- the second main path -- then
    ms/step, images/s, per-stage CUDA-event times, the device busy share,
-   K1's two passes on the step's own proposals (profiler) and peak memory
-   of the step at each batch size.
+   K1's two passes, K2 and K3 on the step's own inputs (profiler) and peak
+   memory of the step at each batch size.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -76,8 +83,9 @@ BUCKET = (608, 1024)
 TRAIN_ROIS = 128           # train__batch_rois: sampled rois per image
 TRAIN_STEPS = 6            # steps of the training CLI run
 THRESHOLDS = (0.3, 0.5, 0.7)   # every K1 check runs at each
-# K1's two kernels by name in a profiler trace
-K1_PASSES = {"mask": "nms_mask_kernel", "reduce": "nms_reduce_kernel"}
+# each kernel (K1's two passes apart) by name in a profiler trace
+KERNEL_NAMES = {"k1_mask": "nms_mask_kernel", "k1_reduce": "nms_reduce_kernel",
+                "k2": "roi_align_fwd_kernel", "k3": "roi_align_bwd_kernel"}
 
 
 def log(msg: str) -> None:
@@ -233,18 +241,18 @@ def time_k1(label: str, boxes, alive, t: int, thr: float) -> dict:
     keep = suppression_sweep_cuda(boxes, alive, thr)
     ms = time_ms(lambda: suppression_sweep_cuda(boxes, alive, thr), 50)
     passes = device_profile(lambda: suppression_sweep_cuda(boxes, alive, thr),
-                            20)["k1_ms_per_iter"]
+                            20)["kernel_ms_per_iter"]
     plain_ms = time_ms(
         lambda: suppression_sweep_plain(boxes, alive, thr, t), 3, 1)
     nbytes = boxes.numel() * 4 + alive.numel() + keep.numel()
     bound_ms, bound_by = bound(nbytes, IOU_OPS * greedy_pairs(keep, alive))
     kept, live = int(keep.sum()), int(alive.sum())
-    log(f"K1 {label}: {ms:.4f} ms (mask pass {passes['mask']:.4f} ms, "
-        f"reduction {passes['reduce']:.4f} ms in the profiler), plain "
+    log(f"K1 {label}: {ms:.4f} ms (mask pass {passes['k1_mask']:.4f} ms, "
+        f"reduction {passes['k1_reduce']:.4f} ms in the profiler), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); kept "
         f"{kept} of {live}")
     return dict(shape=list(alive.shape), thr=thr, ms=ms,
-                mask_pass_ms=passes["mask"], reduce_ms=passes["reduce"],
+                mask_pass_ms=passes["k1_mask"], reduce_ms=passes["k1_reduce"],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 kept=kept, alive=live, max_abs_err=0.0)
 
@@ -283,74 +291,149 @@ def phase_k1(dev) -> dict:
 
 # ---- phase 3: K2 -----------------------------------------------------------
 
-def roi_inputs(n: int, r: int, seed: int, dev):
+def roi_inputs(n: int, r: int, seed: int, dev, wh=(0, 500), c: int = 1024):
+    """A 38x64xC map and (n, r) random rois on the bucket canvas, sides
+    uniform in ``wh`` px."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
-    fh, fw, c = BUCKET[0] // 16, BUCKET[1] // 16, 1024
+    fh, fw = BUCKET[0] // 16, BUCKET[1] // 16
     feat = torch.tensor(rng.standard_normal((n, fh, fw, c)),
                         dtype=torch.float32, device=dev)
     xy = rng.uniform(-8, [BUCKET[1], BUCKET[0]], (n, r, 2))
-    wh = rng.uniform(0, 500, (n, r, 2))
-    rois = torch.tensor(np.concatenate([xy, xy + wh], -1),
+    sides = rng.uniform(wh[0], wh[1], (n, r, 2))
+    rois = torch.tensor(np.concatenate([xy, xy + sides], -1),
                         dtype=torch.float32, device=dev)
     return feat, rois
+
+
+def placed_rois(n: int, r: int, seed: int, dev, where: str):
+    """(n, r) rois that cover the whole canvas (jittered past its borders)
+    or lie wholly outside it."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    h, w = BUCKET
+    if where == "whole map":
+        lo = rng.uniform(-24, 8, (n, r, 2))
+        hi = np.array([w, h]) + rng.uniform(-8, 24, (n, r, 2))
+        lo[:, 0], hi[:, 0] = 0, [w - 1, h - 1]
+    else:
+        side = rng.randint(0, 2, (n, r, 1))      # left/above or right/below
+        lo = np.where(side, np.array([w, h]) + rng.uniform(16, 400, (n, r, 2)),
+                      -rng.uniform(100, 600, (n, r, 2)))
+        hi = lo + rng.uniform(16, 90, (n, r, 2))
+    return torch.tensor(np.concatenate([lo, hi], -1), dtype=torch.float32,
+                        device=dev)
+
+
+def misaligned(t):
+    """A copy of t whose data starts one element past a 16-byte boundary:
+    K2 must take its one-channel-per-thread path."""
+    import torch
+
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned view is aligned")
+    return view
+
+
+def check_k2(label: str, feat, rois, feat16=None, size=(14, 14), sr=2):
+    """K2 against its plain version in fp32 (atol 1e-4) and in bf16 (half
+    a bf16 ulp of the fp32 plain version on the same bf16 inputs, plus
+    1e-4); returns the two max errors."""
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_cuda, roi_align_plain
+
+    got = roi_align_cuda(feat, rois, size, 1 / 16, sr)
+    torch.cuda.synchronize()
+    want = roi_align_plain(feat, rois, size, 1 / 16, sr)
+    err32 = float((got - want).abs().max())
+    log(f"K2 {label} fp32: N={feat.shape[0]} R={rois.shape[1]} "
+        f"{tuple(feat.shape[1:])} max|err|={err32:.3e} (atol 1e-4)")
+    if not err32 <= 1e-4:
+        raise AssertionError(f"K2 {label} fp32 max error {err32} > 1e-4")
+    # bf16: the kernel accumulates the bf16 taps in fp32 and rounds once,
+    # so against the fp32 plain version on the same bf16 inputs it is off
+    # by the final rounding alone: half a bf16 ulp, |err| <= 2^-8 |ref| (8
+    # significant bits), plus the fp32 check's 1e-4 for the order of
+    # summation, which differs between the gather and the einsum pair
+    feat16 = feat.to(torch.bfloat16) if feat16 is None else feat16
+    got16 = roi_align_cuda(feat16, rois, size, 1 / 16, sr)
+    torch.cuda.synchronize()
+    ref16 = roi_align_plain(feat16.float(), rois, size, 1 / 16, sr)
+    excess = float(((got16.float() - ref16).abs()
+                    - (2.0 ** -8 * ref16.abs() + 1e-4)).max())
+    err16 = float((got16.float() - ref16).abs().max())
+    log(f"K2 {label} bf16: max|err|={err16:.3e}, worst excess over "
+        f"2^-8|ref|+1e-4 = {excess:.3e}")
+    if excess > 0:
+        raise AssertionError(f"K2 {label} bf16 beyond half a bf16 ulp of the "
+                             f"fp32 plain version")
+    return err32, err16
+
+
+def time_k2(label: str, f, rois, err: float, size=(14, 14), sr=2) -> dict:
+    """K2's time (CUDA events over 50 launches; its own device time from a
+    profiler trace, by kernel name), the time of a PyTorch fill of a tensor
+    of the output's size (the card writing those bytes alone), the plain
+    version's time and the bound."""
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_cuda, roi_align_plain
+
+    n, r = rois.shape[:2]
+    ms = time_ms(lambda: roi_align_cuda(f, rois, size, 1 / 16, sr), 50)
+    device_ms = device_profile(
+        lambda: roi_align_cuda(f, rois, size, 1 / 16, sr),
+        20)["kernel_ms_per_iter"]["k2"]
+    out = torch.empty((n, r) + tuple(size) + (f.shape[-1],), dtype=f.dtype,
+                      device=f.device)
+    write_ms = time_ms(lambda: out.fill_(1.0), 50)
+    plain_ms = time_ms(lambda: roi_align_plain(f, rois, size, 1 / 16, sr), 5)
+    out_elems = out.numel()
+    nbytes = (f.numel() + out_elems) * f.element_size() + rois.numel() * 4
+    bound_ms, bound_by = bound(nbytes, out_elems * sr * sr * ROI_SAMPLE_OPS)
+    log(f"K2 {label} {'bf16' if f.dtype == torch.bfloat16 else 'fp32'}: "
+        f"{ms:.4f} ms ({device_ms:.4f} ms in the profiler), output write "
+        f"alone {write_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=[n, r] + list(f.shape[1:]), ms=ms, device_ms=device_ms,
+                write_ms=write_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err)
 
 
 def phase_k2(dev) -> dict:
     import torch
 
-    from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_cuda, roi_align_plain
-
-    size, sr = (14, 14), 2
     res = {}
-    for name, n, r in (("serving", 2, 300), ("train", 2, TRAIN_ROIS)):
-        feat, rois = roi_inputs(n, r, seed=20 if name == "serving" else 21,
-                                dev=dev)
-        got = roi_align_cuda(feat, rois, size, 1 / 16, sr)
-        torch.cuda.synchronize()
-        want = roi_align_plain(feat, rois, size, 1 / 16, sr)
-        err32 = float((got - want).abs().max())
-        log(f"K2 {name} fp32: N={n} R={r} {tuple(feat.shape[1:])} "
-            f"max|err|={err32:.3e} (atol 1e-4)")
-        if not err32 <= 1e-4:
-            raise AssertionError(f"K2 fp32 max error {err32} > 1e-4")
-        # bf16: the kernel accumulates the bf16 taps in fp32 and rounds
-        # once, so against the fp32 plain version on the same bf16 inputs
-        # it is off by the final rounding alone: half a bf16 ulp, |err| <=
-        # 2^-8 |ref| (8 significant bits), plus the fp32 check's 1e-4 for
-        # the order of summation, which differs between the gather and the
-        # einsum pair
-        feat16 = feat.to(torch.bfloat16)
-        got16 = roi_align_cuda(feat16, rois, size, 1 / 16, sr)
-        torch.cuda.synchronize()
-        ref16 = roi_align_plain(feat16.float(), rois, size, 1 / 16, sr)
-        excess = float(((got16.float() - ref16).abs()
-                        - (2.0 ** -8 * ref16.abs() + 1e-4)).max())
-        err16 = float((got16.float() - ref16).abs().max())
-        log(f"K2 {name} bf16: max|err|={err16:.3e}, worst excess over "
-            f"2^-8|ref|+1e-4 = {excess:.3e}")
-        if excess > 0:
-            raise AssertionError("K2 bf16 beyond half a bf16 ulp of the "
-                                 "fp32 plain version")
-        res[name] = {}
-        for tag, f in (("bf16", feat16), ("fp32", feat)):
-            ms = time_ms(lambda: roi_align_cuda(f, rois, size, 1 / 16, sr),
-                         50)
-            plain_ms = time_ms(lambda: roi_align_plain(f, rois, size, 1 / 16,
-                                                       sr), 5)
-            out_elems = n * r * size[0] * size[1] * f.shape[-1]
-            nbytes = ((f.numel() + out_elems) * f.element_size()
-                      + rois.numel() * 4)
-            bound_ms, bound_by = bound(nbytes,
-                                       out_elems * sr * sr * ROI_SAMPLE_OPS)
-            res[name][tag] = dict(
-                shape=[n, r] + list(f.shape[1:]), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=err16 if tag == "bf16" else err32)
-            log(f"K2 {name} {tag}: {ms:.4f} ms  plain {plain_ms:.3f} ms  "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+    # the two main shapes on random rois (0-500 px a side, many crossing
+    # a border), then the same shapes on small rois (16-64 px), timed
+    for name, n, r, seed, wh in (("serving", 2, 300, 20, (0, 500)),
+                                 ("train", 2, TRAIN_ROIS, 21, (0, 500)),
+                                 ("serving_small", 2, 300, 22, (16, 64)),
+                                 ("train_small", 2, TRAIN_ROIS, 23, (16, 64))):
+        feat, rois = roi_inputs(n, r, seed, dev, wh)
+        err32, err16 = check_k2(name, feat, rois)
+        res[name] = {tag: time_k2(name, f, rois, err)
+                     for tag, f, err in (("bf16", feat.to(torch.bfloat16),
+                                          err16), ("fp32", feat, err32))}
+    # edge cases, checked only
+    feat, _ = roi_inputs(2, 1, 24, dev)
+    for label, where in (("rois covering the whole map", "whole map"),
+                         ("rois wholly outside the map", "outside")):
+        check_k2(label, feat, placed_rois(2, 16, 25, dev, where))
+    check_k2("R=1", *roi_inputs(2, 1, 26, dev))
+    check_k2("C=1021 (one channel per thread)",
+             *roi_inputs(2, 64, 27, dev, c=1021))
+    feat, rois = roi_inputs(2, 64, 28, dev)
+    check_k2("a base pointer off 16 B (one channel per thread)",
+             misaligned(feat), rois, misaligned(feat.to(torch.bfloat16)))
     return res
 
 
@@ -512,7 +595,7 @@ def stage_times(predictor, images, im_info, iters: int, warmup: int = 2
 def device_profile(run, iters: int) -> dict:
     """Device time per call of ``run()`` from a ``torch.profiler`` trace
     (sum of kernel and copy times), the top kernels by time, and the time
-    of each of K1's two passes."""
+    of each kernel of KERNEL_NAMES (K1's two passes apart)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -526,13 +609,13 @@ def device_profile(run, iters: int) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     total_us = sum(r[1] for r in rows)
-    k1 = {p: sum(t for k, t, _ in rows if name in k) / 1e3 / iters
-          for p, name in K1_PASSES.items()}
+    ours = {p: sum(t for k, t, _ in rows if name in k) / 1e3 / iters
+            for p, name in KERNEL_NAMES.items()}
     return dict(device_ms_per_iter=total_us / 1e3 / iters,
                 top=[dict(name=k[:90], ms_per_iter=t / 1e3 / iters,
                           calls_per_iter=c / iters) for k, t, c in rows[:20]],
                 kernels_per_iter=sum(r[2] for r in rows) / iters,
-                k1_ms_per_iter=k1)
+                kernel_ms_per_iter=ours)
 
 
 def busy_share(profiled: dict, wall_ms: float):
@@ -599,6 +682,9 @@ def phase_serving(dev, card: str) -> dict:
         raw = predictor.raw(canv, info)
         if not all(bool(torch.isfinite(t.float()).all()) for t in raw):
             raise AssertionError("non-finite forward output")
+        # the proposals' mean width and height, which set K2's loads
+        sides = (raw[0][..., 2:4] - raw[0][..., 0:2]).float()[raw[1].bool()]
+        runs[batch]["roi_side_px"] = [float(v) for v in sides.mean(0)]
         runs[batch]["stage_ms"] = stage_times(predictor, canv, info, 10)
         # steady state: forward + postprocess back to back, host clock
         iters = 10
@@ -616,12 +702,16 @@ def phase_serving(dev, card: str) -> dict:
             predictor, predictor.raw(canv, info), info_t, thresh), 5)
         busy["busy_share"] = busy_share(busy, wall * 1e3)
         runs[batch]["device"] = busy
+        ours = busy["kernel_ms_per_iter"]
+        width, height = runs[batch]["roi_side_px"]
         log(f"serving bf16 batch {batch}: device busy "
             f"{busy['device_ms_per_iter']:.3f} ms of {wall * 1e3:.3f} ms per "
             f"forward+postprocess ({busy['kernels_per_iter']:.0f} device "
             f"ops), busy share {busy['busy_share'] or 'not measured'}; "
-            f"K1 mask pass {busy['k1_ms_per_iter']['mask']:.4f} ms, "
-            f"reduction {busy['k1_ms_per_iter']['reduce']:.4f} ms")
+            f"per forward: K1 mask pass {ours['k1_mask']:.4f} ms, reduction "
+            f"{ours['k1_reduce']:.4f} ms, K2 {ours['k2']:.4f} ms on "
+            f"{sides.shape[0]} rois of mean width x height {width:.0f} x "
+            f"{height:.0f} px")
         log(f"serving bf16 batch {batch} on {card}: demo path "
             f"{runs[batch]['images_per_s']:.2f} img/s, steady "
             f"{runs[batch]['steady_images_per_s']:.2f} img/s, stages (ms) "
@@ -831,9 +921,11 @@ def phase_training(dev, card: str) -> dict:
             f"{peak:.2f} GiB, losses " + ", ".join(f"{v:.4g}" for v in losses))
         log(f"training bf16 batch {batch} stages (ms) "
             + json.dumps({k: round(v, 3) for k, v in stage.items()}))
-        log(f"training bf16 batch {batch}: K1 on the step's proposals, "
-            f"mask pass {busy['k1_ms_per_iter']['mask']:.4f} ms, reduction "
-            f"{busy['k1_ms_per_iter']['reduce']:.4f} ms per step")
+        ours = busy["kernel_ms_per_iter"]
+        log(f"training bf16 batch {batch}, per step: K1 on the step's "
+            f"proposals, mask pass {ours['k1_mask']:.4f} ms, reduction "
+            f"{ours['k1_reduce']:.4f} ms; K2 {ours['k2']:.4f} ms; K3 "
+            f"{ours['k3']:.4f} ms")
     return runs
 
 
