@@ -27,8 +27,13 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    with its own time from a profiler trace and the time of a plain write
    of its output's bytes;
 4. K3, the ROIAlign backward (``csrc/roi_align_bwd.cu``), against its plain
-   version at the training shape, fp32 and bf16; two launches must give
-   the same bits;
+   version in fp32 and bf16, two launches bit-equal in each: at the
+   training shape (2x128 rois, 14x14, 38x64x1024) on random and small
+   (16-64 px) rois, then on rois covering the whole map, rois wholly
+   outside it, R = 1, C = 1021 and a g whose base pointer is off 16 B (the
+   last two on its one-channel-per-thread path), and at sr 1 and 4.  Then
+   K3's time on the random and small rois, with its device time and its
+   tables pass's from a profiler trace;
 5. the whole ResNet-101 forward at 608x1024 in fp32 (TF32 off), once
    through the kernels and once through the plain versions: rois and
    ``roi_valid`` equal, ``cls_prob`` and deltas close;
@@ -84,8 +89,10 @@ TRAIN_ROIS = 128           # train__batch_rois: sampled rois per image
 TRAIN_STEPS = 6            # steps of the training CLI run
 THRESHOLDS = (0.3, 0.5, 0.7)   # every K1 check runs at each
 # each kernel (K1's two passes apart) by name in a profiler trace
+# (K3 by its prefix: its tables pass and its walk, then the tables alone)
 KERNEL_NAMES = {"k1_mask": "nms_mask_kernel", "k1_reduce": "nms_reduce_kernel",
-                "k2": "roi_align_fwd_kernel", "k3": "roi_align_bwd_kernel"}
+                "k2": "roi_align_fwd_kernel", "k3": "roi_align_bwd",
+                "k3_tables": "roi_align_bwd_tables_kernel"}
 
 
 def log(msg: str) -> None:
@@ -439,19 +446,25 @@ def phase_k2(dev) -> dict:
 
 # ---- phase 4: K3 -----------------------------------------------------------
 
-def phase_k3(dev) -> dict:
-    import numpy as np
+def k3_grad(n: int, r: int, seed: int, dev, c: int = 1024, size=(14, 14)):
+    """A standard-normal pooled gradient (n, r, ph, pw, c), fp32, drawn on
+    the card from a seed."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, r) + tuple(size) + (c,), generator=gen,
+                       device=dev)
+
+
+def check_k3(label: str, g, rois, hw, g16=None, sr: int = 2):
+    """K3 against its plain version in fp32 and in bf16, two launches
+    bit-equal in each; returns the two max errors."""
     import torch
 
     from mx_rcnn_tpu_torch.ops.roi_pool import (roi_align_bwd_cuda,
                                                 roi_align_bwd_plain)
 
-    n, r, size, sr = 2, TRAIN_ROIS, (14, 14), 2
-    feat, rois = roi_inputs(n, r, seed=30, dev=dev)
-    hw = tuple(feat.shape[1:3])
-    rng = np.random.RandomState(31)
-    g = torch.tensor(rng.standard_normal((n, r) + size + (feat.shape[-1],)),
-                     dtype=torch.float32, device=dev)
+    n, r = rois.shape[:2]
     got = roi_align_bwd_cuda(g, rois, hw, 1 / 16, sr)
     torch.cuda.synchronize()
     want = roi_align_bwd_plain(g, rois, hw, 1 / 16, sr)
@@ -460,16 +473,17 @@ def phase_k3(dev) -> dict:
     excess32 = float(((got - want).abs() - (1e-4 + 1e-5 * want.abs())).max())
     err32 = float((got - want).abs().max())
     same32 = torch.equal(got, roi_align_bwd_cuda(g, rois, hw, 1 / 16, sr))
-    log(f"K3 fp32: N={n} R={r} {hw} max|err|={err32:.3e} (max|ref| "
-        f"{float(want.abs().max()):.3g}; tolerance 1e-4 + 1e-5|ref|, "
-        f"worst excess {excess32:.3e}); two launches bit-equal: {same32}")
+    log(f"K3 {label} fp32: N={n} R={r} {hw} C={g.shape[-1]} sr={sr} "
+        f"max|err|={err32:.3e} (max|ref| {float(want.abs().max()):.3g}; "
+        f"tolerance 1e-4 + 1e-5|ref|, worst excess {excess32:.3e}); two "
+        f"launches bit-equal: {same32}")
     if excess32 > 0 or not same32:
-        raise AssertionError("K3 fp32 differs from the plain version or "
-                             "between two launches")
+        raise AssertionError(f"K3 {label} fp32 differs from the plain "
+                             f"version or between two launches")
     # bf16 g: the kernel reads bf16, sums in fp32 and rounds once, so it is
     # within half a bf16 ulp of the fp32 sum of the same bf16 values, plus
     # the fp32 tolerance for the order of summation
-    g16 = g.to(torch.bfloat16)
+    g16 = g.to(torch.bfloat16) if g16 is None else g16
     got16 = roi_align_bwd_cuda(g16, rois, hw, 1 / 16, sr)
     torch.cuda.synchronize()
     ref16 = roi_align_bwd_plain(g16.float(), rois, hw, 1 / 16, sr)
@@ -478,26 +492,77 @@ def phase_k3(dev) -> dict:
                      .max())
     err16 = float((got16.float() - ref16).abs().max())
     same16 = torch.equal(got16, roi_align_bwd_cuda(g16, rois, hw, 1 / 16, sr))
-    log(f"K3 bf16: max|err|={err16:.3e}, worst excess over 2^-8|ref| + "
-        f"1e-4 + 1e-5|ref| = {excess16:.3e}; two launches bit-equal: "
-        f"{same16}")
+    log(f"K3 {label} bf16: max|err|={err16:.3e}, worst excess over "
+        f"2^-8|ref| + 1e-4 + 1e-5|ref| = {excess16:.3e}; two launches "
+        f"bit-equal: {same16}")
     if excess16 > 0 or not same16:
-        raise AssertionError("K3 bf16 beyond half a bf16 ulp of the fp32 "
-                             "plain version, or not deterministic")
+        raise AssertionError(f"K3 {label} bf16 beyond half a bf16 ulp of the "
+                             f"fp32 plain version, or not deterministic")
+    return err32, err16
+
+
+def time_k3(label: str, g, rois, hw, err: float, sr: int = 2) -> dict:
+    """K3's time (CUDA events over 50 launches; its device time, tables
+    pass included, and the tables pass alone from a profiler trace), the
+    plain version's time and the bound."""
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.roi_pool import (roi_align_bwd_cuda,
+                                                roi_align_bwd_plain)
+
+    n = g.shape[0]
+    ms = time_ms(lambda: roi_align_bwd_cuda(g, rois, hw, 1 / 16, sr), 50)
+    device = device_profile(lambda: roi_align_bwd_cuda(g, rois, hw, 1 / 16,
+                                                       sr),
+                            20)["kernel_ms_per_iter"]
+    plain_ms = time_ms(lambda: roi_align_bwd_plain(g, rois, hw, 1 / 16, sr),
+                       5)
+    nbytes = ((g.numel() + n * hw[0] * hw[1] * g.shape[-1])
+              * g.element_size() + rois.numel() * 4)
+    bound_ms, bound_by = bound(nbytes, g.numel() * sr * sr * ROI_SAMPLE_OPS)
+    log(f"K3 {label} {'bf16' if g.dtype == torch.bfloat16 else 'fp32'}: "
+        f"{ms:.4f} ms ({device['k3']:.4f} ms in the profiler, tables pass "
+        f"{device['k3_tables']:.4f} ms), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=list(g.shape), ms=ms, device_ms=device["k3"],
+                tables_ms=device["k3_tables"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
+def phase_k3(dev) -> dict:
+    import torch
+
+    from mx_rcnn_tpu_torch.kernels import ROI_ALIGN_BWD
+
+    hw = (BUCKET[0] // 16, BUCKET[1] // 16)
     res = {}
-    for tag, gg in (("bf16", g16), ("fp32", g)):
-        ms = time_ms(lambda: roi_align_bwd_cuda(gg, rois, hw, 1 / 16, sr), 50)
-        plain_ms = time_ms(lambda: roi_align_bwd_plain(gg, rois, hw, 1 / 16,
-                                                       sr), 5)
-        nbytes = ((gg.numel() + n * hw[0] * hw[1] * gg.shape[-1])
-                  * gg.element_size() + rois.numel() * 4)
-        bound_ms, bound_by = bound(nbytes, gg.numel() * sr * sr
-                                   * ROI_SAMPLE_OPS)
-        res[tag] = dict(shape=list(gg.shape), ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        max_abs_err=err16 if tag == "bf16" else err32)
-        log(f"K3 {tag}: {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+    # the training shape on random rois (0-500 px a side) and small ones
+    # (16-64 px), timed
+    for name, seed, wh in (("train", 30, (0, 500)),
+                           ("train_small", 23, (16, 64))):
+        _, rois = roi_inputs(2, TRAIN_ROIS, seed, dev, wh)
+        g = k3_grad(2, TRAIN_ROIS, seed + 1, dev)
+        err32, err16 = check_k3(name, g, rois, hw)
+        res[name] = {tag: time_k3(name, gg, rois, hw, err)
+                     for tag, gg, err in (("bf16", g.to(torch.bfloat16),
+                                           err16), ("fp32", g, err32))}
+    # edge cases, checked only
+    for label, where in (("rois covering the whole map", "whole map"),
+                         ("rois wholly outside the map", "outside")):
+        check_k3(label, k3_grad(2, 16, 35, dev),
+                 placed_rois(2, 16, 36, dev, where), hw)
+    check_k3("R=1", k3_grad(2, 1, 37, dev), roi_inputs(2, 1, 26, dev)[1], hw)
+    check_k3("C=1021 (one channel per thread)", k3_grad(2, 64, 38, dev, 1021),
+             roi_inputs(2, 64, 27, dev)[1], hw)
+    g = k3_grad(2, 64, 39, dev)
+    check_k3("a base pointer off 16 B (one channel per thread)", misaligned(g),
+             roi_inputs(2, 64, 28, dev)[1], hw,
+             misaligned(g.to(torch.bfloat16)))
+    for sr in (1, 4):
+        check_k3(f"sr {sr}", k3_grad(2, TRAIN_ROIS, 40 + sr, dev),
+                 roi_inputs(2, TRAIN_ROIS, 30, dev)[1], hw, sr=sr)
+    if ROI_ALIGN_BWD.launches == 0:
+        raise AssertionError("K3 never launched")
     return res
 
 
@@ -925,7 +990,7 @@ def phase_training(dev, card: str) -> dict:
         log(f"training bf16 batch {batch}, per step: K1 on the step's "
             f"proposals, mask pass {ours['k1_mask']:.4f} ms, reduction "
             f"{ours['k1_reduce']:.4f} ms; K2 {ours['k2']:.4f} ms; K3 "
-            f"{ours['k3']:.4f} ms")
+            f"{ours['k3']:.4f} ms (tables pass {ours['k3_tables']:.4f} ms)")
     return runs
 
 
@@ -987,7 +1052,7 @@ def main() -> int:
                          launches["nms_sweep"]),
              kernel_line(kernels.ROI_ALIGN_FWD, k2["train"]["bf16"],
                          launches["roi_align_fwd"]),
-             kernel_line(kernels.ROI_ALIGN_BWD, k3["bf16"],
+             kernel_line(kernels.ROI_ALIGN_BWD, k3["train"]["bf16"],
                          launches["roi_align_bwd"])]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1, k2=k2, k3=k3,

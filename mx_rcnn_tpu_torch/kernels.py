@@ -130,8 +130,10 @@ ROI_ALIGN_FWD = CudaKernel(
 
 ROI_ALIGN_BWD = CudaKernel(
     "roi_align_bwd", "roi_align_bwd.cu", "roi_align_bwd_launch",
-    # g, rois, dfeat, is_bf16, n, r, h, w, c, ph, pw, sr, scale, stream
-    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # g, rois, dfeat, scratch, scratch bytes, is_bf16, n, r, h, w, c, ph,
+    # pw, sr, scale, stream
+    [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+     _F, _P],
     replaces="mx_rcnn_tpu/ops/roi_align_pallas.py:126")  # _bwd_kernel
 
 KERNELS: Tuple[CudaKernel, ...] = (NMS_SWEEP, ROI_ALIGN_FWD, ROI_ALIGN_BWD)

@@ -172,17 +172,28 @@ def roi_align_bwd_cuda(g: torch.Tensor, rois: torch.Tensor,
                          f"{tuple(rois.shape)}")
     n, r, ph, pw, c = g.shape
     h, w = feat_hw
-    if n > 65535 or h > 65535:
-        raise ValueError(f"{n} images x {h} rows exceed the kernel's grid")
+    if n > 65535 or h > 32767 or w > 32767:
+        raise ValueError(f"{n} images of {h} x {w} exceed the kernel's "
+                         f"limits")
     g = g.contiguous()
     rois = rois.to(torch.float32).contiguous()
     dfeat = torch.empty((n, h, w, c), dtype=g.dtype, device=g.device)
+    scratch = torch.empty(_bwd_scratch_bytes(n * r, ph, pw, sampling_ratio),
+                          dtype=torch.uint8, device=g.device)
     ROI_ALIGN_BWD.launch(
-        g.data_ptr(), rois.data_ptr(), dfeat.data_ptr(),
-        int(g.dtype == torch.bfloat16), n, r, h, w, c, ph, pw,
-        sampling_ratio, float(spatial_scale),
+        g.data_ptr(), rois.data_ptr(), dfeat.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), int(g.dtype == torch.bfloat16), n, r, h, w, c, ph,
+        pw, sampling_ratio, float(spatial_scale),
         torch.cuda.current_stream(g.device).cuda_stream)
     return dfeat
+
+
+def _bwd_scratch_bytes(rois: int, ph: int, pw: int, sampling_ratio: int
+                       ) -> int:
+    """K3's tables (``csrc/roi_align_bwd.cu — scratch_bytes``): per ROI and
+    bin of either axis, 2*sr (index, weight) pairs of 8 bytes and the bin's
+    first and last index in 4."""
+    return rois * (ph + pw) * (2 * sampling_ratio * 8 + 4)
 
 
 class _RoIAlignFunction(torch.autograd.Function):

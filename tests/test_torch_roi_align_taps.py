@@ -254,6 +254,30 @@ def test_axis_tap_same_in_forward_and_backward():
         _axis_tap_text("roi_align_bwd.cu")
 
 
+def _template_text(source: str, head: str) -> str:
+    """The definition in ``source`` that starts with ``template
+    <typename Index>`` and then the line ``head``, up to its closing
+    brace at the start of a line."""
+    text = (CSRC / source).read_text()
+    m = re.search(r"^template <typename Index>\n" + re.escape(head)
+                  + r".*?^}.*?\n", text, re.S | re.M)
+    assert m, f"{head!r} not found in {source}"
+    return m.group(0)
+
+
+@pytest.mark.parametrize("head", [
+    "struct WTap {",
+    "__device__ __forceinline__ void add_tap(",
+    "__device__ int merged_row(",
+], ids=["WTap", "add_tap", "merged_row"])
+def test_merged_row_same_in_forward_and_backward(head):
+    """K2 and K3 must agree on every weight: the merged taps (``WTap``,
+    ``add_tap`` and ``merged_row``, which K3's tables kernel calls) are
+    the same text in both sources."""
+    assert _template_text("roi_align_fwd.cu", head) == \
+        _template_text("roi_align_bwd.cu", head)
+
+
 def test_loads_per_output_at_the_smoke_shapes():
     """At the ROI sizes of the main paths (16-512 px on a side at stride
     16, 14 x 14 bins, sr 2) a bin has at most 16 distinct taps and on
