@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detection forward and training step on one
-NVIDIA card.
+"""Drive the PyTorch port's detection forward, training step, checkpoints
+and evaluation on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -49,21 +49,38 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    375x500 images at batch 1 and 2 -- the second main path -- then
    ms/step, images/s, per-stage CUDA-event times, the device busy share,
    K1's two passes, K2 and K3 on the step's own inputs (profiler) and peak
-   memory of the step at each batch size.
+   memory of the step at each batch size;
+9. checkpoints and eval, the third main path: a ResNet-101 train state
+   (random bf16 trace, count 3) through ``save_checkpoint``, then
+   ``load_param`` and ``restore_state`` into another, every tensor
+   bit-equal (file size, write and read times); ``pred_eval`` in fp32
+   (TF32 off) from that checkpoint over 8 synthetic 375x500 images at
+   batch 2, through K1/K2 and through their plain versions: equal counts
+   per (class, image), boxes and scores close, equal APs; then in bf16
+   through the command lines, ``tools/train.py --prefix .. --end_epoch 1``
+   and ``tools/test.py --prefix .. --epoch 1 --synthetic 16`` (K1 2 and K2
+   1 launches per eval batch, K3 none), the eval's images/s, device time
+   per image and K1's and K2's time per eval batch (profiler); last,
+   ``--resume`` for a second epoch, whose checkpoint must equal, byte for
+   byte, that of two epochs without a break.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
 before the last are the card's name and power limit and one
 ``{"kernels": [...]}`` JSON object (launches from the training path, times
 at the training shapes); the last line is ``{"ok": true, "device":
-{...}}``.  Longer records (build logs, the full results, the two CLIs'
-output) go to ``chiprun_out/chip_smoke/``.
+{...}}``.  Longer records (build logs, the full results, the CLIs'
+output) go to ``chiprun_out/chip_smoke/``; phase 9's checkpoints go to
+the ignored ``_chip/`` directory and are removed at its end.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -71,6 +88,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out" / "chip_smoke"
+WORK_DIR = REPO / "_chip" / "chip_smoke"      # phase 9's checkpoints
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 outside the tensor
 # cores.  Both kernels do fp32 arithmetic on CUDA cores.
@@ -821,8 +839,8 @@ def synthetic_train_batches(cfg, batch: int, count: int):
     """The training CLI's data: seeded synthetic 375x500 images through
     the loader, as numpy batches."""
     from mx_rcnn_tpu_torch.data.loader import AnchorLoader
-    from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
-    from mx_rcnn_tpu_torch.tools.train import VOC_IMAGE_SIZE
+    from mx_rcnn_tpu_torch.data.synthetic import (VOC_IMAGE_SIZE,
+                                                  SyntheticDataset)
 
     ds = SyntheticDataset(cfg.dataset.image_set, batch * count,
                           cfg.num_classes, VOC_IMAGE_SIZE)
@@ -994,6 +1012,315 @@ def phase_training(dev, card: str) -> dict:
     return runs
 
 
+# ---- phase 9: checkpoints and eval, the third main path --------------------
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
+def checkpoint_round_trip(dev, work: Path) -> dict:
+    """A ResNet-101 train state with a random bf16 trace and count 3
+    through save_checkpoint, load_param and restore_state into a state
+    built from another seed: every tensor bit-equal."""
+    import importlib.util
+    import os
+
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core import train
+    from mx_rcnn_tpu_torch.utils.bridge import to_flax
+    from mx_rcnn_tpu_torch.utils.checkpoint import (config_fingerprint,
+                                                    load_param,
+                                                    restore_state,
+                                                    save_checkpoint)
+
+    # importlib only looks: the port never imports msgpack
+    has_msgpack = importlib.util.find_spec("msgpack") is not None
+    cfg = generate_config("resnet101", "PascalVOC")
+    state = train.setup_training(cfg, dev, seed=7)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        for t in state.optimizer.trace.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    state.optimizer.count = 3
+    prefix = str(work / "roundtrip")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(prefix, 1, state, steps_per_epoch=4,
+                           config_fp=config_fingerprint(cfg))
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    params, stats = load_param(prefix, 1)
+    other = train.setup_training(cfg, dev, seed=9)
+    t1 = time.perf_counter()
+    restore_state(other, prefix, 1)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t1
+    load_param_s = t1 - t0
+    want, got = state.model.state_dict(), other.model.state_dict()
+    bad = [k for k in want if not _same_bits(want[k], got[k])]
+    bad += [f"trace {k}" for k, t in state.optimizer.trace.items()
+            if not _same_bits(t, other.optimizer.trace[k])]
+    flat = to_flax(want)
+    bad += [k for k in ("params", "batch_stats")
+            if sorted(_flax_paths(flat[k])) != sorted(_flax_paths(
+                params if k == "params" else stats))]
+    if other.step != 3 or other.optimizer.count != 3:
+        bad.append(f"step {other.step}")
+    log(f"checkpoint round trip, ResNet-101 with a bf16 trace: {size} "
+        f"bytes, write {write_s:.3f} s (save_checkpoint: device to host, "
+        f"msgpack, fsync, manifest), read {read_s:.3f} s (restore_state: "
+        f"sha256, msgpack, host to device), load_param {load_param_s:.3f} s "
+        f"(with a model build); {len(want)} tensors and "
+        f"{len(state.optimizer.trace)} traces, mismatches {len(bad)}; the "
+        f"msgpack package is {'present' if has_msgpack else 'absent'} on "
+        f"this machine (the port's own codec is used either way)")
+    if bad:
+        raise AssertionError(f"checkpoint round trip differs: {bad[:5]}")
+    return dict(bytes=size, write_s=write_s, read_s=read_s,
+                load_param_s=load_param_s, tensors=len(want),
+                traces=len(state.optimizer.trace), msgpack_present=has_msgpack,
+                prefix=prefix)
+
+
+def _flax_paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flax_paths(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,))
+
+
+def eval_parity(dev, prefix: str, work: Path) -> dict:
+    """pred_eval in fp32 (TF32 off) from the round-trip checkpoint over 8
+    synthetic 375x500 images at batch 2, through K1/K2 and through their
+    plain versions: equal counts per (class, image), boxes within 1e-2
+    px and scores within 1e-4 (K2 and the einsum pair sum in other
+    orders: phase 5's cls_prob tolerance), equal APs."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import TestLoader
+    from mx_rcnn_tpu_torch.utils.checkpoint import load_model
+
+    cfg = generate_config("resnet101", "PascalVOC",
+                          network__compute_dtype="float32",
+                          test__batch_images=2)
+    predictor = Predictor(load_model(cfg, prefix, 1, dev), cfg, dev)
+    imdb, roidb = load_gt_roidb(cfg, training=False, synthetic=8)
+
+    def run(tag):
+        return pred_eval(predictor, TestLoader(roidb, cfg, imdb.load_image),
+                         imdb, cfg, verbose=False,
+                         save_dets=str(work / f"{tag}.pkl"))
+
+    kernels.reset_launch_counts()
+    res_k = run("kernels")
+    launches = kernels.launch_counts()
+    with plain_versions():
+        res_p = run("plain")
+    dets = {}
+    for tag in ("kernels", "plain"):
+        with open(work / f"{tag}.pkl", "rb") as f:
+            dets[tag] = pickle.load(f)["all_boxes"]
+    count_diff, box_err, score_err, total = 0, 0.0, 0.0, 0
+    for ck, cp in zip(dets["kernels"], dets["plain"]):
+        for a, b in zip(ck, cp):
+            if a.shape != b.shape:
+                count_diff += 1
+                continue
+            total += len(a)
+            if len(a):
+                box_err = max(box_err, float(np.abs(a[:, :4] - b[:, :4]).max()))
+                score_err = max(score_err, float(np.abs(a[:, 4] - b[:, 4]).max()))
+    log(f"eval fp32 608x1024, 8 images at batch 2: {total} detections; "
+        f"(class, image) count mismatches {count_diff}, max|box diff| "
+        f"{box_err:.3e} px (tol 1e-2), max|score diff| {score_err:.3e} "
+        f"(tol 1e-4); mAP kernels {res_k['mAP']:.6f} plain "
+        f"{res_p['mAP']:.6f}; launches through the kernels {launches}")
+    if count_diff or box_err > 1e-2 or score_err > 1e-4 or res_k != res_p \
+            or total == 0:
+        raise AssertionError("the fp32 eval differs between the kernel and "
+                             "plain paths")
+    if launches != {"nms_sweep": 8, "roi_align_fwd": 4, "roi_align_bwd": 0}:
+        raise AssertionError(f"fp32 eval launches {launches}, expected K1 2 "
+                             f"and K2 1 per batch of the 4")
+    return dict(detections=total, count_mismatches=count_diff,
+                max_box_diff_px=box_err, max_score_diff=score_err,
+                map_kernels=res_k["mAP"], map_plain=res_p["mAP"],
+                aps_kernels=res_k, launches=launches)
+
+
+def _train_cli(argv, out: Path):
+    from mx_rcnn_tpu_torch.tools import train as train_cli
+
+    with open(out, "w") as f, contextlib.redirect_stdout(f):
+        return train_cli.main(argv)
+
+
+def _sha256(path) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def eval_cli(dev, work: Path, card: str) -> dict:
+    """The bf16 loop through the command lines: train one epoch with a
+    checkpoint, score it with tools/test.py (launch counts zeroed just
+    before, read just after), then time the eval path in-process."""
+    import math
+
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import TestLoader
+    from mx_rcnn_tpu_torch.tools import test as test_cli
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    load_model,
+                                                    read_manifest)
+
+    prefix = str(work / "e2e")
+    base = ["--network", "resnet101", "--dataset", "PascalVOC", "--synthetic",
+            "8", "--batch_images", "2", "--seed", "0", "--frequent", "1"]
+    t0 = time.perf_counter()
+    final = _train_cli(base + ["--prefix", prefix, "--end_epoch", "1"],
+                       OUT_DIR / "eval_train.txt")
+    train_s = time.perf_counter() - t0
+    manifest = read_manifest(checkpoint_path(prefix, 1))
+    if manifest is None or manifest["step"] != 4 or \
+            not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"train CLI: manifest {manifest}, final {final}")
+    log(f"train CLI, 1 epoch of 4 steps at batch 2 with a checkpoint: "
+        f"{train_s:.2f} s, final loss {final['loss']:.4f}, wrote "
+        f"{checkpoint_path(prefix, 1)} (step {manifest['step']})")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with open(OUT_DIR / "eval_test.txt", "w") as f, \
+            contextlib.redirect_stdout(f):
+        results = test_cli.main([
+            "--network", "resnet101", "--dataset", "PascalVOC", "--prefix",
+            prefix, "--epoch", "1", "--synthetic", "16",
+            "--set", "test__batch_images=2"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    text = (OUT_DIR / "eval_test.txt").read_text()
+    rate = re.search(r"pred_eval: 16 images in ([0-9.]+) s, ([0-9.]+) "
+                     r"images/s", text)
+    batches = 8
+    log(f"test CLI, 16 images at batch 2 ({batches} batches): mAP "
+        f"{results['mAP']:.4f} (random weights: printed, not gated), "
+        f"pred_eval {rate.group(2) if rate else '?'} images/s (first call, "
+        f"host rendering and resize included); launches {launches}")
+    if launches != {"nms_sweep": 2 * batches, "roi_align_fwd": batches,
+                    "roi_align_bwd": 0}:
+        raise AssertionError(f"the eval path's launches are wrong: "
+                             f"{launches}")
+
+    # the same path timed in-process: a warm pred_eval, then one under the
+    # host clock and one under the profiler
+    cfg = generate_config("resnet101", "PascalVOC", test__batch_images=2)
+    predictor = Predictor(load_model(cfg, prefix, 1, dev), cfg, dev)
+    imdb, roidb = load_gt_roidb(cfg, training=False, synthetic=16)
+
+    def run():
+        return pred_eval(predictor, TestLoader(roidb, cfg, imdb.load_image),
+                         imdb, cfg, verbose=False)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = device_profile(run, 1)
+    ours = prof["kernel_ms_per_iter"]
+    device_ms = prof["device_ms_per_iter"]
+    busy = busy_share(prof, wall * 1e3)
+    steady = dict(images_per_s=16 / wall, wall_ms_per_image=wall * 1e3 / 16,
+                  device_ms_per_image=device_ms / 16, busy_share=busy,
+                  k1_mask_ms_per_batch=ours["k1_mask"] / batches,
+                  k1_reduce_ms_per_batch=ours["k1_reduce"] / batches,
+                  k2_ms_per_batch=ours["k2"] / batches,
+                  device_ops_per_image=prof["kernels_per_iter"] / 16,
+                  top=prof["top"][:8])
+    log(f"eval bf16 on {card}, 16 images at batch 2, steady: "
+        f"{steady['images_per_s']:.2f} images/s (host rendering and resize "
+        f"included), device {steady['device_ms_per_image']:.3f} ms per "
+        f"image (profiler, busy share {busy or 'not measured'}); per eval "
+        f"batch K1 {steady['k1_mask_ms_per_batch']:.4f} + "
+        f"{steady['k1_reduce_ms_per_batch']:.4f} ms (mask pass + "
+        f"reduction, 2 launches), K2 {steady['k2_ms_per_batch']:.4f} ms")
+    return dict(prefix=prefix, base=base, train_s=train_s,
+                final_metrics=final, results=results, launches=launches,
+                cli_images_per_s=float(rate.group(2)) if rate else None,
+                steady=steady)
+
+
+def resume_check(prefix: str, base) -> dict:
+    """One more epoch with --resume after --end_epoch 1 against two
+    epochs without a break: the epoch-2 checkpoints must be equal byte
+    for byte (weights, trace, count; the epoch-1 files too, which says
+    whether the card repeats a run at all)."""
+    from mx_rcnn_tpu_torch.utils.checkpoint import checkpoint_path
+
+    t0 = time.perf_counter()
+    _train_cli(base + ["--prefix", prefix, "--end_epoch", "2", "--resume"],
+               OUT_DIR / "eval_resume.txt")
+    straight = prefix + "_straight"
+    _train_cli(base + ["--prefix", straight, "--end_epoch", "2"],
+               OUT_DIR / "eval_straight.txt")
+    wall = time.perf_counter() - t0
+    digests = {f"{tag} epoch {e}": _sha256(checkpoint_path(p, e))
+               for tag, p in (("resumed", prefix), ("straight", straight))
+               for e in (1, 2)}
+    same1 = digests["resumed epoch 1"] == digests["straight epoch 1"]
+    same2 = digests["resumed epoch 2"] == digests["straight epoch 2"]
+    log(f"resume: epoch 2 after --resume equals two epochs straight: "
+        f"{same2} (epoch 1 files equal: {same1}); {wall:.1f} s for both "
+        f"runs")
+    if not (same1 and same2):
+        raise AssertionError(f"resume is not bit-exact: {digests}")
+    return dict(equal_epoch1=same1, equal_epoch2=same2, wall_s=wall,
+                digests=digests)
+
+
+def phase_eval(dev, card: str) -> dict:
+    """Phase 9, with cuDNN's deterministic algorithms so that two runs of
+    one training give equal bits."""
+    import torch
+
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    WORK_DIR.mkdir(parents=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        rt = checkpoint_round_trip(dev, WORK_DIR)
+        parity = eval_parity(dev, rt.pop("prefix"), WORK_DIR)
+        loop = eval_cli(dev, WORK_DIR, card)
+        resume = resume_check(loop["prefix"], loop["base"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+    return dict(round_trip=rt, fp32_parity=parity, loop=loop, resume=resume)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -1043,6 +1370,7 @@ def main() -> int:
     train_parity = phase_train_parity(dev)
     serving = phase_serving(dev, card)
     training = phase_training(dev, card)
+    evaluation = phase_eval(dev, card)
 
     # no single PyTorch call computes any of the three functions (the
     # repo's bilinear rules are not torchvision's, which is absent), so
@@ -1057,7 +1385,7 @@ def main() -> int:
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1, k2=k2, k3=k3,
         forward_parity=parity, train_parity=train_parity, serving=serving,
-        training=training), indent=1))
+        training=training, evaluation=evaluation), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

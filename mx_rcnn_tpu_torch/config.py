@@ -3,7 +3,7 @@
 The port's own copy of the config fields and presets the detection
 forward reads, with the JAX package's key names and default values, so a
 config built here and one built by ``mx_rcnn_tpu.config`` agree on every
-field they share.  The training slice adds its fields.
+field they share.  The training and eval slices add their fields.
 Three-level precedence: hardcoded defaults < network/dataset presets <
 ``section__field`` overrides (the CLIs' ``--set``).
 """
@@ -58,8 +58,10 @@ class TrainConfig:
 class TestConfig:
     """Mirrors reference ``config.TEST``."""
 
+    batch_images: int = 1           # images per eval forward
     nms: float = 0.3                # per-class NMS threshold at eval
     score_thresh: float = 1e-3
+    max_per_image: int = 100        # detections kept per image, by score
     rpn_pre_nms_top_n: int = 6000
     rpn_post_nms_top_n: int = 300
     rpn_nms_thresh: float = 0.7
@@ -90,6 +92,9 @@ class NetworkConfig:
 class DatasetConfig:
     name: str = "PascalVOC"
     image_set: str = "2007_trainval"   # seeds the synthetic images
+    test_image_set: str = "2007_test"
+    root_path: str = "data"
+    dataset_path: str = "data/VOCdevkit"
     num_classes: int = 21
 
 
@@ -99,6 +104,7 @@ class DefaultConfig:
     optimizer constants (SGD, momentum 0.9, wd 5e-4, elementwise clip 5)."""
 
     frequent: int = 20            # log period, steps
+    e2e_epoch: int = 10           # the training CLI's default end epoch
     e2e_lr: float = 0.001
     e2e_lr_step: str = "7"        # epochs at which lr drops by lr_factor
     lr_factor: float = 0.1
@@ -151,12 +157,21 @@ _NETWORKS: Mapping[str, Mapping[str, Any]] = {
 
 _DATASETS: Mapping[str, Mapping[str, Any]] = {
     "PascalVOC": dict(name="PascalVOC", image_set="2007_trainval",
-                      num_classes=21),
-    "coco": dict(name="coco", image_set="train2017", num_classes=81),
-    "synthetic": dict(name="synthetic", image_set="train", num_classes=4),
+                      test_image_set="2007_test",
+                      dataset_path="data/VOCdevkit", num_classes=21),
+    "coco": dict(name="coco", image_set="train2017",
+                 test_image_set="val2017", dataset_path="data/coco",
+                 num_classes=81),
+    "synthetic": dict(name="synthetic", image_set="train",
+                      test_image_set="test", dataset_path="data/synthetic",
+                      num_classes=4),
     "synthetic_hard": dict(name="synthetic_hard", image_set="train",
+                           test_image_set="test",
+                           dataset_path="data/synthetic_hard",
                            num_classes=9),
     "synthetic_stream": dict(name="synthetic_stream", image_set="train",
+                             test_image_set="test",
+                             dataset_path="data/synthetic_stream",
                              num_classes=81),
 }
 

@@ -1,16 +1,19 @@
-"""Prediction and the eval/serve postprocess.
+"""Prediction, the eval/serve postprocess and the evaluation loop.
 
 Counterpart of ``mx_rcnn_tpu/core/tester.py``: :class:`Predictor` (the
 test forward on a device), ``tiled_bbox_stats``, ``_decode_batch`` (which
 applies ``delta * std + mean`` at decode time — weights stay in
 normalised space), ``_postprocess_batch`` (per-class NMS over the
-flattened (N·C, R) batch, kernel K1 on the card) and
-``detections_from_keep``.
+flattened (N·C, R) batch, kernel K1 on the card),
+``detections_from_keep``, ``im_detect_batch`` and ``pred_eval`` (forward
+→ postprocess → ``max_per_image`` cap → ``imdb.evaluate_detections``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+import pickle
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -101,3 +104,73 @@ def detections_from_keep(boxes_b: np.ndarray, scores_b: np.ndarray,
                                 scores_b[j][keep, c, None]]
                                ).astype(np.float32)
     return out
+
+
+def im_detect_batch(rois, roi_valid, cls_prob, deltas, im_info, scales,
+                    cfg: Config) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """One forward batch (numpy or tensors) → per-image (boxes (R, 4C),
+    scores (R, C)) in raw-image coordinates, decoded on the device of
+    ``deltas``."""
+    deltas = torch.as_tensor(deltas)
+    dev = deltas.device
+    stds, means = tiled_bbox_stats(cfg, deltas.shape[-1] // 4, dev)
+    boxes_b, scores_b = (t.cpu().numpy() for t in _decode_batch(
+        *(torch.as_tensor(x, device=dev)
+          for x in (rois, roi_valid, cls_prob)), deltas,
+        torch.as_tensor(im_info, device=dev),
+        torch.as_tensor(scales, device=dev), stds, means))
+    return [(boxes_b[i], scores_b[i]) for i in range(len(boxes_b))]
+
+
+def pred_eval(predictor, test_loader, imdb, cfg: Config, verbose: bool = True,
+              save_dets: str = None) -> Dict[str, float]:
+    """The evaluation loop (ref ``pred_eval``): forward each batch of
+    ``test_loader``, per-class score threshold and NMS on the device of
+    the forward's outputs, cap each image at ``max_per_image`` detections
+    by score (ties at the cap are kept), then
+    ``imdb.evaluate_detections``.  ``predictor.raw(images, im_info)``
+    returns (rois, roi_valid, cls_prob, deltas) as tensors or numpy.
+
+    ``save_dets``: pickle ``{"all_boxes", "classes"}`` there first, for
+    ``tools/reeval.py`` of either package."""
+    num_classes = imdb.num_classes
+    num_images = len(test_loader.roidb)
+    all_boxes: List[List[np.ndarray]] = [
+        [np.zeros((0, 5), np.float32) for _ in range(num_images)]
+        for _ in range(num_classes)]
+    done = 0
+    for batch, indices, scales in test_loader:
+        rois, roi_valid, cls_prob, deltas = (
+            torch.as_tensor(t) for t in predictor.raw(batch.images,
+                                                      batch.im_info))
+        dev = rois.device
+        stds, means = tiled_bbox_stats(cfg, num_classes, dev)
+        with torch.inference_mode():
+            boxes_b, scores_b, keep_b = (t.cpu().numpy() for t in
+                                         _postprocess_batch(
+                rois, roi_valid, cls_prob, deltas,
+                torch.as_tensor(batch.im_info, device=dev),
+                torch.as_tensor(scales, device=dev), stds, means,
+                nms_thresh=cfg.test.nms, score_thresh=cfg.test.score_thresh))
+        for j, i in enumerate(indices):
+            dets = detections_from_keep(boxes_b, scores_b, keep_b, j)
+            for c, arr in dets.items():
+                all_boxes[c][i] = arr
+            if not dets:
+                continue
+            all_scores = np.concatenate([a[:, 4] for a in dets.values()])
+            if len(all_scores) > cfg.test.max_per_image:
+                thresh = np.sort(all_scores)[-cfg.test.max_per_image]
+                for c in range(1, num_classes):
+                    all_boxes[c][i] = all_boxes[c][i][
+                        all_boxes[c][i][:, 4] >= thresh]
+        done += len(indices)
+        if verbose:
+            print(f"eval: {done}/{num_images} images", flush=True)
+    if save_dets:
+        os.makedirs(os.path.dirname(save_dets) or ".", exist_ok=True)
+        with open(save_dets, "wb") as f:
+            pickle.dump({"all_boxes": all_boxes,
+                         "classes": list(imdb.classes)}, f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+    return imdb.evaluate_detections(all_boxes)

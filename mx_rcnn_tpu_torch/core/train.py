@@ -16,7 +16,10 @@ them.
 
 ``jax.random`` has no torch counterpart, so the subsampling takes its
 uniforms from ``draws(site, image, shape)``: by default the step's
-``torch.Generator``, in a test the JAX step's own uniforms.  Sites are
+``torch.Generator``, re-seeded at each step from (seed, step) as the JAX
+step folds ``state.step`` into its key, so a run resumed from a
+checkpoint draws what the unbroken run drew; in a test, the JAX step's
+own uniforms.  Sites are
 ``anchor_fg``/``anchor_bg`` (one uniform per anchor) and
 ``proposal_fg``/``proposal_bg`` (one per pooled candidate).
 
@@ -195,15 +198,22 @@ def loss_and_metrics(model: FasterRCNN, batch: Batch, cfg: Config,
 @dataclass
 class TrainState:
     """The model (fp32 master weights), its optimizer, and the generator
-    the step draws its uniforms from by default."""
+    the step draws its uniforms from by default, with the seed that
+    generator is re-seeded from at each step."""
 
     model: FasterRCNN
     optimizer: SGD
     generator: torch.Generator
+    seed: int = 0
 
     @property
     def step(self) -> int:
         return self.optimizer.count
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of step ``step`` of a run seeded ``seed``."""
+    return (seed % 2 ** 31) << 32 | (step % 2 ** 32)
 
 
 def init_state(model: FasterRCNN, cfg: Config, steps_per_epoch: int,
@@ -212,9 +222,9 @@ def init_state(model: FasterRCNN, cfg: Config, steps_per_epoch: int,
     ``optimizer_kw`` goes to :func:`make_optimizer` (``base_lr``,
     ``lr_step``, ``frozen_prefixes``)."""
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device)
     return TrainState(model, make_optimizer(cfg, model, steps_per_epoch,
-                                            **optimizer_kw), generator)
+                                            **optimizer_kw), generator, seed)
 
 
 def setup_training(cfg: Config, device="cuda", seed: int = 0,
@@ -237,9 +247,11 @@ def make_train_step(cfg: Config):
              ) -> Dict[str, torch.Tensor]:
         mark = stage_hook or (lambda name: None)
         state.optimizer.zero_grad()
-        total, metrics = loss_and_metrics(
-            state.model, batch, cfg,
-            draws or generator_draws(state.generator), stage_hook)
+        if draws is None:
+            state.generator.manual_seed(step_seed(state.seed, state.step))
+            draws = generator_draws(state.generator)
+        total, metrics = loss_and_metrics(state.model, batch, cfg, draws,
+                                          stage_hook)
         total.backward()
         mark("backward")
         state.optimizer.step()

@@ -1,16 +1,17 @@
-"""Training batches from an in-memory dataset.
+"""Training and eval batches from an in-memory dataset.
 
-Counterpart of ``mx_rcnn_tpu/data/loader.py — AnchorLoader`` with its
-batch plan and ``_make_batch`` semantics, and without the decode pool,
-cache, shards or streaming: each image is resized into its bucket, kept
-as raw uint8 (normalised on the device), and its gt boxes are scaled by
+Counterpart of ``mx_rcnn_tpu/data/loader.py — AnchorLoader`` and
+``TestLoader``, with their batch plans and ``_make_batch`` semantics, and
+without the decode pool, cache, shards or streaming: each image is
+resized into its bucket and kept as raw uint8 (normalised on the
+device); a training batch also carries the gt boxes scaled by
 ``im_scale`` and padded to ``max_gt_boxes``.  Batches hold numpy arrays;
 ``core/train.py — to_device`` moves them.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -18,6 +19,24 @@ from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.train import Batch
 from mx_rcnn_tpu_torch.data.image import (choose_bucket, compute_scale,
                                           fit_to_bucket, resize_keep_ratio)
+
+
+def _bucket_of(h: int, w: int, cfg: Config, buckets) -> Tuple[int, int]:
+    """The bucket of an (h, w) image after the reference resize."""
+    s = compute_scale(h, w, cfg.bucket.scale, cfg.bucket.max_size)
+    return choose_bucket(int(round(h * s)), int(round(w * s)), buckets)
+
+
+def _place(img: np.ndarray, cfg: Config, bucket, images: np.ndarray,
+           j: int) -> Tuple[int, int, float]:
+    """Resize ``img`` into ``bucket`` at row ``j`` of the uint8 canvas
+    ``images``; returns (h, w, im_scale)."""
+    img, im_scale = resize_keep_ratio(img, cfg.bucket.scale,
+                                      cfg.bucket.max_size)
+    img, im_scale = fit_to_bucket(img, im_scale, bucket)
+    h, w = img.shape[:2]
+    images[j, :h, :w] = img
+    return h, w, im_scale
 
 
 class AnchorLoader:
@@ -35,10 +54,7 @@ class AnchorLoader:
         self._epoch = 0
         b = cfg.bucket
         self.buckets = tuple(tuple(s) for s in b.shapes)
-        h, w = dataset.image_size
-        s = compute_scale(h, w, b.scale, b.max_size)
-        bucket = choose_bucket(int(round(h * s)), int(round(w * s)),
-                               self.buckets)
+        bucket = _bucket_of(*dataset.image_size, cfg, self.buckets)
         self._bucket_ids = [bucket] * dataset.num_images
 
     def __len__(self) -> int:
@@ -47,6 +63,11 @@ class AnchorLoader:
 
     def _indices_for(self, bucket) -> List[int]:
         return [i for i, b in enumerate(self._bucket_ids) if b == bucket]
+
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the next epoch's shuffle to ``epoch``: a run resumed at
+        epoch k replays the batches the unbroken run saw."""
+        self._epoch = epoch
 
     def plan(self) -> List[Tuple[Tuple[int, int], List[int]]]:
         """The next epoch's (bucket, image indices) batches, as the JAX
@@ -76,12 +97,8 @@ class AnchorLoader:
         gt_classes = np.zeros((n, g), np.int32)
         gt_valid = np.zeros((n, g), bool)
         for j, i in enumerate(indices):
-            img, im_scale = resize_keep_ratio(self.dataset.render(i),
-                                              cfg.bucket.scale,
-                                              cfg.bucket.max_size)
-            img, im_scale = fit_to_bucket(img, im_scale, bucket)
-            h, w = img.shape[:2]
-            images[j, :h, :w] = img
+            h, w, im_scale = _place(self.dataset.render(i), cfg, bucket,
+                                    images, j)
             im_info[j] = (h, w, im_scale)
             spec = self.dataset.specs[i]
             k = min(len(spec["boxes"]), g)
@@ -94,3 +111,52 @@ class AnchorLoader:
     def __iter__(self) -> Iterator[Batch]:
         for bucket, idx in self.plan():
             yield self.make_batch(idx, bucket)
+
+
+class TestLoader:
+    """Eval batches (ref ``TestLoader``): iterating yields ``(Batch,
+    indices, scales)`` with zero gt fields, ``indices`` the roidb
+    positions and ``scales`` each image's ``im_scale``, which maps its
+    detections back to raw image coordinates.  Images are grouped by
+    bucket in roidb order; each bucket's last batch may be short.
+    ``load_image(rec)`` gives a record's RGB uint8 pixels (``IMDB.
+    load_image``)."""
+
+    def __init__(self, roidb: Sequence[Dict], cfg: Config,
+                 load_image: Callable[[Dict], np.ndarray],
+                 batch_images: int = None):
+        self.roidb = list(roidb)
+        self.cfg = cfg
+        self.load_image = load_image
+        self.batch_images = batch_images or cfg.test.batch_images
+        self.buckets = tuple(tuple(s) for s in cfg.bucket.shapes)
+        self._bucket_ids = [_bucket_of(rec["height"], rec["width"], cfg,
+                                       self.buckets) for rec in self.roidb]
+
+    def _plan(self) -> List[Tuple[Tuple[int, int], List[int]]]:
+        batches = []
+        for bucket in sorted(set(self._bucket_ids)):
+            idx = [i for i, b in enumerate(self._bucket_ids) if b == bucket]
+            for s in range(0, len(idx), self.batch_images):
+                batches.append((bucket, idx[s:s + self.batch_images]))
+        return batches
+
+    def __len__(self) -> int:
+        return len(self._plan())
+
+    def make_batch(self, chunk: Sequence[int], bucket
+                   ) -> Tuple[Batch, List[int], np.ndarray]:
+        n = len(chunk)
+        g = self.cfg.train.max_gt_boxes
+        images = np.zeros((n, bucket[0], bucket[1], 3), np.uint8)
+        im_info = np.zeros((n, 3), np.float32)
+        for j, i in enumerate(chunk):
+            im_info[j] = _place(self.load_image(self.roidb[i]), self.cfg,
+                                bucket, images, j)
+        batch = Batch(images, im_info, np.zeros((n, g, 4), np.float32),
+                      np.zeros((n, g), np.int32), np.zeros((n, g), bool))
+        return batch, list(chunk), im_info[:, 2].copy()
+
+    def __iter__(self):
+        for bucket, chunk in self._plan():
+            yield self.make_batch(chunk, bucket)

@@ -1,18 +1,31 @@
 """Synthetic detection images: coloured rectangles on a noise background.
 
 Counterpart of ``mx_rcnn_tpu/data/synthetic.py — SyntheticDataset``,
-rendered in memory (no PNG cache).  The specs come from the same
-``RandomState`` sequence, seeded from ``crc32(image_set)``, so the two
-packages generate the same boxes, classes and pixels.  Class k fills its
-rectangles with a class-specific colour, which makes the task learnable.
+an :class:`IMDB` rendered in memory (no PNG cache).  The specs come from
+the same ``RandomState`` sequence, seeded from ``crc32(image_set)``, so
+the two packages generate the same boxes, classes and pixels, and score
+detections with the same VOC07 evaluator.  Class k fills its rectangles
+with a class-specific colour, which makes the task learnable.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from mx_rcnn_tpu_torch.data.roidb import IMDB, Roidb
+from mx_rcnn_tpu_torch.data.voc_eval import voc_eval
+
+VOC_IMAGE_SIZE = (375, 500)
+
+
+def default_image_size(dataset: str) -> Tuple[int, int]:
+    """(h, w) of the synthetic stand-in images for a dataset preset: the
+    synthetic sets' own canvas, else VOC's typical 375x500."""
+    return (320, 400) if dataset.startswith("synthetic") else VOC_IMAGE_SIZE
 
 
 def _class_color(c: int) -> np.ndarray:
@@ -28,24 +41,28 @@ def _iou(a, b) -> float:
     return inter / (area(a) + area(b) - inter)
 
 
-class SyntheticDataset:
+class SyntheticDataset(IMDB):
     """``num_images`` deterministic images of ``image_size`` (h, w), each
     with 1..max_objects low-overlap rectangles of classes 1..C-1."""
 
     def __init__(self, image_set: str = "train",
                  num_images: Optional[int] = None, num_classes: int = 4,
                  image_size: Tuple[int, int] = (320, 400),
-                 max_objects: int = 3):
+                 max_objects: int = 3, root_path: str = "data",
+                 dataset_path: Optional[str] = None):
         if num_images is None:
             num_images = 64 if "train" in image_set else 16
-        self.image_set = image_set
+        super().__init__("synthetic", image_set, root_path,
+                         dataset_path or os.path.join(root_path, "synthetic"))
+        self.classes = ["__background__"] + [
+            f"class{i}" for i in range(1, num_classes)]
         self.num_images = num_images
-        self.num_classes = num_classes
         self.image_size = tuple(image_size)
         self.max_objects = max_objects
         self._rng = np.random.RandomState(
             zlib.crc32(image_set.encode()) % (2 ** 31))
         self.specs = self._make_specs()
+        self.image_index = list(range(num_images))
 
     def _make_specs(self) -> List[Dict]:
         h, w = self.image_size
@@ -83,3 +100,31 @@ class SyntheticDataset:
             x1, y1, x2, y2 = box.astype(int)
             img[y1:y2 + 1, x1:x2 + 1] = _class_color(int(cls))
         return img
+
+    def gt_roidb(self) -> Roidb:
+        h, w = self.image_size
+        return [dict(image=f"{self.image_set}_{i:05d}", index=i, height=h,
+                     width=w, boxes=spec["boxes"].copy(),
+                     gt_classes=spec["gt_classes"].copy(), flipped=False)
+                for i, spec in enumerate(self.specs)]
+
+    def load_image(self, rec: Dict) -> np.ndarray:
+        return self.render(rec["index"])
+
+    def evaluate_detections(self, all_boxes) -> Dict[str, float]:
+        """VOC07 AP of each class that has a gt box, and their mean."""
+        gt = {i: dict(boxes=spec["boxes"], gt_classes=spec["gt_classes"],
+                      difficult=np.zeros(len(spec["boxes"]), bool))
+              for i, spec in enumerate(self.specs)}
+        aps = []
+        results = {}
+        for c in range(1, self.num_classes):
+            if not any((g["gt_classes"] == c).any() for g in gt.values()):
+                continue
+            dets = {i: np.asarray(all_boxes[c][i]).reshape(-1, 5)
+                    for i in range(self.num_images)}
+            ap = voc_eval(dets, gt, c, ovthresh=0.5, use_07_metric=True)
+            results[self.classes[c]] = ap
+            aps.append(ap)
+        results["mAP"] = float(np.mean(aps)) if aps else 0.0
+        return results

@@ -3,7 +3,7 @@
 Counterpart of ``mx_rcnn_tpu/tools/demo.py`` without the drawing: resize →
 bucket → batched test forward → decode + per-class NMS, printing each
 image's detections above ``--vis_thresh``.  Weights are random, made from
-``--seed`` (the checkpoint reader is not ported yet).
+``--seed``; ``tools/test.py`` scores a checkpoint.
 
     python -m mx_rcnn_tpu_torch.tools.demo --synthetic 4            # card
     python -m mx_rcnn_tpu_torch.tools.demo --device cpu --network tiny \\

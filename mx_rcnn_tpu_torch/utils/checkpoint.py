@@ -1,0 +1,202 @@
+"""Checkpoints in the JAX package's file layout.
+
+Counterpart of ``mx_rcnn_tpu/utils/checkpoint.py``: one file per epoch,
+``prefix-%04d.ckpt``, holding flax's msgpack of the whole train state
+``{step, params, batch_stats, opt_state}`` (``utils/bridge.py —
+train_state_to_flax`` gives its layout), written through a durable
+atomic rename, then a ``.manifest.json`` sidecar with the payload's
+sha256 and byte count, written last as the commit point.  Either
+package reads the other's files.  The msgpack is the port's own
+(``utils/flax_msgpack.py``): no msgpack package is needed.
+
+Weights stay in normalised bbox space (the predictor de-normalises at
+decode time), so a checkpoint is both the eval format and the resume
+format, and resuming from one is exact.
+
+A reader checks the payload against the manifest when one is present and
+refuses a mismatch.  The manifest's ``config_fingerprint`` hashes the
+port's own config; it is recorded, never compared with a JAX
+fingerprint, since the two configs have different fields.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import threading
+from typing import Any, Dict, Optional, Tuple
+
+from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+from mx_rcnn_tpu_torch.utils import flax_msgpack
+from mx_rcnn_tpu_torch.utils.bridge import (from_flax, load_train_state,
+                                            train_state_to_flax)
+
+
+def checkpoint_path(prefix: str, epoch: int) -> str:
+    """``prefix-%04d.ckpt``."""
+    return f"{prefix}-{epoch:04d}.ckpt"
+
+
+def manifest_path(path: str) -> str:
+    """The commit-point manifest beside a checkpoint file."""
+    return path + ".manifest.json"
+
+
+def _atomic_write(path: str, data: bytes) -> str:
+    """tmp → fsync(tmp) → replace → fsync(dir): a crash leaves the old
+    file or the new one whole, and the rename survives a host crash.  The
+    staging name is unique per process and thread; a failed write removes
+    it."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}-{threading.get_ident()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    dir_fd = os.open(d or ".", os.O_RDONLY)
+    try:
+        os.fsync(dir_fd)
+    finally:
+        os.close(dir_fd)
+    return path
+
+
+_FINGERPRINT_SECTIONS = ("train", "network", "dataset", "default", "bucket")
+
+
+def config_fingerprint(cfg) -> str:
+    """sha256 prefix of the port config's training sections (their
+    dataclass reprs)."""
+    parts = "\n".join(repr(getattr(cfg, s)) for s in _FINGERPRINT_SECTIONS)
+    return hashlib.sha256(parts.encode()).hexdigest()[:16]
+
+
+def write_manifest(path: str, data: bytes, *, step: int,
+                   epoch: Optional[int] = None,
+                   steps_per_epoch: Optional[int] = None,
+                   config_fp: Optional[str] = None) -> str:
+    """Write the manifest of ``path`` whose payload is ``data`` (hashed
+    here, not re-read), as sorted-key JSON."""
+    manifest = {
+        "format": 1,
+        "kind": "epoch",
+        "step": int(step),
+        "epoch": epoch,
+        "steps_per_epoch": steps_per_epoch,
+        "config_fingerprint": config_fp,
+        "files": {os.path.basename(path): {
+            "sha256": hashlib.sha256(data).hexdigest(),
+            "bytes": len(data),
+        }},
+    }
+    return _atomic_write(manifest_path(path),
+                         json.dumps(manifest, indent=1,
+                                    sort_keys=True).encode())
+
+
+def read_manifest(path: str) -> Optional[Dict[str, Any]]:
+    """The parsed manifest of ``path``, or None if absent or unparseable."""
+    try:
+        with open(manifest_path(path), "rb") as f:
+            return json.loads(f.read().decode())
+    except (FileNotFoundError, ValueError, UnicodeDecodeError):
+        return None
+
+
+def _read_verified(path: str) -> bytes:
+    """The payload of ``path``, checked against its manifest's sha256 and
+    byte count when a manifest is present."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not os.path.exists(manifest_path(path)):
+        return data
+    manifest = read_manifest(path)
+    entry = (manifest or {}).get("files", {}).get(os.path.basename(path))
+    if entry is None:
+        raise ValueError(f"{manifest_path(path)} is unreadable or does not "
+                         f"name {os.path.basename(path)}")
+    digest = hashlib.sha256(data).hexdigest()
+    if entry.get("sha256") != digest or entry.get("bytes") != len(data):
+        raise ValueError(
+            f"{path} does not match its manifest: sha256 {digest}, "
+            f"{len(data)} bytes; the manifest says {entry.get('sha256')}, "
+            f"{entry.get('bytes')} bytes")
+    return data
+
+
+def save_checkpoint(prefix: str, epoch: int, state, *,
+                    steps_per_epoch: Optional[int] = None,
+                    config_fp: Optional[str] = None) -> str:
+    """Write the train state (``core/train.py — TrainState``) as
+    ``prefix-%04d.ckpt``, then its manifest; returns the path."""
+    path = checkpoint_path(prefix, epoch)
+    tree = train_state_to_flax(state.model, state.optimizer)
+    data = flax_msgpack.packb(tree)
+    _atomic_write(path, data)
+    write_manifest(path, data, step=int(tree["step"]),
+                   epoch=epoch, steps_per_epoch=steps_per_epoch,
+                   config_fp=config_fp)
+    return path
+
+
+def load_checkpoint(prefix: str, epoch: int) -> Dict[str, Any]:
+    """The raw tree of a checkpoint, checked against its manifest."""
+    return flax_msgpack.unpackb(_read_verified(checkpoint_path(prefix,
+                                                               epoch)))
+
+
+def restore_state(state, prefix: str, epoch: int):
+    """Write a checkpoint into ``state`` (a freshly built ``TrainState``
+    of the same model and optimizer) in place; returns it."""
+    load_train_state(load_checkpoint(prefix, epoch), state.model,
+                     state.optimizer)
+    return state
+
+
+def load_param(prefix: str, epoch: int) -> Tuple[Dict, Dict]:
+    """(params, batch_stats) flax trees of a checkpoint: the eval view
+    (``utils/bridge.py — from_flax`` takes them to a state_dict)."""
+    raw = load_checkpoint(prefix, epoch)
+    return raw["params"], raw.get("batch_stats", {})
+
+
+def load_model(cfg, prefix: str, epoch: int, device="cuda"):
+    """The test-mode model of ``cfg`` on ``device`` (CUDA unless the
+    caller asks for the CPU) with the weights of ``prefix``@``epoch``."""
+    params, batch_stats = load_param(prefix, epoch)
+    model = build_model(cfg, device)
+    model.load_state_dict(from_flax({"params": params,
+                                     "batch_stats": batch_stats}))
+    return model
+
+
+def list_checkpoints(prefix: str) -> Tuple[Tuple[int, str], ...]:
+    """Every epoch checkpoint under ``prefix`` as (epoch, path), by epoch."""
+    d = os.path.dirname(prefix) or "."
+    base = os.path.basename(prefix)
+    if not os.path.isdir(d):
+        return ()
+    found = []
+    for name in os.listdir(d):
+        if name.startswith(base + "-") and name.endswith(".ckpt"):
+            stem = name[len(base) + 1:-5]
+            if stem.isdigit():
+                found.append((int(stem), os.path.join(d, name)))
+    return tuple(sorted(found))
+
+
+def latest_checkpoint(prefix: str) -> Optional[Tuple[int, str]]:
+    """The highest-epoch checkpoint under ``prefix``, or None."""
+    found = list_checkpoints(prefix)
+    return found[-1] if found else None

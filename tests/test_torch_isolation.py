@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no CPU fallback.
 
 ``mx_rcnn_tpu_torch`` and ``chip_smoke.py`` import ``torch`` and never
-``jax``, ``flax`` or ``mx_rcnn_tpu`` (the port keeps its own copies of the
-jax-free modules it needs).  Its entry points run on the card unless the
+``jax``, ``flax``, ``msgpack`` or ``mx_rcnn_tpu`` (the port keeps its own
+copies of the jax-free modules it needs, and its own msgpack codec).  Its entry points run on the card unless the
 caller names the CPU, and no kernel wrapper catches an error to fall back
 to its plain version.
 """
@@ -17,7 +17,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "mx_rcnn_tpu_torch"
-_FORBIDDEN = ("jax", "jaxlib", "flax", "mx_rcnn_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "mx_rcnn_tpu")
 
 
 def _port_sources():
@@ -80,6 +80,7 @@ def test_entry_points_refuse_to_drop_to_the_cpu():
     from mx_rcnn_tpu_torch.core.tester import Predictor
     from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
     from mx_rcnn_tpu_torch.tools import demo
+    from mx_rcnn_tpu_torch.tools import test as test_tool
 
     cfg = generate_config("tiny", "PascalVOC")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -89,6 +90,13 @@ def test_entry_points_refuse_to_drop_to_the_cpu():
         Predictor(model, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         demo.main(["--synthetic", "1", "--network", "tiny"])
+    # the eval entry point refuses before it reads any checkpoint
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_tool.main(["--synthetic", "1", "--network", "tiny",
+                        "--prefix", "/nonexistent/e2e", "--epoch", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_tool.test_rcnn(cfg, prefix="/nonexistent/e2e", epoch=1,
+                            synthetic=1)
     assert Predictor(model, cfg, device="cpu").device.type == "cpu"
 
 
@@ -105,6 +113,10 @@ def test_training_entry_points_refuse_to_drop_to_the_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--synthetic", "2", "--network", "tiny", "--dataset",
                     "synthetic", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--synthetic", "2", "--network", "tiny", "--dataset",
+                    "synthetic", "--prefix", "/nonexistent/e2e",
+                    "--end_epoch", "1", "--resume"])
     state = setup_training(cfg, device="cpu")
     assert next(state.model.parameters()).device.type == "cpu"
     assert state.model.training and state.step == 0
