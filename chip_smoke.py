@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detection forward, training step, checkpoints
-and evaluation on one NVIDIA card.
+"""Drive the PyTorch port's detection forward, training step, checkpoints,
+evaluation and the alternate schedule on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -46,10 +46,10 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    times, the device busy share and K1's and K2's time per forward
    (profiler);
 8. training: ``tools/train.py``'s path in bf16 on 8 seeded synthetic
-   375x500 images at batch 1 and 2 -- the second main path -- then
-   ms/step, images/s, per-stage CUDA-event times, the device busy share,
-   K1's two passes, K2 and K3 on the step's own inputs (profiler) and peak
-   memory of the step at each batch size;
+   375x500 images and their flipped copies at batch 1 and 2 -- the second
+   main path -- then ms/step, images/s, per-stage CUDA-event times, the
+   device busy share, K1's two passes, K2 and K3 on the step's own inputs
+   (profiler) and peak memory of the step at each batch size;
 9. checkpoints and eval, the third main path: a ResNet-101 train state
    (random bf16 trace, count 3) through ``save_checkpoint``, then
    ``load_param`` and ``restore_state`` into another, every tensor
@@ -58,11 +58,27 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    batch 2, through K1/K2 and through their plain versions: equal counts
    per (class, image), boxes and scores close, equal APs; then in bf16
    through the command lines, ``tools/train.py --prefix .. --end_epoch 1``
-   and ``tools/test.py --prefix .. --epoch 1 --synthetic 16`` (K1 2 and K2
-   1 launches per eval batch, K3 none), the eval's images/s, device time
-   per image and K1's and K2's time per eval batch (profiler); last,
-   ``--resume`` for a second epoch, whose checkpoint must equal, byte for
-   byte, that of two epochs without a break.
+   (4 images and their flips, 4 steps) and ``tools/test.py --prefix ..
+   --epoch 1 --synthetic 16`` (K1 2 and K2 1 launches per eval batch, K3
+   none), the eval's images/s, device time per image and K1's and K2's
+   time per eval batch (profiler); last, ``--resume`` for a second epoch,
+   whose checkpoint must equal, byte for byte, that of two epochs without
+   a break;
+10. VGG16 and the alternate schedule, the fourth main path: K1 at the
+   proposal dumps' 20000 boxes, K2 at 2x128 and 2x300 rois and K3 at
+   2x128 on a 38x64x512 map with 7x7 bins against their plain versions
+   (fp32 and bf16, K3 bit-equal twice) and timed; in fp32, the VGG16 forward, the ``rpn`` and ``rcnn`` steps and
+   ``test_rcnn_stage`` through the kernels and the plain versions; then
+   ``tools/train_alternate.py`` in bf16 on 8 synthetic 375x500 images and
+   their flips at batch 2, one epoch a stage (train_rpn → proposals →
+   train_rcnn → train_rpn, shared convs frozen → proposals → train_rcnn,
+   shared convs frozen → combine), each stage's ms/step, device time per
+   step, busy share, peak memory and K1/K2/K3 launches, the five
+   checkpoints' sizes and write times, the shared convs bit-identical
+   across stages 3 and 4; ``tools/test.py`` on the combined model and
+   ``tools/test_rcnn.py`` on rcnn2 with rpn2's proposals (launches, then
+   images/s and device time per image); last, 6 end-to-end VGG16 steps
+   through ``tools/train.py --network vgg``.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -70,8 +86,9 @@ before the last are the card's name and power limit and one
 ``{"kernels": [...]}`` JSON object (launches from the training path, times
 at the training shapes); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
-output) go to ``chiprun_out/chip_smoke/``; phase 9's checkpoints go to
-the ignored ``_chip/`` directory and are removed at its end.
+output) go to ``chiprun_out/chip_smoke/``; phases 9 and 10 write their
+checkpoints under the ignored ``_chip/`` directory and remove them at
+their end.
 """
 
 from __future__ import annotations
@@ -606,7 +623,7 @@ def plain_versions():
          train.roi_align_batched) = saved
 
 
-def phase_forward_parity(dev) -> dict:
+def phase_forward_parity(dev, network: str = "resnet101") -> dict:
     import numpy as np
     import torch
 
@@ -616,7 +633,7 @@ def phase_forward_parity(dev) -> dict:
     from mx_rcnn_tpu_torch.tools import demo
 
     torch.backends.cudnn.deterministic = True
-    cfg = generate_config("resnet101", "PascalVOC",
+    cfg = generate_config(network, "PascalVOC",
                           network__compute_dtype="float32")
     predictor = Predictor(build_model(cfg, dev, seed=1), cfg, dev)
     canvases, info = [], []
@@ -631,7 +648,8 @@ def phase_forward_parity(dev) -> dict:
     names = ("rois", "roi_valid", "cls_prob", "bbox_deltas")
     errs = {k: float((g - w).abs().max()) for k, g, w in zip(names, got,
                                                              want)}
-    log(f"forward fp32 608x1024 batch 2: kernels vs plain max|diff| {errs}")
+    log(f"forward {network} fp32 608x1024 batch 2: kernels vs plain "
+        f"max|diff| {errs}")
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError("rois / roi_valid differ between the kernel "
                              "and plain paths")
@@ -807,65 +825,71 @@ def phase_serving(dev, card: str) -> dict:
 # ---- phase 6: fp32 train step, kernels against plain versions -------------
 
 @contextlib.contextmanager
-def captured_targets(into: list):
-    """Record every ``proposal_target`` result of the train step."""
+def captured_targets(into: list, name: str = "proposal_target"):
+    """Record every result of the train step's ``name`` (its
+    ``anchor_target`` or ``proposal_target``)."""
     import mx_rcnn_tpu_torch.core.train as train
 
-    original = train.proposal_target
+    original = getattr(train, name)
 
     def record(*args, **kw):
         out = original(*args, **kw)
         into.append(out)
         return out
 
-    train.proposal_target = record
+    setattr(train, name, record)
     try:
         yield
     finally:
-        train.proposal_target = original
+        setattr(train, name, original)
+
+
+DRAW_SITES = ("anchor_fg", "anchor_bg", "proposal_fg", "proposal_bg",
+              "dropout_fc6", "dropout_fc7")
 
 
 def fixed_draws(site: str, image: int, shape, dev):
-    """Uniforms that depend only on (site, image): both passes of the
+    """Uniforms that depend only on (site, image): both passes of a
     parity phase sample from the same draws."""
     import torch
 
-    sites = ("anchor_fg", "anchor_bg", "proposal_fg", "proposal_bg")
-    gen = torch.Generator().manual_seed(1000 * image + sites.index(site))
+    gen = torch.Generator().manual_seed(1000 * image + DRAW_SITES.index(site))
     return torch.rand(shape, generator=gen).to(dev)
 
 
-def synthetic_train_batches(cfg, batch: int, count: int):
+def synthetic_train_batches(cfg, batch: int, count: int, proposals=None):
     """The training CLI's data: seeded synthetic 375x500 images through
-    the loader, as numpy batches."""
-    from mx_rcnn_tpu_torch.data.loader import AnchorLoader
+    the loader (``proposals``: through ROIIter), as numpy batches."""
+    from mx_rcnn_tpu_torch.data.loader import AnchorLoader, ROIIter
     from mx_rcnn_tpu_torch.data.synthetic import (VOC_IMAGE_SIZE,
                                                   SyntheticDataset)
 
     ds = SyntheticDataset(cfg.dataset.image_set, batch * count,
                           cfg.num_classes, VOC_IMAGE_SIZE)
-    return list(AnchorLoader(ds, cfg, batch_images=batch, seed=0))
+    if proposals is None:
+        return list(AnchorLoader(ds.gt_roidb(), cfg, ds.load_image,
+                                 batch_images=batch, seed=0))
+    roidb = ds.gt_roidb()
+    return list(ROIIter(roidb, cfg, ds.load_image, proposals(roidb),
+                        batch_images=batch, seed=0))
 
 
-def phase_train_parity(dev) -> dict:
+def step_parity(label: str, model, loss_fn, batch, cfg, dev,
+                target: str) -> dict:
+    """One fp32 loss and backward of ``loss_fn`` from one set of weights
+    and draws, once through the kernels and once through the plain
+    versions: the sampled labels (and rois) of ``target`` equal, losses
+    within a relative 1e-4, each gradient's L2 difference within 1e-3 of
+    its norm."""
     import torch
 
-    from mx_rcnn_tpu_torch.config import generate_config
-    from mx_rcnn_tpu_torch.core import train
-
-    torch.backends.cudnn.deterministic = True
-    cfg = generate_config("resnet101", "PascalVOC",
-                          network__compute_dtype="float32")
-    state = train.setup_training(cfg, dev, seed=1)
-    model = state.model
-    batch = train.to_device(synthetic_train_batches(cfg, 2, 1)[0], dev)
     draws = lambda site, image, shape: fixed_draws(site, image, shape, dev)
 
     def run():
         targets = []
         model.zero_grad(set_to_none=True)
-        with captured_targets(targets):
-            total, metrics = train.loss_and_metrics(model, batch, cfg, draws)
+        with captured_targets(targets, target):
+            total, metrics = loss_fn(model, batch, cfg, draws)
         total.backward()
         torch.cuda.synchronize()
         grads = {n: p.grad.clone() for n, p in model.named_parameters()
@@ -873,14 +897,13 @@ def phase_train_parity(dev) -> dict:
         return (targets[0], {k: float(v.detach()) for k, v in metrics.items()},
                 grads)
 
-    pt_k, m_k, g_k = run()
+    torch.backends.cudnn.deterministic = True
+    t_k, m_k, g_k = run()
     with plain_versions():
-        pt_p, m_p, g_p = run()
+        t_p, m_p, g_p = run()
     torch.backends.cudnn.deterministic = False
-    if not (torch.equal(pt_k.rois, pt_p.rois)
-            and torch.equal(pt_k.labels, pt_p.labels)):
-        raise AssertionError("sampled rois / labels differ between the "
-                             "kernel and plain paths")
+    same = torch.equal(t_k.labels, t_p.labels) and (
+        not hasattr(t_k, "rois") or torch.equal(t_k.rois, t_p.rois))
     # losses: the two ROIAligns sum in other orders (~1e-6 relative), which
     # the head carries to the RCNN losses; the RPN losses do not depend on
     # them.  Gradients: per tensor, the L2 norm of the difference against
@@ -890,18 +913,35 @@ def phase_train_parity(dev) -> dict:
     grad_err = {n: float((g_k[n] - g_p[n]).norm()
                          / g_p[n].norm().clamp_min(1e-30)) for n in g_p}
     worst = max(grad_err, key=grad_err.get)
-    log(f"train step fp32 608x1024 batch 2: {len(g_p)} trainable tensors, "
-        f"sampled rois and labels equal ({int(pt_k.fg_mask.sum())} fg); "
-        f"loss {m_k['loss']:.6f} vs {m_p['loss']:.6f}; worst relative "
-        f"loss diff {max(loss_err.values()):.2e} (rtol 1e-4); worst "
-        f"gradient rel. L2 {grad_err[worst]:.2e} at {worst} (tol 1e-3)")
+    fg = int((t_k.labels > 0).sum())
+    log(f"{label}: {len(g_p)} tensors with a gradient, sampled labels "
+        f"equal: {same} ({fg} fg); loss {m_k['loss']:.6f} vs "
+        f"{m_p['loss']:.6f}; worst relative loss diff "
+        f"{max(loss_err.values()):.2e} (rtol 1e-4); worst gradient rel. L2 "
+        f"{grad_err[worst]:.2e} at {worst} (tol 1e-3)")
+    if not same:
+        raise AssertionError(f"{label}: sampled labels differ between the "
+                             f"kernel and plain paths")
     if g_k.keys() != g_p.keys() or max(loss_err.values()) > 1e-4 or \
             grad_err[worst] > 1e-3:
-        raise AssertionError("the train step's losses or gradients differ "
-                             "between the kernel and plain paths")
+        raise AssertionError(f"{label}: losses or gradients differ between "
+                             f"the kernel and plain paths")
     return dict(metrics_kernels=m_k, metrics_plain=m_p,
                 loss_rel_err=loss_err, worst_grad_rel_l2=grad_err[worst],
-                worst_grad_tensor=worst, num_fg=int(pt_k.fg_mask.sum()))
+                worst_grad_tensor=worst, num_fg=fg)
+
+
+def phase_train_parity(dev) -> dict:
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core import train
+
+    cfg = generate_config("resnet101", "PascalVOC",
+                          network__compute_dtype="float32")
+    state = train.setup_training(cfg, dev, seed=1)
+    batch = train.to_device(synthetic_train_batches(cfg, 2, 1)[0], dev)
+    return step_parity("train step fp32 608x1024 batch 2", state.model,
+                       train.loss_and_metrics, batch, cfg, dev,
+                       "proposal_target")
 
 
 # ---- phase 8: training, the second main path -------------------------------
@@ -1099,17 +1139,37 @@ def _flax_paths(tree, prefix=()):
             yield "/".join(prefix + (k,))
 
 
+def compare_dets(work: Path):
+    """The saved detections of the ``kernels`` and ``plain`` runs:
+    (class, image) cells whose counts differ, max |box diff|, max |score
+    diff| and the number of detections."""
+    import pickle
+
+    import numpy as np
+
+    dets = {}
+    for tag in ("kernels", "plain"):
+        with open(work / f"{tag}.pkl", "rb") as f:
+            dets[tag] = pickle.load(f)["all_boxes"]
+    count_diff, box_err, score_err, total = 0, 0.0, 0.0, 0
+    for ck, cp in zip(dets["kernels"], dets["plain"]):
+        for a, b in zip(ck, cp):
+            if a.shape != b.shape:
+                count_diff += 1
+                continue
+            total += len(a)
+            if len(a):
+                box_err = max(box_err, float(np.abs(a[:, :4] - b[:, :4]).max()))
+                score_err = max(score_err, float(np.abs(a[:, 4] - b[:, 4]).max()))
+    return count_diff, box_err, score_err, total
+
+
 def eval_parity(dev, prefix: str, work: Path) -> dict:
     """pred_eval in fp32 (TF32 off) from the round-trip checkpoint over 8
     synthetic 375x500 images at batch 2, through K1/K2 and through their
     plain versions: equal counts per (class, image), boxes within 1e-2
     px and scores within 1e-4 (K2 and the einsum pair sum in other
     orders: phase 5's cls_prob tolerance), equal APs."""
-    import pickle
-
-    import numpy as np
-    import torch
-
     from mx_rcnn_tpu_torch import kernels
     from mx_rcnn_tpu_torch.config import generate_config
     from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
@@ -1133,20 +1193,7 @@ def eval_parity(dev, prefix: str, work: Path) -> dict:
     launches = kernels.launch_counts()
     with plain_versions():
         res_p = run("plain")
-    dets = {}
-    for tag in ("kernels", "plain"):
-        with open(work / f"{tag}.pkl", "rb") as f:
-            dets[tag] = pickle.load(f)["all_boxes"]
-    count_diff, box_err, score_err, total = 0, 0.0, 0.0, 0
-    for ck, cp in zip(dets["kernels"], dets["plain"]):
-        for a, b in zip(ck, cp):
-            if a.shape != b.shape:
-                count_diff += 1
-                continue
-            total += len(a)
-            if len(a):
-                box_err = max(box_err, float(np.abs(a[:, :4] - b[:, :4]).max()))
-                score_err = max(score_err, float(np.abs(a[:, 4] - b[:, 4]).max()))
+    count_diff, box_err, score_err, total = compare_dets(work)
     log(f"eval fp32 608x1024, 8 images at batch 2: {total} detections; "
         f"(class, image) count mismatches {count_diff}, max|box diff| "
         f"{box_err:.3e} px (tol 1e-2), max|score diff| {score_err:.3e} "
@@ -1163,6 +1210,42 @@ def eval_parity(dev, prefix: str, work: Path) -> dict:
                 max_box_diff_px=box_err, max_score_diff=score_err,
                 map_kernels=res_k["mAP"], map_plain=res_p["mAP"],
                 aps_kernels=res_k, launches=launches)
+
+
+def steady_eval(run, images: int, batches: int, label: str,
+                k1_launches: int) -> dict:
+    """An eval loop ``run()`` timed warm: once to warm up, once under the
+    host clock, once under the profiler (device time per image, busy
+    share, K1's and K2's time per eval batch)."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = device_profile(run, 1)
+    ours = prof["kernel_ms_per_iter"]
+    busy = busy_share(prof, wall * 1e3)
+    steady = dict(images_per_s=images / wall,
+                  wall_ms_per_image=wall * 1e3 / images,
+                  device_ms_per_image=prof["device_ms_per_iter"] / images,
+                  busy_share=busy,
+                  k1_mask_ms_per_batch=ours["k1_mask"] / batches,
+                  k1_reduce_ms_per_batch=ours["k1_reduce"] / batches,
+                  k2_ms_per_batch=ours["k2"] / batches,
+                  device_ops_per_image=prof["kernels_per_iter"] / images,
+                  top=prof["top"][:8])
+    log(f"{label}, {images} images at batch {images // batches}, steady: "
+        f"{steady['images_per_s']:.2f} images/s (host rendering and resize "
+        f"included), device {steady['device_ms_per_image']:.3f} ms per "
+        f"image (profiler, busy share {busy or 'not measured'}); per eval "
+        f"batch K1 {steady['k1_mask_ms_per_batch']:.4f} + "
+        f"{steady['k1_reduce_ms_per_batch']:.4f} ms (mask pass + "
+        f"reduction, {k1_launches} launches), K2 "
+        f"{steady['k2_ms_per_batch']:.4f} ms")
+    return steady
 
 
 def _train_cli(argv, out: Path):
@@ -1196,8 +1279,9 @@ def eval_cli(dev, work: Path, card: str) -> dict:
                                                     read_manifest)
 
     prefix = str(work / "e2e")
+    # 4 images and their flipped copies: 4 steps an epoch at batch 2
     base = ["--network", "resnet101", "--dataset", "PascalVOC", "--synthetic",
-            "8", "--batch_images", "2", "--seed", "0", "--frequent", "1"]
+            "4", "--batch_images", "2", "--seed", "0", "--frequent", "1"]
     t0 = time.perf_counter()
     final = _train_cli(base + ["--prefix", prefix, "--end_epoch", "1"],
                        OUT_DIR / "eval_train.txt")
@@ -1233,40 +1317,14 @@ def eval_cli(dev, work: Path, card: str) -> dict:
         raise AssertionError(f"the eval path's launches are wrong: "
                              f"{launches}")
 
-    # the same path timed in-process: a warm pred_eval, then one under the
-    # host clock and one under the profiler
+    # the same path timed in-process
     cfg = generate_config("resnet101", "PascalVOC", test__batch_images=2)
     predictor = Predictor(load_model(cfg, prefix, 1, dev), cfg, dev)
     imdb, roidb = load_gt_roidb(cfg, training=False, synthetic=16)
-
-    def run():
-        return pred_eval(predictor, TestLoader(roidb, cfg, imdb.load_image),
-                         imdb, cfg, verbose=False)
-
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    prof = device_profile(run, 1)
-    ours = prof["kernel_ms_per_iter"]
-    device_ms = prof["device_ms_per_iter"]
-    busy = busy_share(prof, wall * 1e3)
-    steady = dict(images_per_s=16 / wall, wall_ms_per_image=wall * 1e3 / 16,
-                  device_ms_per_image=device_ms / 16, busy_share=busy,
-                  k1_mask_ms_per_batch=ours["k1_mask"] / batches,
-                  k1_reduce_ms_per_batch=ours["k1_reduce"] / batches,
-                  k2_ms_per_batch=ours["k2"] / batches,
-                  device_ops_per_image=prof["kernels_per_iter"] / 16,
-                  top=prof["top"][:8])
-    log(f"eval bf16 on {card}, 16 images at batch 2, steady: "
-        f"{steady['images_per_s']:.2f} images/s (host rendering and resize "
-        f"included), device {steady['device_ms_per_image']:.3f} ms per "
-        f"image (profiler, busy share {busy or 'not measured'}); per eval "
-        f"batch K1 {steady['k1_mask_ms_per_batch']:.4f} + "
-        f"{steady['k1_reduce_ms_per_batch']:.4f} ms (mask pass + "
-        f"reduction, 2 launches), K2 {steady['k2_ms_per_batch']:.4f} ms")
+    steady = steady_eval(
+        lambda: pred_eval(predictor, TestLoader(roidb, cfg, imdb.load_image),
+                          imdb, cfg, verbose=False),
+        16, batches, f"eval bf16 on {card}", k1_launches=2)
     return dict(prefix=prefix, base=base, train_s=train_s,
                 final_metrics=final, results=results, launches=launches,
                 cli_images_per_s=float(rate.group(2)) if rate else None,
@@ -1321,6 +1379,505 @@ def phase_eval(dev, card: str) -> dict:
     return dict(round_trip=rt, fp32_parity=parity, loop=loop, resume=resume)
 
 
+# ---- phase 10: VGG16 and the alternate schedule, the fourth main path -----
+
+VGG_BINS = (7, 7)          # the vgg preset's rcnn_pooled_size
+VGG_C = 512                # conv5_3's channels
+SCHEDULE_IMAGES = 8        # synthetic 375x500 images: 16 records with flips
+DUMP_PRE_NMS = 20000       # test__proposal_pre_nms_top_n
+DUMP_POST_NMS = 2000       # test__proposal_post_nms_top_n
+MIN_PROPOSALS = 100        # a dump's least mean proposals per image
+# the schedule's stage learning rate: from a seeded init, without
+# ImageNet weights, the reference's 0.001 makes the RCNN stages diverge
+# (losses to ~1e7 in 8 steps, rpn2 left with one proposal per image)
+SCHEDULE_LR = "1e-4"
+ALT_DIR = REPO / "_chip" / "alternate"   # the schedule's checkpoints
+
+
+def phase_vgg_kernels(dev) -> dict:
+    """K1 at the proposal dumps' shape (pre-NMS 20000, B=1 as the dumps
+    run and B=2 as ``test_rpn`` at batch 2 runs), against the plain sweep
+    and timed; K2 and K3 at VGG16's shapes (38x64x512 features, 7x7
+    bins): K2 at 2x128 rois (the RCNN stages' sampled rois), 2x300 (the
+    combined model's eval) and 2x2000 (``test_rcnn``: ROITestLoader pads
+    to test__proposal_post_nms_top_n slots), K3 at 2x128, each against
+    its plain version in fp32 and bf16 (K3 bit-equal over two launches),
+    then timed."""
+    import torch
+
+    hw = (BUCKET[0] // 16, BUCKET[1] // 16)
+    res = {}
+    for b, seed in ((1, 64), (2, 65)):
+        label = f"proposal dump B={b}"
+        boxes, _, alive, _, t = nms_inputs(b, DUMP_PRE_NMS, seed, dev)
+        check_k1(label, boxes, alive, t)
+        res[f"k1_dump_b{b}"] = time_k1(label, boxes, alive, t, 0.7)
+    for name, r, seed in (("rcnn", TRAIN_ROIS, 60), ("eval", 300, 61),
+                          ("test_rcnn", DUMP_POST_NMS, 66)):
+        label = f"VGG {name}"
+        feat, rois = roi_inputs(2, r, seed, dev, c=VGG_C)
+        err32, err16 = check_k2(label, feat, rois, size=VGG_BINS)
+        res[f"k2_{name}"] = {
+            tag: time_k2(label, f, rois, err, size=VGG_BINS)
+            for tag, f, err in (("bf16", feat.to(torch.bfloat16), err16),
+                                ("fp32", feat, err32))}
+    _, rois = roi_inputs(2, TRAIN_ROIS, 62, dev, c=VGG_C)
+    g = k3_grad(2, TRAIN_ROIS, 63, dev, c=VGG_C, size=VGG_BINS)
+    err32, err16 = check_k3("VGG rcnn", g, rois, hw)
+    res["k3_rcnn"] = {tag: time_k3("VGG rcnn", gg, rois, hw, err)
+                      for tag, gg, err in (("bf16", g.to(torch.bfloat16),
+                                            err16), ("fp32", g, err32))}
+    return res
+
+
+def jittered_proposals(roidb, seed: int, k: int = 300):
+    """Score-sorted raw-coordinate (k, 5) proposals per record: 8
+    jittered copies of each gt box (foreground for the sampler) and
+    random boxes of 16-300 px a side, clipped to the image."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for rec in roidb:
+        gt = (rec["boxes"][None] + rng.uniform(-8, 8, (8,) + rec["boxes"]
+                                               .shape)).reshape(-1, 4)
+        m = k - len(gt)
+        xy = rng.uniform(0, [rec["width"] - 16, rec["height"] - 16], (m, 2))
+        boxes = np.concatenate(
+            [gt, np.concatenate([xy, xy + rng.uniform(16, 300, (m, 2))], 1)])
+        boxes = np.clip(boxes, 0, [rec["width"] - 1, rec["height"] - 1] * 2)
+        scores = np.sort(rng.uniform(size=k))[::-1, None]
+        out.append(np.hstack([boxes, scores]).astype(np.float32))
+    return out
+
+
+def phase_vgg_parity(dev, work: Path) -> dict:
+    """fp32 (TF32 off) through the kernels and through the plain versions,
+    from one set of weights and draws: the VGG16 test forward, the ``rpn``
+    and ``rcnn`` steps (dropout uniforms included), and
+    ``test_rcnn_stage`` over 8 synthetic images at batch 2."""
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core import train
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.tools.test_rcnn import test_rcnn_stage
+    from mx_rcnn_tpu_torch.utils.checkpoint import save_params
+
+    forward = phase_forward_parity(dev, "vgg")
+    cfg = generate_config("vgg", "PascalVOC",
+                          network__compute_dtype="float32",
+                          test__batch_images=2)
+    model = train.setup_training(cfg, dev, seed=1).model
+    rpn = step_parity(
+        "VGG rpn step fp32 608x1024 batch 2", model,
+        train.loss_and_metrics_rpn,
+        train.to_device(synthetic_train_batches(cfg, 2, 1)[0], dev), cfg,
+        dev, "anchor_target")
+    rcnn_batch = synthetic_train_batches(
+        cfg, 2, 1, proposals=lambda roidb: jittered_proposals(roidb, 7))[0]
+    rcnn = step_parity(
+        "VGG rcnn step fp32 608x1024 batch 2, 2000 proposal slots", model,
+        train.loss_and_metrics_rcnn, train.to_device(rcnn_batch, dev), cfg,
+        dev, "proposal_target")
+
+    prefix = str(work / "vgg_fp32")
+    save_params(prefix, 1, model.state_dict())
+    _, roidb = load_gt_roidb(cfg, training=False, synthetic=8)
+    props = jittered_proposals(roidb, 8)
+
+    def run(tag):
+        with open(OUT_DIR / f"vgg_test_rcnn_{tag}.txt", "w") as f, \
+                contextlib.redirect_stdout(f):
+            return test_rcnn_stage(cfg, prefix=prefix, epoch=1,
+                                   proposals=props, verbose=False,
+                                   synthetic=8, device=dev,
+                                   save_dets=str(work / f"{tag}.pkl"))
+
+    torch.backends.cudnn.deterministic = True
+    kernels.reset_launch_counts()
+    res_k = run("kernels")
+    launches = kernels.launch_counts()
+    with plain_versions():
+        res_p = run("plain")
+    torch.backends.cudnn.deterministic = False
+    count_diff, box_err, score_err, total = compare_dets(work)
+    log(f"test_rcnn_stage fp32 VGG16, 8 images at batch 2 on 300 "
+        f"proposals each: {total} detections; (class, image) count "
+        f"mismatches {count_diff}, max|box diff| {box_err:.3e} px (tol "
+        f"1e-2), max|score diff| {score_err:.3e} (tol 1e-4); mAP kernels "
+        f"{res_k['mAP']:.6f} plain {res_p['mAP']:.6f}; launches through "
+        f"the kernels {launches}")
+    if count_diff or box_err > 1e-2 or score_err > 1e-4 or res_k != res_p \
+            or total == 0:
+        raise AssertionError("test_rcnn_stage differs between the kernel and "
+                             "plain paths")
+    # no RPN: K1 only in the postprocess, K2 once per batch
+    if launches != {"nms_sweep": 4, "roi_align_fwd": 4, "roi_align_bwd": 0}:
+        raise AssertionError(f"test_rcnn_stage launches {launches}, "
+                             f"expected K1 1 and K2 1 per batch of the 4")
+    return dict(forward=forward, rpn_step=rpn, rcnn_step=rcnn,
+                test_rcnn_stage=dict(
+                    detections=total, count_mismatches=count_diff,
+                    max_box_diff_px=box_err, max_score_diff=score_err,
+                    map_kernels=res_k["mAP"], map_plain=res_p["mAP"],
+                    launches=launches))
+
+
+@contextlib.contextmanager
+def instrumented_stages(stages: list, writes: list):
+    """Record, for each ``train_net`` and proposal dump that the
+    alternate schedule (or the training CLI) runs: its wall time, peak
+    device memory and launches of each kernel; for a training stage also
+    each step's wall time (synchronised) and the device time of its
+    second step (profiler); and each checkpoint's size and write time."""
+    import os
+
+    import torch
+
+    import mx_rcnn_tpu_torch.core.fit as fit_mod
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools import train as train_cli
+    from mx_rcnn_tpu_torch.tools import train_alternate
+
+    saved = dict(train_net=train_cli.train_net,
+                 make_train_step=train_cli.make_train_step,
+                 save_checkpoint=fit_mod.save_checkpoint,
+                 save_params=train_alternate.save_params,
+                 dump_proposals=train_alternate.dump_proposals)
+
+    def stage(kind, fn, name_of):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec = dict(kind=kind, name=os.path.basename(name_of(args, kw)),
+                       mode=kw.get("mode"), step_ms=[])
+            stages.append(rec)
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec.update(wall_s=time.perf_counter() - t0,
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       launches={k: v - before[k] for k, v in
+                                 kernels.launch_counts().items()})
+            if kind == "train":
+                rec["final_metrics"] = out[1]
+            else:
+                rec["mean_proposals"] = mean_proposals(out)
+            return out
+        return wrapper
+
+    def timed_make_train_step(cfg, mode="e2e"):
+        step = saved["make_train_step"](cfg, mode)
+        rec = stages[-1]
+
+        def timed(state, batch, draws=None, stage_hook=None):
+            torch.cuda.synchronize()
+            if len(rec["step_ms"]) == 1 and "device_ms" not in rec:
+                out = []
+                prof = device_profile(
+                    lambda: out.append(step(state, batch, draws, stage_hook)),
+                    1)
+                rec.update(device_ms=prof["device_ms_per_iter"],
+                           device_ops=prof["kernels_per_iter"],
+                           kernel_ms=prof["kernel_ms_per_iter"],
+                           top=prof["top"][:8])
+                return out[0]
+            t0 = time.perf_counter()
+            out = step(state, batch, draws, stage_hook)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    def timed_write(fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = fn(*args, **kw)
+            writes.append(dict(file=os.path.basename(path),
+                               bytes=os.path.getsize(path),
+                               write_s=time.perf_counter() - t0))
+            return path
+        return wrapper
+
+    train_cli.train_net = stage("train", saved["train_net"],
+                                lambda a, kw: kw.get("prefix") or "steps")
+    train_alternate.train_net = train_cli.train_net
+    train_alternate.dump_proposals = stage(
+        "dump", saved["dump_proposals"], lambda a, kw: a[5])
+    train_cli.make_train_step = timed_make_train_step
+    fit_mod.save_checkpoint = timed_write(saved["save_checkpoint"])
+    train_alternate.save_params = timed_write(saved["save_params"])
+    try:
+        yield
+    finally:
+        train_cli.train_net = saved["train_net"]
+        train_alternate.train_net = saved["train_net"]
+        train_alternate.dump_proposals = saved["dump_proposals"]
+        train_cli.make_train_step = saved["make_train_step"]
+        fit_mod.save_checkpoint = saved["save_checkpoint"]
+        train_alternate.save_params = saved["save_params"]
+
+
+def mean_proposals(props) -> float:
+    """A proposal dump's mean proposals per image."""
+    return sum(len(p) for p in props) / len(props)
+
+
+def check_dump(label: str, mean: float) -> None:
+    """A dump's mean proposals per image must reach MIN_PROPOSALS: fewer
+    means the RPN that made it has collapsed."""
+    if not mean >= MIN_PROPOSALS:
+        raise AssertionError(f"{label}: {mean:.1f} proposals per image, "
+                             f"fewer than {MIN_PROPOSALS}")
+
+
+def summarise_stage(rec: dict) -> dict:
+    """A stage record's steady ms/step (its steps after the first, the
+    profiled second apart), device time per step and busy share."""
+    steady = rec["step_ms"][1:] or rec["step_ms"]
+    if steady:
+        rec["ms_per_step"] = sum(steady) / len(steady)
+        rec["steps"] = len(rec["step_ms"]) + ("device_ms" in rec)
+    if "device_ms" in rec and steady:
+        rec["busy_share"] = (rec["device_ms"] / rec["ms_per_step"]
+                             if rec["device_ms"] > 0 else None)
+    return rec
+
+
+def stage_line(rec: dict, card: str) -> str:
+    text = (f"{rec['kind']} {rec['name']} ({rec['mode'] or 'proposals'}) on "
+            f"{card}: {rec['wall_s']:.2f} s, peak {rec['peak_mem_gib']:.2f} "
+            f"GiB, launches {rec['launches']}")
+    if "mean_proposals" in rec:
+        text += f", {rec['mean_proposals']:.1f} proposals per image"
+    if "ms_per_step" in rec:
+        text += (f"; {rec['steps']} steps, {rec['ms_per_step']:.2f} ms/step "
+                 f"(synchronised, after the first)")
+    if "device_ms" in rec:
+        text += (f", device {rec['device_ms']:.3f} ms/step (profiler, "
+                 f"{rec['device_ops']:.0f} device ops), busy share "
+                 f"{rec.get('busy_share') or 'not measured'}")
+    return text
+
+
+def run_schedule(dev, card: str) -> dict:
+    """``tools/train_alternate.py``'s main in bf16 at full width on
+    SCHEDULE_IMAGES images and their flips, batch 2, one epoch a stage,
+    with every launch count zeroed just before and read just after; each
+    stage's and dump's record, the checkpoints' sizes and write times,
+    and the frozen-shared-conv invariants."""
+    import math
+
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools import train_alternate
+    from mx_rcnn_tpu_torch.utils.checkpoint import load_state_dict
+
+    prefix = str(ALT_DIR / "alt")
+    argv = ["--network", "vgg", "--dataset", "PascalVOC", "--synthetic",
+            str(SCHEDULE_IMAGES), "--batch_images", "2", "--rpn_epoch", "1",
+            "--rcnn_epoch", "1", "--rpn_lr", SCHEDULE_LR, "--rcnn_lr",
+            SCHEDULE_LR, "--frequent", "1", "--seed", "0", "--prefix", prefix]
+    stages, writes = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with instrumented_stages(stages, writes), \
+            open(OUT_DIR / "alternate.txt", "w") as f, \
+            contextlib.redirect_stdout(f):
+        final = train_alternate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"alternate schedule, VGG16 bf16 608x1024, {SCHEDULE_IMAGES} images "
+        f"and their flips at batch 2, one epoch a stage: {wall:.1f} s, "
+        f"launches {launches}")
+    for rec in stages:
+        log("  " + stage_line(summarise_stage(rec), card))
+    for w in writes:
+        log(f"  checkpoint {w['file']}: {w['bytes']} bytes, written in "
+            f"{w['write_s']:.3f} s")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the schedule never launched: "
+                             f"{launches}")
+    steps = 2 * SCHEDULE_IMAGES // 2
+    zero = {"nms_sweep": 0, "roi_align_fwd": 0, "roi_align_bwd": 0}
+    # stage 2 trains conv3-5, so the features need K3; in stage 4 every
+    # conv is frozen and autograd never asks for the features' gradient
+    want = [zero, dict(zero, nms_sweep=2 * SCHEDULE_IMAGES),
+            dict(zero, roi_align_fwd=steps, roi_align_bwd=steps), zero,
+            dict(zero, nms_sweep=2 * SCHEDULE_IMAGES),
+            dict(zero, roi_align_fwd=steps)]
+    got = [rec["launches"] for rec in stages]
+    if got != want:
+        raise AssertionError(f"per-stage launches {got}, expected {want}")
+    losses = [rec["final_metrics"]["loss"] for rec in stages
+              if rec["kind"] == "train"]
+    if len(writes) != 5 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"checkpoints written {writes}, final losses "
+                             f"{losses}")
+    for rec in stages:
+        if rec["kind"] == "dump":
+            check_dump(rec["name"], rec["mean_proposals"])
+
+    rcnn1, rpn2, rcnn2 = (load_state_dict(f"{prefix}-{s}", 1)
+                          for s in ("rcnn1", "rpn2", "rcnn2"))
+    backbone = [k for k in rcnn1 if k.startswith("backbone.")]
+    frozen = all(torch.equal(rcnn1[k], rpn2[k]) and torch.equal(rpn2[k],
+                                                                rcnn2[k])
+                 for k in backbone)
+    rpn_moved = any(not torch.equal(rcnn1[k], rpn2[k]) for k in rcnn1
+                    if k.startswith("rpn."))
+    head_moved = any(not torch.equal(rpn2[k], rcnn2[k]) for k in rpn2
+                     if k.startswith("head."))
+    log(f"  shared convs ({len(backbone)} tensors) bit-identical across "
+        f"stages 3 and 4: {frozen}; stage 3 moved the RPN: {rpn_moved}; "
+        f"stage 4 moved the head: {head_moved}")
+    if not (frozen and rpn_moved and head_moved):
+        raise AssertionError("the frozen-shared-conv invariants fail")
+    return dict(final=final, wall_s=wall, launches=launches, stages=stages,
+                checkpoints=writes, shared_convs_bit_identical=frozen)
+
+
+def schedule_evals(dev, final: str, card: str) -> dict:
+    """Both evals of the schedule's models in bf16 over 16 synthetic
+    images at batch 2, launches zeroed just before each command line and
+    read just after, then each path timed warm: the combined model
+    through ``tools/test.py`` (K1 twice and K2 once a batch), and rcnn2
+    on rpn2's proposals over the test roidb through ``tools/test_rpn.py
+    --eval_set`` and ``tools/test_rcnn.py`` (K2 once and K1 once, in the
+    postprocess, a batch)."""
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import ROITestLoader, TestLoader
+    from mx_rcnn_tpu_torch.tools import test as test_cli
+    from mx_rcnn_tpu_torch.tools import test_rcnn, test_rpn
+    from mx_rcnn_tpu_torch.utils.checkpoint import load_model
+
+    images, batches = 16, 8
+    common = ["--network", "vgg", "--dataset", "PascalVOC", "--synthetic",
+              str(images), "--set", "test__batch_images=2"]
+    stage_prefix = final[:-len("-final")]
+    eval_pkl = str(ALT_DIR / "rpn2-test-proposals.pkl")
+    res = {}
+
+    def cli(name, main, argv, want):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with open(OUT_DIR / f"alternate_{name}.txt", "w") as f, \
+                contextlib.redirect_stdout(f):
+            out = main(common + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        log(f"{name} CLI, VGG16 bf16, {images} images at batch 2: "
+            f"{wall:.2f} s (first call), launches {launches}")
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        res[name] = dict(wall_s=wall, launches=launches)
+        return out
+
+    results = cli("test", test_cli.main, ["--prefix", final, "--epoch", "1"],
+                  {"nms_sweep": 2 * batches, "roi_align_fwd": batches,
+                   "roi_align_bwd": 0})
+    eval_props = cli("test_rpn", test_rpn.main,
+                     ["--prefix", f"{stage_prefix}-rpn2", "--epoch", "1",
+                      "--out", eval_pkl, "--eval_set"],
+                     {"nms_sweep": batches, "roi_align_fwd": 0,
+                      "roi_align_bwd": 0})
+    res["test_rpn"]["mean_proposals"] = mean_proposals(eval_props)
+    check_dump("test_rpn --eval_set", res["test_rpn"]["mean_proposals"])
+    stage_results = cli("test_rcnn", test_rcnn.main,
+                        ["--prefix", f"{stage_prefix}-rcnn2", "--epoch", "1",
+                         "--proposals", eval_pkl],
+                        {"nms_sweep": batches, "roi_align_fwd": batches,
+                         "roi_align_bwd": 0})
+    res["test"]["results"] = results
+    res["test_rcnn"]["results"] = stage_results
+
+    cfg = generate_config("vgg", "PascalVOC", test__batch_images=2)
+    imdb, roidb = load_gt_roidb(cfg, training=False, synthetic=images)
+    combined = Predictor(load_model(cfg, final, 1, dev), cfg, dev)
+    res["test"]["steady"] = steady_eval(
+        lambda: pred_eval(combined, TestLoader(roidb, cfg, imdb.load_image),
+                          imdb, cfg, verbose=False),
+        images, batches, f"eval of the combined VGG16 bf16 on {card}",
+        k1_launches=2)
+    rcnn2 = Predictor(load_model(cfg, f"{stage_prefix}-rcnn2", 1, dev), cfg,
+                      dev)
+    res["test_rcnn"]["steady"] = steady_eval(
+        lambda: pred_eval(rcnn2, ROITestLoader(roidb, cfg, imdb.load_image,
+                                               eval_props),
+                          imdb, cfg, verbose=False),
+        images, batches, f"test_rcnn_stage of rcnn2 VGG16 bf16 on {card} "
+        f"(K2 at 2x{DUMP_POST_NMS} slots, "
+        f"{res['test_rpn']['mean_proposals']:.1f} proposals per image)",
+        k1_launches=1)
+    return res
+
+
+def vgg_e2e_cli(card: str) -> dict:
+    """A few end-to-end VGG16 steps in bf16 through ``tools/train.py
+    --network vgg`` (the reference's config 1), with K1, K2 and K3 each
+    launched once a step."""
+    import math
+
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+
+    steps, stages, writes = 6, [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with instrumented_stages(stages, writes):
+        final = _train_cli(["--network", "vgg", "--dataset", "PascalVOC",
+                            "--synthetic", "8", "--batch_images", "2",
+                            "--steps", str(steps), "--frequent", "1",
+                            "--seed", "0"], OUT_DIR / "vgg_e2e.txt")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    rec = summarise_stage(stages[0])
+    log(stage_line(rec, card) + f"; final loss {final['loss']:.4f}")
+    if launches != dict.fromkeys(launches, steps) or \
+            not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"VGG16 e2e: launches {launches}, final "
+                             f"{final}")
+    return rec
+
+
+def phase_alternate(dev, card: str) -> dict:
+    """Phase 10: VGG16's kernels, its fp32 parity, the bf16 schedule and
+    its evals, then a few e2e VGG16 steps; checkpoints under the ignored
+    ``_chip/``, removed at the end."""
+    import torch
+
+    shutil.rmtree(ALT_DIR, ignore_errors=True)
+    ALT_DIR.mkdir(parents=True)
+    try:
+        kern = phase_vgg_kernels(dev)
+        parity = phase_vgg_parity(dev, ALT_DIR)
+        schedule = run_schedule(dev, card)
+        evals = schedule_evals(dev, schedule["final"], card)
+        e2e = vgg_e2e_cli(card)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(ALT_DIR, ignore_errors=True)
+    return dict(kernels=kern, fp32_parity=parity, schedule=schedule,
+                evals=evals, e2e=e2e)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -1371,6 +1928,7 @@ def main() -> int:
     serving = phase_serving(dev, card)
     training = phase_training(dev, card)
     evaluation = phase_eval(dev, card)
+    alternate = phase_alternate(dev, card)
 
     # no single PyTorch call computes any of the three functions (the
     # repo's bilinear rules are not torchvision's, which is absent), so
@@ -1385,7 +1943,8 @@ def main() -> int:
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1, k2=k2, k3=k3,
         forward_parity=parity, train_parity=train_parity, serving=serving,
-        training=training, evaluation=evaluation), indent=1))
+        training=training, evaluation=evaluation, alternate=alternate),
+        indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ class TrainConfig:
     train-time proposal numbers."""
 
     batch_images: int = 1          # images per step
+    flip: bool = True              # append horizontally flipped roidb copies
     shuffle: bool = True
 
     # R-CNN ROI sampling (proposal_target)
@@ -66,6 +67,10 @@ class TestConfig:
     rpn_post_nms_top_n: int = 300
     rpn_nms_thresh: float = 0.7
     rpn_min_size: int = 16
+    # the alternate schedule's proposal dumps (tools/test_rpn.py); their
+    # NMS shares rpn_nms_thresh
+    proposal_pre_nms_top_n: int = 20000
+    proposal_post_nms_top_n: int = 2000
 
 
 @dataclass(frozen=True)
@@ -107,6 +112,13 @@ class DefaultConfig:
     e2e_epoch: int = 10           # the training CLI's default end epoch
     e2e_lr: float = 0.001
     e2e_lr_step: str = "7"        # epochs at which lr drops by lr_factor
+    # the alternate schedule's RPN and RCNN stages
+    rpn_epoch: int = 8
+    rpn_lr: float = 0.001
+    rpn_lr_step: str = "6"
+    rcnn_epoch: int = 8
+    rcnn_lr: float = 0.001
+    rcnn_lr_step: str = "6"
     lr_factor: float = 0.1
     momentum: float = 0.9
     wd: float = 0.0005
@@ -146,6 +158,12 @@ class Config:
 
 
 _NETWORKS: Mapping[str, Mapping[str, Any]] = {
+    # VGG16: the first two blocks frozen; the alternate schedule's shared
+    # convs are all five
+    "vgg": dict(name="vgg", rcnn_pooled_size=(7, 7),
+                fixed_params=("conv1", "conv2"),
+                fixed_params_shared=("conv1", "conv2", "conv3", "conv4",
+                                     "conv5")),
     "resnet50": dict(name="resnet50", rcnn_pooled_size=(14, 14)),
     "resnet101": dict(name="resnet101", rcnn_pooled_size=(14, 14)),
     # test-only miniature network (models/tiny.py)
@@ -154,6 +172,9 @@ _NETWORKS: Mapping[str, Mapping[str, Any]] = {
                  fixed_params_shared=("conv1", "conv2"),
                  compute_dtype="float32"),
 }
+
+# every CLI's --network choices
+NETWORKS: Tuple[str, ...] = tuple(_NETWORKS)
 
 _DATASETS: Mapping[str, Mapping[str, Any]] = {
     "PascalVOC": dict(name="PascalVOC", image_set="2007_trainval",

@@ -1,12 +1,14 @@
 """Prediction, the eval/serve postprocess and the evaluation loop.
 
 Counterpart of ``mx_rcnn_tpu/core/tester.py``: :class:`Predictor` (the
-test forward on a device), ``tiled_bbox_stats``, ``_decode_batch`` (which
-applies ``delta * std + mean`` at decode time — weights stay in
-normalised space), ``_postprocess_batch`` (per-class NMS over the
+test forward on a device, and its RPN-only and RCNN-only halves),
+``tiled_bbox_stats``, ``_decode_batch`` (which applies ``delta * std +
+mean`` at decode time — weights stay in normalised space),
+``_postprocess_batch`` (per-class NMS over the
 flattened (N·C, R) batch, kernel K1 on the card),
-``detections_from_keep``, ``im_detect_batch`` and ``pred_eval`` (forward
-→ postprocess → ``max_per_image`` cap → ``imdb.evaluate_detections``).
+``detections_from_keep``, ``im_detect_batch``, ``pred_eval`` (forward
+→ postprocess → ``max_per_image`` cap → ``imdb.evaluate_detections``)
+and ``generate_proposals`` (the alternate schedule's proposal dump).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.config import Config
+from mx_rcnn_tpu_torch.core.train import RCNNBatch
 from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, to_device_batch
 from mx_rcnn_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from mx_rcnn_tpu_torch.ops.nms import nms_mask_batch
@@ -38,11 +41,41 @@ class Predictor:
         """Forward returning device tensors without a host sync: rois,
         roi_valid, cls_prob, bbox_deltas.  ``images``/``im_info`` are
         numpy arrays or tensors."""
-        if isinstance(images, np.ndarray):
-            images, im_info = to_device_batch(images, im_info, self.device)
         with torch.inference_mode():
-            return self.model(images.to(self.device),
-                              im_info.to(self.device))
+            return self.model(*self._inputs(images, im_info))
+
+    def _inputs(self, *arrays) -> Tuple[torch.Tensor, ...]:
+        """Numpy arrays or tensors → tensors on the predictor's device."""
+        if isinstance(arrays[0], np.ndarray):
+            arrays = to_device_batch(*arrays[:2], self.device) + tuple(
+                torch.from_numpy(np.ascontiguousarray(a)) for a in arrays[2:])
+        return tuple(a.to(self.device) for a in arrays)
+
+    def raw_rois(self, images, im_info, rois, rois_valid
+                 ) -> Tuple[torch.Tensor, ...]:
+        """The RCNN-only forward on precomputed proposals (N, R, 4) in
+        input coordinates: what :meth:`raw` returns, without the RPN."""
+        with torch.inference_mode():
+            return self.model.detect_rois(
+                *self._inputs(images, im_info, rois, rois_valid))
+
+    def rpn(self, images, im_info) -> Tuple[torch.Tensor, ...]:
+        """The RPN-only forward at the proposal dump's numbers
+        (``test.proposal_pre_nms_top_n`` / ``proposal_post_nms_top_n``):
+        device tensors (rois (N, R, 4), scores (N, R), valid (N, R))."""
+        t = self.cfg.test
+        with torch.inference_mode():
+            return self.model.rpn_proposals(
+                *self._inputs(images, im_info), t.proposal_pre_nms_top_n,
+                t.proposal_post_nms_top_n)
+
+    def raw_batch(self, batch) -> Tuple[torch.Tensor, ...]:
+        """A loader batch: an ``RCNNBatch`` runs the RCNN-only forward on
+        its proposals, a ``Batch`` the whole test forward."""
+        if isinstance(batch, RCNNBatch):
+            return self.raw_rois(batch.images, batch.im_info, batch.rois,
+                                 batch.rois_valid)
+        return self.raw(batch.images, batch.im_info)
 
     def __call__(self, images, im_info) -> Tuple[np.ndarray, ...]:
         return tuple(t.cpu().numpy() for t in self.raw(images, im_info))
@@ -128,8 +161,10 @@ def pred_eval(predictor, test_loader, imdb, cfg: Config, verbose: bool = True,
     ``test_loader``, per-class score threshold and NMS on the device of
     the forward's outputs, cap each image at ``max_per_image`` detections
     by score (ties at the cap are kept), then
-    ``imdb.evaluate_detections``.  ``predictor.raw(images, im_info)``
-    returns (rois, roi_valid, cls_prob, deltas) as tensors or numpy.
+    ``imdb.evaluate_detections``.  ``predictor.raw_batch(batch)`` takes
+    the loader's batch whole (an ``RCNNBatch`` of :class:`ROITestLoader`
+    goes through its proposals) and returns (rois, roi_valid, cls_prob,
+    deltas) as tensors or numpy.
 
     ``save_dets``: pickle ``{"all_boxes", "classes"}`` there first, for
     ``tools/reeval.py`` of either package."""
@@ -140,9 +175,8 @@ def pred_eval(predictor, test_loader, imdb, cfg: Config, verbose: bool = True,
         for _ in range(num_classes)]
     done = 0
     for batch, indices, scales in test_loader:
-        rois, roi_valid, cls_prob, deltas = (
-            torch.as_tensor(t) for t in predictor.raw(batch.images,
-                                                      batch.im_info))
+        out = predictor.raw_batch(batch)
+        rois, roi_valid, cls_prob, deltas = (torch.as_tensor(t) for t in out)
         dev = rois.device
         stds, means = tiled_bbox_stats(cfg, num_classes, dev)
         with torch.inference_mode():
@@ -174,3 +208,23 @@ def pred_eval(predictor, test_loader, imdb, cfg: Config, verbose: bool = True,
                          "classes": list(imdb.classes)}, f,
                         protocol=pickle.HIGHEST_PROTOCOL)
     return imdb.evaluate_detections(all_boxes)
+
+
+def generate_proposals(model: FasterRCNN, test_loader, cfg: Config,
+                       device="cuda") -> List[np.ndarray]:
+    """The RPN-only proposal dump (alternate stages 1.5 and 3.5) on
+    ``device`` (CUDA unless the caller asks for the CPU): one float32
+    (k, 5) [x1 y1 x2 y2 score] array per record of ``test_loader.roidb``,
+    in roidb order, the valid proposals of :meth:`Predictor.rpn` divided
+    by the image's scale (raw coordinates)."""
+    predictor = Predictor(model, cfg, device)
+    proposals: List[np.ndarray] = [None] * len(test_loader.roidb)
+    for batch, indices, scales in test_loader:
+        rois, scores, valid = (t.cpu().numpy() for t in predictor.rpn(
+            batch.images, batch.im_info))
+        for j, i in enumerate(indices):
+            keep = valid[j]
+            proposals[i] = np.hstack(
+                [rois[j][keep] / scales[j],
+                 scores[j][keep][:, None]]).astype(np.float32)
+    return proposals

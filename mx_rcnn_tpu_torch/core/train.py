@@ -1,10 +1,14 @@
-"""The end-to-end training step.
+"""The training step, in its three modes.
 
-Counterpart of ``mx_rcnn_tpu/core/train.py`` for ``mode='e2e'`` and
-``grad_accum=1``: backbone → RPN head → anchor targets and the two RPN
+Counterpart of ``mx_rcnn_tpu/core/train.py`` with ``grad_accum=1``.
+``mode='e2e'``: backbone → RPN head → anchor targets and the two RPN
 losses → proposals (no gradient; NMS kernel K1) → ``proposal_target``
 sampling → ROIAlign (K2 forward, K3 backward) → head → the two RCNN
-losses → backward → SGD.
+losses → backward → SGD.  The alternate schedule's stages run one half
+each: ``mode='rpn'`` the backbone, RPN head and RPN losses of a
+:class:`Batch`; ``mode='rcnn'`` the backbone and, from the precomputed
+proposals of an :class:`RCNNBatch`, the sampling, ROIAlign, head and
+RCNN losses.
 
 Loss layout as in the reference train symbol:
   rpn_cls:  softmax CE, ignore -1, divided by the valid anchors,
@@ -20,8 +24,10 @@ uniforms from ``draws(site, image, shape)``: by default the step's
 step folds ``state.step`` into its key, so a run resumed from a
 checkpoint draws what the unbroken run drew; in a test, the JAX step's
 own uniforms.  Sites are
-``anchor_fg``/``anchor_bg`` (one uniform per anchor) and
-``proposal_fg``/``proposal_bg`` (one per pooled candidate).
+``anchor_fg``/``anchor_bg`` (one uniform per anchor),
+``proposal_fg``/``proposal_bg`` (one per pooled candidate) and the
+head's ``dropout_sites`` (VGG's ``dropout_fc6``/``dropout_fc7``: one per
+element of the image's (batch_rois, 4096) activations).
 
 Unlike the JAX step, which returns a new state, this one updates the
 model's parameters and the optimizer's trace in place.
@@ -49,7 +55,8 @@ from mx_rcnn_tpu_torch.ops.targets import (anchor_target, proposal_pool_size,
 Draws = Callable[[str, int, Tuple[int, ...]], torch.Tensor]
 StageHook = Callable[[str], None]
 
-# the stages a ``stage_hook`` is called at, in order
+# the stages a ``stage_hook`` is called at, in order; a mode marks only
+# the stages it runs
 STAGES = ("backbone", "rpn", "proposal", "proposal_target", "roi_align",
           "head", "backward", "optimizer")
 
@@ -69,16 +76,30 @@ class Batch(NamedTuple):
     gt_valid: torch.Tensor
 
 
-def to_device(batch: Batch, device: torch.device) -> Batch:
-    """A batch of numpy arrays → tensors on ``device`` (pinned and
-    non-blocking on CUDA)."""
+class RCNNBatch(NamedTuple):
+    """A :class:`Batch` with precomputed proposals (the alternate
+    schedule's RCNN stages): rois (N, R, 4) in input coordinates and
+    rois_valid (N, R) bool."""
+
+    images: torch.Tensor
+    im_info: torch.Tensor
+    gt_boxes: torch.Tensor
+    gt_classes: torch.Tensor
+    gt_valid: torch.Tensor
+    rois: torch.Tensor
+    rois_valid: torch.Tensor
+
+
+def to_device(batch, device: torch.device):
+    """A :class:`Batch` or :class:`RCNNBatch` of numpy arrays → the same
+    of tensors on ``device`` (pinned and non-blocking on CUDA)."""
     out = []
     for x in batch:
         t = torch.from_numpy(np.ascontiguousarray(x))
         if device.type == "cuda":
             t = t.pin_memory()
         out.append(t.to(device, non_blocking=True))
-    return Batch(*out)
+    return type(batch)(*out)
 
 
 def generator_draws(generator: torch.Generator) -> Draws:
@@ -124,8 +145,9 @@ def _rpn_losses(rpn_cls, rpn_box, anchors, batch: Batch, draws: Draws,
 
 def _rcnn_losses(model: FasterRCNN, feat, rois, rois_valid, batch: Batch,
                  draws: Draws, cfg: Config, mark: StageHook):
-    """ROI sampling, pooled head and the two RCNN losses → (cls, bbox,
-    metrics)."""
+    """ROI sampling, pooled head (in train mode) and the two RCNN losses
+    → (cls, bbox, metrics).  ``rois`` come from the step's proposals
+    (e2e) or from the batch (rcnn)."""
     tr = cfg.train
     n, r = rois.shape[:2]
     pool = proposal_pool_size(r, batch.gt_boxes.shape[1], tr.batch_rois,
@@ -146,7 +168,11 @@ def _rcnn_losses(model: FasterRCNN, feat, rois, rois_valid, batch: Batch,
                                1.0 / model.feat_stride)
     mark("roi_align")
     flat = pooled.reshape((-1,) + pooled.shape[2:])
-    cls_logits, bbox_deltas = model.roi_head(flat)
+    b, width = pooled.shape[1], model.head.out_channels
+    uniforms = tuple(_stacked(draws, site, n, (b, width), flat.device)
+                     .reshape(n * b, width)
+                     for site in model.head.dropout_sites)
+    cls_logits, bbox_deltas = model.roi_head(flat, uniforms)
     cls_logits = cls_logits.to(torch.float32)
     bbox_deltas = bbox_deltas.to(torch.float32)
     labels = pt.labels.reshape(-1)
@@ -195,6 +221,43 @@ def loss_and_metrics(model: FasterRCNN, batch: Batch, cfg: Config,
     return total, {**rpn_metrics, **rcnn_metrics, "loss": total}
 
 
+def loss_and_metrics_rpn(model: FasterRCNN, batch: Batch, cfg: Config,
+                         draws: Draws, stage_hook: Optional[StageHook] = None
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """RPN-only loss (alternate stages 1 and 3): backbone → RPN head →
+    anchor targets → the two RPN losses."""
+    mark = stage_hook or (lambda name: None)
+    feat = model.features(batch.images, batch.im_info)
+    mark("backbone")
+    rpn_cls, rpn_box = model.rpn_raw(feat)
+    anchors = model.anchors_for(*feat.shape[1:3])
+    cls_loss, bbox_loss, metrics = _rpn_losses(rpn_cls, rpn_box, anchors,
+                                               batch, draws, cfg)
+    mark("rpn")
+    total = cls_loss + bbox_loss
+    return total, {**metrics, "loss": total}
+
+
+def loss_and_metrics_rcnn(model: FasterRCNN, batch: RCNNBatch, cfg: Config,
+                          draws: Draws, stage_hook: Optional[StageHook] = None
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """RCNN-only loss from the batch's precomputed proposals (alternate
+    stages 2 and 4): backbone → sampling → ROIAlign → head → the two RCNN
+    losses."""
+    mark = stage_hook or (lambda name: None)
+    feat = model.features(batch.images, batch.im_info)
+    mark("backbone")
+    cls_loss, bbox_loss, metrics = _rcnn_losses(
+        model, feat, batch.rois, batch.rois_valid, batch, draws, cfg, mark)
+    total = cls_loss + bbox_loss
+    mark("head")
+    return total, {**metrics, "loss": total}
+
+
+LOSS_FNS = {"e2e": loss_and_metrics, "rpn": loss_and_metrics_rpn,
+            "rcnn": loss_and_metrics_rcnn}
+
+
 @dataclass
 class TrainState:
     """The model (fp32 master weights), its optimizer, and the generator
@@ -236,11 +299,16 @@ def setup_training(cfg: Config, device="cuda", seed: int = 0,
     return init_state(model, cfg, steps_per_epoch, seed, **optimizer_kw)
 
 
-def make_train_step(cfg: Config):
-    """The end-to-end train step ``step(state, batch, draws=None,
+def make_train_step(cfg: Config, mode: str = "e2e"):
+    """The train step of ``mode`` (``'e2e'``, ``'rpn'`` or ``'rcnn'``, the
+    last on :class:`RCNNBatch` es), ``step(state, batch, draws=None,
     stage_hook=None) → metrics``: one forward, backward and SGD update, in
-    place, without gradient accumulation (the JAX step's ``mode='e2e'``,
-    ``grad_accum=1``)."""
+    place, without gradient accumulation (the JAX step's ``grad_accum=1``).
+    ``stage_hook`` is called as each of the :data:`STAGES` the mode runs
+    ends."""
+    if mode not in LOSS_FNS:
+        raise ValueError(f"unknown mode {mode!r}; have {sorted(LOSS_FNS)}")
+    loss_fn = LOSS_FNS[mode]
 
     def step(state: TrainState, batch: Batch, draws: Optional[Draws] = None,
              stage_hook: Optional[StageHook] = None
@@ -250,8 +318,7 @@ def make_train_step(cfg: Config):
         if draws is None:
             state.generator.manual_seed(step_seed(state.seed, state.step))
             draws = generator_draws(state.generator)
-        total, metrics = loss_and_metrics(state.model, batch, cfg, draws,
-                                          stage_hook)
+        total, metrics = loss_fn(state.model, batch, cfg, draws, stage_hook)
         total.backward()
         mark("backward")
         state.optimizer.step()

@@ -15,12 +15,13 @@ from mx_rcnn_tpu_torch.data.synthetic import (SyntheticDataset,
 
 
 def load_gt_roidb(cfg, image_set: str = None, training: bool = True,
-                  synthetic: int = 0, **kw):
+                  synthetic: int = 0, flip: bool = None, **kw):
     """Config → (imdb, roidb), as ``mx_rcnn_tpu/data/__init__.py —
     load_gt_roidb`` assembles them: ``image_set`` defaults to the
     dataset's train or test set, a '+'-joined list is merged (train
-    only), and training drops images without gt.  ``synthetic`` > 0 makes
-    that many synthetic images per set; ``kw`` goes to
+    only), and training drops images without gt, then appends each set's
+    flipped copies (``flip``, default ``cfg.train.flip``).  ``synthetic``
+    > 0 makes that many synthetic images per set; ``kw`` goes to
     :class:`SyntheticDataset`.  Returns the first imdb (the evaluator) and
     the merged roidb."""
     ds = cfg.dataset
@@ -42,8 +43,12 @@ def load_gt_roidb(cfg, image_set: str = None, training: bool = True,
                                 root_path=ds.root_path,
                                 dataset_path=ds.dataset_path, **kw)
         r = imdb.gt_roidb()
+        if training:
+            r = filter_roidb(r)
+            if cfg.train.flip if flip is None else flip:
+                r = IMDB.append_flipped_images(r)
         imdbs.append(imdb)
-        roidbs.append(filter_roidb(r) if training else r)
+        roidbs.append(r)
     return imdbs[0], merge_roidbs(roidbs)
 
 

@@ -1,11 +1,14 @@
-"""Training and eval batches from an in-memory dataset.
+"""Training and eval batches from a roidb.
 
-Counterpart of ``mx_rcnn_tpu/data/loader.py — AnchorLoader`` and
-``TestLoader``, with their batch plans and ``_make_batch`` semantics, and
-without the decode pool, cache, shards or streaming: each image is
-resized into its bucket and kept as raw uint8 (normalised on the
-device); a training batch also carries the gt boxes scaled by
-``im_scale`` and padded to ``max_gt_boxes``.  Batches hold numpy arrays;
+Counterpart of ``mx_rcnn_tpu/data/loader.py — AnchorLoader``,
+``ROIIter``, ``TestLoader`` and ``ROITestLoader``, with their batch plans
+and ``_make_batch`` semantics, and without the decode pool, cache, shards
+or streaming: each record's pixels come from ``load_image(rec)``, are
+mirrored when the record is flipped, resized into its bucket and kept as
+raw uint8 (normalised on the device); a training batch also carries the
+gt boxes scaled by ``im_scale`` and padded to ``max_gt_boxes``, and a
+proposal-fed batch (:class:`RCNNBatch`) the proposals, scaled the same
+way and padded to ``max_rois`` slots.  Batches hold numpy arrays;
 ``core/train.py — to_device`` moves them.
 """
 
@@ -16,9 +19,11 @@ from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 import numpy as np
 
 from mx_rcnn_tpu_torch.config import Config
-from mx_rcnn_tpu_torch.core.train import Batch
+from mx_rcnn_tpu_torch.core.train import Batch, RCNNBatch
 from mx_rcnn_tpu_torch.data.image import (choose_bucket, compute_scale,
                                           fit_to_bucket, resize_keep_ratio)
+
+LoadImage = Callable[[Dict], np.ndarray]
 
 
 def _bucket_of(h: int, w: int, cfg: Config, buckets) -> Tuple[int, int]:
@@ -27,10 +32,14 @@ def _bucket_of(h: int, w: int, cfg: Config, buckets) -> Tuple[int, int]:
     return choose_bucket(int(round(h * s)), int(round(w * s)), buckets)
 
 
-def _place(img: np.ndarray, cfg: Config, bucket, images: np.ndarray,
-           j: int) -> Tuple[int, int, float]:
-    """Resize ``img`` into ``bucket`` at row ``j`` of the uint8 canvas
-    ``images``; returns (h, w, im_scale)."""
+def _place(rec: Dict, load_image: LoadImage, cfg: Config, bucket,
+           images: np.ndarray, j: int) -> Tuple[int, int, float]:
+    """Load ``rec``'s pixels, mirror them when it is flipped, resize them
+    into ``bucket`` at row ``j`` of the uint8 canvas ``images``; returns
+    (h, w, im_scale)."""
+    img = load_image(rec)
+    if rec.get("flipped", False):
+        img = img[:, ::-1, :]
     img, im_scale = resize_keep_ratio(img, cfg.bucket.scale,
                                       cfg.bucket.max_size)
     img, im_scale = fit_to_bucket(img, im_scale, bucket)
@@ -39,23 +48,49 @@ def _place(img: np.ndarray, cfg: Config, bucket, images: np.ndarray,
     return h, w, im_scale
 
 
+def _check_proposals(proposals, roidb) -> list:
+    """One proposal set per roidb record, in order."""
+    if len(proposals) != len(roidb):
+        raise ValueError(
+            f"{len(proposals)} proposal sets for {len(roidb)} roidb records")
+    return list(proposals)
+
+
+def _fill_rois(proposals, indices, scales, max_rois: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Raw-coordinate (k, 5) proposal arrays of records ``indices`` →
+    the padded (n, max_rois, 4) input-coordinate ROI buffer (each image's
+    boxes times its scale, the first ``max_rois`` kept) and its validity
+    mask.  Shared by :class:`ROIIter` and :class:`ROITestLoader`."""
+    n = len(indices)
+    rois = np.zeros((n, max_rois, 4), np.float32)
+    rois_valid = np.zeros((n, max_rois), bool)
+    for j, i in enumerate(indices):
+        p = np.asarray(proposals[i], np.float32).reshape(-1, 5)
+        k = min(len(p), max_rois)
+        rois[j, :k] = p[:k, :4] * scales[j]
+        rois_valid[j, :k] = True
+    return rois, rois_valid
+
+
 class AnchorLoader:
     """Iterating yields one epoch of :class:`Batch` es; the images of a
-    batch share a bucket.  ``dataset`` has ``num_images``, ``image_size``
-    (h, w), ``specs`` (``boxes``, ``gt_classes``) and ``render(i)``."""
+    batch share a bucket.  ``load_image(rec)`` gives a record's RGB uint8
+    pixels (``IMDB.load_image``)."""
 
-    def __init__(self, dataset, cfg: Config, batch_images: int = None,
+    def __init__(self, roidb: Sequence[Dict], cfg: Config,
+                 load_image: LoadImage, batch_images: int = None,
                  shuffle: bool = None, seed: int = 0):
-        self.dataset = dataset
+        self.roidb = list(roidb)
         self.cfg = cfg
+        self.load_image = load_image
         self.batch_images = batch_images or cfg.train.batch_images
         self.shuffle = cfg.train.shuffle if shuffle is None else shuffle
         self.seed = seed
         self._epoch = 0
-        b = cfg.bucket
-        self.buckets = tuple(tuple(s) for s in b.shapes)
-        bucket = _bucket_of(*dataset.image_size, cfg, self.buckets)
-        self._bucket_ids = [bucket] * dataset.num_images
+        self.buckets = tuple(tuple(s) for s in cfg.bucket.shapes)
+        self._bucket_ids = [_bucket_of(rec["height"], rec["width"], cfg,
+                                       self.buckets) for rec in self.roidb]
 
     def __len__(self) -> int:
         return sum(len(self._indices_for(bucket)) // self.batch_images
@@ -70,7 +105,7 @@ class AnchorLoader:
         self._epoch = epoch
 
     def plan(self) -> List[Tuple[Tuple[int, int], List[int]]]:
-        """The next epoch's (bucket, image indices) batches, as the JAX
+        """The next epoch's (bucket, roidb indices) batches, as the JAX
         loader orders them for (seed, epoch); advances the epoch."""
         rng = np.random.RandomState(
             (self.seed * 1_000_003 + self._epoch) % (2 ** 31))
@@ -97,20 +132,43 @@ class AnchorLoader:
         gt_classes = np.zeros((n, g), np.int32)
         gt_valid = np.zeros((n, g), bool)
         for j, i in enumerate(indices):
-            h, w, im_scale = _place(self.dataset.render(i), cfg, bucket,
+            rec = self.roidb[i]
+            h, w, im_scale = _place(rec, self.load_image, cfg, bucket,
                                     images, j)
             im_info[j] = (h, w, im_scale)
-            spec = self.dataset.specs[i]
-            k = min(len(spec["boxes"]), g)
+            k = min(len(rec["boxes"]), g)
             if k:
-                gt_boxes[j, :k] = spec["boxes"][:k] * im_scale
-                gt_classes[j, :k] = spec["gt_classes"][:k]
+                gt_boxes[j, :k] = rec["boxes"][:k] * im_scale
+                gt_classes[j, :k] = rec["gt_classes"][:k]
                 gt_valid[j, :k] = True
         return Batch(images, im_info, gt_boxes, gt_classes, gt_valid)
 
     def __iter__(self) -> Iterator[Batch]:
         for bucket, idx in self.plan():
             yield self.make_batch(idx, bucket)
+
+
+class ROIIter(AnchorLoader):
+    """The RCNN-only training loader (alternate stages 2 and 4): the
+    batches of :class:`AnchorLoader`, on its plan, as :class:`RCNNBatch`
+    es carrying ``proposals[i]``, the (k, 5) [x1 y1 x2 y2 score] array of
+    roidb record ``i`` in raw image coordinates
+    (``core/tester.py — generate_proposals``), padded to ``max_rois``
+    (default ``cfg.test.proposal_post_nms_top_n``) slots."""
+
+    def __init__(self, roidb: Sequence[Dict], cfg: Config,
+                 load_image: LoadImage, proposals: Sequence,
+                 batch_images: int = None, shuffle: bool = None,
+                 seed: int = 0, max_rois: int = None):
+        super().__init__(roidb, cfg, load_image, batch_images, shuffle, seed)
+        self.proposals = _check_proposals(proposals, self.roidb)
+        self.max_rois = max_rois or cfg.test.proposal_post_nms_top_n
+
+    def make_batch(self, indices: Sequence[int], bucket) -> RCNNBatch:
+        base = super().make_batch(indices, bucket)
+        rois, rois_valid = _fill_rois(self.proposals, indices,
+                                      base.im_info[:, 2], self.max_rois)
+        return RCNNBatch(*base, rois=rois, rois_valid=rois_valid)
 
 
 class TestLoader:
@@ -120,11 +178,11 @@ class TestLoader:
     detections back to raw image coordinates.  Images are grouped by
     bucket in roidb order; each bucket's last batch may be short.
     ``load_image(rec)`` gives a record's RGB uint8 pixels (``IMDB.
-    load_image``)."""
+    load_image``); a flipped record is mirrored, as the alternate
+    schedule's proposal dumps over the training roidb need."""
 
     def __init__(self, roidb: Sequence[Dict], cfg: Config,
-                 load_image: Callable[[Dict], np.ndarray],
-                 batch_images: int = None):
+                 load_image: LoadImage, batch_images: int = None):
         self.roidb = list(roidb)
         self.cfg = cfg
         self.load_image = load_image
@@ -151,7 +209,7 @@ class TestLoader:
         images = np.zeros((n, bucket[0], bucket[1], 3), np.uint8)
         im_info = np.zeros((n, 3), np.float32)
         for j, i in enumerate(chunk):
-            im_info[j] = _place(self.load_image(self.roidb[i]), self.cfg,
+            im_info[j] = _place(self.roidb[i], self.load_image, self.cfg,
                                 bucket, images, j)
         batch = Batch(images, im_info, np.zeros((n, g, 4), np.float32),
                       np.zeros((n, g), np.int32), np.zeros((n, g), bool))
@@ -160,3 +218,25 @@ class TestLoader:
     def __iter__(self):
         for bucket, chunk in self._plan():
             yield self.make_batch(chunk, bucket)
+
+
+class ROITestLoader(TestLoader):
+    """Eval batches of an RCNN-only checkpoint: those of
+    :class:`TestLoader`, as :class:`RCNNBatch` es carrying each record's
+    precomputed proposals (raw coordinates, ``tools/test_rpn.py``'s
+    pickle) scaled and padded as :class:`ROIIter` does."""
+
+    def __init__(self, roidb: Sequence[Dict], cfg: Config,
+                 load_image: LoadImage, proposals: Sequence,
+                 batch_images: int = None, max_rois: int = None):
+        super().__init__(roidb, cfg, load_image, batch_images)
+        self.proposals = _check_proposals(proposals, self.roidb)
+        self.max_rois = max_rois or cfg.test.proposal_post_nms_top_n
+
+    def make_batch(self, chunk: Sequence[int], bucket
+                   ) -> Tuple[RCNNBatch, List[int], np.ndarray]:
+        base, indices, scales = super().make_batch(chunk, bucket)
+        rois, rois_valid = _fill_rois(self.proposals, indices, scales,
+                                      self.max_rois)
+        return (RCNNBatch(*base, rois=rois, rois_valid=rois_valid),
+                indices, scales)

@@ -4,7 +4,8 @@ Counterpart of ``mx_rcnn_tpu/data/roidb.py`` (``IMDB``, ``merge_roidbs``,
 ``filter_roidb``).  A roidb entry is a dict with the JAX package's keys:
 ``image``, ``index``, ``height``, ``width``, ``boxes`` (n, 4) float32 gt
 boxes (x1, y1, x2, y2), ``gt_classes`` (n,) int32 class ids (1..C-1) and
-``flipped``.  The gt_roidb pickle cache, the flipped copies and the
+``flipped``.  A flipped record's boxes are mirrored here and its pixels
+by the loaders, before the resize.  The gt_roidb pickle cache and the
 evaluators' detection files come with the VOC and COCO readers, which
 are not ported yet.
 """
@@ -45,6 +46,22 @@ class IMDB:
     def evaluate_detections(self, all_boxes) -> Dict[str, float]:
         """all_boxes[class][image] = (k, 5) array of [x1 y1 x2 y2 score]."""
         raise NotImplementedError
+
+    @staticmethod
+    def append_flipped_images(roidb: Roidb) -> Roidb:
+        """The roidb followed by a horizontally flipped copy of each
+        record: boxes mirrored as ``x' = width - 1 - x``, ``flipped``
+        set."""
+        flipped = []
+        for rec in roidb:
+            boxes = rec["boxes"].copy()
+            if boxes.size:
+                x1 = boxes[:, 0].copy()
+                boxes[:, 0] = rec["width"] - boxes[:, 2] - 1
+                boxes[:, 2] = rec["width"] - x1 - 1
+                assert (boxes[:, 2] >= boxes[:, 0]).all()
+            flipped.append(dict(rec, boxes=boxes, flipped=True))
+        return list(roidb) + flipped
 
 
 def merge_roidbs(roidbs: Sequence[Roidb]) -> Roidb:

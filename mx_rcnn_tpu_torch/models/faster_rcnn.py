@@ -2,9 +2,11 @@
 
 Counterpart of ``mx_rcnn_tpu/models/faster_rcnn.py``: ``features``
 (backbone), ``rpn_raw`` (RPN head), ``roi_head`` (per-ROI classifier and
-regressor), ``anchors_for`` and the full test forward images → features →
+regressor), ``anchors_for``, the full test forward images → features →
 RPN → proposals (NMS kernel K1) → ROIAlign (kernel K2) → head →
-(rois, roi_valid, cls_prob, bbox_deltas).
+(rois, roi_valid, cls_prob, bbox_deltas), and its two halves for the
+alternate schedule: ``rpn_proposals`` (the RPN-only forward, K1) and
+``detect_rois`` (the head on given proposals, K2).
 
 Public layouts are the JAX package's: NHWC images in, NHWC features,
 (N, R, ph, pw, C) pooled features.  Inside, the backbone runs NCHW views
@@ -29,6 +31,7 @@ from mx_rcnn_tpu_torch.models.layers import Conv2dSame, Dense
 from mx_rcnn_tpu_torch.models.resnet import ResNetBackbone, ResNetHead
 from mx_rcnn_tpu_torch.models.rpn import RPNHead
 from mx_rcnn_tpu_torch.models.tiny import TinyBackbone, TinyHead
+from mx_rcnn_tpu_torch.models.vgg import VGGBackbone, VGGHead
 from mx_rcnn_tpu_torch.ops.anchors import generate_shifted_anchors
 from mx_rcnn_tpu_torch.ops.normalize import normalize_images
 from mx_rcnn_tpu_torch.ops.proposal import propose_batch
@@ -64,7 +67,11 @@ class FasterRCNN(nn.Module):
         self.test_min_size = test_min_size
         self.pixel_means = tuple(pixel_means)
         self.dtype = dtype
-        if network in ("resnet50", "resnet101"):
+        if network == "vgg":
+            self.backbone = VGGBackbone(dtype)
+            self.head = VGGHead(self.pooled_size, VGGBackbone.out_channels,
+                                dtype)
+        elif network in ("resnet50", "resnet101"):
             depth = int(network.replace("resnet", ""))
             self.backbone = ResNetBackbone(depth, dtype)
             self.head = ResNetHead(depth, dtype)
@@ -118,10 +125,21 @@ class FasterRCNN(nn.Module):
         """NHWC feat → ((N, H*W*A, 2) cls logits, (N, H*W*A, 4) deltas)."""
         return self.rpn(feat.permute(0, 3, 1, 2))
 
-    def roi_head(self, pooled: torch.Tensor
+    def roi_head(self, pooled: torch.Tensor,
+                 dropout_uniforms: Tuple[torch.Tensor, ...] = ()
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(R, ph, pw, C) pooled → ((R, classes) logits, (R, 4*classes))."""
-        x = self.head(pooled)
+        """(R, ph, pw, C) pooled → ((R, classes) logits, (R, 4*classes)).
+        ``dropout_uniforms``, in train mode: one (R, head.out_channels)
+        uniform per site of ``head.dropout_sites``, in order; none (test
+        mode) drops nothing."""
+        if dropout_uniforms:
+            if len(dropout_uniforms) != len(self.head.dropout_sites):
+                raise ValueError(
+                    f"{len(dropout_uniforms)} dropout uniforms for the "
+                    f"head's sites {self.head.dropout_sites}")
+            x = self.head(pooled, dropout_uniforms)
+        else:
+            x = self.head(pooled)
         return self.cls_score(x), self.bbox_pred(x)
 
     def anchors_for(self, feat_h: int, feat_w: int) -> torch.Tensor:
@@ -133,6 +151,48 @@ class FasterRCNN(nn.Module):
                 feat_h, feat_w, self.feat_stride, self.anchor_ratios,
                 self.anchor_scales)).to(device)
         return self._anchors[key]
+
+    def _classify(self, feat: torch.Tensor, rois: torch.Tensor,
+                  roi_valid: torch.Tensor, mark: Callable[[str], None]
+                  ) -> Tuple[torch.Tensor, ...]:
+        """ROIAlign (K2) → head → softmax: the test forward's second half."""
+        n = feat.shape[0]
+        pooled = roi_align(feat, rois, self.pooled_size,
+                           1.0 / self.feat_stride)
+        mark("roi_align")
+        r = pooled.shape[1]
+        flat = pooled.reshape((n * r,) + pooled.shape[2:])
+        cls_logits, deltas = self.roi_head(flat)
+        cls_prob = torch.softmax(cls_logits.to(torch.float32), dim=-1)
+        out = (rois, roi_valid,
+               cls_prob.reshape(n, r, self.num_classes),
+               deltas.to(torch.float32).reshape(n, r, 4 * self.num_classes))
+        mark("head")
+        return out
+
+    def rpn_proposals(self, images: torch.Tensor, im_info: torch.Tensor,
+                      pre_nms_top_n: int = 6000, post_nms_top_n: int = 300
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The RPN-only forward (the alternate schedule's proposal dumps):
+        images → (rois (N, post, 4), fg scores (N, post), valid (N, post)),
+        at the test NMS threshold and minimum size (K1)."""
+        feat = self.features(images, im_info)
+        rpn_cls, rpn_box = self.rpn_raw(feat)
+        anchors = self.anchors_for(*feat.shape[1:3])
+        fg = torch.softmax(rpn_cls.to(torch.float32), dim=-1)[..., 1]
+        return propose_batch(
+            fg, rpn_box.to(torch.float32), anchors, im_info.to(torch.float32),
+            pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n,
+            nms_thresh=self.test_nms_thresh, min_size=self.test_min_size)
+
+    def detect_rois(self, images: torch.Tensor, im_info: torch.Tensor,
+                    rois: torch.Tensor, roi_valid: torch.Tensor
+                    ) -> Tuple[torch.Tensor, ...]:
+        """The RCNN-only test forward on precomputed proposals ``rois``
+        (N, R, 4) in input coordinates with their mask ``roi_valid``: the
+        RPN is skipped; returns what :meth:`forward` returns."""
+        feat = self.features(images, im_info)
+        return self._classify(feat, rois, roi_valid, lambda name: None)
 
     # ---- full test-mode forward ------------------------------------------
 
@@ -153,7 +213,7 @@ class FasterRCNN(nn.Module):
         feat = self.features(images, im_info)
         mark("backbone")
         rpn_cls, rpn_box = self.rpn_raw(feat)
-        n, fh, fw, _ = feat.shape
+        _, fh, fw, _ = feat.shape
         anchors = self.anchors_for(fh, fw)
         fg_scores = torch.softmax(rpn_cls.to(torch.float32), dim=-1)[..., 1]
         rois, _, roi_valid = propose_batch(
@@ -162,25 +222,15 @@ class FasterRCNN(nn.Module):
             post_nms_top_n=self.test_post_nms_top_n,
             nms_thresh=self.test_nms_thresh, min_size=self.test_min_size)
         mark("proposal")
-        pooled = roi_align(feat, rois, self.pooled_size,
-                           1.0 / self.feat_stride)
-        mark("roi_align")
-        r = pooled.shape[1]
-        flat = pooled.reshape((n * r,) + pooled.shape[2:])
-        cls_logits, deltas = self.roi_head(flat)
-        cls_prob = torch.softmax(cls_logits.to(torch.float32), dim=-1)
-        out = (rois, roi_valid,
-               cls_prob.reshape(n, r, self.num_classes),
-               deltas.to(torch.float32).reshape(n, r, 4 * self.num_classes))
-        mark("head")
-        return out
+        return self._classify(feat, rois, roi_valid, mark)
 
 
-def build_model(cfg: Config, device="cuda", seed: int = 0,
+def build_model(cfg: Config, device="cuda", seed: Optional[int] = 0,
                 train: bool = False) -> FasterRCNN:
     """The model for a Config, randomly initialised from ``seed`` (an
-    explicit ``torch.Generator``), on ``device``.  CUDA is the default;
-    without a card this raises unless ``device='cpu'``.
+    explicit ``torch.Generator``; ``None`` leaves the weights for a
+    checkpoint to fill), on ``device``.  CUDA is the default; without a
+    card this raises unless ``device='cpu'``.
 
     ``train=False``: eval mode, weights stored in the compute dtype.
     ``train=True``: train mode, fp32 master weights that each op casts to
@@ -200,7 +250,8 @@ def build_model(cfg: Config, device="cuda", seed: int = 0,
         pixel_means=tuple(cfg.network.pixel_means),
         dtype=_DTYPES[cfg.network.compute_dtype],
     )
-    model.init_weights(torch.Generator().manual_seed(seed))
+    if seed is not None:
+        model.init_weights(torch.Generator().manual_seed(seed))
     if train:
         model.channels_last_()
     else:

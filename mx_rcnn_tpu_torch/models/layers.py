@@ -25,10 +25,19 @@ _TRUNC_STD = 0.87962566103423978
 
 def _variance_scaling_(w: torch.Tensor, scale: float, fan_in: int,
                        generator: Optional[torch.Generator]) -> None:
-    """flax ``variance_scaling(scale, 'fan_in', 'truncated_normal')``."""
+    """flax ``variance_scaling(scale, 'fan_in', 'truncated_normal')``:
+    Normal(0, std) truncated to ±2 std, drawn by redrawing only the
+    entries that fall outside (~4.6% at each pass), which is quick for
+    fc6's 102.8 M weights."""
     std = math.sqrt(scale / fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
+    flat = w.view(-1).normal_(0.0, std, generator=generator)
+    out = (flat.abs() > 2.0 * std).nonzero().squeeze(1)
+    while out.numel():
+        redrawn = torch.empty(out.numel(), dtype=w.dtype,
+                              device=w.device).normal_(0.0, std,
+                                                       generator=generator)
+        flat[out] = redrawn
+        out = out[redrawn.abs() > 2.0 * std]
 
 
 def _init_weight_(w: torch.Tensor, init: str,

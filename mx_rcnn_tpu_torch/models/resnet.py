@@ -96,6 +96,7 @@ class ResNetHead(nn.Module):
     units (first stride 2) + bn1 + relu + global mean."""
 
     out_channels = 2048
+    dropout_sites = ()
 
     def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32):
         super().__init__()

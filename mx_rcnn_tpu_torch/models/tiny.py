@@ -30,6 +30,7 @@ class TinyBackbone(nn.Module):
 
 class TinyHead(nn.Module):
     out_channels = 64
+    dropout_sites = ()
 
     def __init__(self, pooled_size=(7, 7), in_channels: int = 32,
                  dtype: torch.dtype = torch.float32):

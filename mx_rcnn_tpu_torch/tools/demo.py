@@ -19,7 +19,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from mx_rcnn_tpu_torch.config import Config, generate_config, parse_set_overrides
+from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
+                                      parse_set_overrides)
 from mx_rcnn_tpu_torch.core.tester import (Predictor, _postprocess_batch,
                                            detections_from_keep,
                                            tiled_bbox_stats)
@@ -120,7 +121,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--synthetic", type=int, default=0,
                    help="add this many seeded synthetic images")
     p.add_argument("--network", default="resnet101",
-                   choices=["resnet50", "resnet101", "tiny"])
+                   choices=NETWORKS)
     p.add_argument("--dataset", default="PascalVOC")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")

@@ -14,7 +14,7 @@ import argparse
 import pickle
 from typing import Dict
 
-from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.config import NETWORKS, generate_config
 from mx_rcnn_tpu_torch.data import load_gt_roidb
 
 
@@ -50,7 +50,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="detections pickle written by tools/test.py "
                         "--save_dets")
     p.add_argument("--network", default="resnet101",
-                   choices=["resnet50", "resnet101", "tiny"])
+                   choices=NETWORKS)
     p.add_argument("--dataset", default="PascalVOC",
                    choices=["PascalVOC", "coco", "synthetic"])
     p.add_argument("--image_set", default=None)

@@ -20,7 +20,8 @@ import argparse
 import time
 from typing import Dict
 
-from mx_rcnn_tpu_torch.config import Config, generate_config, parse_set_overrides
+from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
+                                      parse_set_overrides)
 from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
 from mx_rcnn_tpu_torch.data import load_gt_roidb
 from mx_rcnn_tpu_torch.data.loader import TestLoader
@@ -57,7 +58,7 @@ def test_rcnn(cfg: Config, *, prefix: str, epoch: int, image_set: str = None,
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--network", default="resnet101",
-                   choices=["resnet50", "resnet101", "tiny"])
+                   choices=NETWORKS)
     p.add_argument("--dataset", default="PascalVOC",
                    choices=["PascalVOC", "coco", "synthetic"])
     p.add_argument("--image_set", default=None,

@@ -1,15 +1,18 @@
-"""Train Faster R-CNN end to end on seeded synthetic images.
+"""Train Faster R-CNN on seeded synthetic images.
 
-Counterpart of ``mx_rcnn_tpu/tools/train.py`` for the single-device
-end-to-end path: synthetic images (the JAX package's rectangles, rendered
-in memory; 375x500 like VOC unless the dataset is a synthetic one) →
-loader → epochs ``--begin_epoch .. --end_epoch`` of train steps →
-Speedometer lines, and with ``--prefix`` a checkpoint after each epoch
-(``prefix-%04d.ckpt``, the JAX package's layout).  ``--resume`` starts
-from the newest checkpoint under ``--prefix``, ``--begin_epoch N`` from
-epoch N's; the resumed run ends bit-equal to an unbroken one.
+Counterpart of ``mx_rcnn_tpu/tools/train.py`` for one device:
+:func:`train_net` builds the training roidb (synthetic images, the JAX
+package's rectangles rendered in memory, 375x500 like VOC unless the
+dataset is a synthetic one, with their flipped copies unless
+``--no_flip``) → loader → epochs ``--begin_epoch .. --end_epoch`` of train
+steps → Speedometer lines, and with ``--prefix`` a checkpoint after each
+epoch (``prefix-%04d.ckpt``, the JAX package's layout).  ``--resume``
+starts from the newest checkpoint under ``--prefix``, ``--begin_epoch N``
+from epoch N's; the resumed run ends bit-equal to an unbroken one.
 ``--steps`` ends the run after that many steps.  Weights start random,
-made from ``--seed``.
+made from ``--seed``.  The alternate schedule's stage tools
+(``train_rpn.py``, ``train_rcnn.py``, ``train_alternate.py``) call
+:func:`train_net` with ``mode='rpn'`` or ``'rcnn'``.
 
     python -m mx_rcnn_tpu_torch.tools.train --network resnet101 \\
         --dataset PascalVOC --synthetic 8 --batch_images 2 \\
@@ -23,20 +26,87 @@ from __future__ import annotations
 
 import argparse
 import math
-from typing import Dict
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
-from mx_rcnn_tpu_torch.config import generate_config, parse_set_overrides
+from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
+                                      parse_set_overrides)
 from mx_rcnn_tpu_torch.core.fit import fit
-from mx_rcnn_tpu_torch.core.train import make_train_step, setup_training
-from mx_rcnn_tpu_torch.data.loader import AnchorLoader
-from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset, default_image_size
-from mx_rcnn_tpu_torch.utils.checkpoint import latest_checkpoint, restore_state
+from mx_rcnn_tpu_torch.core.train import (TrainState, make_train_step,
+                                          setup_training)
+from mx_rcnn_tpu_torch.data import load_gt_roidb
+from mx_rcnn_tpu_torch.data.loader import AnchorLoader, ROIIter
+from mx_rcnn_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                load_state_dict,
+                                                restore_state)
+from mx_rcnn_tpu_torch.utils.device import resolve_device
+
+
+def train_net(cfg: Config, *, prefix: Optional[str] = None,
+              mode: str = "e2e", proposals: Optional[Sequence] = None,
+              init_from: Optional[Tuple[str, int]] = None,
+              frozen_prefixes: Optional[Sequence[str]] = None,
+              roidb=None, load_image: Optional[Callable] = None,
+              synthetic: int = 0, begin_epoch: int = 0,
+              end_epoch: Optional[int] = None, resume: bool = False,
+              lr: Optional[float] = None, lr_step: Optional[str] = None,
+              steps: Optional[int] = None, frequent: Optional[int] = None,
+              seed: int = 0, device="cuda",
+              log: Callable[[str], None] = print
+              ) -> Tuple[TrainState, Dict[str, float]]:
+    """Train on ``device`` (CUDA unless the caller asks for the CPU);
+    returns the final state and the last log window's mean metrics.
+
+    ``mode``: ``'e2e'``, ``'rpn'`` or ``'rcnn'``; ``'rcnn'`` trains on
+    ``proposals`` (one raw-coordinate (k, 5) array per roidb record)
+    through :class:`ROIIter`.  ``roidb`` and its ``load_image`` may be
+    given (the alternate schedule does); by default the training roidb of
+    ``synthetic`` synthetic images is built.  ``init_from``: a (prefix,
+    epoch) checkpoint whose weights and statistics start the run, with a
+    fresh optimizer.  ``frozen_prefixes`` defaults to
+    ``cfg.network.fixed_params``.  ``end_epoch`` defaults to
+    ``default__e2e_epoch``, or to as many epochs as ``steps`` needs."""
+    resolve_device(device)
+    if mode == "rcnn" and proposals is None:
+        raise ValueError("mode='rcnn' requires precomputed proposals")
+    if (resume or begin_epoch) and not prefix:
+        raise ValueError("resume and begin_epoch need a prefix")
+    if roidb is None:
+        imdb, roidb = load_gt_roidb(cfg, training=True, synthetic=synthetic)
+        load_image = imdb.load_image
+    elif load_image is None:
+        raise ValueError("a roidb needs its load_image")
+    if mode == "rcnn":
+        loader = ROIIter(roidb, cfg, load_image, proposals, seed=seed)
+    else:
+        loader = AnchorLoader(roidb, cfg, load_image, seed=seed)
+    steps_per_epoch = max(len(loader), 1)
+    state = setup_training(cfg, device, seed, steps_per_epoch, base_lr=lr,
+                           lr_step=lr_step, frozen_prefixes=frozen_prefixes)
+    if init_from is not None:
+        state.model.load_state_dict(load_state_dict(*init_from))
+        log(f"[{mode}] initialised from {init_from[0]} epoch {init_from[1]}")
+    if resume:
+        found = latest_checkpoint(prefix)
+        begin_epoch = found[0] if found else 0
+    if end_epoch is None:
+        end_epoch = (begin_epoch + math.ceil(steps / steps_per_epoch)
+                     if steps else cfg.default.e2e_epoch)
+    log(f"[{mode}] network={cfg.network.name} "
+        f"dtype={cfg.network.compute_dtype} "
+        f"device={next(state.model.parameters()).device} "
+        f"batch_images={loader.batch_images} records={len(roidb)} "
+        f"epochs={begin_epoch}..{end_epoch} steps={steps}")
+    if begin_epoch > 0:
+        restore_state(state, prefix, begin_epoch)
+        log(f"resumed from {prefix} epoch {begin_epoch} (step {state.step})")
+    metrics = fit(state, cfg, make_train_step(cfg, mode), loader, end_epoch,
+                  begin_epoch, prefix, steps, frequent, log=log)
+    return state, metrics
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--network", default="resnet101",
-                   choices=["resnet50", "resnet101", "tiny"])
+    p.add_argument("--network", default="resnet101", choices=NETWORKS)
     p.add_argument("--dataset", default="PascalVOC")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on this many seeded synthetic images")
@@ -58,6 +128,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="base learning rate (default: default__e2e_lr)")
     p.add_argument("--frequent", type=int, default=None,
                    help="log every this many steps")
+    p.add_argument("--no_flip", action="store_true",
+                   help="train without the flipped copies")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the weights, the draws and the shuffle")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -66,42 +138,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def config_from_args(args) -> Config:
+    """The config of the training CLIs' ``--network``, ``--dataset``,
+    ``--batch_images``, ``--no_flip`` and ``--set`` flags."""
+    overrides = parse_set_overrides(args.set)
+    if args.batch_images:
+        overrides["train__batch_images"] = args.batch_images
+    if args.no_flip:
+        overrides["train__flip"] = False
+    return generate_config(args.network, args.dataset, **overrides)
+
+
 def main(argv=None) -> Dict[str, float]:
     args = parse_args(argv)
     if args.synthetic <= 0:
         raise SystemExit("only synthetic data is ported: give --synthetic N")
-    overrides = parse_set_overrides(args.set)
-    if args.batch_images:
-        overrides["train__batch_images"] = args.batch_images
     if (args.resume or args.begin_epoch) and not args.prefix:
         raise SystemExit("--resume and --begin_epoch need --prefix")
-    cfg = generate_config(args.network, args.dataset, **overrides)
-    dataset = SyntheticDataset(cfg.dataset.image_set, args.synthetic,
-                               cfg.num_classes,
-                               default_image_size(cfg.dataset.name))
-    loader = AnchorLoader(dataset, cfg, seed=args.seed)
-    state = setup_training(cfg, args.device, args.seed,
-                           steps_per_epoch=max(len(loader), 1),
-                           base_lr=args.lr)
-    begin_epoch = args.begin_epoch
-    if args.resume:
-        found = latest_checkpoint(args.prefix)
-        begin_epoch = found[0] if found else 0
-    end_epoch = args.end_epoch
-    if end_epoch is None:
-        end_epoch = (begin_epoch + math.ceil(args.steps / max(len(loader), 1))
-                     if args.steps else cfg.default.e2e_epoch)
-    print(f"network={cfg.network.name} dtype={cfg.network.compute_dtype} "
-          f"device={next(state.model.parameters()).device} "
-          f"batch_images={loader.batch_images} images={dataset.num_images} "
-          f"epochs={begin_epoch}..{end_epoch} steps={args.steps}", flush=True)
-    if begin_epoch > 0:
-        restore_state(state, args.prefix, begin_epoch)
-        print(f"resumed from {args.prefix} epoch {begin_epoch} (step "
-              f"{state.step})", flush=True)
-    metrics = fit(state, cfg, make_train_step(cfg), loader, end_epoch,
-                  begin_epoch, args.prefix, args.steps, args.frequent,
-                  log=lambda line: print(line, flush=True))
+    cfg = config_from_args(args)
+    _, metrics = train_net(
+        cfg, prefix=args.prefix, synthetic=args.synthetic,
+        begin_epoch=args.begin_epoch, end_epoch=args.end_epoch,
+        resume=args.resume, lr=args.lr, steps=args.steps,
+        frequent=args.frequent, seed=args.seed, device=args.device,
+        log=lambda line: print(line, flush=True))
     print("final " + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
           flush=True)
     return metrics

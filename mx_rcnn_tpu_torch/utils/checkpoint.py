@@ -25,12 +25,14 @@ import hashlib
 import json
 import os
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
+
+import numpy as np
 
 from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
 from mx_rcnn_tpu_torch.utils import flax_msgpack
 from mx_rcnn_tpu_torch.utils.bridge import (from_flax, load_train_state,
-                                            train_state_to_flax)
+                                            to_flax, train_state_to_flax)
 
 
 def checkpoint_path(prefix: str, epoch: int) -> str:
@@ -140,8 +142,26 @@ def save_checkpoint(prefix: str, epoch: int, state, *,
                     config_fp: Optional[str] = None) -> str:
     """Write the train state (``core/train.py — TrainState``) as
     ``prefix-%04d.ckpt``, then its manifest; returns the path."""
+    return _save_tree(prefix, epoch,
+                      train_state_to_flax(state.model, state.optimizer),
+                      steps_per_epoch=steps_per_epoch, config_fp=config_fp)
+
+
+def save_params(prefix: str, epoch: int, state_dict) -> str:
+    """Write weights alone as ``prefix-%04d.ckpt`` (step 0, no optimizer
+    state, the JAX package's ``TrainState(step=0, params, batch_stats,
+    opt_state={})``), then its manifest; returns the path.  The
+    alternate schedule's combined model is saved so."""
+    tree = to_flax(state_dict)
+    return _save_tree(prefix, epoch, {
+        "step": np.array(0, np.int32), "params": tree["params"],
+        "batch_stats": tree["batch_stats"], "opt_state": {}})
+
+
+def _save_tree(prefix: str, epoch: int, tree: Dict, *,
+               steps_per_epoch: Optional[int] = None,
+               config_fp: Optional[str] = None) -> str:
     path = checkpoint_path(prefix, epoch)
-    tree = train_state_to_flax(state.model, state.optimizer)
     data = flax_msgpack.packb(tree)
     _atomic_write(path, data)
     write_manifest(path, data, step=int(tree["step"]),
@@ -171,13 +191,33 @@ def load_param(prefix: str, epoch: int) -> Tuple[Dict, Dict]:
     return raw["params"], raw.get("batch_stats", {})
 
 
+def load_state_dict(prefix: str, epoch: int) -> Dict:
+    """A checkpoint's weights and statistics as the port's state_dict
+    (fp32 tensors on the host)."""
+    params, batch_stats = load_param(prefix, epoch)
+    return from_flax({"params": params, "batch_stats": batch_stats})
+
+
+def combine_model(state_a: Mapping, state_b: Mapping,
+                  from_a: Iterable[str]) -> Dict:
+    """Merge two state_dicts by top-level component (``backbone``,
+    ``rpn``, ``head``, ``cls_score``, ``bbox_pred``): the entries whose
+    component starts with a ``from_a`` prefix come from ``state_a``, the
+    rest from ``state_b`` (``mx_rcnn_tpu/utils/checkpoint.py —
+    combine_model`` on flax trees; the alternate schedule takes the RPN
+    and the shared convs from rpn2 and the head from rcnn2)."""
+    from_a = tuple(from_a)
+    ours = lambda key: key.split(".", 1)[0].startswith(from_a)
+    out = {k: v for k, v in state_b.items() if not ours(k)}
+    out.update((k, v) for k, v in state_a.items() if ours(k))
+    return out
+
+
 def load_model(cfg, prefix: str, epoch: int, device="cuda"):
     """The test-mode model of ``cfg`` on ``device`` (CUDA unless the
     caller asks for the CPU) with the weights of ``prefix``@``epoch``."""
-    params, batch_stats = load_param(prefix, epoch)
-    model = build_model(cfg, device)
-    model.load_state_dict(from_flax({"params": params,
-                                     "batch_stats": batch_stats}))
+    model = build_model(cfg, device, seed=None)
+    model.load_state_dict(load_state_dict(prefix, epoch))
     return model
 
 

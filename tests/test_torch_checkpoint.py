@@ -216,7 +216,8 @@ def test_a_port_checkpoint_restores_into_the_jax_package(tmp_path):
     cfg, state = _port_state(seed=3, base_lr=0.01, frozen_prefixes=frozen)
     ds = SyntheticDataset("train", 2, cfg.num_classes, (128, 160))
     step = ttrain.make_train_step(cfg)
-    for batch in AnchorLoader(ds, cfg, batch_images=1, seed=0):
+    for batch in AnchorLoader(ds.gt_roidb(), cfg, ds.load_image,
+                              batch_images=1, seed=0):
         step(state, ttrain.to_device(batch, torch.device("cpu")))
     prefix = str(tmp_path / "port")
     path = tckpt.save_checkpoint(prefix, 3, state, steps_per_epoch=2,
@@ -339,4 +340,5 @@ def test_resume_is_bit_exact(tmp_path, capsys):
     pa, _ = tckpt.load_param(a, 2)
     pb, _ = tckpt.load_param(b, 2)
     _assert_same_tree(pa, pb)
-    assert tckpt.read_manifest(tckpt.checkpoint_path(a, 2))["step"] == 4
+    # 4 images and their flipped copies at batch 2: 4 steps an epoch
+    assert tckpt.read_manifest(tckpt.checkpoint_path(a, 2))["step"] == 8

@@ -130,6 +130,9 @@ class _RawPredictor:
         self._cursor += n
         return tuple(self.to(x) for x in out)
 
+    def raw_batch(self, batch):
+        return self.raw(batch.images, batch.im_info)
+
 
 class _PerfectPredictor(_RawPredictor):
     """Every gt box with an almost one-hot, distinct score: mAP 1."""

@@ -122,6 +122,42 @@ def test_training_entry_points_refuse_to_drop_to_the_cpu():
     assert state.model.training and state.step == 0
 
 
+def test_alternate_schedule_entry_points_refuse_to_drop_to_the_cpu():
+    """``train_net``, the five stage tools, ``generate_proposals`` and
+    ``test_rcnn_stage`` raise without a card unless asked for the CPU,
+    before they read a checkpoint or a pickle."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import generate_proposals
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.tools import (test_rcnn, test_rpn,
+                                         train_alternate, train_rcnn,
+                                         train_rpn)
+    from mx_rcnn_tpu_torch.tools.train import train_net
+
+    cfg = generate_config("tiny", "synthetic")
+    common = ["--synthetic", "2", "--network", "tiny", "--dataset",
+              "synthetic"]
+    missing = ["--prefix", "/nonexistent/m", "--epoch", "1"]
+    calls = [
+        lambda: train_net(cfg, mode="rpn", synthetic=2),
+        lambda: train_rpn.main(common),
+        lambda: train_rcnn.main(common + ["--proposals", "/nonexistent.pkl"]),
+        lambda: test_rpn.main(common + missing + ["--out", "/nonexistent"]),
+        lambda: test_rcnn.main(common + missing + [
+            "--proposals", "/nonexistent.pkl"]),
+        lambda: test_rcnn.test_rcnn_stage(cfg, prefix="/nonexistent/m",
+                                          epoch=1, proposals=[],
+                                          synthetic=1),
+        lambda: train_alternate.main(common + ["--prefix", "/nonexistent/m"]),
+        lambda: generate_proposals(build_model(cfg, "cpu"), [], cfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_card(alone, tmp_path):
     """``chip_smoke.py`` exits non-zero and prints no result line when

@@ -64,7 +64,8 @@ def _batches(network, count=1, seed=0):
     _, _, size, batch = _SMALL[network]
     ds = SyntheticDataset(cfg.dataset.image_set, batch * count,
                           cfg.num_classes, size)
-    return list(AnchorLoader(ds, cfg, batch_images=batch, seed=seed))
+    return list(AnchorLoader(ds.gt_roidb(), cfg, ds.load_image,
+                             batch_images=batch, seed=seed))
 
 
 def _jax_draws(key, n, step=None):
@@ -156,7 +157,8 @@ def test_loader_batches_equal_jax(tmp_path):
                      num_images=6, num_classes=4)
     jl = JAnchorLoader(jds.gt_roidb(), jcfg, batch_images=2, seed=3,
                        num_workers=0, raw_images=True)
-    tl = AnchorLoader(SyntheticDataset("train", 6, 4), cfg, batch_images=2,
+    ds = SyntheticDataset("train", 6, 4)
+    tl = AnchorLoader(ds.gt_roidb(), cfg, ds.load_image, batch_images=2,
                       seed=3)
     assert len(tl) == len(jl) == 3
     for _ in range(2):
