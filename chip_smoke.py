@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's detection forward, training step, checkpoints,
-evaluation and the alternate schedule on one NVIDIA card.
+evaluation, the alternate schedule and the serving engine on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -78,7 +79,23 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    across stages 3 and 4; ``tools/test.py`` on the combined model and
    ``tools/test_rcnn.py`` on rcnn2 with rpn2's proposals (launches, then
    images/s and device time per image); last, 6 end-to-end VGG16 steps
-   through ``tools/train.py --network vgg``.
+   through ``tools/train.py --network vgg``;
+11. the serving engine, the fifth main path, ResNet-101 in bf16 at the
+   ``ServeConfig`` defaults (batch 4, both buckets): K1 at the engine's
+   shapes (proposals B=4, K=6144; postprocess B=84, K=512) and K2 at 4x300
+   rois against their plain versions on both buckets' canvases (K2 on the
+   38x64 and the 64x38 map) and timed; the host's CPU model, cores and
+   load at the phase's start and end; a seeded checkpoint
+   served cold by ``tools/serve.py`` in a process of its own (time to the
+   first ``/healthz`` 200, 8 concurrent ``/detect`` of 375x500 and 500x375
+   images, ``/metrics``, exit 0 on SIGINT); ``engine.detect`` bit-equal
+   to the offline path on the same batch in bf16 and fp32;
+   ``tools/loadgen.py`` in-process, a closed loop at concurrency 8 for 8
+   s, then open loops for 6 s at 0.5x its served rate and at 1.5x the
+   higher of that rate and the offline rate (nothing lost or failed; the
+   1.5x loop sheds or expires); one engine batch's
+   device time, K1 and K2 (profiler), the busy share of a 2 s closed loop
+   and its launches, K1 2, K2 1 and K3 0 per batch.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -86,7 +103,7 @@ before the last are the card's name and power limit and one
 ``{"kernels": [...]}`` JSON object (launches from the training path, times
 at the training shapes); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
-output) go to ``chiprun_out/chip_smoke/``; phases 9 and 10 write their
+output) go to ``chiprun_out/chip_smoke/``; phases 9–11 write their
 checkpoints under the ignored ``_chip/`` directory and remove them at
 their end.
 """
@@ -96,6 +113,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -142,6 +160,57 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def host_info(dev=None) -> dict:
+    """The host: its CPU model as ``/proc/cpuinfo`` names it, its core
+    count, the cores this process may use, the 1/5/15-minute load
+    averages, and two timings of its speed, best of 5: a fixed
+    pure-Python loop (``py_loop_ms``, what a GIL-bound dispatcher runs
+    at) and, given a CUDA ``dev``, the host time per issued tiny CUDA
+    operation (``issue_us_per_op``, 2000 in-place adds then one
+    synchronise).  Host-bound rates are read beside them: two calls may
+    land on two hosts, and a host's cores are shared."""
+    model = "not reported"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), model)
+    except OSError:
+        pass
+    loop = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sum(i * i for i in range(200_000))
+        loop.append((time.perf_counter() - t0) * 1e3)
+    out = dict(cpu_model=model,
+               cpu_count=os.cpu_count(),
+               usable_cpus=len(os.sched_getaffinity(0)),
+               loadavg=[round(v, 2) for v in os.getloadavg()],
+               py_loop_ms=min(loop))
+    if dev is not None:
+        import torch
+
+        x = torch.zeros(1, device=dev)
+        issue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                x.add_(1)
+            torch.cuda.synchronize()
+            issue.append((time.perf_counter() - t0) / 2000 * 1e6)
+        out["issue_us_per_op"] = min(issue)
+    return out
+
+
+def host_text(h: dict) -> str:
+    text = (f"{h['cpu_model']}, {h['cpu_count']} cores ({h['usable_cpus']} "
+            f"usable), load average {h['loadavg']}, a fixed Python loop "
+            f"{h['py_loop_ms']:.2f} ms")
+    if "issue_us_per_op" in h:
+        text += f", {h['issue_us_per_op']:.2f} us of host time per CUDA op"
+    return text
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
     import torch
@@ -167,17 +236,17 @@ def bound(nbytes: float, ops: float):
 
 # ---- phase 2: K1 -----------------------------------------------------------
 
-def nms_inputs(batch: int, k: int, seed: int, dev):
+def nms_inputs(batch: int, k: int, seed: int, dev, bucket=BUCKET):
     """Score-sorted, padded boxes as the proposal stage hands them to K1:
-    random proposals on the bucket canvas with planted exact duplicates,
-    near-duplicates and tied scores, some slots invalid."""
+    random proposals on the (h, w) ``bucket`` canvas with planted exact
+    duplicates, near-duplicates and tied scores, some slots invalid."""
     import numpy as np
     import torch
 
     from mx_rcnn_tpu_torch.ops.nms import _mask_pad_sort
 
     rng = np.random.RandomState(seed)
-    h, w = BUCKET
+    h, w = bucket
     xy = rng.uniform(0, [w - 16, h - 16], (batch, k, 2))
     wh = rng.uniform(16, 400, (batch, k, 2))
     boxes = np.concatenate([xy, np.minimum(xy + wh, [w - 1, h - 1])], -1)
@@ -333,17 +402,19 @@ def phase_k1(dev) -> dict:
 
 # ---- phase 3: K2 -----------------------------------------------------------
 
-def roi_inputs(n: int, r: int, seed: int, dev, wh=(0, 500), c: int = 1024):
-    """A 38x64xC map and (n, r) random rois on the bucket canvas, sides
-    uniform in ``wh`` px."""
+def roi_inputs(n: int, r: int, seed: int, dev, wh=(0, 500), c: int = 1024,
+               bucket=BUCKET):
+    """The stride-16 map of the (h, w) ``bucket`` canvas (38x64xC for
+    608x1024, 64x38xC for 1024x608) and (n, r) random rois on that
+    canvas, sides uniform in ``wh`` px."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
-    fh, fw = BUCKET[0] // 16, BUCKET[1] // 16
+    fh, fw = bucket[0] // 16, bucket[1] // 16
     feat = torch.tensor(rng.standard_normal((n, fh, fw, c)),
                         dtype=torch.float32, device=dev)
-    xy = rng.uniform(-8, [BUCKET[1], BUCKET[0]], (n, r, 2))
+    xy = rng.uniform(-8, [bucket[1], bucket[0]], (n, r, 2))
     sides = rng.uniform(wh[0], wh[1], (n, r, 2))
     rois = torch.tensor(np.concatenate([xy, xy + sides], -1),
                         dtype=torch.float32, device=dev)
@@ -629,6 +700,7 @@ def phase_forward_parity(dev, network: str = "resnet101") -> dict:
 
     from mx_rcnn_tpu_torch.config import generate_config
     from mx_rcnn_tpu_torch.core.tester import Predictor
+    from mx_rcnn_tpu_torch.data.image import prepare_image
     from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
     from mx_rcnn_tpu_torch.tools import demo
 
@@ -638,7 +710,7 @@ def phase_forward_parity(dev, network: str = "resnet101") -> dict:
     predictor = Predictor(build_model(cfg, dev, seed=1), cfg, dev)
     canvases, info = [], []
     for img in demo.synthetic_images(2, seed=5):
-        canvas, im_info, _ = demo.prepare(img, cfg)
+        canvas, im_info, _ = prepare_image(img, cfg)
         canvases.append(canvas)
         info.append(im_info)
     images, im_info = np.stack(canvases), np.stack(info)
@@ -693,16 +765,19 @@ def stage_times(predictor, images, im_info, iters: int, warmup: int = 2
     return {k: v / iters for k, v in sums.items()}
 
 
-def device_profile(run, iters: int) -> dict:
+def device_profile(run, iters: int, cpu: bool = True) -> dict:
     """Device time per call of ``run()`` from a ``torch.profiler`` trace
     (sum of kernel and copy times), the top kernels by time, and the time
-    of each kernel of KERNEL_NAMES (K1's two passes apart)."""
+    of each kernel of KERNEL_NAMES (K1's two passes apart).  ``cpu=False``
+    traces the device alone, which slows the host far less."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 ) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
@@ -733,6 +808,7 @@ def phase_serving(dev, card: str) -> dict:
     from mx_rcnn_tpu_torch import kernels
     from mx_rcnn_tpu_torch.config import generate_config
     from mx_rcnn_tpu_torch.core.tester import Predictor
+    from mx_rcnn_tpu_torch.data.image import prepare_image
     from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
     from mx_rcnn_tpu_torch.tools import demo
 
@@ -776,7 +852,7 @@ def phase_serving(dev, card: str) -> dict:
         raise AssertionError(f"the serving path's launches are wrong: "
                              f"{launches}")
 
-    prepared = [demo.prepare(img, cfg) for img in images]
+    prepared = [prepare_image(img, cfg) for img in images]
     for batch in (1, 2):
         canv = np.stack([p[0] for p in prepared[:batch]])
         info = np.stack([p[1] for p in prepared[:batch]])
@@ -1878,6 +1954,407 @@ def phase_alternate(dev, card: str) -> dict:
                 evals=evals, e2e=e2e)
 
 
+# ---- phase 11: the serving engine, the fifth main path ----------------------
+
+SERVE_DIR = REPO / "_chip" / "serve"
+ENGINE_BATCH = 4           # serve.batch_size
+CLI_REQUESTS = 8
+# From a seeded init, ResNet-101's pooled ROI features share one large
+# component, so the classifier's logits spread ~300 over the classes and
+# one class, background for seed 0, wins every ROI at p ~ 1: nothing
+# clears serve.score_thresh 0.05 (measured on the CPU at a 192x256
+# canvas).  The served checkpoint draws the classifier at a hundredth of
+# the reference's std (Normal(1e-4)): logits spread ~3, and every image
+# gets detections to compare.
+SERVE_CLS_SCALE = 0.01
+
+
+def phase_engine_kernels(dev) -> dict:
+    """K1 at the engine's batch-4 shapes (proposals B=4, K=6144;
+    postprocess B=4*21, K=512) and K2 at 4x300 rois, against their plain
+    versions on each bucket's canvas (K2 on the 38x64 map of 608x1024
+    and the 64x38 map of 1024x608), then timed; K1 is timed on the first
+    bucket only, its work does not depend on the canvas."""
+    import torch
+
+    portrait = BUCKET[::-1]
+    res = {}
+    for j, bucket in enumerate((BUCKET, portrait)):
+        tag = "" if bucket == BUCKET else f" {bucket[0]}x{bucket[1]}"
+        for i, (name, b, k, thr) in enumerate((
+                ("proposal", ENGINE_BATCH, 6000, 0.7),
+                ("postprocess", ENGINE_BATCH * VOC_CLASSES, 300, 0.3))):
+            label = f"engine {name}{tag}"
+            boxes, _, alive, _, t = nms_inputs(b, k, seed=110 + 10 * j + i,
+                                               dev=dev, bucket=bucket)
+            check_k1(label, boxes, alive, t)
+            if bucket == BUCKET:
+                res[f"k1_{name}"] = time_k1(label, boxes, alive, t, thr)
+        feat, rois = roi_inputs(ENGINE_BATCH, 300, 120 + j, dev,
+                                bucket=bucket)
+        _, err16 = check_k2(f"engine{tag}", feat, rois)
+        res["k2" if bucket == BUCKET else "k2_portrait"] = time_k2(
+            f"engine{tag}", feat.to(torch.bfloat16), rois, err16)
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(url: str, payload=None, timeout: float = 60.0):
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def request_images():
+    """The served images: seeded 375x500 and 500x375, half each, so both
+    buckets serve."""
+    from mx_rcnn_tpu_torch.tools import demo
+
+    half = CLI_REQUESTS // 2
+    return (demo.synthetic_images(half, seed=30)
+            + demo.synthetic_images(half, seed=31, size=(500, 375)))
+
+
+def serve_cli(prefix: str, card: str) -> dict:
+    """``tools/serve.py`` cold in a process of its own: time from its
+    start to the first ``/healthz`` 200 (model build, checkpoint read and
+    the warm-up of both buckets), 8 concurrent ``/detect`` requests, the
+    ``/metrics`` counts, then SIGINT: exit 0 within 10 s."""
+    import base64
+    import math
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    log_path = OUT_DIR / "serve_cli.txt"
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.serve",
+             "--prefix", prefix, "--epoch", "1", "--port", str(port)],
+            cwd=REPO, stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"tools/serve.py exited {proc.returncode} before "
+                        f"serving: {log_path.read_text()[-2000:]}")
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("tools/serve.py not serving after "
+                                         "180 s")
+                try:
+                    status, health = _http(url + "/healthz", timeout=2.0)
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.1)
+            time_to_serve = time.perf_counter() - t0
+            images = request_images()
+
+            def post(img):
+                return _http(url + "/detect", {
+                    "pixels_b64": base64.b64encode(img.tobytes()).decode(),
+                    "shape": list(img.shape)})
+
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(len(images)) as pool:
+                replies = list(pool.map(post, images))
+            burst_s = time.perf_counter() - t1
+            counts = []
+            for i, (status, body) in enumerate(replies):
+                dets = body.get("detections") or []
+                finite = all(math.isfinite(v) for d in dets
+                             for v in d["box"] + [d["score"]])
+                if status != 200 or not dets or not finite:
+                    raise AssertionError(f"request {i}: status {status}, "
+                                         f"{len(dets)} detections, finite "
+                                         f"{finite}: {str(body)[:300]}")
+                counts.append(len(dets))
+            status, snap = _http(url + "/metrics")
+            c = snap["counters"]
+            if status != 200 or c["served"] != len(images) or c["failed"]:
+                raise AssertionError(f"/metrics after the burst: {c}")
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+            t2 = time.perf_counter()
+            try:
+                rc = proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise AssertionError("tools/serve.py still running 10 s "
+                                     "after SIGINT")
+    exit_s = time.perf_counter() - t2
+    if rc != 0:
+        raise AssertionError(f"tools/serve.py exited {rc} on SIGINT")
+    log(f"serve CLI on {card}: first /healthz 200 after {time_to_serve:.2f} "
+        f"s (build, checkpoint read, warm-up of {health['buckets']}); "
+        f"{len(images)} concurrent /detect in {burst_s:.3f} s, all 200, "
+        f"detections {counts}; /metrics served {c['served']} failed "
+        f"{c['failed']} batches {c['batches']}; SIGINT → exit {rc} in "
+        f"{exit_s:.2f} s")
+    return dict(time_to_serve_s=time_to_serve, burst_s=burst_s,
+                detections=counts, metrics=snap, exit_s=exit_s,
+                healthz=health)
+
+
+def offline_detections(engine, img):
+    """``img`` through the offline path: its canvas in row 0 of a batch
+    composed by hand, ``Predictor.raw``, ``_postprocess_batch`` and
+    ``detections_from_keep``."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.core.tester import (_postprocess_batch,
+                                               detections_from_keep)
+
+    p, cfg = engine.predictor, engine.cfg
+    canvas, info, (bh, bw) = engine.preprocess(img)
+    n = cfg.serve.batch_size
+    images = np.zeros((n, bh, bw, 3), np.float32)
+    im_info = np.tile(np.array([bh, bw, 1.0], np.float32), (n, 1))
+    images[0], im_info[0] = canvas, info
+    outs = p.raw(images, im_info)
+    info_t = torch.from_numpy(im_info).to(p.device)
+    with torch.inference_mode():
+        post = _postprocess_batch(*outs, info_t, info_t[:, 2], engine._stds,
+                                  engine._means, nms_thresh=cfg.test.nms,
+                                  score_thresh=cfg.serve.score_thresh)
+    return detections_from_keep(*(t.cpu().numpy() for t in post), 0)
+
+
+def engine_bit_equal(prefix: str, dev, dtype: str) -> dict:
+    """For one image per bucket, ``engine.detect`` equals the offline path
+    on the same batch bit for bit."""
+    import numpy as np
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.tools.loadgen import init_predictor
+
+    cfg = generate_config("resnet101", "PascalVOC",
+                          network__compute_dtype=dtype)
+    engine = ServingEngine(init_predictor(cfg, prefix, 1, device=dev), cfg)
+    images = request_images()
+    counts = {}
+    try:
+        engine.warmup()
+        for img in (images[0], images[-1]):
+            got = engine.detect(img)
+            want = offline_detections(engine, img)
+            bucket = engine.preprocess(img)[2]
+            same = sorted(got) == sorted(want) and all(
+                np.array_equal(got[c], want[c]) for c in want)
+            n = sum(len(v) for v in want.values())
+            if not same or n == 0:
+                raise AssertionError(f"engine {dtype} bucket {bucket}: "
+                                     f"{n} detections, bit-equal {same}")
+            counts[f"{bucket[0]}x{bucket[1]}"] = n
+    finally:
+        engine.close()
+    log(f"engine {dtype}: detect bit-equal to the offline path, "
+        f"detections per bucket {counts}")
+    return counts
+
+
+def _loadgen(argv, out: Path) -> dict:
+    from mx_rcnn_tpu_torch.tools import loadgen
+
+    with open(out.with_suffix(".txt"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        rc = loadgen.main(argv + ["--out", str(out)])
+    rec = json.loads(out.read_text())
+    if rc != 0 or rec["lost"] or rec["failed"]:
+        raise AssertionError(f"loadgen rc {rc}: lost {rec['lost']}, failed "
+                             f"{rec['failed']}")
+    return rec
+
+
+def engine_traffic(prefix: str, card: str) -> dict:
+    """``tools/loadgen.py`` in-process: a closed loop at concurrency 8
+    for 8 s, then open loops for 6 s with 2 s deadlines, at 0.5x its
+    served rate and at 1.5x the engine's ceiling; nothing lost or failed,
+    and the 1.5x loop sheds or expires.
+
+    The ceiling is the closed loop's served rate, or the offline rate of
+    the same batches where that is higher: 8 clients with one request
+    each serve concurrency / latency (Little's law), which on a slow host
+    stays under what the engine can take (on an H100 80GB HBM3 machine
+    with a slower host, 88.49 images/s offline against 115.17 on
+    another: 36.45 closed at 2.32 rows a batch, and 1.5x of the closed
+    rate neither shed nor expired)."""
+    base = ["--network", "resnet101", "--dataset", "PascalVOC", "--prefix",
+            prefix, "--epoch", "1"]
+    runs = {"closed": _loadgen(base + ["--duration", "8", "--concurrency",
+                                       str(2 * ENGINE_BATCH)],
+                               OUT_DIR / "loadgen_closed.json")}
+    closed = runs["closed"]
+    rates = {0.5: closed["value"],
+             1.5: max(closed["value"], closed["offline_imgs_per_sec"])}
+    log(f"loadgen closed loop {closed['value']} images/s, offline "
+        f"{closed['offline_imgs_per_sec']}: open loops at 0.5 x "
+        f"{rates[0.5]} and 1.5 x {rates[1.5]} arrivals/s")
+    for k, rate in rates.items():
+        runs[f"open_{k}x"] = _loadgen(
+            base + ["--mode", "open", "--duration", "6", "--qps",
+                    f"{k * rate:.3f}", "--timeout_ms", "2000"],
+            OUT_DIR / f"loadgen_open_{k}x.json")
+    for name, r in runs.items():
+        log(f"loadgen {name} on {card}: {r['value']} images/s served "
+            f"(target {r['qps_target']}), p50/p90/p99 {r['p50_ms']}/"
+            f"{r['p90_ms']}/{r['p99_ms']} ms, queue wait p99 "
+            f"{r['queue_wait_p99_ms']} ms, model p50 {r['model_ms_p50']} "
+            f"ms, occupancy {r['batch_occupancy_mean']}, preprocess p50 "
+            f"{r['preprocess_ms_p50']} ms ({r['resize_backend']}), shed "
+            f"{r['shed_rate']} expired {r['expired_rate']} of "
+            f"{r['submitted']}, offline {r['offline_imgs_per_sec']} "
+            f"images/s, ratio {r['ratio_vs_offline']}")
+    over = runs["open_1.5x"]
+    if over["shed"] + over["expired"] == 0:
+        raise AssertionError("the 1.5x open loop neither shed nor expired")
+    return runs
+
+
+def engine_profile(prefix: str, dev, card: str) -> dict:
+    """Device time of one engine batch of 4 (profiler), the busy share
+    over a 2 s closed loop (device time of a device-only trace over wall
+    time) and the launches of that loop: K1 2, K2 1 and K3 0 per batch."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.tools.loadgen import (init_predictor,
+                                                 run_closed_loop,
+                                                 synthetic_images)
+
+    cfg = generate_config("resnet101", "PascalVOC")
+    engine = ServingEngine(init_predictor(cfg, prefix, 1, device=dev), cfg)
+    try:
+        engine.warmup()
+        pre = [engine.preprocess(img) for img in request_images()[:4]]
+        images = np.stack([p[0] for p in pre])
+        im_info = np.stack([p[1] for p in pre])
+        batch = device_profile(lambda: engine._run(images, im_info), 5)
+        traffic = synthetic_images(cfg, 16, seed=0)
+        torch.cuda.synchronize()
+        engine.metrics.reset()
+        kernels.reset_launch_counts()
+        run = {}
+        loop = device_profile(lambda: run.update(run_closed_loop(
+            engine, traffic, 2.0, 2 * ENGINE_BATCH, 2000.0)), 1, cpu=False)
+        wall_ms = run["wall_s"] * 1e3
+        launches = kernels.launch_counts()
+        snap = engine.metrics.snapshot()
+    finally:
+        engine.close()
+    batches = snap["counters"]["batches"]
+    loop["busy_share"] = busy_share(loop, wall_ms)
+    ours = batch["kernel_ms_per_iter"]
+    log(f"engine batch of 4 on {card}: {batch['device_ms_per_iter']:.3f} ms "
+        f"of device time, {batch['kernels_per_iter']:.0f} device ops; K1 "
+        f"mask pass {ours['k1_mask']:.4f} + reduction {ours['k1_reduce']:.4f}"
+        f" ms, K2 {ours['k2']:.4f} ms per batch")
+    log(f"engine closed loop, 2 s at concurrency 8 under a device-only "
+        f"trace: {batches} batches, {snap['counters']['served']} served "
+        f"({snap['counters']['served'] / wall_ms * 1e3:.2f} images/s), device "
+        f"{loop['device_ms_per_iter']:.1f} ms of {wall_ms:.1f} ms wall (busy "
+        f"share {loop['busy_share'] or 'not measured'}); launches {launches}")
+    want = {"nms_sweep": 2 * batches, "roi_align_fwd": batches,
+            "roi_align_bwd": 0}
+    if batches == 0 or launches != want:
+        raise AssertionError(f"the engine's launches {launches} over "
+                             f"{batches} batches; want {want}")
+    loop["wall_ms"] = wall_ms
+    return dict(batch=batch, loop=loop, launches=launches, batches=batches,
+                snapshot=snap)
+
+
+def preprocess_alone(cfg) -> dict:
+    """A request's resize and pad alone on one thread (``prepare_image``,
+    the engine's ``preprocess``): ms per image, mean of 10, for a 375x500
+    request image and a 608x1024 loadgen image."""
+    from mx_rcnn_tpu_torch.data.image import prepare_image
+    from mx_rcnn_tpu_torch.tools.loadgen import synthetic_images
+
+    out = {}
+    for name, img in (("375x500", request_images()[0]),
+                      ("608x1024", synthetic_images(cfg, 1)[0])):
+        prepare_image(img, cfg)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            prepare_image(img, cfg)
+        out[name] = (time.perf_counter() - t0) / 10 * 1e3
+    return out
+
+
+def phase_engine(dev, card: str) -> dict:
+    """Phase 11: the engine's kernel shapes, ``tools/serve.py`` cold, the
+    bit-equality of bf16 and fp32 answers, the loadgen traffic and the
+    profile, from one seeded ResNet-101 checkpoint under the ignored
+    ``_chip/``, removed at the end."""
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.data.image import RESIZE_BACKEND
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.utils.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    host = {"start": host_info(dev)}
+    log(f"phase 11 host: {host_text(host['start'])}")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    try:
+        kern = phase_engine_kernels(dev)
+        prefix = str(SERVE_DIR / "m")
+        cfg = generate_config("resnet101", "PascalVOC")
+        # fp32 weights from a seed (each dtype's model casts them), the
+        # classifier's scaled by SERVE_CLS_SCALE
+        model = build_model(cfg, dev, seed=0, train=True)
+        with torch.no_grad():
+            model.cls_score.weight.mul_(SERVE_CLS_SCALE)
+        save_params(prefix, 1, model.state_dict())
+        del model
+        alone = preprocess_alone(cfg)
+        log(f"phase 11: resize backend {RESIZE_BACKEND}; a request's "
+            f"resize and pad alone: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in alone.items()))
+        cli = serve_cli(prefix, card)
+        bit_equal = {dt: engine_bit_equal(prefix, dev, dt)
+                     for dt in ("bfloat16", "float32")}
+        traffic = engine_traffic(prefix, card)
+        prof = engine_profile(prefix, dev, card)
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    host["end"] = host_info(dev)
+    log(f"phase 11 took {wall:.1f} s; host at its end: "
+        f"{host_text(host['end'])}")
+    return dict(kernels=kern, cli=cli, bit_equal=bit_equal, traffic=traffic,
+                profile=prof, resize_backend=RESIZE_BACKEND,
+                preprocess_alone_ms=alone, wall_s=wall, host=host)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -1907,7 +2384,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    host = host_info(torch.device("cuda", 0))
     log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    log(f"host: {host_text(host)}")
 
     t0 = time.perf_counter()
     build_logs = kernels.build_all()
@@ -1929,6 +2408,7 @@ def main() -> int:
     training = phase_training(dev, card)
     evaluation = phase_eval(dev, card)
     alternate = phase_alternate(dev, card)
+    engine = phase_engine(dev, card)
 
     # no single PyTorch call computes any of the three functions (the
     # repo's bilinear rules are not torchvision's, which is absent), so
@@ -1941,9 +2421,10 @@ def main() -> int:
              kernel_line(kernels.ROI_ALIGN_BWD, k3["train"]["bf16"],
                          launches["roi_align_bwd"])]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, k1=k1, k2=k2, k3=k3,
+        card=card, host=host, build_s=build_s, k1=k1, k2=k2, k3=k3,
         forward_parity=parity, train_parity=train_parity, serving=serving,
-        training=training, evaluation=evaluation, alternate=alternate),
+        training=training, evaluation=evaluation, alternate=alternate,
+        engine=engine),
         indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))

@@ -3,7 +3,8 @@
 The port's own copy of the config fields and presets the detection
 forward reads, with the JAX package's key names and default values, so a
 config built here and one built by ``mx_rcnn_tpu.config`` agree on every
-field they share.  The training and eval slices add their fields.
+field they share.  The training, eval and serving slices add their
+fields.
 Three-level precedence: hardcoded defaults < network/dataset presets <
 ``section__field`` overrides (the CLIs' ``--set``).
 """
@@ -139,6 +140,21 @@ class BucketConfig:
 
 
 @dataclass(frozen=True)
+class ServeConfig:
+    """Mirrors ``mx_rcnn_tpu.config.ServeConfig``: the online serving
+    engine's policy (``serve/engine.py``).  Every micro-batch is padded
+    to ``batch_size`` rows, so each bucket runs one batch shape."""
+
+    batch_size: int = 4           # static micro-batch rows per dispatch
+    max_delay_ms: float = 10.0    # longest wait to fill a micro-batch
+    queue_depth: int = 64         # hard per-bucket admission cap
+    shed_watermark: int = 32      # shed (HTTP 429) at this many queued
+    default_timeout_ms: float = 2000.0   # per-request deadline; 0 = none
+    score_thresh: float = 0.05    # detection floor of a response
+    max_body_mb: float = 64.0     # request bodies over this are refused 413
+
+
+@dataclass(frozen=True)
 class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     test: TestConfig = field(default_factory=TestConfig)
@@ -146,6 +162,7 @@ class Config:
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     default: DefaultConfig = field(default_factory=DefaultConfig)
     bucket: BucketConfig = field(default_factory=BucketConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
 
     @property
     def num_classes(self) -> int:

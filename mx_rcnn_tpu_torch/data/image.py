@@ -2,11 +2,13 @@
 
 Counterpart of ``mx_rcnn_tpu/data/image.py`` (``compute_scale``,
 ``resize_keep_ratio``, ``bucket_fit``, ``choose_bucket``,
-``pad_normalize``, ``resize_to_bucket``, and the loader's shrink-to-fit
-step of ``load_resized_uint8`` as ``fit_to_bucket``).  Images are RGB
-uint8 (H, W, 3).  Resizing uses OpenCV's bilinear resize where ``cv2``
-imports, else a numpy bilinear resize with the same half-pixel-centre
-convention; :data:`RESIZE_BACKEND` says which one this process uses.
+``pad_normalize``, ``resize_to_bucket``, ``estimate_bucket``, and the
+loader's shrink-to-fit step of ``load_resized_uint8`` as
+``fit_to_bucket``), and ``prepare_image``, the canvas and ``im_info`` of
+one served or demo image.  Images are RGB uint8 (H, W, 3).  Resizing uses
+OpenCV's bilinear resize where ``cv2`` imports, else a numpy bilinear
+resize with the same half-pixel-centre convention; :data:`RESIZE_BACKEND`
+says which one this process uses.
 """
 
 from __future__ import annotations
@@ -90,6 +92,15 @@ def choose_bucket(h: int, w: int, buckets: Sequence[Tuple[int, int]]
     return max(same or buckets, key=lambda b: b[0] * b[1])
 
 
+def estimate_bucket(h: int, w: int, scale: int, max_size: int,
+                    buckets: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
+    """The bucket an (h, w) image serves in after ``resize_keep_ratio``,
+    from its dims alone: the serving engine's admission check, made
+    before any pixel work."""
+    s = compute_scale(h, w, scale, max_size)
+    return choose_bucket(int(round(h * s)), int(round(w * s)), buckets)
+
+
 def pad_normalize(img: np.ndarray, pixel_means: Sequence[float],
                   bucket: Tuple[int, int]) -> np.ndarray:
     """Unpadded (h, w, 3) uint8 → padded (bh, bw, 3) fp32 mean-subtracted
@@ -114,6 +125,20 @@ def resize_to_bucket(img: np.ndarray, pixel_means: Sequence[float], scale: int,
     bucket = choose_bucket(*resized.shape[:2], buckets)
     resized, im_scale = fit_to_bucket(resized, im_scale, bucket)
     return pad_normalize(resized, pixel_means, bucket), im_scale, bucket
+
+
+def prepare_image(img: np.ndarray, cfg
+                  ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
+    """One RGB uint8 (h, w, 3) image → (padded fp32 canvas, im_info (3,),
+    bucket) under a ``Config``'s pixel means, scales and buckets: the
+    eval's preprocessing, which the demo and the serving engine share."""
+    canvas, im_scale, bucket = resize_to_bucket(
+        img, cfg.network.pixel_means, cfg.bucket.scale, cfg.bucket.max_size,
+        tuple(tuple(s) for s in cfg.bucket.shapes))
+    h, w = img.shape[:2]
+    im_info = np.array([round(h * im_scale), round(w * im_scale), im_scale],
+                       np.float32)
+    return canvas, im_info, bucket
 
 
 def fit_to_bucket(img: np.ndarray, im_scale: float, bucket: Tuple[int, int]

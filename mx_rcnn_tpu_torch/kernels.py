@@ -9,8 +9,12 @@ Nothing is built at import time: :func:`build_all` (or the first launch
 of a kernel) builds, and :func:`build_all` starts one ``nvcc`` per source
 in parallel.
 
-Every kernel keeps a plain integer launch count that its wrapper bumps
-once per successful launch; :func:`reset_launch_counts` zeroes them.
+Every kernel keeps an integer launch count that its wrapper bumps once
+per successful launch; :func:`reset_launch_counts` zeroes them.  Many
+threads may launch (the serving engine runs a dispatcher per bucket):
+a kernel is built and loaded once, under its lock, whichever thread
+reaches it first, each build writes a staging file of its own, and
+counts are bumped under that same lock.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -62,6 +68,9 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._fn = None
+        # guards the one-time build and the counts; the fast path of
+        # fn() takes no lock, so launches never wait on each other long
+        self._lock = threading.Lock()
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
@@ -74,7 +83,12 @@ class CudaKernel:
         if lib.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        # a staging name of this build's own: two threads or processes
+        # building the same library never write one file
+        fd, tmp = tempfile.mkstemp(prefix=lib.stem + ".", suffix=".tmp",
+                                   dir=BUILD_DIR)
+        os.close(fd)
+        tmp = Path(tmp)
         cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -87,21 +101,30 @@ class CudaKernel:
         out, _ = proc.communicate()
         self.build_log = out
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             raise RuntimeError(
                 f"nvcc failed for {self.source.name} "
                 f"(exit {proc.returncode}):\n{out}")
         os.replace(tmp, lib)
 
     def fn(self):
-        """The loaded C entry point, building the library on first use."""
-        if self._fn is None:
-            self.finish_build(self.start_build())
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        """The loaded C entry point, building the library on first use:
+        once, whichever thread gets here first; the others wait for it."""
+        fn = self._fn
+        if fn is None:
+            with self._lock:
+                if self._fn is None:
+                    self.finish_build(self.start_build())
+                    self._fn = self._load()
+                fn = self._fn
+        return fn
+
+    def _load(self):
+        lib = ctypes.CDLL(str(self.library_path()))
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
     def launch(self, *args) -> None:
         """Call the C entry point (which launches on the given stream and
@@ -111,7 +134,8 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {rc}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 NMS_SWEEP = CudaKernel(
@@ -159,8 +183,13 @@ def build_all() -> Dict[str, str]:
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        with k._lock:
+            k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.name: k.launches for k in KERNELS}
+    out = {}
+    for k in KERNELS:
+        with k._lock:
+            out[k.name] = k.launches
+    return out

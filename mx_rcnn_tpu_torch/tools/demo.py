@@ -19,12 +19,12 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
+from mx_rcnn_tpu_torch.config import (NETWORKS, generate_config,
                                       parse_set_overrides)
 from mx_rcnn_tpu_torch.core.tester import (Predictor, _postprocess_batch,
                                            detections_from_keep,
                                            tiled_bbox_stats)
-from mx_rcnn_tpu_torch.data.image import RESIZE_BACKEND, resize_to_bucket
+from mx_rcnn_tpu_torch.data.image import RESIZE_BACKEND, prepare_image
 from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
 
 
@@ -60,17 +60,6 @@ def read_image(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, ::-1])
 
 
-def prepare(img: np.ndarray, cfg: Config):
-    """One image → (canvas (bh, bw, 3) fp32, im_info (3,), bucket)."""
-    canvas, im_scale, bucket = resize_to_bucket(
-        img, cfg.network.pixel_means, cfg.bucket.scale, cfg.bucket.max_size,
-        tuple(tuple(s) for s in cfg.bucket.shapes))
-    h, w = img.shape[:2]
-    im_info = np.array([round(h * im_scale), round(w * im_scale), im_scale],
-                       np.float32)
-    return canvas, im_info, bucket
-
-
 def batches(prepared: Sequence, batch: int) -> List[List[int]]:
     """Image indices grouped into batches of at most ``batch`` that share
     a bucket, in input order."""
@@ -100,7 +89,7 @@ def detect(predictor: Predictor, images: Sequence[np.ndarray], batch: int,
            score_thresh: float) -> List[Dict[int, np.ndarray]]:
     """Detections for each image, ``{class_id: (k, 5)}`` in raw-image
     coordinates, running ``batch`` images per forward."""
-    prepared = [prepare(img, predictor.cfg) for img in images]
+    prepared = [prepare_image(img, predictor.cfg) for img in images]
     dets: List[Dict[int, np.ndarray]] = [{} for _ in images]
     for idx in batches(prepared, batch):
         canvases = np.stack([prepared[i][0] for i in idx])
