@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's detection forward, training step, checkpoints,
-evaluation, the alternate schedule and the serving engine on one NVIDIA
-card.
+evaluation, the alternate schedule, the serving engine and the
+real-dataset input plane on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -95,7 +95,28 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    higher of that rate and the offline rate (nothing lost or failed; the
    1.5x loop sheds or expires); one engine batch's
    device time, K1 and K2 (profiler), the busy share of a 2 s closed loop
-   and its launches, K1 2, K2 1 and K3 0 per batch.
+   and its launches, K1 2, K2 1 and K3 0 per batch;
+12. the real-dataset input plane, the sixth main path: a VOCdevkit (16
+   trainval and 16 test JPEGs, 375x500 and 500x375, XML with
+   ``difficult`` flags) and a COCO tree (16 train2017 and 16 val2017
+   480x640 JPEGs, 80 categories, crowds) generated in the real layouts;
+   ``tools/train.py --dataset PascalVOC --root_path .. --dataset_path ..``
+   in bf16 at batch 2 with 2 decode workers, the cache, streaming and
+   staging (16 steps: ms/step, images/s, the data-wait share, images
+   decoded, peak memory, K1/K2/K3 1/1/1 per step); ``tools/test.py``
+   through ``PascalVOC`` (images/s, APs, the 20 comp4 files) and, from a
+   seeded 81-class checkpoint, through ``COCODataset`` (its numbers, K1
+   at B=162, K=512 checked and timed); staged batches bit-equal to
+   unstaged ones; the fp32 eval of the devkit equal through K1/K2 and
+   their plain versions; K2 and K3 at the training shape on the 64x38
+   map of the 1024x608 bucket, which the devkit's portrait images train
+   on, against their plain versions and timed; ``--resume`` for a second
+   epoch byte-equal to two straight epochs on the streaming plan
+   (cuDNN's deterministic algorithms up to here); last, steady training
+   with cuDNN's default algorithms, three-epoch runs in turns over the
+   devkit and over 16 synthetic images of the devkit's two orientations,
+   each run's second epoch timed and its third traced (device time,
+   copies, busy share).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -103,9 +124,9 @@ before the last are the card's name and power limit and one
 ``{"kernels": [...]}`` JSON object (launches from the training path, times
 at the training shapes); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
-output) go to ``chiprun_out/chip_smoke/``; phases 9–11 write their
-checkpoints under the ignored ``_chip/`` directory and remove them at
-their end.
+output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
+checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
+directory and remove them at their end.
 """
 
 from __future__ import annotations
@@ -421,14 +442,14 @@ def roi_inputs(n: int, r: int, seed: int, dev, wh=(0, 500), c: int = 1024,
     return feat, rois
 
 
-def placed_rois(n: int, r: int, seed: int, dev, where: str):
-    """(n, r) rois that cover the whole canvas (jittered past its borders)
-    or lie wholly outside it."""
+def placed_rois(n: int, r: int, seed: int, dev, where: str, bucket=BUCKET):
+    """(n, r) rois that cover the whole (h, w) ``bucket`` canvas (jittered
+    past its borders) or lie wholly outside it."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
-    h, w = BUCKET
+    h, w = bucket
     if where == "whole map":
         lo = rng.uniform(-24, 8, (n, r, 2))
         hi = np.array([w, h]) + rng.uniform(-8, 24, (n, r, 2))
@@ -771,7 +792,6 @@ def device_profile(run, iters: int, cpu: bool = True) -> dict:
     of each kernel of KERNEL_NAMES (K1's two passes apart).  ``cpu=False``
     traces the device alone, which slows the host far less."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA]
@@ -781,6 +801,15 @@ def device_profile(run, iters: int, cpu: bool = True) -> dict:
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
+    return trace_summary(prof, iters)
+
+
+def trace_summary(prof, iters: int) -> dict:
+    """:func:`device_profile`'s numbers from a finished ``torch.profiler``
+    trace of ``iters`` calls; ``copy_ms_per_iter`` is the copies' share
+    of the device time."""
+    from torch.autograd import DeviceType
+
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
@@ -788,6 +817,8 @@ def device_profile(run, iters: int, cpu: bool = True) -> dict:
     ours = {p: sum(t for k, t, _ in rows if name in k) / 1e3 / iters
             for p, name in KERNEL_NAMES.items()}
     return dict(device_ms_per_iter=total_us / 1e3 / iters,
+                copy_ms_per_iter=sum(t for k, t, _ in rows
+                                     if "Memcpy" in k) / 1e3 / iters,
                 top=[dict(name=k[:90], ms_per_iter=t / 1e3 / iters,
                           calls_per_iter=c / iters) for k, t, c in rows[:20]],
                 kernels_per_iter=sum(r[2] for r in rows) / iters,
@@ -1407,7 +1438,7 @@ def eval_cli(dev, work: Path, card: str) -> dict:
                 steady=steady)
 
 
-def resume_check(prefix: str, base) -> dict:
+def resume_check(prefix: str, base, tag: str = "eval") -> dict:
     """One more epoch with --resume after --end_epoch 1 against two
     epochs without a break: the epoch-2 checkpoints must be equal byte
     for byte (weights, trace, count; the epoch-1 files too, which says
@@ -1416,19 +1447,19 @@ def resume_check(prefix: str, base) -> dict:
 
     t0 = time.perf_counter()
     _train_cli(base + ["--prefix", prefix, "--end_epoch", "2", "--resume"],
-               OUT_DIR / "eval_resume.txt")
+               OUT_DIR / f"{tag}_resume.txt")
     straight = prefix + "_straight"
     _train_cli(base + ["--prefix", straight, "--end_epoch", "2"],
-               OUT_DIR / "eval_straight.txt")
+               OUT_DIR / f"{tag}_straight.txt")
     wall = time.perf_counter() - t0
-    digests = {f"{tag} epoch {e}": _sha256(checkpoint_path(p, e))
-               for tag, p in (("resumed", prefix), ("straight", straight))
+    digests = {f"{kind} epoch {e}": _sha256(checkpoint_path(p, e))
+               for kind, p in (("resumed", prefix), ("straight", straight))
                for e in (1, 2)}
     same1 = digests["resumed epoch 1"] == digests["straight epoch 1"]
     same2 = digests["resumed epoch 2"] == digests["straight epoch 2"]
-    log(f"resume: epoch 2 after --resume equals two epochs straight: "
-        f"{same2} (epoch 1 files equal: {same1}); {wall:.1f} s for both "
-        f"runs")
+    log(f"resume ({tag}): epoch 2 after --resume equals two epochs "
+        f"straight: {same2} (epoch 1 files equal: {same1}); {wall:.1f} s "
+        f"for both runs")
     if not (same1 and same2):
         raise AssertionError(f"resume is not bit-exact: {digests}")
     return dict(equal_epoch1=same1, equal_epoch2=same2, wall_s=wall,
@@ -2355,6 +2386,541 @@ def phase_engine(dev, card: str) -> dict:
                 preprocess_alone_ms=alone, wall_s=wall, host=host)
 
 
+# ---- phase 12: the real-dataset input plane, the sixth main path ----------
+
+REAL_DIR = REPO / "_chip" / "real"       # datasets, checkpoints, detections
+REAL_IMAGES = 16           # per image set: 16 trainval and 16 test images
+VOC_NAMES = ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car",
+             "cat", "chair", "cow", "diningtable", "dog", "horse",
+             "motorbike", "person", "pottedplant", "sheep", "sofa", "train",
+             "tvmonitor")
+# COCO 2017's 80 category ids, 1..90 less the ten it does not use
+COCO_IDS = tuple(i for i in range(1, 91)
+                 if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+COCO_CLASSES = 81
+
+
+def _scene(rng, h: int, w: int, n_classes: int):
+    """Noise with 1..4 rectangles, each filled with its class's colour:
+    (RGB uint8 image, [(class 0..n-1, (x1, y1, x2, y2))], 0-based)."""
+    import numpy as np
+
+    img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+    objs = []
+    for _ in range(rng.randint(1, 5)):
+        bw, bh = rng.randint(w // 8, w // 2), rng.randint(h // 8, h // 2)
+        x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+        c = int(rng.randint(n_classes))
+        img[y1:y1 + bh, x1:x1 + bw] = np.random.RandomState(1000 + c) \
+            .randint(60, 255, 3)
+        objs.append((c, (x1, y1, x1 + bw - 1, y1 + bh - 1)))
+    return img, objs
+
+
+def write_voc_devkit(root: Path, seed: int = 0) -> Path:
+    """A VOCdevkit in the real layout: VOC2007/JPEGImages (375x500 and
+    500x375 in turn, so both buckets), Annotations (1-based boxes of the 20
+    classes, every fifth object ``difficult`` unless it is its image's
+    first, so no image is left without gt) and ImageSets/Main trainval.txt
+    and test.txt, 16 images each."""
+    import cv2
+    import numpy as np
+
+    voc = root / "VOCdevkit" / "VOC2007"
+    for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
+        (voc / sub).mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    k = 0
+    for i in range(2 * REAL_IMAGES):
+        h, w = (375, 500) if i % 2 == 0 else (500, 375)
+        img, objs = _scene(rng, h, w, len(VOC_NAMES))
+        cv2.imwrite(str(voc / "JPEGImages" / f"{i:06d}.jpg"),
+                    img[:, :, ::-1])
+        xml = []
+        for j, (c, b) in enumerate(objs):
+            xml.append(f"<object><name>{VOC_NAMES[c]}</name><difficult>"
+                       f"{int(k % 5 == 4 and j > 0)}</difficult><bndbox><xmin>"
+                       f"{b[0] + 1}</xmin><ymin>{b[1] + 1}</ymin><xmax>"
+                       f"{b[2] + 1}</xmax><ymax>{b[3] + 1}</ymax></bndbox>"
+                       f"</object>")
+            k += 1
+        (voc / "Annotations" / f"{i:06d}.xml").write_text(
+            f"<annotation><size><width>{w}</width><height>{h}</height>"
+            f"<depth>3</depth></size>{''.join(xml)}</annotation>")
+    for name, ids in (("trainval", range(REAL_IMAGES)),
+                      ("test", range(REAL_IMAGES, 2 * REAL_IMAGES))):
+        (voc / "ImageSets" / "Main" / f"{name}.txt").write_text(
+            "".join(f"{i:06d}\n" for i in ids))
+    return root / "VOCdevkit"
+
+
+def write_coco_tree(root: Path, seed: int = 1) -> Path:
+    """A COCO tree in the real layout: train2017/ and val2017/ of 16
+    480x640 JPEGs each and annotations/instances_<set>.json over COCO's
+    80 category ids, every sixth annotation a crowd."""
+    import cv2
+    import numpy as np
+
+    ds = root / "coco"
+    (ds / "annotations").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    cats = [{"id": cid, "name": f"category{cid}"} for cid in COCO_IDS]
+    for sset in ("train2017", "val2017"):
+        (ds / sset).mkdir(exist_ok=True)
+        images, anns = [], []
+        for i in range(REAL_IMAGES):
+            img, objs = _scene(rng, 480, 640, len(COCO_IDS))
+            name = f"{i:012d}.jpg"
+            cv2.imwrite(str(ds / sset / name), img[:, :, ::-1])
+            images.append({"id": i + 1, "file_name": name, "height": 480,
+                           "width": 640})
+            for c, (x1, y1, x2, y2) in objs:
+                w, h = x2 - x1 + 1, y2 - y1 + 1
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "category_id": COCO_IDS[c],
+                             "bbox": [x1, y1, w, h], "area": w * h,
+                             "iscrowd": int(len(anns) % 6 == 5)})
+        (ds / "annotations" / f"instances_{sset}.json").write_text(
+            json.dumps({"images": images, "annotations": anns,
+                        "categories": cats}))
+    return ds
+
+
+def _parse(pattern: str, text: str, what: str):
+    m = re.search(pattern, text)
+    if m is None:
+        raise AssertionError(f"no {what} in the CLI's output")
+    return m
+
+
+def real_train(dev, voc_args, prefix: str, card: str):
+    """``tools/train.py`` over the devkit: ResNet-101 in bf16 at batch 2,
+    2 decode workers, the cache on, streaming and staging at their
+    defaults; one epoch of 16 images and their flips (16 steps) with a
+    checkpoint.  Launch counts zeroed just before, read just after; peak
+    memory over the run."""
+    import math
+
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    read_manifest)
+
+    base = voc_args + ["--image_set", "2007_trainval", "--batch_images", "2",
+                       "--seed", "0", "--frequent", "8",
+                       "--set", "default__decode_procs=2"]
+    out = OUT_DIR / "real_train.txt"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = _train_cli(base + ["--prefix", prefix, "--end_epoch", "1"], out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    text = out.read_text()
+    steps = 2 * REAL_IMAGES // 2
+    epoch = _parse(r"Epoch\[0\] (\d+) steps in ([0-9.]+) s, data wait "
+                   r"([0-9.]+) s \(([0-9.]+)%\)", text, "epoch line")
+    decoded = int(_parse(r"images decoded: (\d+)", text, "decode count")
+                  .group(1))
+    epoch_s = float(epoch.group(2))
+    manifest = read_manifest(checkpoint_path(prefix, 1))
+    res = dict(steps=int(epoch.group(1)), epoch_s=epoch_s,
+               ms_per_step=epoch_s * 1e3 / steps,
+               images_per_s=2 * steps / epoch_s,
+               data_wait_s=float(epoch.group(3)),
+               data_wait_share=float(epoch.group(4)) / 100,
+               images_decoded=decoded, launches=launches,
+               peak_gib=peak / 2 ** 30, cli_wall_s=wall,
+               final_metrics=final, base=base)
+    log(f"real-data training on {card}: ResNet-101 bf16, batch 2, "
+        f"{steps} steps over the VOCdevkit's 16 trainval JPEGs and their "
+        f"flips, 2 decode workers, cache, streaming, staging: "
+        f"{res['ms_per_step']:.2f} ms/step, {res['images_per_s']:.2f} "
+        f"images/s over the epoch (its first steps included), data wait "
+        f"{res['data_wait_s']:.3f} s = {100 * res['data_wait_share']:.1f}% "
+        f"of the epoch, {decoded} images decoded, peak "
+        f"{res['peak_gib']:.2f} GiB, launches {launches}; the CLI "
+        f"{wall:.2f} s with the pool's start, model build and checkpoint; "
+        f"final loss {final['loss']:.4f}")
+    if res["steps"] != steps or decoded != 2 * steps or \
+            manifest["step"] != steps or \
+            not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"real-data training: {res}, {manifest}")
+    if launches != {"nms_sweep": steps, "roi_align_fwd": steps,
+                    "roi_align_bwd": steps}:
+        raise AssertionError(f"real-data training launches {launches}, "
+                             f"expected K1/K2/K3 1/1/1 per step")
+    return res
+
+
+def epoch_line(text: str, epoch: int, label: str) -> dict:
+    """ms/step, images/s and the data-wait share from ``fit``'s line of
+    ``epoch`` in a training log (batch 2)."""
+    m = _parse(rf"Epoch\[{epoch}\] (\d+) steps in ([0-9.]+) s, data wait "
+               r"([0-9.]+) s \(([0-9.]+)%\)", text,
+               f"{label} epoch-{epoch + 1} line")
+    steps, wall = int(m.group(1)), float(m.group(2))
+    return dict(steps=steps, epoch_s=wall, ms_per_step=wall * 1e3 / steps,
+                images_per_s=2 * steps / wall,
+                data_wait_share=float(m.group(4)) / 100)
+
+
+def synthetic_both_buckets(n: int, num_classes: int):
+    """The stand-in for the devkit's training roidb: ``n`` synthetic
+    images, 375x500 and 500x375 in turns as the devkit's are, then their
+    flipped copies, with the ``load_image`` that renders each in memory."""
+    from mx_rcnn_tpu_torch.data import IMDB, SyntheticDataset
+
+    sets = [SyntheticDataset(f"trainval_{h}x{w}", num_images=n // 2,
+                             num_classes=num_classes, image_size=(h, w))
+            for h, w in ((375, 500), (500, 375))]
+    roidb = [rec for pair in zip(*(d.gt_roidb() for d in sets))
+             for rec in pair]
+
+    def load_image(rec):
+        return sets[rec["height"] > rec["width"]].load_image(rec)
+
+    return IMDB.append_flipped_images(roidb), load_image
+
+
+def warm_run(cfg, dev, source: dict, out: Path, label: str) -> dict:
+    """``train_net`` for three epochs over ``source`` (the devkit's roidb
+    by default, or a ``roidb`` and its ``load_image``): the second epoch
+    timed as it runs, the third under a device-only profiler trace
+    (started and stopped at ``fit``'s epoch lines, the trace synchronised
+    first): its device time and copy time per step and its busy share,
+    the device time over the epoch's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mx_rcnn_tpu_torch.tools.train import train_net
+
+    lines = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def collect(line):
+        lines.append(line)
+        if re.match(r"Epoch\[1\] \d+ steps in", line):
+            prof.start()
+        elif re.match(r"Epoch\[2\] \d+ steps in", line):
+            torch.cuda.synchronize()
+            prof.stop()
+
+    train_net(cfg, end_epoch=3, frequent=8, seed=0, device=dev, log=collect,
+              **source)
+    text = "\n".join(lines)
+    out.write_text(text + "\n")
+    warm = epoch_line(text, 1, label)
+    traced = epoch_line(text, 2, label)
+    trace = trace_summary(prof, traced["steps"])
+    res = dict(warm, traced_ms_per_step=traced["ms_per_step"],
+               traced_data_wait_share=traced["data_wait_share"],
+               device_ms_per_step=trace["device_ms_per_iter"],
+               copy_ms_per_step=trace["copy_ms_per_iter"],
+               busy_share=busy_share(trace, traced["ms_per_step"]),
+               kernels_per_step=trace["kernels_per_iter"], top=trace["top"])
+    busy = res["busy_share"]
+    busy_text = "not measured (no device events)" if busy is None else \
+        f"{busy:.3f}"
+    log(f"{label}, second epoch: {res['ms_per_step']:.2f} ms/step, "
+        f"{res['images_per_s']:.2f} images/s, data wait "
+        f"{100 * res['data_wait_share']:.1f}%; third epoch traced: "
+        f"{res['traced_ms_per_step']:.2f} ms/step, data wait "
+        f"{100 * res['traced_data_wait_share']:.1f}%, "
+        f"{res['device_ms_per_step']:.3f} ms of device time a step "
+        f"({res['copy_ms_per_step']:.3f} of it copies, "
+        f"{res['kernels_per_step']:.0f} device operations), busy share "
+        f"{busy_text}")
+    return res
+
+
+def warm_pairs(dev, voc_over: dict, card: str) -> dict:
+    """Steady training with cuDNN's default algorithms, as phase 8 runs:
+    three-epoch ``train_net`` runs of one config over the devkit (2
+    decode workers, cache, streaming, staging) and over 16 synthetic
+    images in memory, 375x500 and 500x375 in turns like the devkit's (no
+    files, so no pool and no cache), in turns real, synthetic,
+    synthetic, real; each run's second epoch, when the process, the cache
+    and the workers are warm, timed, and its third traced
+    (:func:`warm_run`)."""
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+
+    torch.backends.cudnn.deterministic = False
+    cfg = generate_config("resnet101", "PascalVOC", train__batch_images=2,
+                          dataset__image_set="2007_trainval",
+                          default__decode_procs=2, **voc_over)
+    roidb, load_image = synthetic_both_buckets(REAL_IMAGES,
+                                               cfg.dataset.num_classes)
+    sources = {"real": {},
+               "synthetic": dict(roidb=roidb, load_image=load_image)}
+    runs = {"real": [], "synthetic": []}
+    for i, kind in enumerate(("real", "synthetic", "synthetic", "real")):
+        runs[kind].append(warm_run(
+            cfg, dev, sources[kind], OUT_DIR / f"real_warm_{i}_{kind}.txt",
+            f"{kind} run {i} on {card}"))
+    return runs
+
+
+def portrait_kernels(dev) -> dict:
+    """K2 and K3 at the training shape (2x128 rois, 14x14x1024) on the
+    64x38 map of the 1024x608 bucket, which the devkit's 500x375 images
+    train on: each against its plain version in fp32 and bf16 (K3
+    bit-equal twice) on random and on small rois, then timed; K3 on rois
+    covering that map and wholly outside it.  Its 38 columns leave K3's
+    last band of feature columns half full, which 64 never do."""
+    import torch
+
+    portrait = BUCKET[::-1]
+    hw = (portrait[0] // 16, portrait[1] // 16)
+    tag = f"{portrait[0]}x{portrait[1]}"
+    res = {}
+    for name, seed, wh in (("train", 150, (0, 500)),
+                           ("train_small", 152, (16, 64))):
+        feat, rois = roi_inputs(2, TRAIN_ROIS, seed, dev, wh,
+                                bucket=portrait)
+        label = f"{name} {tag}"
+        _, k2_16 = check_k2(label, feat, rois)
+        g = k3_grad(2, TRAIN_ROIS, seed + 1, dev)
+        k3_32, k3_16 = check_k3(label, g, rois, hw)
+        if name == "train":
+            res["k2"] = time_k2(label, feat.to(torch.bfloat16), rois, k2_16)
+            res["k3"] = {t: time_k3(label, gg, rois, hw, err)
+                         for t, gg, err in (("bf16", g.to(torch.bfloat16),
+                                             k3_16), ("fp32", g, k3_32))}
+    for label, where in (("rois covering the whole map", "whole map"),
+                         ("rois wholly outside the map", "outside")):
+        check_k3(f"{label} {tag}", k3_grad(2, 16, 155, dev),
+                 placed_rois(2, 16, 156, dev, where, portrait), hw)
+    return res
+
+
+def real_test(args, label: str, out_name: str, n_images: int, card: str):
+    """``tools/test.py`` over an on-disk test set at batch 2 in bf16:
+    launches (K1 2 and K2 1 per batch, K3 none), images/s, the numbers."""
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools import test as test_cli
+
+    out = OUT_DIR / out_name
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with open(out, "w") as f, contextlib.redirect_stdout(f):
+        results = test_cli.main(args + ["--set", "test__batch_images=2"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    rate = _parse(rf"pred_eval: {n_images} images in ([0-9.]+) s, "
+                  r"([0-9.]+) images/s", out.read_text(), "eval rate")
+    batches = n_images // 2
+    log(f"{label} on {card}: {n_images} images at batch 2, "
+        f"{float(rate.group(2)):.2f} images/s (first call: JPEG decode, "
+        f"resize and the model's first batches included); launches "
+        f"{launches}; " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    results.items()))
+    if launches != {"nms_sweep": 2 * batches, "roi_align_fwd": batches,
+                    "roi_align_bwd": 0}:
+        raise AssertionError(f"{label}: launches {launches}")
+    return dict(results=results, launches=launches,
+                images_per_s=float(rate.group(2)))
+
+
+def staged_equals_unstaged(dev, cfg) -> dict:
+    """The training plan's batches through DeviceStager on the card
+    against the same plan copied without it: every tensor bit-equal, in
+    the same order."""
+    import torch
+
+    from mx_rcnn_tpu_torch.core.train import to_device
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import StreamLoader, cache_from_config
+    from mx_rcnn_tpu_torch.data.staging import DeviceStager
+
+    imdb, roidb = load_gt_roidb(cfg, training=True)
+    cache = cache_from_config(cfg)
+
+    def loader():
+        return StreamLoader(roidb, cfg, imdb.load_image, batch_images=2,
+                            seed=0, cache=cache)
+
+    plain = [to_device(b, dev) for b in loader()]
+    stager = DeviceStager(loader(), dev, cfg.data.stage_depth)
+    t0 = time.perf_counter()
+    staged = list(stager)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stager.close()
+    same = len(staged) == len(plain) and all(
+        torch.equal(a, b) and a.device == b.device
+        for s, p in zip(staged, plain) for a, b in zip(s, p))
+    log(f"staging: {len(staged)} batches through DeviceStager (side stream, "
+        f"pinned copies) equal the unstaged batches bit for bit: {same} "
+        f"({wall:.3f} s from the cache)")
+    if not same:
+        raise AssertionError("staged batches differ from unstaged ones")
+    return dict(batches=len(staged), equal=same, wall_s=wall)
+
+
+def real_eval_parity(dev, prefix: str, over: dict, work: Path) -> dict:
+    """pred_eval in fp32 (TF32 off) over the devkit's 16 test images at
+    batch 2, through K1/K2 and through their plain versions: equal counts
+    per (class, image), boxes within 1e-2 px and scores within 1e-4
+    (phase 9's tolerances), equal APs."""
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import TestLoader
+    from mx_rcnn_tpu_torch.utils.checkpoint import load_model
+
+    cfg = generate_config("resnet101", "PascalVOC",
+                          network__compute_dtype="float32",
+                          test__batch_images=2, **over)
+    predictor = Predictor(load_model(cfg, prefix, 1, dev), cfg, dev)
+    imdb, roidb = load_gt_roidb(cfg, training=False)
+
+    def run(tag):
+        return pred_eval(predictor, TestLoader(roidb, cfg, imdb.load_image),
+                         imdb, cfg, verbose=False,
+                         save_dets=str(work / f"{tag}.pkl"))
+
+    kernels.reset_launch_counts()
+    res_k = run("kernels")
+    launches = kernels.launch_counts()
+    with plain_versions():
+        res_p = run("plain")
+    count_diff, box_err, score_err, total = compare_dets(work)
+    log(f"real-data eval fp32, VOCdevkit test set ({len(roidb)} images at "
+        f"batch 2): {total} detections; (class, image) count mismatches "
+        f"{count_diff}, max|box diff| {box_err:.3e} px (tol 1e-2), "
+        f"max|score diff| {score_err:.3e} (tol 1e-4); mAP kernels "
+        f"{res_k['mAP']:.6f} plain {res_p['mAP']:.6f}; launches {launches}")
+    if count_diff or box_err > 1e-2 or score_err > 1e-4 or res_k != res_p \
+            or total == 0:
+        raise AssertionError("the fp32 real-data eval differs between the "
+                             "kernel and plain paths")
+    if launches != {"nms_sweep": 16, "roi_align_fwd": 8, "roi_align_bwd": 0}:
+        raise AssertionError(f"fp32 real-data eval launches {launches}")
+    return dict(detections=total, count_mismatches=count_diff,
+                max_box_diff_px=box_err, max_score_diff=score_err,
+                aps_kernels=res_k, launches=launches)
+
+
+def coco_k1(dev) -> dict:
+    """K1 at the COCO postprocess's shape (B=2*81, K=300 rois padded to
+    512) against its plain version, then timed at 0.3."""
+    boxes, _, alive, _, t = nms_inputs(2 * COCO_CLASSES, 300, seed=140,
+                                       dev=dev)
+    check_k1("coco postprocess", boxes, alive, t)
+    return time_k1("coco postprocess", boxes, alive, t, 0.3)
+
+
+def phase_real_data(dev, card: str) -> dict:
+    """Phase 12: a VOCdevkit and a COCO tree generated in the real layouts
+    under the ignored ``_chip/``, ResNet-101 trained on the devkit through
+    the input plane, then scored through ``PascalVOC`` and, from a seeded
+    81-class checkpoint, through ``COCODataset``; staged batches, the fp32
+    eval and resume held against themselves, K2 and K3 on the portrait
+    bucket's map against their plain versions
+    (:func:`portrait_kernels`), with cuDNN's deterministic algorithms
+    (resume must repeat bits); then the steady epochs of
+    :func:`warm_pairs`.  Everything under ``_chip/real`` is removed at
+    the end."""
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.utils.checkpoint import (load_state_dict,
+                                                    save_params)
+
+    t0 = time.perf_counter()
+    parts = {}                  # each part's wall time, s
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    REAL_DIR.mkdir(parents=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        devkit = write_voc_devkit(REAL_DIR)
+        coco = write_coco_tree(REAL_DIR)
+        done("generate")
+        root = str(REAL_DIR)
+        voc_over = dict(dataset__root_path=root,
+                        dataset__dataset_path=str(devkit))
+        voc_args = ["--network", "resnet101", "--dataset", "PascalVOC",
+                    "--root_path", root, "--dataset_path", str(devkit)]
+        log(f"phase 12: generated a VOCdevkit (16 trainval + 16 test JPEGs, "
+            f"375x500 and 500x375) and a COCO tree (16 train2017 + 16 "
+            f"val2017, 480x640, 80 categories) in {parts['generate']:.2f} s")
+        prefix = str(REAL_DIR / "voc")
+        train = real_train(dev, voc_args, prefix, card)
+        done("train")
+        voc_test = real_test(
+            voc_args + ["--image_set", "2007_test", "--prefix", prefix,
+                        "--epoch", "1", "--out_dir", str(REAL_DIR / "dets")],
+            "test CLI, PascalVOC", "real_test_voc.txt", REAL_IMAGES, card)
+        files = sorted((REAL_DIR / "dets").iterdir())
+        lines = sum(len(f.read_text().splitlines()) for f in files)
+        log(f"VOC detection files: {len(files)} comp4_det_test_*.txt, "
+            f"{lines} detections written")
+        if len(files) != 20:
+            raise AssertionError(f"{len(files)} VOC detection files")
+        done("VOC test")
+        staged = staged_equals_unstaged(dev, generate_config(
+            "resnet101", "PascalVOC", **voc_over))
+        # the trained weights with the classifier scaled (SERVE_CLS_SCALE's
+        # reason): a random ResNet-101 scores background on every ROI
+        state = load_state_dict(prefix, 1)
+        state["cls_score.weight"] = state["cls_score.weight"] * \
+            SERVE_CLS_SCALE
+        save_params(prefix + "-scaled", 1, state)
+        (REAL_DIR / "parity").mkdir()
+        parity = real_eval_parity(dev, prefix + "-scaled", voc_over,
+                                  REAL_DIR / "parity")
+        done("staging and fp32 eval")
+        k1 = coco_k1(dev)
+        portrait = portrait_kernels(dev)
+        done("kernels")
+        cfg81 = generate_config("resnet101", "coco")
+        model = build_model(cfg81, dev, seed=0, train=True)
+        with torch.no_grad():
+            model.cls_score.weight.mul_(SERVE_CLS_SCALE)
+        save_params(str(REAL_DIR / "coco"), 1, model.state_dict())
+        del model
+        coco_test = real_test(
+            ["--network", "resnet101", "--dataset", "coco", "--root_path",
+             root, "--dataset_path", str(coco), "--prefix",
+             str(REAL_DIR / "coco"), "--epoch", "1", "--out_dir",
+             str(REAL_DIR / "coco_dets")],
+            "test CLI, COCODataset (81 classes)", "real_test_coco.txt",
+            REAL_IMAGES, card)
+        if not (REAL_DIR / "coco_dets" / "detections_results.json").exists():
+            raise AssertionError("no COCO results json")
+        done("COCO test")
+        resume = resume_check(prefix, train["base"], tag="real")
+        done("resume")
+        warm = warm_pairs(dev, voc_over, card)
+        done("warm runs")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(REAL_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 12 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(train=train, voc_test=voc_test, voc_files=len(files),
+                voc_lines=lines, staged=staged, fp32_parity=parity,
+                coco_k1=k1, portrait_kernels=portrait, coco_test=coco_test,
+                resume=resume, warm=warm, parts_s=parts, wall_s=wall)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -2409,6 +2975,7 @@ def main() -> int:
     evaluation = phase_eval(dev, card)
     alternate = phase_alternate(dev, card)
     engine = phase_engine(dev, card)
+    real_data = phase_real_data(dev, card)
 
     # no single PyTorch call computes any of the three functions (the
     # repo's bilinear rules are not torchvision's, which is absent), so
@@ -2424,7 +2991,7 @@ def main() -> int:
         card=card, host=host, build_s=build_s, k1=k1, k2=k2, k3=k3,
         forward_parity=parity, train_parity=train_parity, serving=serving,
         training=training, evaluation=evaluation, alternate=alternate,
-        engine=engine),
+        engine=engine, real_data=real_data),
         indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))

@@ -128,6 +128,20 @@ class DefaultConfig:
     warmup_lr: float = 0.0
     # dtype of the stored momentum trace; parameters always stay fp32
     momentum_dtype: str = "bfloat16"
+    # the host input plane (data/loader.py): batch-assembly threads and
+    # batches kept in flight (0 workers: assembled on the step's thread)
+    num_workers: int = 4
+    prefetch: int = 4
+    # ship uint8 batches and normalise on the device (ops/normalize.py);
+    # False subtracts the means on the host into fp32 canvases
+    raw_images: bool = True
+    # decoded-uint8 image cache (data/cache.py): RAM tier in MiB (0
+    # disables) and an optional disk tier directory
+    image_cache_mb: int = 2048
+    image_cache_dir: str = ""
+    # decode worker processes (data/decode_pool.py); 0 decodes in the
+    # assembly threads
+    decode_procs: int = 0
 
 
 @dataclass(frozen=True)
@@ -137,6 +151,23 @@ class BucketConfig:
     scale: int = 600
     max_size: int = 1000
     shapes: Tuple[Tuple[int, int], ...] = ((608, 1024), (1024, 608))
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Mirrors ``mx_rcnn_tpu.config.DataConfig``: the training input
+    plane's policy."""
+
+    # StreamLoader's plan, a pure function of (seed, epoch) per bucket;
+    # False trains on the classic AnchorLoader plan
+    streaming: bool = True
+    # copy batch k+1 to the device while step k runs (data/staging.py)
+    staging: bool = True
+    # staged batches kept in flight (>= 1), one batch of device memory each
+    stage_depth: int = 2
+    # host RAM ceiling in MiB for the cache budget (0 = unlimited;
+    # data/loader.py — stream_cache_budget)
+    ram_ceiling_mb: int = 0
 
 
 @dataclass(frozen=True)
@@ -163,6 +194,7 @@ class Config:
     default: DefaultConfig = field(default_factory=DefaultConfig)
     bucket: BucketConfig = field(default_factory=BucketConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    data: DataConfig = field(default_factory=DataConfig)
 
     @property
     def num_classes(self) -> int:

@@ -155,8 +155,9 @@ def im_detect_batch(rois, roi_valid, cls_prob, deltas, im_info, scales,
     return [(boxes_b[i], scores_b[i]) for i in range(len(boxes_b))]
 
 
-def pred_eval(predictor, test_loader, imdb, cfg: Config, verbose: bool = True,
-              save_dets: str = None) -> Dict[str, float]:
+def pred_eval(predictor, test_loader, imdb, cfg: Config, out_dir: str = None,
+              verbose: bool = True, save_dets: str = None
+              ) -> Dict[str, float]:
     """The evaluation loop (ref ``pred_eval``): forward each batch of
     ``test_loader``, per-class score threshold and NMS on the device of
     the forward's outputs, cap each image at ``max_per_image`` detections
@@ -166,8 +167,10 @@ def pred_eval(predictor, test_loader, imdb, cfg: Config, verbose: bool = True,
     goes through its proposals) and returns (rois, roi_valid, cls_prob,
     deltas) as tensors or numpy.
 
-    ``save_dets``: pickle ``{"all_boxes", "classes"}`` there first, for
-    ``tools/reeval.py`` of either package."""
+    ``out_dir``: the evaluator writes its detection files there (VOC's
+    per-class comp4 files, COCO's results json).  ``save_dets``: pickle
+    ``{"all_boxes", "classes"}`` there first, for ``tools/reeval.py`` of
+    either package."""
     num_classes = imdb.num_classes
     num_images = len(test_loader.roidb)
     all_boxes: List[List[np.ndarray]] = [
@@ -207,7 +210,7 @@ def pred_eval(predictor, test_loader, imdb, cfg: Config, verbose: bool = True,
             pickle.dump({"all_boxes": all_boxes,
                          "classes": list(imdb.classes)}, f,
                         protocol=pickle.HIGHEST_PROTOCOL)
-    return imdb.evaluate_detections(all_boxes)
+    return imdb.evaluate_detections(all_boxes, out_dir)
 
 
 def generate_proposals(model: FasterRCNN, test_loader, cfg: Config,

@@ -1,14 +1,17 @@
-"""Image resize, bucket choice and pad/normalise for the detection forward.
+"""Image decode, resize, bucket choice and pad/normalise.
 
-Counterpart of ``mx_rcnn_tpu/data/image.py`` (``compute_scale``,
-``resize_keep_ratio``, ``bucket_fit``, ``choose_bucket``,
-``pad_normalize``, ``resize_to_bucket``, ``estimate_bucket``, and the
-loader's shrink-to-fit step of ``load_resized_uint8`` as
-``fit_to_bucket``), and ``prepare_image``, the canvas and ``im_info`` of
-one served or demo image.  Images are RGB uint8 (H, W, 3).  Resizing uses
-OpenCV's bilinear resize where ``cv2`` imports, else a numpy bilinear
-resize with the same half-pixel-centre convention; :data:`RESIZE_BACKEND`
-says which one this process uses.
+Counterpart of ``mx_rcnn_tpu/data/image.py`` (``imread_rgb``,
+``compute_scale``, ``resize_keep_ratio``, ``bucket_fit``,
+``choose_bucket``, ``load_resized_uint8``, ``pad_normalize``,
+``load_and_transform``, ``resize_to_bucket``, ``estimate_bucket``, and
+``load_resized_uint8``'s flip, resize and shrink-to-fit as
+``flip_resize_fit``), and ``prepare_image``, the canvas and ``im_info``
+of one served or demo image.  Images are RGB uint8 (H, W, 3).  Files are
+decoded by OpenCV (BGR to RGB), or by PIL where ``cv2`` does not import.
+Resizing uses OpenCV's bilinear resize where ``cv2`` imports, else a
+numpy bilinear resize with the same half-pixel-centre convention;
+:data:`RESIZE_BACKEND` says which one this process uses.  This module
+imports no torch: the decode pool's workers import it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,19 @@ except ImportError:
     cv2 = None
 
 RESIZE_BACKEND = "cv2" if cv2 is not None else "numpy"
+
+
+def imread_rgb(path: str) -> np.ndarray:
+    """An image file as RGB uint8 (H, W, 3)."""
+    if cv2 is not None:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise FileNotFoundError(f"cannot read image {path!r}")
+        return img[:, :, ::-1]
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def _resize_bilinear_np(img: np.ndarray, new_w: int, new_h: int
@@ -99,6 +115,39 @@ def estimate_bucket(h: int, w: int, scale: int, max_size: int,
     before any pixel work."""
     s = compute_scale(h, w, scale, max_size)
     return choose_bucket(int(round(h * s)), int(round(w * s)), buckets)
+
+
+def flip_resize_fit(img: np.ndarray, flipped: bool, scale: int,
+                    max_size: int, bucket: Tuple[int, int]
+                    ) -> Tuple[np.ndarray, float]:
+    """Mirror (when ``flipped``), resize keeping the ratio and shrink to
+    fit ``bucket``, staying uint8: the unpadded contiguous (h, w, 3)
+    image and its ``im_scale``."""
+    if flipped:
+        img = img[:, ::-1, :]
+    img, im_scale = resize_keep_ratio(img, scale, max_size)
+    img, im_scale = fit_to_bucket(img, im_scale, bucket)
+    return np.ascontiguousarray(img), im_scale
+
+
+def load_resized_uint8(path: str, flipped: bool, scale: int, max_size: int,
+                       bucket: Tuple[int, int]) -> Tuple[np.ndarray, float]:
+    """Decode → flip → resize → shrink to fit ``bucket``, staying uint8:
+    what the decode cache stores and the decode pool returns."""
+    return flip_resize_fit(imread_rgb(path), flipped, scale, max_size,
+                           bucket)
+
+
+def load_and_transform(path: str, flipped: bool,
+                       pixel_means: Sequence[float], scale: int,
+                       max_size: int, bucket: Tuple[int, int]
+                       ) -> Tuple[np.ndarray, float]:
+    """The whole host pipeline of one file: decode, flip, resize, then
+    mean-subtract and pad into ``bucket``; returns ((bh, bw, 3) fp32
+    canvas, im_scale)."""
+    img, im_scale = load_resized_uint8(path, flipped, scale, max_size,
+                                       bucket)
+    return pad_normalize(img, pixel_means, bucket), im_scale
 
 
 def pad_normalize(img: np.ndarray, pixel_means: Sequence[float],

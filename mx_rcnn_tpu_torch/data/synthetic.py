@@ -111,8 +111,10 @@ class SyntheticDataset(IMDB):
     def load_image(self, rec: Dict) -> np.ndarray:
         return self.render(rec["index"])
 
-    def evaluate_detections(self, all_boxes) -> Dict[str, float]:
-        """VOC07 AP of each class that has a gt box, and their mean."""
+    def evaluate_detections(self, all_boxes, out_dir: Optional[str] = None
+                            ) -> Dict[str, float]:
+        """VOC07 AP of each class that has a gt box, and their mean;
+        nothing is written, so ``out_dir`` is unused."""
         gt = {i: dict(boxes=spec["boxes"], gt_classes=spec["gt_classes"],
                       difficult=np.zeros(len(spec["boxes"]), bool))
               for i, spec in enumerate(self.specs)}

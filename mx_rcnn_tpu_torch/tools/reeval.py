@@ -2,8 +2,11 @@
 
 Counterpart of ``mx_rcnn_tpu/tools/reeval.py``: reads the
 ``{"all_boxes", "classes"}`` pickle that ``tools/test.py --save_dets``
-writes (in either package) and runs ``imdb.evaluate_detections`` again.
+writes (in either package) and runs ``imdb.evaluate_detections`` again,
+over a VOCdevkit, a COCO tree or synthetic images.
 
+    python -m mx_rcnn_tpu_torch.tools.reeval --dets dets.pkl \\
+        --dataset PascalVOC --dataset_path data/VOCdevkit --out_dir dets
     python -m mx_rcnn_tpu_torch.tools.reeval --dets dets.pkl \\
         --network tiny --dataset synthetic --synthetic 4
 """
@@ -16,12 +19,15 @@ from typing import Dict
 
 from mx_rcnn_tpu_torch.config import NETWORKS, generate_config
 from mx_rcnn_tpu_torch.data import load_gt_roidb
+from mx_rcnn_tpu_torch.tools.test import print_results
+from mx_rcnn_tpu_torch.tools import dataset_args, dataset_overrides
 
 
-def reeval(cfg, dets_path: str, image_set: str = None,
+def reeval(cfg, dets_path: str, image_set: str = None, out_dir: str = None,
            dataset_kw: dict = None, synthetic: int = 0) -> Dict[str, float]:
     """Load pickled all_boxes (a file this program or the JAX package
-    wrote) and re-run the dataset's evaluator."""
+    wrote) and re-run the dataset's evaluator, which writes its detection
+    files under ``out_dir`` when given."""
     imdb, _ = load_gt_roidb(cfg, image_set=image_set, training=False,
                             synthetic=synthetic, **(dataset_kw or {}))
     with open(dets_path, "rb") as f:
@@ -36,11 +42,8 @@ def reeval(cfg, dets_path: str, image_set: str = None,
         raise ValueError(
             f"{len(all_boxes[0])} per-image detection lists for "
             f"{len(imdb.image_index)} images: wrong --image_set?")
-    results = imdb.evaluate_detections(all_boxes)
-    for k, v in sorted(results.items()):
-        if k != "mAP":
-            print(f"{k} AP = {v:.4f}")
-    print(f"mAP = {results['mAP']:.4f}", flush=True)
+    results = imdb.evaluate_detections(all_boxes, out_dir)
+    print_results(results)
     return results
 
 
@@ -51,19 +54,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "--save_dets")
     p.add_argument("--network", default="resnet101",
                    choices=NETWORKS)
-    p.add_argument("--dataset", default="PascalVOC",
-                   choices=["PascalVOC", "coco", "synthetic"])
-    p.add_argument("--image_set", default=None)
-    p.add_argument("--synthetic", type=int, default=0,
-                   help="the detections are of this many synthetic images")
+    dataset_args(p)
+    p.add_argument("--out_dir", default=None,
+                   help="write detection files here (VOC comp4 / COCO json)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> Dict[str, float]:
     args = parse_args(argv)
-    cfg = generate_config(args.network, args.dataset)
+    cfg = generate_config(args.network, args.dataset,
+                          **dataset_overrides(args))
     return reeval(cfg, args.dets, image_set=args.image_set,
-                  synthetic=args.synthetic)
+                  out_dir=args.out_dir, synthetic=args.synthetic)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,9 @@ Counterpart of ``mx_rcnn_tpu/tools/train_alternate.py — alternate_train``:
   4.   retrain Fast R-CNN from rpn2, shared convs frozen → <prefix>-rcnn2
   ∪    rpn2's ``rpn`` and ``backbone`` with rcnn2's head → <prefix>-final-0001.ckpt
 
-on the training roidb of ``--synthetic N`` seeded synthetic images and
-their flipped copies, on the card unless ``--device cpu``.  The
+on the training roidb (the dataset's, read as ``tools/train.py`` reads
+it, or ``--synthetic N`` seeded synthetic images) and its flipped
+copies, on the card unless ``--device cpu``.  The
 reference starts stages 1 and 2 from ImageNet weights; without them
 (the ``--pretrained`` converter waits for weights in the repository)
 stage 1 starts from a seeded init and stage 2 either from the same

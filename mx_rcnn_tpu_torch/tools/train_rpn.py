@@ -1,8 +1,9 @@
 """Train the RPN stage of the alternate schedule (stages 1 and 3).
 
 Counterpart of ``mx_rcnn_tpu/tools/train_rpn.py``: :func:`train_net`
-with ``mode='rpn'`` on the training roidb of ``--synthetic N`` seeded
-synthetic images and their flipped copies.  ``--init_from PREFIX
+with ``mode='rpn'`` on the training roidb (the dataset's, read as
+``tools/train.py`` reads it, or ``--synthetic N`` seeded synthetic
+images) and its flipped copies.  ``--init_from PREFIX
 --init_from_epoch E`` starts from a stage checkpoint's weights (a fresh
 optimizer); ``--frozen_shared`` freezes ``network.fixed_params_shared``
 (stage 3: the shared convs stay as they were).  The reference's
@@ -23,15 +24,14 @@ import pickle
 from typing import Dict
 
 from mx_rcnn_tpu_torch.config import NETWORKS
+from mx_rcnn_tpu_torch.tools import dataset_args
 from mx_rcnn_tpu_torch.tools.train import config_from_args, train_net
 
 
 def common_args(p: argparse.ArgumentParser, default_prefix: str) -> None:
     """The flags every stage tool shares."""
     p.add_argument("--network", default="resnet101", choices=NETWORKS)
-    p.add_argument("--dataset", default="PascalVOC")
-    p.add_argument("--synthetic", type=int, required=True,
-                   help="this many seeded synthetic images")
+    dataset_args(p)
     p.add_argument("--prefix", default=default_prefix)
     p.add_argument("--batch_images", type=int, default=None,
                    help="images per step")

@@ -38,7 +38,7 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
     offenders = {str(p.relative_to(REPO)): sorted(
         _imported_roots(p) & set(_FORBIDDEN)) for p in _port_sources()}
     assert not {k: v for k, v in offenders.items() if v}
-    assert len(offenders) >= 55
+    assert len(offenders) >= 61
 
 
 def test_importing_every_module_loads_no_jax():
@@ -57,7 +57,7 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 53
+    assert int(out.stdout.strip()) >= 59
 
 
 def test_kernel_wrappers_have_no_fallback():
