@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's detection forward, training step, checkpoints,
-evaluation, the alternate schedule, the serving engine and the
-real-dataset input plane on one NVIDIA card.
+evaluation, the alternate schedule, the serving engine, the
+real-dataset input plane and the long training run on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -75,7 +75,10 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    train_rcnn → train_rpn, shared convs frozen → proposals → train_rcnn,
    shared convs frozen → combine), each stage's ms/step, device time per
    step, busy share, peak memory and K1/K2/K3 launches, the five
-   checkpoints' sizes and write times, the shared convs bit-identical
+   checkpoints' sizes and write times (the four stage checkpoints
+   through the background writer: the step thread's copy, the writer's
+   time to the commit and the wait at the stage's end), the shared
+   convs bit-identical
    across stages 3 and 4; ``tools/test.py`` on the combined model and
    ``tools/test_rcnn.py`` on rcnn2 with rpn2's proposals (launches, then
    images/s and device time per image); last, 6 end-to-end VGG16 steps
@@ -116,7 +119,29 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    with cuDNN's default algorithms, three-epoch runs in turns over the
    devkit and over 16 synthetic images of the devkit's two orientations,
    each run's second epoch timed and its third traced (device time,
-   copies, busy share).
+   copies, busy share);
+13. the long training run, the seventh main path: a seeded ResNet-101
+   ``.params`` file with the MXNet zoo's full name set grafted by
+   ``tools/train.py --pretrained`` (4 steps at batch 2 in bf16 on 8
+   synthetic images and their flips; every backbone and head tensor on
+   the card held against the file's array before the first step; K1/K2/K3
+   1/1/1 per step), a seeded torchvision VGG16 ``.pth`` through
+   ``tools/train_rpn.py --pretrained`` (2 steps), a file missing one
+   backbone array refused; one ResNet-101 state saved with background
+   and inline snapshots in turns (the step thread's time, the time to
+   the commit, the files byte-equal, also when the weights change as soon
+   as ``save_epoch`` returns) and phase 10's schedule read for its
+   checkpoint time; ``tools/train.py`` over a generated VOCdevkit in
+   processes of their own (deterministic cuDNN): two epochs straight, a
+   run stopped by SIGTERM in epoch 1 (exit 0, an interrupt checkpoint
+   with its data cursor), ``--resume auto`` to the end byte-equal to the
+   straight run, again past a corrupted newest epoch file, and a resume
+   at batch 1 refused; in fp32, one ``grad_accum=2`` step at batch 1
+   through the kernels and the plain versions (sampled rois and labels
+   equal, metrics and gradients close) and ``remat_backbone`` on and off
+   (gradients bit-equal); in bf16, ms per optimizer step, peak memory and
+   launches per step of batch 2, batch 1 x accum 2 and batch 2 with
+   remat.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -126,7 +151,8 @@ at the training shapes); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
-directory and remove them at their end.
+directory and remove them at their end, and phase 13 its weight files,
+checkpoints and devkit likewise.
 """
 
 from __future__ import annotations
@@ -1644,13 +1670,16 @@ def instrumented_stages(stages: list, writes: list):
     import torch
 
     import mx_rcnn_tpu_torch.core.fit as fit_mod
+    import mx_rcnn_tpu_torch.ft.snapshot as snapshot_mod
     from mx_rcnn_tpu_torch import kernels
     from mx_rcnn_tpu_torch.tools import train as train_cli
     from mx_rcnn_tpu_torch.tools import train_alternate
+    from mx_rcnn_tpu_torch.utils.checkpoint import checkpoint_path
 
     saved = dict(train_net=train_cli.train_net,
                  make_train_step=train_cli.make_train_step,
-                 save_checkpoint=fit_mod.save_checkpoint,
+                 make_snapshotter=fit_mod.make_snapshotter,
+                 write_job=snapshot_mod._write_job,
                  save_params=train_alternate.save_params,
                  dump_proposals=train_alternate.dump_proposals)
 
@@ -1676,8 +1705,8 @@ def instrumented_stages(stages: list, writes: list):
             return out
         return wrapper
 
-    def timed_make_train_step(cfg, mode="e2e"):
-        step = saved["make_train_step"](cfg, mode)
+    def timed_make_train_step(cfg, mode="e2e", grad_accum=1):
+        step = saved["make_train_step"](cfg, mode, grad_accum)
         rec = stages[-1]
 
         def timed(state, batch, draws=None, stage_hook=None):
@@ -1711,13 +1740,48 @@ def instrumented_stages(stages: list, writes: list):
             return path
         return wrapper
 
+    # an epoch checkpoint through fit's snapshotter: the step thread's
+    # stall (host copy and handoff), the writer's time from the handoff
+    # to the manifest commit, and the wait for it when fit closes
+    def timed_write_job(job, prefix):
+        path = saved["write_job"](job, prefix)
+        rec = next((w for w in writes if "_t0" in w
+                    and w["file"] == os.path.basename(path)), None)
+        if rec is not None:
+            rec.update(bytes=os.path.getsize(path),
+                       write_s=time.perf_counter() - rec.pop("_t0"))
+        return path
+
+    def timed_snapshotter(*args, **kw):
+        snap = saved["make_snapshotter"](*args, **kw)
+        save_epoch, close = snap.save_epoch, snap.close
+
+        def timed_save(epoch, state):
+            torch.cuda.synchronize()
+            rec = dict(file=os.path.basename(
+                checkpoint_path(snap.prefix, epoch)), _t0=time.perf_counter())
+            writes.append(rec)
+            path = save_epoch(epoch, state)
+            rec["stall_s"] = time.perf_counter() - rec["_t0"]
+            return path
+
+        def timed_close():
+            t0 = time.perf_counter()
+            close()
+            if writes:
+                writes[-1]["close_wait_s"] = time.perf_counter() - t0
+
+        snap.save_epoch, snap.close = timed_save, timed_close
+        return snap
+
     train_cli.train_net = stage("train", saved["train_net"],
                                 lambda a, kw: kw.get("prefix") or "steps")
     train_alternate.train_net = train_cli.train_net
     train_alternate.dump_proposals = stage(
         "dump", saved["dump_proposals"], lambda a, kw: a[5])
     train_cli.make_train_step = timed_make_train_step
-    fit_mod.save_checkpoint = timed_write(saved["save_checkpoint"])
+    fit_mod.make_snapshotter = timed_snapshotter
+    snapshot_mod._write_job = timed_write_job
     train_alternate.save_params = timed_write(saved["save_params"])
     try:
         yield
@@ -1726,7 +1790,8 @@ def instrumented_stages(stages: list, writes: list):
         train_alternate.train_net = saved["train_net"]
         train_alternate.dump_proposals = saved["dump_proposals"]
         train_cli.make_train_step = saved["make_train_step"]
-        fit_mod.save_checkpoint = saved["save_checkpoint"]
+        fit_mod.make_snapshotter = saved["make_snapshotter"]
+        snapshot_mod._write_job = saved["write_job"]
         train_alternate.save_params = saved["save_params"]
 
 
@@ -1809,7 +1874,10 @@ def run_schedule(dev, card: str) -> dict:
         log("  " + stage_line(summarise_stage(rec), card))
     for w in writes:
         log(f"  checkpoint {w['file']}: {w['bytes']} bytes, written in "
-            f"{w['write_s']:.3f} s")
+            f"{w['write_s']:.3f} s" + (
+                f" on the writer thread; the step thread stalled "
+                f"{w['stall_s']:.3f} s and waited {w['close_wait_s']:.3f} s "
+                f"at the stage's end" if "stall_s" in w else ""))
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"a kernel of the schedule never launched: "
                              f"{launches}")
@@ -2921,6 +2989,641 @@ def phase_real_data(dev, card: str) -> dict:
                 resume=resume, warm=warm, parts_s=parts, wall_s=wall)
 
 
+# ---- phase 13: the long training run ----------------------------------------
+
+LONG_DIR = REPO / "_chip" / "long"   # weight files, checkpoints, the devkit
+LONG_STEPS = 4             # steps of the ImageNet-start run
+SIGTERM_AFTER = 7          # the SIGTERM run's last logged step of epoch 1
+# a training CLI in a process of its own, with the algorithms this script
+# runs under: deterministic cuDNN and no TF32
+TRAIN_PROCESS = ("import sys, torch; "
+                 "torch.backends.cudnn.deterministic = True; "
+                 "torch.backends.cudnn.benchmark = False; "
+                 "torch.backends.cudnn.allow_tf32 = False; "
+                 "torch.backends.cuda.matmul.allow_tf32 = False; "
+                 "from mx_rcnn_tpu_torch.tools.train import main; "
+                 "main(sys.argv[1:])")
+
+
+def write_mxnet_params(path: Path, named: dict) -> None:
+    """MXNet's NDArray container of ``named``: V2 headers, float32."""
+    import struct
+
+    import numpy as np
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("<QQQ", 0x112, 0, len(named)))
+        for arr in named.values():
+            arr = np.ascontiguousarray(arr, "<f4")
+            f.write(struct.pack("<IiI", 0xF993FAC9, -1, arr.ndim))
+            f.write(struct.pack(f"<{arr.ndim}q", *arr.shape))
+            f.write(struct.pack("<iii", 1, 0, 0))
+            f.write(arr.tobytes())
+        f.write(struct.pack("<Q", len(named)))
+        for name in named:
+            f.write(struct.pack("<Q", len(name)) + name.encode())
+
+
+def _randn(gen, shape, std: float):
+    import torch
+
+    return (torch.randn(shape, generator=gen) * std).numpy()
+
+
+def zoo_resnet101(seed: int) -> dict:
+    """A ResNet-101 v2 file with the MXNet zoo's full name set (the
+    ImageNet classifier ``fc1`` included), seeded, at scales that train:
+    BN statistics and affine near 1 and 0 (``bn_data`` scales the input
+    by 0.02), convs of variance 1/fan_in, each unit's conv3 a tenth."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    named = {}
+
+    def bn(scope, c):
+        g = 0.02 if scope == "bn_data" else 1.0
+        named[f"arg:{scope}_gamma"] = g * (1 + _randn(gen, (c,), 0.05))
+        named[f"arg:{scope}_beta"] = _randn(gen, (c,), 0.05)
+        named[f"aux:{scope}_moving_mean"] = _randn(gen, (c,), 0.05)
+        named[f"aux:{scope}_moving_var"] = 1 + np.abs(_randn(gen, (c,), 0.1))
+
+    def conv(name, shape, gain=1.0):
+        fan_in = shape[1] * shape[2] * shape[3]
+        named[f"arg:{name}_weight"] = _randn(gen, shape,
+                                             gain / np.sqrt(fan_in))
+
+    bn("bn_data", 3)
+    conv("conv0", (64, 3, 7, 7))
+    bn("bn0", 64)
+    cin = 64
+    for si, (units, f) in enumerate(zip((3, 4, 23, 3),
+                                        (256, 512, 1024, 2048)), start=1):
+        m = f // 4
+        for u in range(1, units + 1):
+            s = f"stage{si}_unit{u}"
+            bn(f"{s}_bn1", cin)
+            conv(f"{s}_conv1", (m, cin, 1, 1))
+            bn(f"{s}_bn2", m)
+            conv(f"{s}_conv2", (m, m, 3, 3))
+            bn(f"{s}_bn3", m)
+            conv(f"{s}_conv3", (f, m, 1, 1), 0.1)
+            if u == 1:
+                conv(f"{s}_sc", (f, cin, 1, 1))
+            cin = f
+    bn("bn1", 2048)
+    named["arg:fc1_weight"] = _randn(gen, (1000, 2048), 0.01)
+    named["arg:fc1_bias"] = np.zeros(1000, np.float32)
+    return named
+
+
+def torchvision_vgg16(seed: int) -> dict:
+    """A torchvision VGG16 state_dict at full size (``classifier.6``,
+    ImageNet's fc8, included), seeded, weights of variance 1/fan_in."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd, cin, idx = {}, 3, 0
+    for n_convs, cout in ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512)):
+        for _ in range(n_convs):
+            sd[f"features.{idx}.weight"] = torch.randn(
+                (cout, cin, 3, 3), generator=gen) / (9 * cin) ** 0.5
+            sd[f"features.{idx}.bias"] = torch.zeros(cout)
+            cin, idx = cout, idx + 2
+        idx += 1                                   # the max-pool
+    for i, (cout, cin) in ((0, (4096, 512 * 7 * 7)), (3, (4096, 4096)),
+                           (6, (1000, 4096))):
+        sd[f"classifier.{i}.weight"] = torch.randn(
+            (cout, cin), generator=gen) / cin ** 0.5
+        sd[f"classifier.{i}.bias"] = torch.zeros(cout)
+    return sd
+
+
+def expected_graft(named: dict, network: str) -> dict:
+    """The port's state_dict entries a weight file must set, by the
+    layout rules written out here apart from ``utils/pretrained.py``:
+    MXNet and torch keep conv kernels OIHW, so they land unchanged;
+    ``stage4_*`` and the closing ``bn1`` are the per-ROI head's; fc6's
+    inputs go from torchvision's CHW flatten to the NHWC one."""
+    import torch
+
+    out = {}
+    if network == "vgg":
+        convs = [f"conv{b}_{j}" for b, n in ((1, 2), (2, 2), (3, 3), (4, 3),
+                                             (5, 3)) for j in range(1, n + 1)]
+        feats = sorted({int(k.split(".")[1]) for k in named
+                        if k.startswith("features.")})
+        for idx, conv in zip(feats, convs):
+            for leaf in ("weight", "bias"):
+                out[f"backbone.{conv}.{leaf}"] = named[
+                    f"features.{idx}.{leaf}"]
+        w6 = named["classifier.0.weight"]
+        out["head.fc6.weight"] = w6.reshape(4096, 512, 7, 7).permute(
+            0, 2, 3, 1).reshape(4096, -1)
+        out["head.fc6.bias"] = named["classifier.0.bias"]
+        out["head.fc7.weight"] = named["classifier.3.weight"]
+        out["head.fc7.bias"] = named["classifier.3.bias"]
+        return out
+    leaves = (("_moving_mean", "running_mean"), ("_moving_var", "running_var"),
+              ("_gamma", "weight"), ("_beta", "bias"), ("_weight", "weight"))
+    for key, arr in named.items():
+        name = key.split(":", 1)[1]
+        if name.startswith("fc1_"):
+            continue
+        suffix, leaf = next((s, t) for s, t in leaves if name.endswith(s))
+        base = name[:-len(suffix)]
+        if base.startswith("stage"):
+            parts = base.split("_")
+            base = "_".join(parts[:2]) + "." + "_".join(parts[2:])
+        module = "head" if name.startswith(("stage4_", "bn1_")) else \
+            "backbone"
+        out[f"{module}.{base}.{leaf}"] = torch.from_numpy(arr)
+    return out
+
+
+@contextlib.contextmanager
+def graft_checked(named: dict, network: str, into: dict):
+    """Before ``train_net``'s loop starts, hold every ``backbone`` and
+    ``head`` tensor of the state on the card against the file's array
+    (``expected_graft``): all must be equal, and all must be covered."""
+    import torch
+
+    from mx_rcnn_tpu_torch.tools import train as train_cli
+
+    real_fit = train_cli.fit
+    want = expected_graft(named, network)
+
+    def fit(state, *args, **kw):
+        sd = state.model.state_dict()
+        trunk = [k for k in sd if k.split(".")[0] in ("backbone", "head")]
+        bad = [k for k, v in want.items()
+               if not torch.equal(sd[k].cpu(), v.to(torch.float32))]
+        into.update(checked=len(want), trunk=len(trunk), unequal=bad,
+                    device=str(sd[trunk[0]].device))
+        if bad or sorted(want) != sorted(trunk) or \
+                sd[trunk[0]].device.type != "cuda":
+            raise AssertionError(f"{network} graft: {len(bad)} tensors "
+                                 f"differ from the file ({bad[:3]}), "
+                                 f"{len(want)} of {len(trunk)} covered")
+        return real_fit(state, *args, **kw)
+
+    train_cli.fit = fit
+    try:
+        yield
+    finally:
+        train_cli.fit = real_fit
+
+
+def imagenet_start(dev, card: str) -> dict:
+    """``tools/train.py --network resnet101 --pretrained`` on a seeded
+    zoo file, launches zeroed just before and read just after (the
+    phase's main path), the graft held against the file on the card;
+    ``tools/train_rpn.py --network vgg --pretrained`` on a seeded
+    torchvision ``.pth``; a file missing one backbone array refused."""
+    import math
+
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools import train_rpn
+
+    t0 = time.perf_counter()
+    named = zoo_resnet101(seed=3)
+    write_mxnet_params(LONG_DIR / "resnet-101-0000.params", named)
+    make_s = time.perf_counter() - t0
+    argv = ["--network", "resnet101", "--dataset", "PascalVOC",
+            "--synthetic", "8", "--batch_images", "2", "--steps",
+            str(LONG_STEPS), "--frequent", "1", "--seed", "0",
+            "--pretrained", str(LONG_DIR / "resnet-101"),
+            "--pretrained_epoch", "0"]
+    graft = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with graft_checked(named, "resnet101", graft):
+        final = _train_cli(argv, OUT_DIR / "long_pretrained.txt")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    text = (OUT_DIR / "long_pretrained.txt").read_text()
+    log(f"ImageNet start on {card}: tools/train.py --network resnet101 "
+        f"--pretrained (a seeded {len(named)}-array zoo file, "
+        f"{(LONG_DIR / 'resnet-101-0000.params').stat().st_size} bytes, "
+        f"made in {make_s:.1f} s): {graft['checked']} of {graft['trunk']} "
+        f"backbone and head tensors on {graft['device']} equal the file's "
+        f"arrays before the first step; {LONG_STEPS} steps at batch 2 in "
+        f"{wall:.2f} s, launches {launches}, final loss {final['loss']:.4f}")
+    want = dict.fromkeys(("nms_sweep", "roi_align_fwd", "roi_align_bwd"),
+                         LONG_STEPS)
+    if launches != want or "grafted pretrained backbone" not in text or \
+            not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"ImageNet start: launches {launches}, final "
+                             f"{final}")
+    resnet = dict(arrays=len(named), graft=graft, wall_s=wall,
+                  launches=launches, final_metrics=final)
+
+    sd = torchvision_vgg16(seed=4)
+    pth = LONG_DIR / "vgg16.pth"
+    torch.save(sd, pth)
+    vgg_graft = {}
+    out = OUT_DIR / "long_vgg_rpn.txt"
+    t0 = time.perf_counter()
+    with graft_checked(sd, "vgg", vgg_graft), open(out, "w") as f, \
+            contextlib.redirect_stdout(f):
+        vgg_final = train_rpn.main([
+            "--network", "vgg", "--dataset", "PascalVOC", "--synthetic", "2",
+            "--batch_images", "2", "--end_epoch", "1", "--lr", "1e-4",
+            "--frequent", "1", "--seed", "0", "--prefix",
+            str(LONG_DIR / "rpn"), "--pretrained", str(pth)])
+    vgg_wall = time.perf_counter() - t0
+    log(f"ImageNet start, VGG16: tools/train_rpn.py --pretrained (a seeded "
+        f"torchvision .pth, {pth.stat().st_size} bytes): "
+        f"{vgg_graft['checked']} of {vgg_graft['trunk']} tensors equal the "
+        f"file's through the layout rules; 2 RPN steps in {vgg_wall:.2f} s, "
+        f"final loss {vgg_final['loss']:.4f}")
+    if not all(math.isfinite(v) for v in vgg_final.values()):
+        raise AssertionError(f"VGG16 from the .pth: {vgg_final}")
+    del sd
+
+    partial = dict(named)
+    partial.pop("arg:stage2_unit1_bn1_gamma")
+    write_mxnet_params(LONG_DIR / "partial-0000.params", partial)
+    try:
+        _train_cli(argv[:-4] + ["--pretrained", str(LONG_DIR / "partial")],
+                   OUT_DIR / "long_partial.txt")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a file missing a backbone array was grafted")
+    if "backbone leaves" not in refused:
+        raise AssertionError(f"the partial file failed otherwise: {refused}")
+    log(f"a zoo file without stage2_unit1_bn1_gamma is refused: {refused}")
+    return dict(resnet101=resnet, vgg16=dict(
+        bytes=pth.stat().st_size, graft=vgg_graft, wall_s=vgg_wall,
+        final_metrics=vgg_final), partial_refused=refused)
+
+
+def snapshot_costs(dev, card: str, schedule: dict) -> dict:
+    """One ResNet-101 train state (random bf16 trace) saved through
+    ``make_snapshotter`` with ``ft.async_snapshots`` on and off in turns:
+    the step thread's time per snapshot (host copy and handoff) and the
+    time to the manifest commit; every file byte-equal, also when the
+    last (background) one sees the weights change as soon as
+    ``save_epoch`` returns.  Then phase 10's schedule, run with the
+    default (background) snapshots, read for its checkpoint share."""
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core import train
+    from mx_rcnn_tpu_torch.ft.snapshot import make_snapshotter
+    from mx_rcnn_tpu_torch.utils.checkpoint import make_topology
+
+    cfg = generate_config("resnet101", "PascalVOC")
+    state = train.setup_training(cfg, dev, seed=0, steps_per_epoch=8)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for t in state.optimizer.trace.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    state.optimizer.count = 8
+    runs = []
+    for i, mode in enumerate(("async", "sync", "sync", "async")):
+        c = cfg.replace_in("ft", async_snapshots=mode == "async")
+        snap = make_snapshotter(str(LONG_DIR / f"snap{i}" / "m"), c, 8,
+                                make_topology(1, batch_images=2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = snap.save_epoch(1, state)
+        stall = time.perf_counter() - t0
+        if i == 3:       # the next step's in-place update, as early as it can
+            with torch.no_grad():
+                torch._foreach_add_(list(state.model.parameters()), 1.0)
+        snap.flush()
+        commit = time.perf_counter() - t0
+        snap.close()
+        runs.append(dict(mode=mode, stall_s=stall, commit_s=commit,
+                         bytes=os.path.getsize(path), sha256=_sha256(path)))
+        shutil.rmtree(LONG_DIR / f"snap{i}")
+        log(f"snapshot {i + 1} ({mode}) of a ResNet-101 state on {card}: the "
+            f"step thread {stall:.3f} s, the manifest committed after "
+            f"{commit:.3f} s, {runs[-1]['bytes']} bytes")
+    if len({r["sha256"] for r in runs}) != 1:
+        raise AssertionError(f"snapshot bytes differ: {runs}")
+    del state
+    torch.cuda.empty_cache()
+
+    ckpts = [w for w in schedule["checkpoints"] if "stall_s" in w]
+    on_step = sum(w["stall_s"] + w.get("close_wait_s", 0.0) for w in ckpts)
+    combine = sum(w["write_s"] for w in schedule["checkpoints"]
+                  if "stall_s" not in w)
+    writer = sum(w["write_s"] for w in ckpts)
+    sched = dict(wall_s=schedule["wall_s"], stage_checkpoints=len(ckpts),
+                 step_thread_stall_s=sum(w["stall_s"] for w in ckpts),
+                 close_wait_s=sum(w.get("close_wait_s", 0.0) for w in ckpts),
+                 writer_s=writer, combine_write_s=combine,
+                 checkpoint_s_on_the_path=on_step + combine)
+    log(f"phase 10's schedule with background snapshots: "
+        f"{sched['wall_s']:.1f} s; its {len(ckpts)} stage checkpoints cost "
+        f"the step thread {sched['step_thread_stall_s']:.3f} s of copies "
+        f"and {sched['close_wait_s']:.3f} s of waiting at the stages' ends "
+        f"(the writer {writer:.3f} s), the combined model's write "
+        f"{combine:.3f} s: {sched['checkpoint_s_on_the_path']:.1f} s of "
+        f"checkpoint time on the path")
+    return dict(runs=runs, schedule=sched)
+
+
+def _train_process(args, out: Path, timeout: int = 600):
+    """``tools/train.py`` in a process of its own (TRAIN_PROCESS); its
+    stdout and stderr go to ``out`` and ``out``.err."""
+    res = subprocess.run([sys.executable, "-c", TRAIN_PROCESS, *args],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout)
+    out.write_text(res.stdout)
+    out.with_suffix(".err").write_text(res.stderr)
+    if res.returncode:
+        raise AssertionError(f"{out.name}: exit {res.returncode}\n"
+                             f"{res.stderr[-3000:]}")
+    return res
+
+
+def sigterm_resume(card: str) -> dict:
+    """ResNet-101 in bf16 at batch 2 over a generated VOCdevkit (16
+    images, both buckets, and their flips: 16 steps an epoch), two epochs,
+    each run in a process of its own: straight; stopped by SIGTERM in
+    the middle of epoch 1 (exit 0, an interrupt checkpoint with its data
+    cursor); continued with ``--resume auto`` to the end, byte-equal to
+    the straight run; its newest epoch file corrupted, ``--resume auto``
+    again, falling back to epoch 1 with a warning and ending byte-equal;
+    then a resume at batch 1 refused."""
+    import signal
+
+    from mx_rcnn_tpu_torch.tools import train as train_cli
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    interrupt_path,
+                                                    read_manifest)
+
+    devkit = write_voc_devkit(LONG_DIR)
+    base = ["--network", "resnet101", "--dataset", "PascalVOC", "--root_path",
+            str(LONG_DIR), "--dataset_path", str(devkit), "--image_set",
+            "2007_trainval", "--batch_images", "2", "--seed", "0",
+            "--frequent", "1", "--end_epoch", "2"]
+    straight, prefix = str(LONG_DIR / "straight"), str(LONG_DIR / "run")
+    t0 = time.perf_counter()
+    _train_process(base + ["--prefix", straight],
+                   OUT_DIR / "long_straight.txt")
+    straight_s = time.perf_counter() - t0
+    want = _sha256(checkpoint_path(straight, 2))
+
+    t0 = time.perf_counter()
+    err_path = OUT_DIR / "long_sigterm.err"
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen([sys.executable, "-c", TRAIN_PROCESS, *base,
+                                 "--prefix", prefix], cwd=REPO,
+                                stdout=subprocess.PIPE, stderr=err_file,
+                                text=True)
+        lines, sent = [], None
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if sent is None and line.startswith(
+                        f"Epoch[1] Batch [{SIGTERM_AFTER}]"):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.perf_counter()
+            rc = proc.wait(timeout=300)
+        finally:
+            proc.kill()
+            proc.wait()
+    stop_s = time.perf_counter() - (sent or t0)
+    err = err_path.read_text()
+    (OUT_DIR / "long_sigterm.txt").write_text("".join(lines))
+    manifest = read_manifest(interrupt_path(prefix)) or {}
+    log(f"SIGTERM after step {16 + SIGTERM_AFTER + 1} (epoch 1, batch "
+        f"{SIGTERM_AFTER}): exit {rc}, {stop_s:.2f} s from the signal to the "
+        f"exit; interrupt manifest kind {manifest.get('kind')}, step "
+        f"{manifest.get('step')}, cursor {manifest.get('data_cursor')}")
+    if rc != 0 or sent is None or manifest.get("kind") != "interrupt" or \
+            not 16 < manifest.get("step", 0) < 32 or \
+            "data_cursor" not in manifest or \
+            os.path.exists(checkpoint_path(prefix, 2)):
+        raise AssertionError(f"the SIGTERM run: exit {rc}, manifest "
+                             f"{manifest}\n{err[-3000:]}")
+
+    t0 = time.perf_counter()
+    _train_process(base + ["--prefix", prefix, "--resume", "auto"],
+                   OUT_DIR / "long_resume.txt")
+    resume_s = time.perf_counter() - t0
+    text = (OUT_DIR / "long_resume.txt").read_text()
+    got = _sha256(checkpoint_path(prefix, 2))
+    log(f"--resume auto from the interrupt: {resume_s:.1f} s, epoch 2 "
+        f"byte-equal to the straight run: {got == want}; interrupt file "
+        f"removed: {not os.path.exists(interrupt_path(prefix))}")
+    if got != want or "resumed mid-epoch from verified" not in text or \
+            os.path.exists(interrupt_path(prefix)):
+        raise AssertionError("the resumed run differs from the straight one")
+
+    path = checkpoint_path(prefix, 2)
+    data = bytearray(open(path, "rb").read())
+    data[len(data) // 2] ^= 0x01
+    open(path, "wb").write(bytes(data))
+    t0 = time.perf_counter()
+    res = _train_process(base + ["--prefix", prefix, "--resume", "auto"],
+                         OUT_DIR / "long_fallback.txt")
+    fallback_s = time.perf_counter() - t0
+    again = _sha256(path)
+    warned = "SKIPPING" in res.stderr and path in res.stderr
+    log(f"epoch 2's file corrupted by one byte: --resume auto warned "
+        f"{warned}, fell back to epoch 1 and ended byte-equal: "
+        f"{again == want} ({fallback_s:.1f} s)")
+    if not warned or again != want or \
+            "resumed from verified" not in res.stdout:
+        raise AssertionError("the fallback past a corrupt file failed")
+
+    try:
+        _train_cli(base[:-2] + ["--end_epoch", "3", "--batch_images", "1",
+                                "--prefix", prefix, "--resume", "auto"],
+                   OUT_DIR / "long_resize.txt")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a resume at batch 1 was admitted")
+    if "effective global batch" not in refused:
+        raise AssertionError(f"the resize failed otherwise: {refused}")
+    log(f"a resume at batch 1 is refused: {refused[:160]}...")
+    return dict(straight_s=straight_s, sigterm_exit=rc,
+                signal_to_exit_s=stop_s, interrupt_manifest=manifest,
+                resume_s=resume_s, fallback_s=fallback_s,
+                byte_equal=True, resize_refused=refused)
+
+
+def accum_parity(dev) -> dict:
+    """fp32 (TF32 off): one step of ``make_train_step(grad_accum=2)`` at
+    batch 1 through the kernels and through the plain versions from the
+    same weights and draws: each microbatch's sampled rois and labels
+    equal, metrics within a relative 1e-4, each accumulated gradient's
+    L2 difference within 1e-3 of its norm; then ``remat_backbone`` on
+    and off: the gradients bit-equal."""
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core import train
+
+    cfg = generate_config("resnet101", "PascalVOC",
+                          network__compute_dtype="float32")
+    mbs = [train.to_device(b, dev)
+           for b in synthetic_train_batches(cfg, 1, 2)]
+    draws = [lambda site, image, shape, i=i: fixed_draws(
+        site, image + 10 * i, shape, dev) for i in range(2)]
+    runs = {}
+    for plain in (False, True):
+        state = train.setup_training(cfg, dev, seed=1)
+        step = train.make_train_step(cfg, grad_accum=2)
+        targets = []
+        with captured_targets(targets), (plain_versions() if plain
+                                         else contextlib.nullcontext()):
+            metrics = step(state, mbs, draws=draws)
+        torch.cuda.synchronize()
+        runs[plain] = (targets, {k: float(v) for k, v in metrics.items()},
+                       {n: p.grad.clone() for n, p in
+                        state.model.named_parameters() if p.grad is not None})
+        del state
+    (t_k, m_k, g_k), (t_p, m_p, g_p) = runs[False], runs[True]
+    same = len(t_k) == len(t_p) == 2 and all(
+        torch.equal(a.labels, b.labels) and torch.equal(a.rois, b.rois)
+        for a, b in zip(t_k, t_p))
+    loss_err = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
+                   for k in m_p)
+    grad_err = {n: float((g_k[n] - g_p[n]).norm()
+                         / g_p[n].norm().clamp_min(1e-30)) for n in g_p}
+    worst = max(grad_err, key=grad_err.get)
+    log(f"grad_accum 2 at batch 1, fp32: sampled rois and labels equal "
+        f"through the kernels and the plain versions: {same}; worst "
+        f"relative metric diff {loss_err:.2e} (rtol 1e-4); worst gradient "
+        f"rel. L2 {grad_err[worst]:.2e} at {worst} (tol 1e-3)")
+    if not same or g_k.keys() != g_p.keys() or loss_err > 1e-4 or \
+            grad_err[worst] > 1e-3:
+        raise AssertionError("the accumulating step differs between the "
+                             "kernel and plain paths")
+    del runs, g_k, g_p
+
+    batch = train.to_device(synthetic_train_batches(cfg, 2, 1)[0], dev)
+    grads = {}
+    for remat in (False, True):
+        c = cfg.replace_in("train", remat_backbone=remat)
+        state = train.setup_training(c, dev, seed=1)
+        total, _ = train.loss_and_metrics(
+            state.model, batch, c,
+            lambda site, image, shape: fixed_draws(site, image, shape, dev))
+        total.backward()
+        grads[remat] = {n: p.grad.clone() for n, p in
+                        state.model.named_parameters() if p.grad is not None}
+        del state, total
+    diff = max(float((grads[False][n] - grads[True][n]).abs().max())
+               for n in grads[False])
+    equal = grads[False].keys() == grads[True].keys() and all(
+        torch.equal(g, grads[True][n]) for n, g in grads[False].items())
+    log(f"remat_backbone on and off, fp32 at batch 2: {len(grads[False])} "
+        f"gradients bit-equal: {equal} (max abs diff {diff:.3e})")
+    if not equal:
+        raise AssertionError("remat changes the gradients")
+    del grads
+    torch.cuda.empty_cache()
+    return dict(rois_and_labels_equal=same, worst_metric_rel_err=loss_err,
+                worst_grad_rel_l2=grad_err[worst], worst_grad_tensor=worst,
+                remat_grads_bit_equal=equal)
+
+
+def accum_costs(dev, card: str) -> dict:
+    """bf16: ms per optimizer step, peak memory and launches per step of
+    batch 2 x accum 1, batch 1 x accum 2 and batch 2 with remat (8 timed
+    steps after 2 of warm-up; the peak over the timed steps, and above
+    what was allocated before them)."""
+    import math
+
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core import train
+
+    res = {}
+    for label, batch, accum, remat in (("batch 2 x accum 1", 2, 1, False),
+                                       ("batch 1 x accum 2", 1, 2, False),
+                                       ("batch 2, remat", 2, 1, True)):
+        cfg = generate_config("resnet101", "PascalVOC",
+                              train__remat_backbone=remat)
+        state = train.setup_training(cfg, dev, seed=0)
+        step = train.make_train_step(cfg, grad_accum=accum)
+        loaded = [train.to_device(b, dev)
+                  for b in synthetic_train_batches(cfg, batch, 4)]
+        inputs = (loaded if accum == 1 else
+                  [loaded[i:i + accum] for i in range(0, len(loaded), accum)])
+        for x in inputs[:2]:
+            step(state, x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        kernels.reset_launch_counts()
+        iters, losses = 8, []
+        t0 = time.perf_counter()
+        for i in range(iters):
+            losses.append(step(state, inputs[i % len(inputs)])["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        launches = {k: v / iters for k, v in kernels.launch_counts().items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [float(v) for v in losses]
+        res[label] = dict(batch_images=batch, grad_accum=accum, remat=remat,
+                          ms_per_step=ms, peak_gib=peak / 2 ** 30,
+                          above_resident_gib=(peak - before) / 2 ** 30,
+                          launches_per_step=launches, losses=losses)
+        log(f"{label}, bf16 on {card}: {ms:.2f} ms per optimizer step, peak "
+            f"{peak / 2 ** 30:.3f} GiB ({(peak - before) / 2 ** 30:.3f} above "
+            f"the resident state), launches per step {launches}")
+        if launches != dict.fromkeys(launches, float(accum)) or \
+                len(launches) != 3 or \
+                not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{label}: launches {launches}, losses "
+                                 f"{losses}")
+        del state, step, loaded, inputs
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_long_run(dev, card: str, alternate: dict) -> dict:
+    """Phase 13 (see the module docstring), its files under ``_chip/``,
+    removed at the end."""
+    import torch
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    shutil.rmtree(LONG_DIR, ignore_errors=True)
+    LONG_DIR.mkdir(parents=True)
+    try:
+        imagenet = imagenet_start(dev, card)
+        done("ImageNet start")
+        snapshots = snapshot_costs(dev, card, alternate["schedule"])
+        done("snapshots")
+        resume = sigterm_resume(card)
+        done("SIGTERM and resume")
+        torch.backends.cudnn.deterministic = True
+        parity = accum_parity(dev)
+        torch.backends.cudnn.deterministic = False
+        done("accumulation and remat parity")
+        costs = accum_costs(dev, card)
+        done("accumulation and remat costs")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(LONG_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 13 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(imagenet=imagenet, snapshots=snapshots, resume=resume,
+                accum_parity=parity, accum_costs=costs, parts_s=parts,
+                wall_s=wall)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -2976,6 +3679,7 @@ def main() -> int:
     alternate = phase_alternate(dev, card)
     engine = phase_engine(dev, card)
     real_data = phase_real_data(dev, card)
+    long_run = phase_long_run(dev, card, alternate)
 
     # no single PyTorch call computes any of the three functions (the
     # repo's bilinear rules are not torchvision's, which is absent), so
@@ -2991,7 +3695,7 @@ def main() -> int:
         card=card, host=host, build_s=build_s, k1=k1, k2=k2, k3=k3,
         forward_parity=parity, train_parity=train_parity, serving=serving,
         training=training, evaluation=evaluation, alternate=alternate,
-        engine=engine, real_data=real_data),
+        engine=engine, real_data=real_data, long_run=long_run),
         indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))

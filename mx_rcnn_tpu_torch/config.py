@@ -54,6 +54,9 @@ class TrainConfig:
 
     max_gt_boxes: int = 100        # static pad for per-image gt boxes
     gt_append: bool = True         # gt boxes join the sampled ROI pool
+    # recompute the backbone's activations in the backward pass
+    # (torch.utils.checkpoint): the same gradients for less memory
+    remat_backbone: bool = False
 
 
 @dataclass(frozen=True)
@@ -186,6 +189,30 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class FTConfig:
+    """Mirrors ``mx_rcnn_tpu.config.FTConfig``: the policy of the
+    checkpoint writer and of ``--resume auto`` (``ft/``).  Its
+    ``compile_cache_dir`` is left out: it names XLA's persistent
+    compilation cache, which has no CUDA counterpart here (the kernels
+    are built once per process by ``kernels.py``)."""
+
+    # serialise and write checkpoints on a background thread; the step's
+    # thread pays only the host copy
+    async_snapshots: bool = True
+    # one snapshot written and one queued; the next request waits this
+    # long for the slot, then fails
+    slot_timeout_s: float = 120.0
+    # retention (ft/integrity.py — gc_checkpoints): the newest keep_last
+    # epoch checkpoints and every keep_every-th epoch (the default 1
+    # keeps every epoch); keep_last 0 disables it
+    keep_last: int = 3
+    keep_every: int = 1
+    # --resume auto fails when the checkpoint's effective batch differs
+    # from this run's; True makes it a warning
+    allow_resize_resume: bool = False
+
+
+@dataclass(frozen=True)
 class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     test: TestConfig = field(default_factory=TestConfig)
@@ -195,6 +222,7 @@ class Config:
     bucket: BucketConfig = field(default_factory=BucketConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    ft: FTConfig = field(default_factory=FTConfig)
 
     @property
     def num_classes(self) -> int:

@@ -1,31 +1,41 @@
-"""The training loop: epochs of the train step, a Speedometer log and a
-checkpoint after each epoch.
+"""The training loop: epochs of the train step, a Speedometer log, a
+checkpoint after each epoch and an interrupt checkpoint on a stop.
 
-Counterpart of ``mx_rcnn_tpu/core/fit.py — fit`` with its staging and
-without interrupt checkpoints, data parallelism or observability: each
-epoch's batches come from the loader in the order its (seed, epoch) plan
-gives, reach the device through a :class:`DeviceStager` (the next batch
-is copied while the step runs; ``data.staging``, on by default) or a
-plain copy, and go through the step.  Every ``frequent`` steps one line
-reports samples/s, the share of the window's wall time spent waiting for
-a batch and the window's mean metrics (which stay on the device until
-then); each epoch ends with a line of its wall time and data wait, and
-after each whole epoch the state is saved as ``prefix-%04d.ckpt`` with
-the number of epochs done.
+Counterpart of ``mx_rcnn_tpu/core/fit.py — fit`` with its staging,
+gradient accumulation, snapshots and mid-epoch resume, and without data
+parallelism or observability: each epoch's batches come from the loader
+in the order its (seed, epoch) plan gives, reach the device through a
+:class:`DeviceStager` (the next batch is copied while the step runs;
+``data.staging``, on by default) or a plain copy, are grouped
+``grad_accum`` at a time (a partial trailing group is dropped) and go
+through the step.  Every ``frequent`` steps one line reports samples/s,
+the share of the window's wall time spent waiting for a batch and the
+window's mean metrics (which stay on the device until then); each epoch
+ends with a line of its wall time and data wait, and after each whole
+epoch the state is saved as ``prefix-%04d.ckpt`` with the number of
+epochs done, through ``ft/snapshot.py`` (written in the background
+unless ``ft.async_snapshots`` is off).
+
+A state whose step lies inside ``begin_epoch`` resumes mid-epoch: the
+loader skips the batches that step consumed, by the data cursor
+(``StreamLoader.resume_at``) or by ``skip_next_batches``.  ``stop_flag``
+is polled after every step; once it returns True the loop writes the
+step's interrupt checkpoint (or, on an epoch's last step, the epoch
+checkpoint) and returns.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.train import TrainState, to_device
 from mx_rcnn_tpu_torch.data.staging import DeviceStager
-from mx_rcnn_tpu_torch.utils.checkpoint import (config_fingerprint,
-                                                save_checkpoint)
+from mx_rcnn_tpu_torch.ft.snapshot import make_snapshotter
+from mx_rcnn_tpu_torch.utils.checkpoint import make_topology
 
 _END = object()
 
@@ -71,34 +81,81 @@ def mean_metrics(window: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
     return dict(zip(keys, means))
 
 
+def _accum_iter(batches: Iterator, grad_accum: int) -> Iterator[list]:
+    """Lists of ``grad_accum`` consecutive batches; a partial trailing
+    group is dropped."""
+    while True:
+        group = []
+        for _ in range(grad_accum):
+            b = next(batches, _END)
+            if b is _END:
+                return
+            group.append(b)
+        yield group
+
+
 def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
         begin_epoch: int = 0, prefix: Optional[str] = None,
         max_steps: Optional[int] = None, frequent: Optional[int] = None,
-        log: Callable[[str], None] = print) -> Dict[str, float]:
+        log: Callable[[str], None] = print,
+        stop_flag: Optional[Callable[[], bool]] = None,
+        grad_accum: int = 1, data_cursor: Optional[Dict] = None
+        ) -> Dict[str, float]:
     """Run epochs ``begin_epoch .. end_epoch - 1``, saving a checkpoint
     under ``prefix`` (when given) after each whole one; ``max_steps`` ends
-    the run early, and an epoch it cuts is not saved.  Returns the last
-    log window's mean metrics."""
+    the run early, and an epoch it cuts is not saved.  ``step_fn`` takes
+    lists of ``grad_accum`` batches when that is above 1; an epoch has
+    ``len(loader) // grad_accum`` optimizer steps.  ``data_cursor``
+    (``tools/train.py`` reads it from an interrupt checkpoint's manifest):
+    ``loader_batch_images`` and ``images_consumed_in_epoch`` of the run
+    that wrote it.  Returns the last log window's mean metrics."""
     if len(loader) == 0:
         raise ValueError("the loader yields no full batch")
+    if grad_accum > len(loader):
+        raise ValueError(
+            f"grad_accum={grad_accum} exceeds the loader's {len(loader)} "
+            f"batches an epoch: every epoch would run no step")
     frequent = cfg.default.frequent if frequent is None else frequent
     device = next(state.model.parameters()).device
-    speed = Speedometer(loader.batch_images, log)
-    fingerprint = config_fingerprint(cfg)
+    steps_per_epoch = len(loader) // grad_accum
+    speed = Speedometer(loader.batch_images * grad_accum, log)
+    snap = None
+    if prefix is not None:
+        snap = make_snapshotter(prefix, cfg, steps_per_epoch, make_topology(
+            1, grad_accum=grad_accum, batch_images=loader.batch_images))
     last: Dict[str, float] = {}
+    done = state.step
     step = 0
-    for epoch in range(begin_epoch, end_epoch):
-        loader.set_epoch(epoch)
-        window: List[Dict[str, torch.Tensor]] = []
-        nbatch = -1
-        stager = None
-        if cfg.data.staging:
-            stager = DeviceStager(loader, device, cfg.data.stage_depth)
-            batches = iter(stager)
-        else:
-            batches = (to_device(b, device) for b in loader)
-        t_epoch, wait_epoch = time.perf_counter(), 0.0
-        try:
+    stager = None
+    try:
+        for epoch in range(begin_epoch, end_epoch):
+            loader.set_epoch(epoch)
+            skip = 0
+            if epoch == begin_epoch:
+                skip = min(max(done - epoch * steps_per_epoch, 0),
+                           steps_per_epoch)
+            if skip:
+                cur = data_cursor or {}
+                if hasattr(loader, "resume_at"):
+                    loader.resume_at(
+                        cur.get("images_consumed_in_epoch",
+                                skip * grad_accum * loader.batch_images),
+                        cur.get("loader_batch_images"))
+                else:
+                    loader.skip_next_batches(skip * grad_accum)
+                log(f"Epoch[{epoch}] resuming mid-epoch: skipping {skip} "
+                    f"consumed steps")
+            window: List[Dict[str, torch.Tensor]] = []
+            nbatch = skip - 1
+            if cfg.data.staging:
+                stager = DeviceStager(loader, device, cfg.data.stage_depth)
+                batches = iter(stager)
+            else:
+                batches = (to_device(b, device) for b in loader)
+            if grad_accum > 1:
+                batches = _accum_iter(batches, grad_accum)
+            t_epoch, wait_epoch = time.perf_counter(), 0.0
+            interrupt = False
             while True:
                 t0 = time.perf_counter()
                 batch = next(batches, _END)
@@ -110,23 +167,47 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                 window.append(step_fn(state, batch))
                 step += 1
                 stop = step == max_steps
-                is_log = ((nbatch + 1) % frequent == 0 or stop
+                interrupt = stop_flag is not None and stop_flag()
+                is_log = ((nbatch + 1) % frequent == 0 or stop or interrupt
                           or (epoch == end_epoch - 1
-                              and nbatch == len(loader) - 1))
+                              and nbatch == steps_per_epoch - 1))
                 if is_log:
                     last, window = mean_metrics(window), []
                 speed(epoch, nbatch, last if is_log else None, wait_s)
                 if stop:
                     return last
-        finally:
+                if interrupt:
+                    if nbatch < steps_per_epoch - 1:
+                        # mid-epoch: the step-exact interrupt checkpoint;
+                        # on the epoch's last step the epoch checkpoint
+                        # below supersedes it
+                        if snap is not None:
+                            path = snap.save_interrupt(state)
+                            log(f"stop requested: saved interrupt "
+                                f'checkpoint to "{path}" (step '
+                                f"{state.step}); rerun with --resume to "
+                                f"continue")
+                        else:
+                            log("stop requested: no prefix, state not "
+                                "saved")
+                        return last
+                    break
             if stager is not None:
                 stager.close()
-        wall = time.perf_counter() - t_epoch
-        log(f"Epoch[{epoch}] {nbatch + 1} steps in {wall:.3f} s, data wait "
-            f"{wait_epoch:.3f} s ({100 * wait_epoch / max(wall, 1e-9):.1f}%)")
-        if prefix is not None and nbatch == len(loader) - 1:
-            path = save_checkpoint(prefix, epoch + 1, state,
-                                   steps_per_epoch=len(loader),
-                                   config_fp=fingerprint)
-            log(f'Epoch[{epoch}] Saved checkpoint to "{path}"')
-    return last
+                stager = None
+            wall = time.perf_counter() - t_epoch
+            log(f"Epoch[{epoch}] {nbatch + 1 - skip} steps in {wall:.3f} s, "
+                f"data wait {wait_epoch:.3f} s "
+                f"({100 * wait_epoch / max(wall, 1e-9):.1f}%)")
+            if snap is not None and nbatch == steps_per_epoch - 1:
+                path = snap.save_epoch(epoch + 1, state)
+                log(f'Epoch[{epoch}] Saved checkpoint to "{path}"')
+            if interrupt:
+                log(f"stop requested at the end of epoch {epoch}")
+                return last
+        return last
+    finally:
+        if stager is not None:
+            stager.close()
+        if snap is not None:
+            snap.close()

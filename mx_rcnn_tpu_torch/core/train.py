@@ -1,6 +1,6 @@
 """The training step, in its three modes.
 
-Counterpart of ``mx_rcnn_tpu/core/train.py`` with ``grad_accum=1``.
+Counterpart of ``mx_rcnn_tpu/core/train.py``.
 ``mode='e2e'``: backbone → RPN head → anchor targets and the two RPN
 losses → proposals (no gradient; NMS kernel K1) → ``proposal_target``
 sampling → ROIAlign (K2 forward, K3 backward) → head → the two RCNN
@@ -29,6 +29,15 @@ own uniforms.  Sites are
 head's ``dropout_sites`` (VGG's ``dropout_fc6``/``dropout_fc7``: one per
 element of the image's (batch_rois, 4096) activations).
 
+With ``grad_accum=N > 1`` a step takes N microbatches, runs one forward
+and backward per microbatch (each loss scaled by 1/N, so peak memory is
+that of one microbatch), averages the metrics and makes one SGD update;
+microbatch ``i`` of step ``s`` draws from a generator seeded by (seed,
+s, i), as the JAX step folds ``i`` into the step's key.  With
+``train.remat_backbone`` the backbone's activations are recomputed in
+the backward pass (``torch.utils.checkpoint``): the same gradients for
+less memory.
+
 Unlike the JAX step, which returns a new state, this one updates the
 model's parameters and the optimizer's trace in place.
 """
@@ -36,10 +45,11 @@ model's parameters and the optimizer's trace in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.optim import SGD, make_optimizer
@@ -188,6 +198,15 @@ def _rcnn_losses(model: FasterRCNN, feat, rois, rois_valid, batch: Batch,
     return cls_loss, bbox_loss, metrics
 
 
+def _features(model: FasterRCNN, batch, cfg: Config) -> torch.Tensor:
+    """The backbone's features of ``batch``, their activations recomputed
+    in the backward pass when ``cfg.train.remat_backbone``."""
+    if cfg.train.remat_backbone:
+        return torch.utils.checkpoint.checkpoint(
+            model.features, batch.images, batch.im_info, use_reentrant=False)
+    return model.features(batch.images, batch.im_info)
+
+
 def loss_and_metrics(model: FasterRCNN, batch: Batch, cfg: Config,
                      draws: Draws, stage_hook: Optional[StageHook] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -195,7 +214,7 @@ def loss_and_metrics(model: FasterRCNN, batch: Batch, cfg: Config,
     when given, is called as each of the first six :data:`STAGES` ends."""
     tr = cfg.train
     mark = stage_hook or (lambda name: None)
-    feat = model.features(batch.images, batch.im_info)
+    feat = _features(model, batch, cfg)
     mark("backbone")
     rpn_cls, rpn_box = model.rpn_raw(feat)
     _, fh, fw, _ = feat.shape
@@ -227,7 +246,7 @@ def loss_and_metrics_rpn(model: FasterRCNN, batch: Batch, cfg: Config,
     """RPN-only loss (alternate stages 1 and 3): backbone → RPN head →
     anchor targets → the two RPN losses."""
     mark = stage_hook or (lambda name: None)
-    feat = model.features(batch.images, batch.im_info)
+    feat = _features(model, batch, cfg)
     mark("backbone")
     rpn_cls, rpn_box = model.rpn_raw(feat)
     anchors = model.anchors_for(*feat.shape[1:3])
@@ -245,7 +264,7 @@ def loss_and_metrics_rcnn(model: FasterRCNN, batch: RCNNBatch, cfg: Config,
     stages 2 and 4): backbone → sampling → ROIAlign → head → the two RCNN
     losses."""
     mark = stage_hook or (lambda name: None)
-    feat = model.features(batch.images, batch.im_info)
+    feat = _features(model, batch, cfg)
     mark("backbone")
     cls_loss, bbox_loss, metrics = _rcnn_losses(
         model, feat, batch.rois, batch.rois_valid, batch, draws, cfg, mark)
@@ -279,6 +298,13 @@ def step_seed(seed: int, step: int) -> int:
     return (seed % 2 ** 31) << 32 | (step % 2 ** 32)
 
 
+def microbatch_seed(seed: int, step: int, micro: int) -> int:
+    """The generator seed of microbatch ``micro`` of step ``step`` when a
+    step accumulates several (``grad_accum > 1``): the top bit set, so no
+    :func:`step_seed` (below 2**63) is one."""
+    return 1 << 63 | (step_seed(seed, step) * 1_000_003 + micro) % 2 ** 63
+
+
 def init_state(model: FasterRCNN, cfg: Config, steps_per_epoch: int,
                seed: int = 0, **optimizer_kw) -> TrainState:
     """Optimizer and generator for a model built with ``train=True``;
@@ -299,31 +325,67 @@ def setup_training(cfg: Config, device="cuda", seed: int = 0,
     return init_state(model, cfg, steps_per_epoch, seed, **optimizer_kw)
 
 
-def make_train_step(cfg: Config, mode: str = "e2e"):
+def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1):
     """The train step of ``mode`` (``'e2e'``, ``'rpn'`` or ``'rcnn'``, the
     last on :class:`RCNNBatch` es), ``step(state, batch, draws=None,
-    stage_hook=None) → metrics``: one forward, backward and SGD update, in
-    place, without gradient accumulation (the JAX step's ``grad_accum=1``).
-    ``stage_hook`` is called as each of the :data:`STAGES` the mode runs
-    ends."""
+    stage_hook=None) → metrics``: forward, backward and one SGD update,
+    in place.  With ``grad_accum`` N > 1, ``batch`` is a sequence of N
+    microbatches and ``draws``, when given, one draws function per
+    microbatch; the gradient is the mean of the microbatches' gradients
+    and the metrics their means.  ``stage_hook`` is called as each of
+    the :data:`STAGES` the mode runs ends (the forward and backward
+    stages once per microbatch)."""
     if mode not in LOSS_FNS:
         raise ValueError(f"unknown mode {mode!r}; have {sorted(LOSS_FNS)}")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     loss_fn = LOSS_FNS[mode]
 
-    def step(state: TrainState, batch: Batch, draws: Optional[Draws] = None,
+    def step(state: TrainState, batch, draws=None,
              stage_hook: Optional[StageHook] = None
              ) -> Dict[str, torch.Tensor]:
         mark = stage_hook or (lambda name: None)
         state.optimizer.zero_grad()
-        if draws is None:
-            state.generator.manual_seed(step_seed(state.seed, state.step))
-            draws = generator_draws(state.generator)
-        total, metrics = loss_fn(state.model, batch, cfg, draws, stage_hook)
-        total.backward()
-        mark("backward")
+        if grad_accum == 1:
+            if draws is None:
+                state.generator.manual_seed(step_seed(state.seed,
+                                                      state.step))
+                draws = generator_draws(state.generator)
+            total, metrics = loss_fn(state.model, batch, cfg, draws,
+                                     stage_hook)
+            total.backward()
+            mark("backward")
+        else:
+            metrics = _accumulate(state, batch, draws, stage_hook)
         state.optimizer.step()
         mark("optimizer")
         return {k: v.detach() for k, v in metrics.items()}
 
-    return step
+    def _accumulate(state: TrainState, batches: Sequence, draws,
+                    stage_hook: Optional[StageHook]
+                    ) -> Dict[str, torch.Tensor]:
+        """Forward and backward of each microbatch, the loss scaled by
+        1/N so that the summed gradients are their mean; the metrics'
+        means."""
+        mark = stage_hook or (lambda name: None)
+        if len(batches) != grad_accum or (draws is not None
+                                          and len(draws) != grad_accum):
+            raise ValueError(f"a step takes {grad_accum} microbatches (and "
+                             f"as many draws)")
+        window = []
+        for i, mb in enumerate(batches):
+            if draws is None:
+                state.generator.manual_seed(
+                    microbatch_seed(state.seed, state.step, i))
+                mb_draws = generator_draws(state.generator)
+            else:
+                mb_draws = draws[i]
+            total, metrics = loss_fn(state.model, mb, cfg, mb_draws,
+                                     stage_hook)
+            (total / grad_accum).backward()
+            mark("backward")
+            window.append({k: v.detach() for k, v in metrics.items()})
+        return {k: torch.stack([m[k] for m in window]).mean()
+                for k in window[0]}
 
+    return step

@@ -16,8 +16,10 @@ scaled by ``im_scale`` and padded to ``max_gt_boxes``, and a
 proposal-fed batch (:class:`RCNNBatch`) the proposals, scaled the same
 way and padded to ``max_rois`` slots.  Batches hold numpy arrays;
 ``core/fit.py`` (through ``data/staging.py``) moves them to the device.
-Not ported yet: ``StreamLoader.resume_at`` and the data cursor, loader
-shards (``set_shard``), ``StreamTestLoader`` and the obs metrics.
+A resumed run positions a :class:`StreamLoader` mid-epoch by the
+manifest's data cursor (:meth:`StreamLoader.resume_at`).
+Not ported yet: loader shards (``set_shard``), ``StreamTestLoader`` and
+the obs metrics.
 """
 
 from __future__ import annotations
@@ -386,6 +388,10 @@ class StreamLoader(AnchorLoader):
     any batch size dividing K.  Images past a bucket's last full batch
     wait for the next epoch, as in :class:`AnchorLoader`."""
 
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._resume: Optional[Tuple[int, int]] = None
+
     def _bucket_orders(self, epoch: int) -> Dict[Tuple[int, int], List[int]]:
         """{bucket: the epoch's image order}, each from its own RNG."""
         orders = {}
@@ -416,21 +422,68 @@ class StreamLoader(AnchorLoader):
                 del remaining[bucket]
         return seq
 
-    def _plan(self, epoch: int, batch_images: int) -> Plan:
+    def _plan(self, epoch: int, batch_images: int,
+              offsets: Optional[Dict] = None) -> Plan:
         """The epoch's batch plan [(bucket, indices), ...] at
-        ``batch_images``."""
-        orders = self._bucket_orders(epoch)
-        counts = {b: len(o) // batch_images for b, o in orders.items()}
-        pos = {b: 0 for b in orders}
+        ``batch_images``, each bucket's stream starting past its consumed
+        prefix ``offsets[bucket]``."""
+        off = offsets or {}
+        streams = {b: o[off.get(b, 0):]
+                   for b, o in self._bucket_orders(epoch).items()}
+        counts = {b: len(s) // batch_images for b, s in streams.items()}
+        pos = {b: 0 for b in streams}
         plan = []
         for bucket in self._interleave(counts):
             p = pos[bucket]
-            plan.append((bucket, orders[bucket][p:p + batch_images]))
+            plan.append((bucket, streams[bucket][p:p + batch_images]))
             pos[bucket] = p + batch_images
         return plan
 
+    def resume_at(self, images_consumed: int,
+                  old_batch_images: Optional[int] = None) -> None:
+        """Start the next epoch (pinned by :meth:`set_epoch`) after its
+        first ``images_consumed`` images, as consumed by a run at
+        ``old_batch_images`` a batch (the manifest's data cursor; the
+        current size by default).  At the same size the recording run's
+        plan is trimmed, so its order goes on; at another, each bucket's
+        consumed prefix is found by replaying that run's plan and the
+        rest is chunked at the current size."""
+        images = int(images_consumed)
+        old_bi = int(old_batch_images or self.batch_images)
+        if images % old_bi:
+            raise ValueError(
+                f"cursor images_consumed={images} is not a multiple of "
+                f"the recording run's batch_images={old_bi} — the cursor "
+                f"does not sit on a batch boundary")
+        self._resume = (images, old_bi)
+
+    def _consumed_offsets(self, epoch: int, images: int,
+                          old_bi: int) -> Dict:
+        """Each bucket's images consumed after ``images`` images of the
+        epoch on the plan at ``old_bi`` a batch."""
+        plan = self._plan(epoch, old_bi)
+        nb = images // old_bi
+        if nb > len(plan):
+            raise ValueError(
+                f"cursor consumed {nb} batches but the epoch only has "
+                f"{len(plan)} at batch_images={old_bi} — wrong epoch or "
+                f"wrong dataset")
+        offsets: Dict = {}
+        for bucket, idx in plan[:nb]:
+            offsets[bucket] = offsets.get(bucket, 0) + len(idx)
+        return offsets
+
     def _epoch_plan(self, epoch: int) -> Plan:
-        return self._plan(epoch, self.batch_images)
+        """The epoch's plan, with a pending :meth:`resume_at` applied
+        (and consumed)."""
+        if self._resume is None:
+            return self._plan(epoch, self.batch_images)
+        images, old_bi = self._resume
+        self._resume = None
+        if old_bi == self.batch_images:
+            return self._plan(epoch, old_bi)[images // old_bi:]
+        return self._plan(epoch, self.batch_images,
+                          self._consumed_offsets(epoch, images, old_bi))
 
 
 class ROIIter(AnchorLoader):

@@ -11,14 +11,24 @@ decode cache and pool of the config's ``default`` section for the
 on-disk sets → ``StreamLoader`` (``data__streaming``, the default, as in
 the JAX package) or ``AnchorLoader`` → epochs ``--begin_epoch ..
 --end_epoch`` of train steps, each batch staged to the device ahead of
-its step → Speedometer lines, and with ``--prefix`` a checkpoint after
-each epoch (``prefix-%04d.ckpt``, the JAX package's layout).
-``--resume`` starts from the newest checkpoint under ``--prefix``,
-``--begin_epoch N`` from epoch N's; the resumed run ends bit-equal to an
-unbroken one.  ``--steps`` ends the run after that many steps.  Weights
-start random, made from ``--seed``.  The alternate schedule's stage
-tools (``train_rpn.py``, ``train_rcnn.py``, ``train_alternate.py``) call
-:func:`train_net` with ``mode='rpn'`` or ``'rcnn'`` (``ROIIter``).
+its step (``--grad_accum N`` batches an optimizer step) → Speedometer
+lines, and with ``--prefix`` a checkpoint after each epoch
+(``prefix-%04d.ckpt``, the JAX package's layout) written in the
+background.  Weights start random, made from ``--seed``, unless
+``--pretrained`` names an ImageNet file (MXNet ``.params`` or ``.npz``,
+torchvision VGG16 ``.pth``; ``utils/pretrained.py``) whose backbone and
+head trunk are grafted on.  The first SIGTERM finishes the step in
+flight, writes ``prefix-interrupt.ckpt`` and exits 0.  ``--resume``
+starts from the interrupt checkpoint or else the newest epoch
+checkpoint under ``--prefix``; ``--resume auto`` verifies each
+candidate against its manifest, falls back past a corrupt one, refuses
+a different effective batch (``ft.allow_resize_resume`` relents) and
+continues mid-epoch through the manifest's data cursor.  ``--begin_epoch
+N`` starts from epoch N's checkpoint; a resumed run ends bit-equal to an
+unbroken one.  ``--steps`` ends the run after that many steps.  The
+alternate schedule's stage tools (``train_rpn.py``, ``train_rcnn.py``,
+``train_alternate.py``) call :func:`train_net` with ``mode='rpn'`` or
+``'rcnn'`` (``ROIIter``).
 
     python -m mx_rcnn_tpu_torch.tools.train --network resnet101 \\
         --dataset PascalVOC --root_path data --dataset_path data/VOCdevkit \\
@@ -31,8 +41,12 @@ tools (``train_rpn.py``, ``train_rcnn.py``, ``train_alternate.py``) call
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import os
+import signal
+import threading
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
                                       parse_set_overrides)
@@ -43,11 +57,134 @@ from mx_rcnn_tpu_torch.data import load_gt_roidb, reads_files
 from mx_rcnn_tpu_torch.data.loader import (AnchorLoader, ROIIter,
                                            StreamLoader, cache_from_config,
                                            decode_pool_from_config)
+from mx_rcnn_tpu_torch.ft.integrity import latest_valid_checkpoint
 from mx_rcnn_tpu_torch.tools import dataset_args, dataset_overrides
-from mx_rcnn_tpu_torch.utils.checkpoint import (latest_checkpoint,
+from mx_rcnn_tpu_torch.utils.checkpoint import (config_fingerprint,
+                                                interrupt_path,
+                                                latest_checkpoint,
                                                 load_state_dict,
+                                                restore_interrupt,
                                                 restore_state)
 from mx_rcnn_tpu_torch.utils.device import resolve_device
+from mx_rcnn_tpu_torch.utils.pretrained import load_pretrained_into
+
+
+def _legacy_resume(state: TrainState, prefix: str, steps_per_epoch: int,
+                   log: Callable[[str], None]) -> int:
+    """Unverified resume (plain ``--resume``, and ``--resume auto`` in a
+    directory without manifests): the interrupt checkpoint, step-exact,
+    wins over the epoch checkpoints; a missing or corrupt file fails at
+    restore.  Restores into ``state``; returns the begin epoch."""
+    if os.path.exists(interrupt_path(prefix)):
+        _, saved_spe = restore_interrupt(state, prefix)
+        _check_spe(saved_spe, steps_per_epoch, prefix)
+        begin_epoch = state.step // steps_per_epoch
+        log(f"resumed mid-epoch from {interrupt_path(prefix)} (step "
+            f"{state.step} → epoch {begin_epoch})")
+        return begin_epoch
+    found = latest_checkpoint(prefix)
+    if found:
+        restore_state(state, prefix, found[0])
+        log(f"resumed from {prefix} epoch {found[0]} (step {state.step})")
+        return found[0]
+    log(f"--resume: nothing under {prefix}, starting fresh")
+    return 0
+
+
+def _check_topology(manifest: dict, cfg: Config, batch_images: int,
+                    grad_accum: int, path: str,
+                    log: Callable[[str], None]) -> None:
+    """A resume that would change the effective batch (the images an
+    optimizer step takes) changes the lr schedule and the step ↔ epoch
+    mapping: an error, a warning under ``ft.allow_resize_resume``.  A
+    manifest without a topology has nothing to check."""
+    topo = (manifest or {}).get("topology")
+    if not topo or not topo.get("global_batch"):
+        return
+    now = batch_images * grad_accum
+    then = int(topo["global_batch"])
+    if then == now:
+        return
+    msg = (f"checkpoint {path} was trained with effective global batch "
+           f"{then} ({topo.get('devices')} devices x batch_images x "
+           f"grad_accum {topo.get('grad_accum')}) but this run would "
+           f"train with {now} (1 device x {batch_images} images x "
+           f"grad_accum {grad_accum}) — the LR schedule and step↔epoch "
+           f"mapping would silently change")
+    if cfg.ft.allow_resize_resume:
+        log(f"resume: {msg} (ft.allow_resize_resume is set — continuing "
+            f"anyway)")
+        return
+    raise ValueError(
+        msg + "; rescale grad_accum to preserve the global batch, or set "
+        "ft.allow_resize_resume=true to accept the resize")
+
+
+def _check_spe(saved_spe: Optional[int], steps_per_epoch: int,
+               prefix: str) -> None:
+    """An interrupt checkpoint is step-exact only under the steps per
+    epoch it was written with."""
+    if saved_spe is not None and saved_spe != steps_per_epoch:
+        raise ValueError(
+            f"interrupt checkpoint was written with {saved_spe} "
+            f"steps/epoch but this run has {steps_per_epoch} (different "
+            f"batch size or dataset) — step-exact resume is impossible; "
+            f"delete {interrupt_path(prefix)} to resume from the last "
+            f"epoch checkpoint instead")
+
+
+def _verified_resume(state: TrainState, cfg: Config, prefix: str,
+                     steps_per_epoch: int, batch_images: int,
+                     grad_accum: int, log: Callable[[str], None]
+                     ) -> Tuple[int, Optional[Dict]]:
+    """``--resume auto``: restore the newest checkpoint that verifies
+    (``ft/integrity.py``), falling back past corrupt ones; an interrupt
+    checkpoint also gives the data cursor.  Returns (begin epoch, data
+    cursor or None)."""
+    ref = latest_valid_checkpoint(prefix)
+    if ref is None:
+        if os.path.exists(interrupt_path(prefix)) or \
+                latest_checkpoint(prefix):
+            log(f"--resume auto: checkpoints exist under {prefix} but none "
+                f"has a verifying manifest (pre-manifest run?) — falling "
+                f"back to UNVERIFIED legacy resume instead of starting over")
+            return _legacy_resume(state, prefix, steps_per_epoch, log), None
+        log(f"--resume auto: nothing restorable under {prefix}, starting "
+            f"fresh")
+        return 0, None
+    fp_ckpt = ref.manifest.get("config_fingerprint")
+    if fp_ckpt and fp_ckpt != config_fingerprint(cfg):
+        log(f"resume: checkpoint {ref.path} was written under config "
+            f"fingerprint {fp_ckpt} but this run is "
+            f"{config_fingerprint(cfg)} — the recipe changed; the "
+            f"continued run is NOT the same experiment")
+    _check_topology(ref.manifest, cfg, batch_images, grad_accum, ref.path,
+                    log)
+    if ref.kind != "interrupt":
+        restore_state(state, prefix, ref.epoch)
+        log(f"resumed from verified {ref.path} (epoch {ref.epoch}, step "
+            f"{ref.step})")
+        return ref.epoch, None
+    _, saved_spe = restore_interrupt(state, prefix)
+    _check_spe(saved_spe, steps_per_epoch, prefix)
+    step = state.step
+    begin_epoch = step // steps_per_epoch
+    log(f"resumed mid-epoch from verified {ref.path} (step {step} → epoch "
+        f"{begin_epoch})")
+    topo = ref.manifest.get("topology") or {}
+    if not (topo.get("global_batch") and topo.get("grad_accum")):
+        return begin_epoch, None
+    # the images consumed in this epoch, from the state's step under the
+    # topology that wrote the checkpoint
+    old_bi = int(topo["global_batch"]) // int(topo["grad_accum"])
+    images = (step % steps_per_epoch) * int(topo["global_batch"])
+    want = (ref.manifest.get("data_cursor") or {}).get("batches_consumed")
+    if want is not None and int(want) * old_bi != images:
+        log(f"resume: manifest data_cursor says {want} batches x {old_bi} "
+            f"images consumed but state.step implies {images} images — "
+            f"using the step-derived position")
+    return begin_epoch, {"loader_batch_images": old_bi,
+                         "images_consumed_in_epoch": images}
 
 
 def train_net(cfg: Config, *, prefix: Optional[str] = None,
@@ -56,10 +193,14 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
               frozen_prefixes: Optional[Sequence[str]] = None,
               roidb=None, load_image: Optional[Callable] = None,
               synthetic: int = 0, begin_epoch: int = 0,
-              end_epoch: Optional[int] = None, resume: bool = False,
+              end_epoch: Optional[int] = None,
+              resume: Union[bool, str] = False,
               lr: Optional[float] = None, lr_step: Optional[str] = None,
               steps: Optional[int] = None, frequent: Optional[int] = None,
               seed: int = 0, device="cuda",
+              pretrained: Optional[str] = None, pretrained_epoch: int = 0,
+              grad_accum: int = 1,
+              stop_flag: Optional[Callable[[], bool]] = None,
               log: Callable[[str], None] = print
               ) -> Tuple[TrainState, Dict[str, float]]:
     """Train on ``device`` (CUDA unless the caller asks for the CPU);
@@ -75,11 +216,22 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     Records read from files decode through the config's cache or decode
     pool (``default.image_cache_mb``, ``image_cache_dir``,
     ``decode_procs``); the pool is closed when the run ends.
+    ``pretrained``: an ImageNet weight file (or a prefix naming
+    ``{prefix}-{pretrained_epoch:04d}.params``) grafted onto the
+    backbone and head trunk before ``init_from``.
     ``init_from``: a (prefix, epoch) checkpoint whose weights and
     statistics start the run, with a fresh optimizer.
     ``frozen_prefixes`` defaults to ``cfg.network.fixed_params``.  ``end_epoch`` defaults to
-    ``default__e2e_epoch``, or to as many epochs as ``steps`` needs."""
+    ``default__e2e_epoch``, or to as many epochs as ``steps`` needs.
+    ``resume``: True or ``'auto'`` (verified, with the data cursor; see
+    the module docstring).  ``grad_accum``: loader batches an optimizer
+    step accumulates; an epoch has ``len(loader) // grad_accum`` steps.
+    ``stop_flag``: polled after every step; True writes the interrupt
+    checkpoint and returns."""
     resolve_device(device)
+    if resume not in (False, True, "auto"):
+        raise ValueError(f"resume must be False, True or 'auto', got "
+                         f"{resume!r}")
     if mode == "rcnn" and proposals is None:
         raise ValueError("mode='rcnn' requires precomputed proposals")
     if (resume or begin_epoch) and not prefix:
@@ -105,31 +257,40 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     else:
         kind = StreamLoader if cfg.data.streaming else AnchorLoader
         loader = kind(roidb, cfg, load_image, seed=seed, **source)
-    steps_per_epoch = max(len(loader), 1)
+    steps_per_epoch = max(len(loader) // grad_accum, 1)
     state = setup_training(cfg, device, seed, steps_per_epoch, base_lr=lr,
                            lr_step=lr_step, frozen_prefixes=frozen_prefixes)
+    if pretrained:
+        load_pretrained_into(state, pretrained, pretrained_epoch, cfg)
+        log(f"[{mode}] grafted pretrained backbone from {pretrained}")
     if init_from is not None:
         state.model.load_state_dict(load_state_dict(*init_from))
         log(f"[{mode}] initialised from {init_from[0]} epoch {init_from[1]}")
-    if resume:
-        found = latest_checkpoint(prefix)
-        begin_epoch = found[0] if found else 0
+    data_cursor = None
+    if resume and begin_epoch == 0:
+        if resume == "auto":
+            begin_epoch, data_cursor = _verified_resume(
+                state, cfg, prefix, steps_per_epoch, loader.batch_images,
+                grad_accum, log)
+        else:
+            begin_epoch = _legacy_resume(state, prefix, steps_per_epoch, log)
+    elif begin_epoch > 0:
+        restore_state(state, prefix, begin_epoch)
+        log(f"resumed from {prefix} epoch {begin_epoch} (step {state.step})")
     if end_epoch is None:
         end_epoch = (begin_epoch + math.ceil(steps / steps_per_epoch)
                      if steps else cfg.default.e2e_epoch)
     log(f"[{mode}] network={cfg.network.name} "
         f"dtype={cfg.network.compute_dtype} "
         f"device={next(state.model.parameters()).device} "
-        f"batch_images={loader.batch_images} records={len(roidb)} "
-        f"loader={type(loader).__name__} "
+        f"batch_images={loader.batch_images} grad_accum={grad_accum} "
+        f"records={len(roidb)} loader={type(loader).__name__} "
         f"epochs={begin_epoch}..{end_epoch} steps={steps}")
-    if begin_epoch > 0:
-        restore_state(state, prefix, begin_epoch)
-        log(f"resumed from {prefix} epoch {begin_epoch} (step {state.step})")
     try:
-        metrics = fit(state, cfg, make_train_step(cfg, mode), loader,
-                      end_epoch, begin_epoch, prefix, steps, frequent,
-                      log=log)
+        metrics = fit(state, cfg, make_train_step(cfg, mode, grad_accum),
+                      loader, end_epoch, begin_epoch, prefix, steps,
+                      frequent, log=log, stop_flag=stop_flag,
+                      grad_accum=grad_accum, data_cursor=data_cursor)
     finally:
         if pool is not None:
             pool.close()
@@ -151,8 +312,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--end_epoch", type=int, default=None,
                    help="train up to this epoch (default: default__e2e_epoch,"
                         " or as many as --steps needs)")
-    p.add_argument("--resume", action="store_true",
-                   help="start from the newest checkpoint under --prefix")
+    p.add_argument("--resume", nargs="?", const=True, default=False,
+                   choices=[True, "auto"], metavar="auto",
+                   help="start from the interrupt checkpoint under --prefix, "
+                        "else the newest epoch checkpoint; 'auto' verifies "
+                        "manifests and SHA-256, falls back past corrupt "
+                        "files and continues mid-epoch")
+    p.add_argument("--pretrained", default=None,
+                   help="ImageNet weights for the backbone: a .params, .npz "
+                        "or VGG16 .pth file, or a prefix of "
+                        "PREFIX-%%04d.params")
+    p.add_argument("--pretrained_epoch", type=int, default=0)
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="loader batches accumulated per optimizer step")
     p.add_argument("--steps", type=int, default=None,
                    help="end the run after this many steps")
     p.add_argument("--lr", type=float, default=None,
@@ -184,17 +356,42 @@ def config_from_args(args) -> Config:
     return generate_config(args.network, args.dataset, **overrides)
 
 
+@contextlib.contextmanager
+def sigterm_stop_flag():
+    """A stop flag that the first SIGTERM sets: the step in flight
+    finishes, the interrupt checkpoint is written and the run returns.
+    The handler is installed from the main thread only (elsewhere the
+    flag never sets) and the previous one is restored on exit."""
+    stop = threading.Event()
+
+    def on_sigterm(signum, frame):
+        stop.set()
+
+    previous = None
+    if threading.current_thread() is threading.main_thread():
+        previous = signal.signal(signal.SIGTERM, on_sigterm)
+    try:
+        yield stop.is_set
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+
 def main(argv=None) -> Dict[str, float]:
     args = parse_args(argv)
     if (args.resume or args.begin_epoch) and not args.prefix:
         raise SystemExit("--resume and --begin_epoch need --prefix")
     cfg = config_from_args(args)
-    _, metrics = train_net(
-        cfg, prefix=args.prefix, synthetic=args.synthetic,
-        begin_epoch=args.begin_epoch, end_epoch=args.end_epoch,
-        resume=args.resume, lr=args.lr, steps=args.steps,
-        frequent=args.frequent, seed=args.seed, device=args.device,
-        log=lambda line: print(line, flush=True))
+    with sigterm_stop_flag() as stop_flag:
+        _, metrics = train_net(
+            cfg, prefix=args.prefix, synthetic=args.synthetic,
+            begin_epoch=args.begin_epoch, end_epoch=args.end_epoch,
+            resume=args.resume, lr=args.lr, steps=args.steps,
+            frequent=args.frequent, seed=args.seed, device=args.device,
+            pretrained=args.pretrained,
+            pretrained_epoch=args.pretrained_epoch,
+            grad_accum=args.grad_accum, stop_flag=stop_flag,
+            log=lambda line: print(line, flush=True))
     print("final " + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
           flush=True)
     return metrics

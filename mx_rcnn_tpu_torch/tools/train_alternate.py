@@ -12,14 +12,14 @@ Counterpart of ``mx_rcnn_tpu/tools/train_alternate.py — alternate_train``:
 
 on the training roidb (the dataset's, read as ``tools/train.py`` reads
 it, or ``--synthetic N`` seeded synthetic images) and its flipped
-copies, on the card unless ``--device cpu``.  The
-reference starts stages 1 and 2 from ImageNet weights; without them
-(the ``--pretrained`` converter waits for weights in the repository)
-stage 1 starts from a seeded init and stage 2 either from the same
-seeded init (``--stage2_init fresh``, the JAX package's default) or
-from rpn1 (``rpn1``); from a seeded init VGG16 diverges at the
-reference's lr 0.001 and trains at 1e-4.  Evaluate the final model with
-``tools/test.py --prefix <prefix>-final --epoch 1``.
+copies, on the card unless ``--device cpu``.  As in the reference,
+``--pretrained FILE`` starts stages 1 and 2 from ImageNet weights
+(``utils/pretrained.py``); without it stage 1 starts from a seeded init
+and stage 2 either from the same seeded init (``--stage2_init fresh``,
+the JAX package's default) or from rpn1 (``rpn1``); from a seeded init
+VGG16 diverges at the reference's lr 0.001 and trains at 1e-4.
+Evaluate the final model with ``tools/test.py --prefix <prefix>-final
+--epoch 1``.
 
     python -m mx_rcnn_tpu_torch.tools.train_alternate --network vgg \\
         --dataset PascalVOC --synthetic 8 --batch_images 2 \\
@@ -50,13 +50,15 @@ def alternate_train(cfg: Config, *, prefix: str, synthetic: int = 0,
                     rpn_lr_step: str = None, rcnn_epoch: int = None,
                     rcnn_lr: float = None, rcnn_lr_step: str = None,
                     frequent: int = None, seed: int = 0,
-                    stage2_init: str = "fresh", device="cuda",
+                    stage2_init: str = "fresh", pretrained: str = None,
+                    pretrained_epoch: int = 0, device="cuda",
                     log: Callable[[str], None] = print) -> str:
     """Run the four stages, the two dumps and the combine on ``device``
     (CUDA unless the caller asks for the CPU); returns the final prefix
     (its checkpoint is ``<prefix>-final-0001.ckpt``).  Each stage's
     epochs, lr and lr steps default to ``default__rpn_*`` and
-    ``default__rcnn_*``."""
+    ``default__rcnn_*``.  ``pretrained`` starts stages 1 and 2; stage 2
+    starts from rpn1 only without it and with ``stage2_init='rpn1'``."""
     if stage2_init not in ("fresh", "rpn1"):
         raise ValueError(f"stage2_init must be 'fresh' or 'rpn1', got "
                          f"{stage2_init!r}")
@@ -82,15 +84,18 @@ def alternate_train(cfg: Config, *, prefix: str, synthetic: int = 0,
                               f"{prefix}-{stage}", rpn_epoch,
                               f"{prefix}-{stage}-proposals.pkl", device, log)
 
+    imagenet = dict(pretrained=pretrained, pretrained_epoch=pretrained_epoch)
     log("=== Stage 1: train the RPN ===")
-    train_net(cfg, mode="rpn", prefix=f"{prefix}-rpn1", **rpn, **common)
+    train_net(cfg, mode="rpn", prefix=f"{prefix}-rpn1", **imagenet, **rpn,
+              **common)
     log("=== Stage 1.5: proposals from rpn1 ===")
     props1 = dump("rpn1")
     log("=== Stage 2: train Fast R-CNN on rpn1's proposals ===")
     train_net(cfg, mode="rcnn", prefix=f"{prefix}-rcnn1", proposals=props1,
               init_from=((f"{prefix}-rpn1", rpn_epoch)
-                         if stage2_init == "rpn1" else None),
-              **rcnn, **common)
+                         if not pretrained and stage2_init == "rpn1"
+                         else None),
+              **imagenet, **rcnn, **common)
     log("=== Stage 3: retrain the RPN, shared convs frozen ===")
     train_net(cfg, mode="rpn", prefix=f"{prefix}-rpn2",
               init_from=(f"{prefix}-rcnn1", rcnn_epoch),
@@ -121,8 +126,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="log every this many steps")
     p.add_argument("--stage2_init", choices=["fresh", "rpn1"],
                    default="fresh",
-                   help="stage 2 starts from the seeded init (fresh) or "
-                        "from rpn1")
+                   help="without --pretrained, stage 2 starts from the "
+                        "seeded init (fresh) or from rpn1")
+    p.add_argument("--pretrained", default=None,
+                   help="ImageNet weights that start stages 1 and 2 (.params, "
+                        ".npz or VGG16 .pth, or a prefix of "
+                        "PREFIX-%%04d.params)")
+    p.add_argument("--pretrained_epoch", type=int, default=0)
     return p.parse_args(argv)
 
 
@@ -134,7 +144,8 @@ def main(argv=None) -> str:
         rpn_lr_step=args.rpn_lr_step, rcnn_epoch=args.rcnn_epoch,
         rcnn_lr=args.rcnn_lr, rcnn_lr_step=args.rcnn_lr_step,
         frequent=args.frequent, seed=args.seed,
-        stage2_init=args.stage2_init, device=args.device,
+        stage2_init=args.stage2_init, pretrained=args.pretrained,
+        pretrained_epoch=args.pretrained_epoch, device=args.device,
         log=lambda line: print(line, flush=True))
 
 

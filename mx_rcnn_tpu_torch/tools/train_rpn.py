@@ -6,8 +6,9 @@ with ``mode='rpn'`` on the training roidb (the dataset's, read as
 images) and its flipped copies.  ``--init_from PREFIX
 --init_from_epoch E`` starts from a stage checkpoint's weights (a fresh
 optimizer); ``--frozen_shared`` freezes ``network.fixed_params_shared``
-(stage 3: the shared convs stay as they were).  The reference's
-``--pretrained`` ImageNet start waits for weights in the repository.
+(stage 3: the shared convs stay as they were).  ``--pretrained FILE``
+grafts ImageNet backbone weights first (``utils/pretrained.py``), as the
+reference's stages start.
 
     python -m mx_rcnn_tpu_torch.tools.train_rpn --network vgg \\
         --dataset PascalVOC --synthetic 8 --batch_images 2 \\
@@ -52,6 +53,10 @@ def stage_args(p: argparse.ArgumentParser, default_prefix: str) -> None:
     p.add_argument("--init_from_epoch", type=int, default=0)
     p.add_argument("--frozen_shared", action="store_true",
                    help="freeze network__fixed_params_shared (stages 3, 4)")
+    p.add_argument("--pretrained", default=None,
+                   help="ImageNet weights for the backbone (.params, .npz or "
+                        "VGG16 .pth, or a prefix of PREFIX-%%04d.params)")
+    p.add_argument("--pretrained_epoch", type=int, default=0)
     p.add_argument("--end_epoch", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--lr_step", default=None)
@@ -68,6 +73,7 @@ def run_stage(args, mode: str, proposals=None) -> Dict[str, float]:
         rpn if mode == "rpn" else rcnn)
     _, metrics = train_net(
         cfg, prefix=args.prefix, mode=mode, proposals=proposals,
+        pretrained=args.pretrained, pretrained_epoch=args.pretrained_epoch,
         init_from=((args.init_from, args.init_from_epoch)
                    if args.init_from else None),
         frozen_prefixes=(cfg.network.fixed_params_shared

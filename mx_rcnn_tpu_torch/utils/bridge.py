@@ -7,8 +7,10 @@ dense kernels (in, out) ↔ (out, in), frozen-BN ``scale``/``bias``/``mean``/
 ``var`` ↔ ``weight``/``bias``/``running_mean``/``running_var``.
 
 Both directions work on nested dicts of numpy arrays, so neither side
-needs the other framework.  :func:`train_state_to_flax` and
-:func:`load_train_state` carry the whole train state: the weights, the
+needs the other framework.  :func:`train_state_to_flax` (through
+:func:`host_train_state`, owned host copies taken at one step, and
+:func:`host_state_to_flax`) and :func:`load_train_state` carry the
+whole train state: the weights, the
 SGD momentum trace in the layouts of the weights (a bfloat16 trace as
 ``torch.bfloat16`` tensors, which numpy cannot hold), the optimizer's
 update count and ``step``, in the tree ``flax.serialization.to_state_dict``
@@ -17,7 +19,7 @@ makes of the JAX package's ``TrainState``.  Both directions copy bits.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -145,29 +147,83 @@ def _leaves(tree: Mapping, prefix=()) -> Iterator[Tuple[Tuple[str, ...],
 _FLAX_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
-def train_state_to_flax(model: torch.nn.Module, optimizer) -> dict:
-    """The port's model and SGD (``core/optim.py``) → the state dict of
-    the JAX package's ``TrainState``: ``step``, ``params``,
-    ``batch_stats`` and ``opt_state``, the last laid out as the optax
-    chain ``masked(chain(clip, add_decayed_weights, sgd)), masked(
-    set_to_zero)`` stores it — the trace at
-    ``opt_state/0/inner_state/2/0/trace/<param path>`` (an empty map for
-    a frozen parameter) and the update count at
+class HostTrainState(NamedTuple):
+    """Owned host copies of a train state, taken at one step: the model's
+    state_dict (weights, frozen-BN statistics), the names of its
+    parameters in order, the SGD momentum trace of the trained ones and
+    the update count.  Nothing in it shares memory with the live state,
+    so the step may run on while another thread serialises it."""
+
+    state_dict: Dict[str, torch.Tensor]
+    param_names: Tuple[str, ...]
+    trace: Dict[str, torch.Tensor]
+    count: int
+
+    @property
+    def step(self) -> int:
+        return self.count
+
+
+def _owned_copies(tensors: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Host copies that own their memory: a CUDA tensor is copied into
+    pinned memory without blocking, each on the current stream, and the
+    copies are waited for once, before this returns; a CPU tensor is
+    cloned."""
+    out: Dict[str, torch.Tensor] = {}
+    on_card = False
+    for name, t in tensors.items():
+        t = t.detach()
+        if t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            on_card = True
+        else:
+            host = t.clone(memory_format=torch.contiguous_format)
+        out[name] = host
+    if on_card:
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    return out
+
+
+def host_train_state(model: torch.nn.Module, optimizer) -> HostTrainState:
+    """The :class:`HostTrainState` of ``model`` and its SGD
+    (``core/optim.py``), copied now."""
+    return HostTrainState(
+        state_dict=_owned_copies(model.state_dict()),
+        param_names=tuple(name for name, _ in model.named_parameters()),
+        trace=_owned_copies(optimizer.trace), count=int(optimizer.count))
+
+
+def host_state_to_flax(host: HostTrainState) -> dict:
+    """A :class:`HostTrainState` → the state dict of the JAX package's
+    ``TrainState``: ``step``, ``params``, ``batch_stats`` and
+    ``opt_state``, the last laid out as the optax chain ``masked(chain(
+    clip, add_decayed_weights, sgd)), masked(set_to_zero)`` stores it —
+    the trace at ``opt_state/0/inner_state/2/0/trace/<param path>`` (an
+    empty map for a frozen parameter) and the update count at
     ``opt_state/0/inner_state/2/1/count``."""
-    sd = model.state_dict()
+    sd = host.state_dict
     tree = to_flax(sd)
     bn_modules = _bn_modules(sd)
     trace: dict = {}
-    for name, p in model.named_parameters():
-        path = _param_path(name, p.ndim, bn_modules)
-        t = optimizer.trace.get(name)
+    for name in host.param_names:
+        path = _param_path(name, sd[name].ndim, bn_modules)
+        t = host.trace.get(name)
         _set(trace, path, {} if t is None else _host(_flax_layout(t)))
-    count = np.array(optimizer.count, np.int32)
+    count = np.array(host.count, np.int32)
     sgd = {"0": {"trace": trace}, "1": {"count": count}}
     return {"step": count.copy(), "params": tree["params"],
             "batch_stats": tree["batch_stats"],
             "opt_state": {"0": {"inner_state": {"0": {}, "1": {}, "2": sgd}},
                           "1": {"inner_state": {}}}}
+
+
+def train_state_to_flax(model: torch.nn.Module, optimizer) -> dict:
+    """:func:`host_state_to_flax` of the live ``model`` and optimizer."""
+    return host_state_to_flax(host_train_state(model, optimizer))
 
 
 def load_train_state(tree: Mapping, model: torch.nn.Module, optimizer) -> None:

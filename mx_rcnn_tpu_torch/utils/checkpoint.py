@@ -3,11 +3,21 @@
 Counterpart of ``mx_rcnn_tpu/utils/checkpoint.py``: one file per epoch,
 ``prefix-%04d.ckpt``, holding flax's msgpack of the whole train state
 ``{step, params, batch_stats, opt_state}`` (``utils/bridge.py —
-train_state_to_flax`` gives its layout), written through a durable
+host_state_to_flax`` gives its layout), written through a durable
 atomic rename, then a ``.manifest.json`` sidecar with the payload's
 sha256 and byte count, written last as the commit point.  Either
 package reads the other's files.  The msgpack is the port's own
 (``utils/flax_msgpack.py``): no msgpack package is needed.
+
+A checkpoint is committed once its manifest exists.  The manifest
+records its ``kind`` (``epoch``, or ``interrupt`` for the mid-epoch
+``prefix-interrupt.ckpt`` a stopped run writes, whose payload is
+``{"state": ..., "steps_per_epoch": ...}``), the writing run's
+``topology`` (:func:`make_topology`) and, from it, the ``data_cursor``
+a resumed run positions its loader by.  :func:`serialize_state` and
+:func:`commit_checkpoint` split a save at the seam the background writer
+needs (``ft/snapshot.py``): the owned host copy is taken on the step's
+thread, the bytes are made and written on another.
 
 Weights stay in normalised bbox space (the predictor de-normalises at
 decode time), so a checkpoint is both the eval format and the resume
@@ -31,8 +41,10 @@ import numpy as np
 
 from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
 from mx_rcnn_tpu_torch.utils import flax_msgpack
-from mx_rcnn_tpu_torch.utils.bridge import (from_flax, load_train_state,
-                                            to_flax, train_state_to_flax)
+from mx_rcnn_tpu_torch.utils.bridge import (HostTrainState, from_flax,
+                                            host_state_to_flax,
+                                            host_train_state,
+                                            load_train_state, to_flax)
 
 
 def checkpoint_path(prefix: str, epoch: int) -> str:
@@ -84,15 +96,33 @@ def config_fingerprint(cfg) -> str:
     return hashlib.sha256(parts.encode()).hexdigest()[:16]
 
 
-def write_manifest(path: str, data: bytes, *, step: int,
+def make_topology(num_devices: int, num_processes: int = 1,
+                  grad_accum: int = 1, batch_images: int = 1) -> Dict:
+    """The manifest's ``topology``: the writing run's device and process
+    counts, its ``grad_accum`` and its effective batch, the images one
+    optimizer step consumes (devices x batch_images x grad_accum)."""
+    return {
+        "devices": int(num_devices),
+        "processes": int(num_processes),
+        "grad_accum": int(grad_accum),
+        "global_batch": int(num_devices) * int(batch_images)
+        * int(grad_accum),
+    }
+
+
+def write_manifest(path: str, data: bytes, *, kind: str, step: int,
                    epoch: Optional[int] = None,
                    steps_per_epoch: Optional[int] = None,
-                   config_fp: Optional[str] = None) -> str:
+                   config_fp: Optional[str] = None,
+                   topology: Optional[Dict] = None) -> str:
     """Write the manifest of ``path`` whose payload is ``data`` (hashed
-    here, not re-read), as sorted-key JSON."""
+    here, not re-read), as sorted-key JSON.  With a ``topology`` and
+    ``steps_per_epoch`` it carries the data cursor: the epoch, the
+    optimizer steps into it, the loader batches they consumed
+    (``grad_accum`` each) and the images consumed since step 0."""
     manifest = {
         "format": 1,
-        "kind": "epoch",
+        "kind": kind,
         "step": int(step),
         "epoch": epoch,
         "steps_per_epoch": steps_per_epoch,
@@ -102,6 +132,18 @@ def write_manifest(path: str, data: bytes, *, step: int,
             "bytes": len(data),
         }},
     }
+    if topology is not None:
+        manifest["topology"] = topology
+        if steps_per_epoch:
+            in_epoch = int(step) % int(steps_per_epoch)
+            manifest["data_cursor"] = {
+                "epoch": int(step) // int(steps_per_epoch),
+                "steps_in_epoch": in_epoch,
+                "batches_consumed": in_epoch
+                * int(topology.get("grad_accum", 1)),
+                "images_consumed": int(step)
+                * int(topology.get("global_batch", 0)),
+            }
     return _atomic_write(manifest_path(path),
                          json.dumps(manifest, indent=1,
                                     sort_keys=True).encode())
@@ -137,14 +179,44 @@ def _read_verified(path: str) -> bytes:
     return data
 
 
+def serialize_state(host: HostTrainState) -> bytes:
+    """The checkpoint bytes of a host copy of the train state
+    (``utils/bridge.py — host_train_state``)."""
+    return flax_msgpack.packb(host_state_to_flax(host))
+
+
+def serialize_interrupt(host: HostTrainState,
+                        steps_per_epoch: Optional[int]) -> bytes:
+    """The bytes of an interrupt checkpoint: the state and the
+    steps per epoch of the run that wrote it."""
+    return flax_msgpack.packb({"state": host_state_to_flax(host),
+                               "steps_per_epoch": steps_per_epoch})
+
+
+def commit_checkpoint(path: str, data: bytes, *, kind: str, step: int,
+                      epoch: Optional[int] = None,
+                      steps_per_epoch: Optional[int] = None,
+                      config_fp: Optional[str] = None,
+                      topology: Optional[Dict] = None) -> str:
+    """Durably write ``data``, then its manifest (the commit point)."""
+    _atomic_write(path, data)
+    write_manifest(path, data, kind=kind, step=step, epoch=epoch,
+                   steps_per_epoch=steps_per_epoch, config_fp=config_fp,
+                   topology=topology)
+    return path
+
+
 def save_checkpoint(prefix: str, epoch: int, state, *,
                     steps_per_epoch: Optional[int] = None,
-                    config_fp: Optional[str] = None) -> str:
+                    config_fp: Optional[str] = None,
+                    topology: Optional[Dict] = None) -> str:
     """Write the train state (``core/train.py — TrainState``) as
     ``prefix-%04d.ckpt``, then its manifest; returns the path."""
-    return _save_tree(prefix, epoch,
-                      train_state_to_flax(state.model, state.optimizer),
-                      steps_per_epoch=steps_per_epoch, config_fp=config_fp)
+    host = host_train_state(state.model, state.optimizer)
+    return commit_checkpoint(
+        checkpoint_path(prefix, epoch), serialize_state(host), kind="epoch",
+        step=host.step, epoch=epoch, steps_per_epoch=steps_per_epoch,
+        config_fp=config_fp, topology=topology)
 
 
 def save_params(prefix: str, epoch: int, state_dict) -> str:
@@ -153,21 +225,11 @@ def save_params(prefix: str, epoch: int, state_dict) -> str:
     opt_state={})``), then its manifest; returns the path.  The
     alternate schedule's combined model is saved so."""
     tree = to_flax(state_dict)
-    return _save_tree(prefix, epoch, {
-        "step": np.array(0, np.int32), "params": tree["params"],
-        "batch_stats": tree["batch_stats"], "opt_state": {}})
-
-
-def _save_tree(prefix: str, epoch: int, tree: Dict, *,
-               steps_per_epoch: Optional[int] = None,
-               config_fp: Optional[str] = None) -> str:
-    path = checkpoint_path(prefix, epoch)
-    data = flax_msgpack.packb(tree)
-    _atomic_write(path, data)
-    write_manifest(path, data, step=int(tree["step"]),
-                   epoch=epoch, steps_per_epoch=steps_per_epoch,
-                   config_fp=config_fp)
-    return path
+    return commit_checkpoint(
+        checkpoint_path(prefix, epoch), flax_msgpack.packb({
+            "step": np.array(0, np.int32), "params": tree["params"],
+            "batch_stats": tree["batch_stats"], "opt_state": {}}),
+        kind="epoch", step=0, epoch=epoch)
 
 
 def load_checkpoint(prefix: str, epoch: int) -> Dict[str, Any]:
@@ -240,3 +302,45 @@ def latest_checkpoint(prefix: str) -> Optional[Tuple[int, str]]:
     """The highest-epoch checkpoint under ``prefix``, or None."""
     found = list_checkpoints(prefix)
     return found[-1] if found else None
+
+
+def interrupt_path(prefix: str) -> str:
+    """The mid-epoch checkpoint a stopped run writes (SIGTERM)."""
+    return f"{prefix}-interrupt.ckpt"
+
+
+def save_interrupt(prefix: str, state, steps_per_epoch: Optional[int] = None,
+                   *, config_fp: Optional[str] = None,
+                   topology: Optional[Dict] = None) -> str:
+    """Write the train state at its current step as the interrupt
+    checkpoint, with ``steps_per_epoch``: a resumed run maps the step
+    back to (epoch, batches consumed) only under the same value."""
+    host = host_train_state(state.model, state.optimizer)
+    return commit_checkpoint(
+        interrupt_path(prefix), serialize_interrupt(host, steps_per_epoch),
+        kind="interrupt", step=host.step, steps_per_epoch=steps_per_epoch,
+        config_fp=config_fp, topology=topology)
+
+
+def restore_interrupt(state, prefix: str) -> Tuple[Any, Optional[int]]:
+    """Write the interrupt checkpoint (either package's) into ``state``
+    in place, checked against its manifest; returns (state,
+    steps_per_epoch), the latter None for a file that did not record
+    it."""
+    raw = flax_msgpack.unpackb(_read_verified(interrupt_path(prefix)))
+    spe = None
+    if isinstance(raw, dict) and "state" in raw and "steps_per_epoch" in raw:
+        raw, spe = raw["state"], raw["steps_per_epoch"]
+    load_train_state(raw, state.model, state.optimizer)
+    return state, (int(spe) if spe is not None else None)
+
+
+def clear_interrupt(prefix: str) -> None:
+    """Remove the interrupt checkpoint once an epoch checkpoint supersedes
+    it: the manifest first, so a kill between the two unlinks leaves an
+    uncommitted file that resume skips."""
+    for p in (manifest_path(interrupt_path(prefix)), interrupt_path(prefix)):
+        try:
+            os.unlink(p)
+        except FileNotFoundError:
+            pass
