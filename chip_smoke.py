@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's detection forward, training step, checkpoints,
 evaluation, the alternate schedule, the serving engine, the
-real-dataset input plane and the long training run on one NVIDIA card.
+real-dataset input plane, the long training run and data parallelism on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -141,7 +142,30 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    equal, metrics and gradients close) and ``remat_backbone`` on and off
    (gradients bit-equal); in bf16, ms per optimizer step, peak memory and
    launches per step of batch 2, batch 1 x accum 2 and batch 2 with
-   remat.
+   remat;
+14. data parallelism, the eighth main path (``parallel/``; one process
+   per card, its row shard of the global plan, one gradient all-reduce
+   per optimizer step), on a generated COCO tree (12 train2017 and 15
+   val2017 480x640 JPEGs) under ``_chip/dp``, with deterministic cuDNN:
+   in fp32, a two-rank world over gloo on cuda:0 twice (a test rig: NCCL
+   refuses two ranks on one card; it says so on each line) against the
+   world of one on the same 2 images and draws, through the kernels and
+   the plain versions (sampled rois and labels equal, averaged gradients
+   and metrics within a relative 1e-4, the ranks' states bit-equal after
+   3 steps); ``tools/train.py --num_devices 1`` (NCCL at world size 1)
+   byte-equal to the run without the flag; ResNet-101 with 81 classes, 2
+   images a rank, bf16, on the two-rank rig at grad_accum 1 and 2 (ms per
+   optimizer step, the all-reduce's own ms and bytes, peak memory and
+   launches, K1 = K2 = K3 = grad_accum per step on each rank); the rig's
+   two-epoch checkpoint resumed in a world of one at 2 images x
+   grad_accum 2 and refused at grad_accum 1; SIGTERM to the rig's
+   launcher mid-epoch (exit 0, both ranks at the same step, one
+   interrupt checkpoint with ``topology.devices = 2``) and ``--resume
+   auto`` byte-equal to the unbroken run; ``tools/test.py``'s eval split
+   over cuda:0 twice equal to one device's (the pad row's slice
+   included); where the machine has several cards, the rig over NCCL on
+   2 and up to 4 of them and ``tools/train.py --num_devices`` on up to 4
+   (else one line says why not); ``dryrun_multichip(2)`` on the rig.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -151,8 +175,8 @@ at the training shapes); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
-directory and remove them at their end, and phase 13 its weight files,
-checkpoints and devkit likewise.
+directory and remove them at their end, and phases 13 and 14 their
+weight files, checkpoints and datasets likewise.
 """
 
 from __future__ import annotations
@@ -160,6 +184,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -1705,8 +1730,8 @@ def instrumented_stages(stages: list, writes: list):
             return out
         return wrapper
 
-    def timed_make_train_step(cfg, mode="e2e", grad_accum=1):
-        step = saved["make_train_step"](cfg, mode, grad_accum)
+    def timed_make_train_step(cfg, mode="e2e", grad_accum=1, world=None):
+        step = saved["make_train_step"](cfg, mode, grad_accum, world)
         rec = stages[-1]
 
         def timed(state, batch, draws=None, stage_hook=None):
@@ -2522,10 +2547,12 @@ def write_voc_devkit(root: Path, seed: int = 0) -> Path:
     return root / "VOCdevkit"
 
 
-def write_coco_tree(root: Path, seed: int = 1) -> Path:
-    """A COCO tree in the real layout: train2017/ and val2017/ of 16
-    480x640 JPEGs each and annotations/instances_<set>.json over COCO's
-    80 category ids, every sixth annotation a crowd."""
+def write_coco_tree(root: Path, seed: int = 1,
+                    counts=(REAL_IMAGES, REAL_IMAGES)) -> Path:
+    """A COCO tree in the real layout: train2017/ and val2017/ of
+    ``counts`` (16 and 16 by default) 480x640 JPEGs and
+    annotations/instances_<set>.json over COCO's 80 category ids, every
+    sixth annotation a crowd."""
     import cv2
     import numpy as np
 
@@ -2533,10 +2560,10 @@ def write_coco_tree(root: Path, seed: int = 1) -> Path:
     (ds / "annotations").mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(seed)
     cats = [{"id": cid, "name": f"category{cid}"} for cid in COCO_IDS]
-    for sset in ("train2017", "val2017"):
+    for sset, count in zip(("train2017", "val2017"), counts):
         (ds / sset).mkdir(exist_ok=True)
         images, anns = [], []
-        for i in range(REAL_IMAGES):
+        for i in range(count):
             img, objs = _scene(rng, 480, 640, len(COCO_IDS))
             name = f"{i:012d}.jpg"
             cv2.imwrite(str(ds / sset / name), img[:, :, ::-1])
@@ -3624,6 +3651,568 @@ def phase_long_run(dev, card: str, alternate: dict) -> dict:
                 wall_s=wall)
 
 
+# ---- phase 14: data parallelism ----------------------------------------------
+
+DP_DIR = REPO / "_chip" / "dp"       # the COCO tree, checkpoints, references
+DP_TRAIN_IMAGES = 12       # train2017 images (and their flips)
+DP_VAL_IMAGES = 15         # val2017 images: odd, so a split batch pads a row
+DP_STEPS = 6               # timed optimizer steps of the two-rank rig
+DP_SIGTERM_AT = 1          # the SIGTERM run's signal after Epoch[1] Batch [1]
+DP_NETWORK = "resnet101"   # BASELINE.json's data-parallel config's model
+DP_RIG = ("cuda:0", "cuda:0")  # the test rig's two ranks: one card twice
+# tools/train.py's flags through train_net over ranks named by the
+# caller, in a process of its own with this script's algorithms (the
+# test rig: two ranks on one card over gloo)
+RIG_PROCESS = """
+import sys, torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from mx_rcnn_tpu_torch.tools import train as t
+args = t.parse_args(sys.argv[2:])
+with t.sigterm_stop_flag() as stop:
+    t.train_net(t.config_from_args(args), prefix=args.prefix,
+                end_epoch=args.end_epoch, resume=args.resume,
+                frequent=args.frequent, seed=args.seed,
+                grad_accum=args.grad_accum, num_devices=args.num_devices,
+                devices=sys.argv[1].split(","), backend="gloo",
+                stop_flag=stop, log=lambda line: print(line, flush=True))
+"""
+
+
+def dp_config(**over):
+    """ResNet-101, 81 COCO classes, 2 images per rank, bf16 (the preset),
+    over the phase's COCO tree: BASELINE.json's data-parallel config at
+    its widths."""
+    from mx_rcnn_tpu_torch.config import generate_config
+
+    return generate_config(DP_NETWORK, "coco", dataset__root_path=str(DP_DIR),
+                           dataset__dataset_path=str(DP_DIR / "coco"),
+                           train__batch_images=2, **over)
+
+
+def dp_parity_rank(world, cfg, ref_path: str) -> dict:
+    """Phase 14 step 1 on one rank of the two-rank rig: for the kernels
+    and the plain versions, one fp32 step on this rank's image with the
+    draws of its image in the world of one, held against that run's
+    sampled rois and labels, metrics and gradients (``ref_path``); then
+    two steps with the default draws and a SHA-256 of the state."""
+    import torch
+
+    from mx_rcnn_tpu_torch.core import train
+    from mx_rcnn_tpu_torch.parallel.dp import replicate
+
+    dev = world.device
+    ref = torch.load(ref_path)
+    rows = train.to_device(train.Batch(*(
+        x[world.rank:world.rank + 1].numpy() for x in ref["batch"])), dev)
+    draws = lambda site, image, shape: fixed_draws(site, world.rank + image,
+                                                   shape, dev)
+    out = {}
+    for plain in (False, True):
+        state = train.setup_training(cfg, dev, seed=1)
+        replicate(state.model, state.optimizer, world)
+        step = train.make_train_step(cfg, world=world)
+        targets = []
+        with captured_targets(targets), (plain_versions() if plain
+                                         else contextlib.nullcontext()):
+            metrics = step(state, rows, draws=draws)
+            torch.cuda.synchronize()
+            want = ref["plain" if plain else "kernels"]
+            same = (torch.equal(targets[0].labels.cpu(),
+                                want["labels"][world.rank:world.rank + 1])
+                    and torch.equal(targets[0].rois.cpu(),
+                                    want["rois"][world.rank:world.rank + 1]))
+            grad_err = {n: float((p.grad.cpu() - want["grads"][n]).norm()
+                                 / want["grads"][n].norm().clamp_min(1e-30))
+                        for n, p in state.optimizer.params}
+            # num_fg is a sum over the batch: the world's mean of the
+            # ranks' sums (the JAX pmean's) is the batch's sum / ranks
+            scale = {"num_fg": world.size}
+            metric_err = {k: abs(float(v) * scale.get(k, 1)
+                                 - want["metrics"][k])
+                          / max(abs(want["metrics"][k]), 1e-12)
+                          for k, v in metrics.items()}
+            for _ in range(2):
+                step(state, rows)
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        sd = state.model.state_dict()
+        for k in sorted(sd):
+            h.update(sd[k].detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        worst = max(grad_err, key=grad_err.get)
+        out["plain" if plain else "kernels"] = dict(
+            rois_and_labels_equal=same, worst_grad_rel_l2=grad_err[worst],
+            worst_grad_tensor=worst,
+            worst_metric_rel_err=max(metric_err.values()),
+            state_sha256=h.hexdigest())
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_parity(dev, card: str) -> dict:
+    """Step 1 (fp32, TF32 off, deterministic cuDNN): the world of one
+    steps 2 images here; the two-rank gloo rig on cuda:0 twice steps one
+    image each with the same draws; through the kernels and the plain
+    versions.  Rois and labels equal, averaged gradients within a
+    relative L2 of 1e-4 of the world of one's per tensor, metrics within
+    a relative 1e-4; both ranks' states bit-equal after 3 steps."""
+    import torch
+
+    from mx_rcnn_tpu_torch.core import train
+    from mx_rcnn_tpu_torch.parallel.dp import launch
+
+    cfg = dp_config(network__compute_dtype="float32")
+    batch = synthetic_train_batches(cfg, 2, 1)[0]
+    ref = {"batch": [torch.from_numpy(x) for x in batch]}
+    for plain in (False, True):
+        state = train.setup_training(cfg, dev, seed=1)
+        step = train.make_train_step(cfg)
+        targets = []
+        with captured_targets(targets), (plain_versions() if plain
+                                         else contextlib.nullcontext()):
+            metrics = step(state, train.to_device(batch, dev),
+                           draws=lambda site, image, shape: fixed_draws(
+                               site, image, shape, dev))
+        torch.cuda.synchronize()
+        ref["plain" if plain else "kernels"] = dict(
+            labels=targets[0].labels.cpu(), rois=targets[0].rois.cpu(),
+            metrics={k: float(v) for k, v in metrics.items()},
+            grads={n: p.grad.cpu() for n, p in state.optimizer.params})
+        del state, step
+    path = DP_DIR / "parity_ref.pt"
+    torch.save(ref, path)
+    del ref
+    torch.cuda.empty_cache()
+    ranks = launch(dp_parity_rank, 2, DP_RIG, "gloo",
+                   args=(cfg, str(path)), timeout_s=600)
+    path.unlink()
+    for tag in ("kernels", "plain"):
+        r0, r1 = (r[tag] for r in ranks)
+        worst = max(r0["worst_grad_rel_l2"], r1["worst_grad_rel_l2"])
+        metric = max(r0["worst_metric_rel_err"], r1["worst_metric_rel_err"])
+        same = r0["rois_and_labels_equal"] and r1["rois_and_labels_equal"]
+        bit_equal = r0["state_sha256"] == r1["state_sha256"]
+        log(f"two ranks (gloo, cuda:0 twice; a test rig, not NCCL) against "
+            f"the world of one, fp32, through the {tag}: sampled rois and "
+            f"labels equal {same}; worst averaged-gradient rel. L2 "
+            f"{worst:.2e} (tol 1e-4); worst metric rel. diff {metric:.2e} "
+            f"(tol 1e-4); states bit-equal after 3 steps {bit_equal}")
+        if not (same and bit_equal) or worst > 1e-4 or metric > 1e-4:
+            raise AssertionError(f"two-rank parity through the {tag}: {r0} "
+                                 f"{r1}")
+    return dict(ranks=ranks)
+
+
+def dp_rig_rank(world, cfg, roidb, load_image, grad_accum: int,
+                steps: int) -> dict:
+    """Step 3 on one rank: the loader's row shard of the global plan,
+    2 warm-up and ``steps`` timed optimizer steps in bf16 (ms per step by
+    the host clock around synchronised steps), the launches and peak
+    memory over the timed steps, then the all-reduce alone on this step's
+    gradients (ms by the host clock, 5 synchronised calls)."""
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.core import train
+    from mx_rcnn_tpu_torch.data.loader import StreamLoader
+    from mx_rcnn_tpu_torch.parallel.dp import all_reduce_mean_, replicate
+
+    dev = world.device
+    state = train.setup_training(cfg, dev, seed=0, steps_per_epoch=1000)
+    replicate(state.model, state.optimizer, world)
+    step = train.make_train_step(cfg, grad_accum=grad_accum, world=world)
+    loader = StreamLoader(roidb, cfg, load_image,
+                          batch_images=world.size * cfg.train.batch_images,
+                          seed=0, shard=(world.rank, world.size))
+    batches = []
+    epoch = 0
+    while len(batches) < (steps + 2) * grad_accum:
+        loader.set_epoch(epoch)
+        batches += [train.to_device(b, dev) for b in loader]
+        epoch += 1
+    groups = [batches[i * grad_accum:(i + 1) * grad_accum]
+              for i in range(steps + 2)]
+    inputs = groups if grad_accum > 1 else [g[0] for g in groups]
+    for x in inputs[:2]:
+        step(state, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(state, x)["loss"] for x in inputs[2:]]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    metrics = {"loss": losses[-1]}
+    reduce_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        all_reduce_mean_(state.optimizer.params, metrics, world)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t1) * 1e3)
+    return dict(rank=world.rank, backend=world.backend, device=str(dev),
+                grad_accum=grad_accum, ms_per_step=ms,
+                all_reduce_ms=min(reduce_ms),
+                # each trained gradient and the one metric, in fp32
+                all_reduce_bytes=4 * (sum(p.numel() for _, p in
+                                          state.optimizer.params) + 1),
+                peak_gib=peak,
+                launches_per_step={k: v / steps for k, v in launches.items()},
+                losses=[float(v) for v in losses])
+
+
+def dp_rig(roidb, load_image, devices, backend: str, card: str,
+           what: str) -> dict:
+    """Step 3 (and 7): the rig of :func:`dp_rig_rank` at grad_accum 1 and
+    2 over ``devices``: K1 = K2 = K3 = grad_accum launches per optimizer
+    step on every rank."""
+    from mx_rcnn_tpu_torch.parallel.dp import launch
+
+    out = {}
+    for accum in (1, 2):
+        ranks = launch(dp_rig_rank, len(devices), devices, backend,
+                       args=(dp_config(), roidb, load_image, accum, DP_STEPS),
+                       timeout_s=600)
+        for r in ranks:
+            log(f"{what}: rank {r['rank']} of {len(devices)} on "
+                f"{r['device']} ({card}), backend {r['backend']}, 2 images a "
+                f"rank, grad_accum {accum}, bf16: {r['ms_per_step']:.2f} ms "
+                f"per optimizer step; the all-reduce alone "
+                f"{r['all_reduce_ms']:.2f} ms for {r['all_reduce_bytes']} "
+                f"bytes; peak {r['peak_gib']:.3f} GiB; launches per step "
+                f"{r['launches_per_step']}")
+            if r["launches_per_step"] != dict.fromkeys(
+                    ("nms_sweep", "roi_align_fwd", "roi_align_bwd"),
+                    float(accum)) or not all(
+                        math.isfinite(v) for v in r["losses"]):
+                raise AssertionError(f"{what}: rank {r}")
+        out[f"grad_accum_{accum}"] = ranks
+    return out
+
+
+def dp_cli_world_of_one(card: str) -> dict:
+    """Step 2: ``tools/train.py --num_devices 1`` (one spawned rank, NCCL
+    at world size 1) and the same run without the flag, each in a process
+    of its own over the COCO tree (no flips: one epoch of 6 steps at batch
+    2): the checkpoints byte-equal."""
+    base = ["--network", DP_NETWORK, "--dataset", "coco", "--root_path",
+            str(DP_DIR), "--dataset_path", str(DP_DIR / "coco"),
+            "--batch_images", "2", "--no_flip", "--seed", "0", "--frequent",
+            "1", "--end_epoch", "1"]
+    out = {}
+    for tag, extra in (("plain", []), ("nccl", ["--num_devices", "1"])):
+        t0 = time.perf_counter()
+        _train_process(base + ["--prefix", str(DP_DIR / tag), *extra],
+                       OUT_DIR / f"dp_cli_{tag}.txt")
+        out[f"{tag}_s"] = time.perf_counter() - t0
+    from mx_rcnn_tpu_torch.utils.checkpoint import checkpoint_path, read_manifest
+
+    text = (OUT_DIR / "dp_cli_nccl.txt").read_text()
+    a, b = (_sha256(checkpoint_path(str(DP_DIR / t), 1))
+            for t in ("plain", "nccl"))
+    manifest = read_manifest(checkpoint_path(str(DP_DIR / "nccl"), 1))
+    out.update(byte_equal=a == b, steps=manifest["step"],
+               topology=manifest["topology"])
+    log(f"tools/train.py --num_devices 1 (NCCL, world of one, {card}): "
+        f"{out['nccl_s']:.1f} s against {out['plain_s']:.1f} s without the "
+        f"flag, {manifest['step']} steps; checkpoints byte-equal {a == b}; "
+        f"topology {manifest['topology']}")
+    if a != b or "backend nccl" not in text:
+        raise AssertionError(f"the NCCL world of one differs: {text[-2000:]}")
+    return out
+
+
+def dp_rig_args() -> list:
+    """:data:`RIG_PROCESS`'s arguments for two ranks on cuda:0 over the
+    COCO tree, two epochs at 2 images a rank."""
+    return [",".join(DP_RIG), "--network", DP_NETWORK, "--dataset", "coco",
+            "--root_path", str(DP_DIR), "--dataset_path",
+            str(DP_DIR / "coco"), "--batch_images", "2", "--seed", "0",
+            "--frequent", "1", "--end_epoch", "2", "--num_devices", "2"]
+
+
+def dp_sigterm(prefix_u: str, card: str) -> dict:
+    """Step 5: the two-rank rig's launcher in a process of its own over
+    the COCO tree, SIGTERM after ``Epoch[1] Batch [DP_SIGTERM_AT]``: exit
+    0, both ranks ended at the same step, one interrupt checkpoint with
+    ``topology.devices = 2``; then ``--resume auto`` in the same world to
+    the end of epoch 2, byte-equal to the unbroken run ``prefix_u``."""
+    import signal
+
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    interrupt_path,
+                                                    read_manifest)
+
+    base = dp_rig_args()
+    prefix = str(DP_DIR / "sig")
+    err_path = OUT_DIR / "dp_sigterm.err"
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen([sys.executable, "-c", RIG_PROCESS, *base,
+                                 "--prefix", prefix], cwd=REPO,
+                                stdout=subprocess.PIPE, stderr=err_file,
+                                text=True)
+        lines, sent = [], None
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if sent is None and line.startswith(
+                        f"Epoch[1] Batch [{DP_SIGTERM_AT}]"):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.perf_counter()
+            rc = proc.wait(timeout=300)
+        finally:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    (OUT_DIR / "dp_sigterm.txt").write_text(text)
+    manifest = read_manifest(interrupt_path(prefix)) or {}
+    ended = _parse(r"ended at steps \[(\d+), (\d+)\]", text, "ranks' steps")
+    steps = (int(ended.group(1)), int(ended.group(2)))
+    stop_s = time.perf_counter() - (sent or t0)
+    log(f"SIGTERM to the two-rank launcher (gloo, cuda:0 twice, {card}): "
+        f"exit {rc}, {stop_s:.2f} s from the signal to the exit; ranks "
+        f"ended at steps {steps}; interrupt manifest step "
+        f"{manifest.get('step')}, topology {manifest.get('topology')}")
+    if rc != 0 or sent is None or steps[0] != steps[1] or \
+            manifest.get("step") != steps[0] or \
+            (manifest.get("topology") or {}).get("devices") != 2 or \
+            text.count("saved interrupt checkpoint") != 1:
+        raise AssertionError(f"the SIGTERM run: exit {rc}\n{text[-2000:]}\n"
+                             f"{err_path.read_text()[-2000:]}")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", RIG_PROCESS, *base,
+                          "--prefix", prefix, "--resume", "auto"], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    (OUT_DIR / "dp_resume.txt").write_text(res.stdout + res.stderr)
+    resume_s = time.perf_counter() - t0
+    got = _sha256(checkpoint_path(prefix, 2))
+    want = _sha256(checkpoint_path(prefix_u, 2))
+    log(f"--resume auto in the same world: {resume_s:.1f} s, epoch 2 "
+        f"byte-equal to the unbroken run {got == want}")
+    if res.returncode or got != want or \
+            "resumed mid-epoch from verified" not in res.stdout:
+        raise AssertionError(f"the resumed two-rank run differs:\n"
+                             f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    return dict(exit=rc, signal_to_exit_s=stop_s, ranks_ended_at=steps,
+                interrupt_manifest=manifest, resume_s=resume_s,
+                byte_equal=True)
+
+
+def dp_resize(dev, prefix_u: str) -> dict:
+    """Step 4: epoch 1 of the two-rank run (global batch 4) resumed in a
+    world of one at 2 images x grad_accum 2 (accepted, to the end of
+    epoch 2), and at grad_accum 1 (refused)."""
+    from mx_rcnn_tpu_torch.tools.train import train_net
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    manifest_path)
+
+    # the same file names in a directory of their own (a manifest names
+    # its file)
+    (DP_DIR / "resize").mkdir()
+    prefix = str(DP_DIR / "resize" / Path(prefix_u).name)
+    src = checkpoint_path(prefix_u, 1)
+    for path in (src, manifest_path(src)):
+        shutil.copy(path, DP_DIR / "resize")
+    lines = []
+    t0 = time.perf_counter()
+    state, metrics = train_net(dp_config(), prefix=prefix, resume="auto",
+                               grad_accum=2, end_epoch=2, seed=0, device=dev,
+                               log=lines.append)
+    wall = time.perf_counter() - t0
+    steps = state.step
+    del state
+    try:
+        train_net(dp_config(), prefix=prefix, resume="auto", end_epoch=3,
+                  device=dev, log=lines.append)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a resume at a global batch of 2 was admitted")
+    log(f"epoch 1 of the two-rank run (global batch 4) resumed in a world "
+        f"of one at 2 images x grad_accum 2: finished epoch 2 at step "
+        f"{steps} in {wall:.1f} s, loss {metrics.get('loss', float('nan')):.4f}"
+        f"; at grad_accum 1 refused: {refused[:120]}...")
+    if "effective global batch 4" not in refused or \
+            not math.isfinite(metrics.get("loss", float("nan"))):
+        raise AssertionError(f"the resize: {refused}")
+    return dict(steps=steps, wall_s=wall, refused=refused)
+
+
+def dp_eval(dev, prefix: str, card: str) -> dict:
+    """Step 6: ``tools/test.py``'s ``test_rcnn`` over the odd val2017 set
+    at one image a device, split over cuda:0 twice and on one device: the
+    detections and the COCO numbers equal; launches (K1 2 and K2 1 per
+    slice, the pad slice's postprocess skipped)."""
+    import pickle
+
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools.test import test_rcnn
+
+    cfg = dp_config(test__batch_images=1)
+    runs = {}
+    for tag, devices in (("single", None), ("split", DP_RIG)):
+        dets = str(DP_DIR / f"dets_{tag}.pkl")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with open(OUT_DIR / f"dp_eval_{tag}.txt", "w") as f, \
+                contextlib.redirect_stdout(f):
+            results = test_rcnn(cfg, prefix=prefix, epoch=1, device=dev,
+                                devices=devices, save_dets=dets)
+        torch.cuda.synchronize()
+        with open(dets, "rb") as f:
+            boxes = pickle.load(f)["all_boxes"]
+        runs[tag] = dict(results=results, launches=kernels.launch_counts(),
+                         wall_s=time.perf_counter() - t0, boxes=boxes)
+    # equal numbers, NaN (an area with no object) equal to NaN
+    same = json.dumps(runs["single"]["results"], sort_keys=True) == \
+        json.dumps(runs["split"]["results"], sort_keys=True) and all(
+        a.tobytes() == b.tobytes()
+        for ca, cb in zip(runs["single"]["boxes"], runs["split"]["boxes"])
+        for a, b in zip(ca, cb))
+    n = sum(len(a) for c in runs["split"]["boxes"][1:] for a in c)
+    slices = 2 * -(-DP_VAL_IMAGES // 2)
+    want = {"split": {"nms_sweep": slices + DP_VAL_IMAGES,
+                      "roi_align_fwd": slices, "roi_align_bwd": 0},
+            "single": {"nms_sweep": 2 * DP_VAL_IMAGES,
+                       "roi_align_fwd": DP_VAL_IMAGES, "roi_align_bwd": 0}}
+    log(f"tools/test.py's test_rcnn on {DP_VAL_IMAGES} COCO images, one a "
+        f"device, split over cuda:0 twice ({card}) and on one device: "
+        f"{n} detections and the COCO numbers equal {same}; launches split "
+        f"{runs['split']['launches']}, single {runs['single']['launches']}; "
+        f"AP {runs['split']['results'].get('AP', float('nan')):.4f}")
+    if not same or n == 0 or any(runs[t]["launches"] != want[t]
+                                 for t in want):
+        raise AssertionError(f"the split eval: {runs['split']['results']} "
+                             f"vs {runs['single']['results']}, launches "
+                             f"{[runs[t]['launches'] for t in want]}")
+    return {t: dict(results=r["results"], launches=r["launches"],
+                    wall_s=r["wall_s"]) for t, r in runs.items()}
+
+
+def dp_cards(roidb, load_image, card: str):
+    """Step 7, where the machine has two cards or more: the rig of step 3
+    over NCCL on 2 cards and on min(count, 4), then step 2's
+    ``tools/train.py --num_devices N`` (N = min(count, 4)) for an epoch in
+    a process of its own, its manifest recording N devices.  On one card,
+    one line says why it is not run."""
+    import torch
+
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    read_manifest)
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"NCCL across cards: not run — this machine has {count} card; "
+            f"NCCL refuses two ranks on one card")
+        return None
+    n = min(count, 4)
+    out = {}
+    for k in sorted({2, n}):
+        cards = [f"cuda:{i}" for i in range(k)]
+        out[f"nccl_{k}"] = dp_rig(roidb, load_image, cards, "nccl", card,
+                                  f"{k} ranks (NCCL, {k} cards)")
+    prefix = str(DP_DIR / "cards")
+    t0 = time.perf_counter()
+    _train_process(["--network", DP_NETWORK, "--dataset", "coco",
+                    "--root_path", str(DP_DIR), "--dataset_path",
+                    str(DP_DIR / "coco"), "--batch_images", "2", "--seed",
+                    "0", "--frequent", "1", "--end_epoch", "1",
+                    "--num_devices", str(n), "--prefix", prefix],
+                   OUT_DIR / "dp_cards_cli.txt")
+    wall = time.perf_counter() - t0
+    manifest = read_manifest(checkpoint_path(prefix, 1))
+    text = (OUT_DIR / "dp_cards_cli.txt").read_text()
+    log(f"tools/train.py --num_devices {n} (NCCL, {n} cards, {card}): an "
+        f"epoch of {manifest['step']} steps in {wall:.1f} s; topology "
+        f"{manifest['topology']}")
+    if manifest["topology"]["devices"] != n or "backend nccl" not in text:
+        raise AssertionError(f"the {n}-card CLI run: {text[-2000:]}")
+    out["cli"] = dict(cards=n, wall_s=wall, steps=manifest["step"],
+                      topology=manifest["topology"])
+    return out
+
+
+def phase_data_parallel(dev, card: str) -> dict:
+    """Phase 14 (see the module docstring), its files under ``_chip/dp``,
+    removed at the end."""
+    import torch
+
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.parallel.dryrun import dryrun_multichip
+    from mx_rcnn_tpu_torch.utils.checkpoint import load_state_dict, save_params
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        write_coco_tree(DP_DIR, seed=3, counts=(DP_TRAIN_IMAGES,
+                                                DP_VAL_IMAGES))
+        imdb, roidb = load_gt_roidb(dp_config(), training=True)
+        log(f"phase 14: a COCO tree of {DP_TRAIN_IMAGES} train2017 and "
+            f"{DP_VAL_IMAGES} val2017 480x640 JPEGs, {len(roidb)} training "
+            f"records with flips; {torch.cuda.device_count()} card(s)")
+        done("generate")
+        parity = dp_parity(dev, card)
+        done("parity")
+        cli = dp_cli_world_of_one(card)
+        done("NCCL world of one")
+        rig = dp_rig(roidb, imdb.load_image, DP_RIG, "gloo",
+                     card, "two ranks (gloo, cuda:0 twice; a test rig, its "
+                     "times are not NCCL's)")
+        done("two-rank rig")
+        prefix_u = str(DP_DIR / "unbroken")
+        res = subprocess.run([sys.executable, "-c", RIG_PROCESS,
+                              *dp_rig_args(), "--prefix", prefix_u],
+                             cwd=REPO, capture_output=True, text=True,
+                             timeout=600)
+        (OUT_DIR / "dp_unbroken.txt").write_text(res.stdout + res.stderr)
+        if res.returncode:
+            raise AssertionError(f"the unbroken two-rank run: "
+                                 f"{res.stderr[-3000:]}")
+        done("unbroken two-rank run")
+        resize = dp_resize(dev, prefix_u)
+        done("resize")
+        sigterm = dp_sigterm(prefix_u, card)
+        done("SIGTERM and resume")
+        state = load_state_dict(prefix_u, 2)
+        state["cls_score.weight"] = state["cls_score.weight"] * \
+            SERVE_CLS_SCALE
+        save_params(str(DP_DIR / "scaled"), 1, state)
+        del state
+        evaluation = dp_eval(dev, str(DP_DIR / "scaled"), card)
+        done("split eval")
+        more = dp_cards(roidb, imdb.load_image, card)
+        done("NCCL across cards")
+        dry = dryrun_multichip(2, devices=DP_RIG, backend="gloo", log=log)
+        done("dryrun_multichip")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 14 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(parity=parity, nccl_world_of_one=cli, gloo_rig=rig,
+                resize=resize, sigterm=sigterm, split_eval=evaluation,
+                nccl_cards=more, dryrun=dry, parts_s=parts, wall_s=wall)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -3680,6 +4269,7 @@ def main() -> int:
     engine = phase_engine(dev, card)
     real_data = phase_real_data(dev, card)
     long_run = phase_long_run(dev, card, alternate)
+    data_parallel = phase_data_parallel(dev, card)
 
     # no single PyTorch call computes any of the three functions (the
     # repo's bilinear rules are not torchvision's, which is absent), so
@@ -3695,8 +4285,8 @@ def main() -> int:
         card=card, host=host, build_s=build_s, k1=k1, k2=k2, k3=k3,
         forward_parity=parity, train_parity=train_parity, serving=serving,
         training=training, evaluation=evaluation, alternate=alternate,
-        engine=engine, real_data=real_data, long_run=long_run),
-        indent=1))
+        engine=engine, real_data=real_data, long_run=long_run,
+        data_parallel=data_parallel), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

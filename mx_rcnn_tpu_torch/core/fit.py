@@ -2,8 +2,9 @@
 checkpoint after each epoch and an interrupt checkpoint on a stop.
 
 Counterpart of ``mx_rcnn_tpu/core/fit.py — fit`` with its staging,
-gradient accumulation, snapshots and mid-epoch resume, and without data
-parallelism or observability: each epoch's batches come from the loader
+gradient accumulation, snapshots, mid-epoch resume and multi-process
+data parallelism, and without observability: each epoch's batches come
+from the loader
 in the order its (seed, epoch) plan gives, reach the device through a
 :class:`DeviceStager` (the next batch is copied while the step runs;
 ``data.staging``, on by default) or a plain copy, are grouped
@@ -22,6 +23,17 @@ loader skips the batches that step consumed, by the data cursor
 is polled after every step; once it returns True the loop writes the
 step's interrupt checkpoint (or, on an epoch's last step, the epoch
 checkpoint) and returns.
+
+In a data-parallel run (a ``world`` of several ranks, ``parallel/dp.py``)
+every rank runs this loop on its row shard of the global plan; rank 0
+alone writes the checkpoints, whose manifests record the world's
+topology, and the logs, whose images/s count the global batch.  The
+stop decision is collective: each rank's flag is reduced over the world
+after every step, so that all ranks stop after the same one.  The JAX
+loop needs no such step, because its step is one collective program; a
+rank that stopped alone here would leave the others blocked in the next
+all-reduce.  A normal return ends with a barrier, so that no rank tears
+the group down while rank 0 still writes.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.train import TrainState, to_device
 from mx_rcnn_tpu_torch.data.staging import DeviceStager
 from mx_rcnn_tpu_torch.ft.snapshot import make_snapshotter
+from mx_rcnn_tpu_torch.parallel.dp import World, any_rank
 from mx_rcnn_tpu_torch.utils.checkpoint import make_topology
 
 _END = object()
@@ -99,8 +112,8 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
         max_steps: Optional[int] = None, frequent: Optional[int] = None,
         log: Callable[[str], None] = print,
         stop_flag: Optional[Callable[[], bool]] = None,
-        grad_accum: int = 1, data_cursor: Optional[Dict] = None
-        ) -> Dict[str, float]:
+        grad_accum: int = 1, data_cursor: Optional[Dict] = None,
+        world: Optional[World] = None) -> Dict[str, float]:
     """Run epochs ``begin_epoch .. end_epoch - 1``, saving a checkpoint
     under ``prefix`` (when given) after each whole one; ``max_steps`` ends
     the run early, and an epoch it cuts is not saved.  ``step_fn`` takes
@@ -108,7 +121,10 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
     ``len(loader) // grad_accum`` optimizer steps.  ``data_cursor``
     (``tools/train.py`` reads it from an interrupt checkpoint's manifest):
     ``loader_batch_images`` and ``images_consumed_in_epoch`` of the run
-    that wrote it.  Returns the last log window's mean metrics."""
+    that wrote it.  ``world``: this rank's place in a data-parallel run,
+    whose ``loader`` has the global plan and yields this rank's rows (a
+    world of one by default).  Returns the last log window's mean
+    metrics."""
     if len(loader) == 0:
         raise ValueError("the loader yields no full batch")
     if grad_accum > len(loader):
@@ -117,16 +133,21 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
             f"batches an epoch: every epoch would run no step")
     frequent = cfg.default.frequent if frequent is None else frequent
     device = next(state.model.parameters()).device
+    world = world or World.single(device)
+    if not world.lead:
+        log = lambda line: None  # noqa: E731
     steps_per_epoch = len(loader) // grad_accum
     speed = Speedometer(loader.batch_images * grad_accum, log)
     snap = None
-    if prefix is not None:
+    if prefix is not None and world.lead:
         snap = make_snapshotter(prefix, cfg, steps_per_epoch, make_topology(
-            1, grad_accum=grad_accum, batch_images=loader.batch_images))
+            world.size, num_processes=world.size, grad_accum=grad_accum,
+            batch_images=loader.batch_images // world.size))
     last: Dict[str, float] = {}
     done = state.step
     step = 0
     stager = None
+    failed = False
     try:
         for epoch in range(begin_epoch, end_epoch):
             loader.set_epoch(epoch)
@@ -167,7 +188,8 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                 window.append(step_fn(state, batch))
                 step += 1
                 stop = step == max_steps
-                interrupt = stop_flag is not None and stop_flag()
+                interrupt = any_rank(stop_flag is not None and stop_flag(),
+                                     world)
                 is_log = ((nbatch + 1) % frequent == 0 or stop or interrupt
                           or (epoch == end_epoch - 1
                               and nbatch == steps_per_epoch - 1))
@@ -206,8 +228,13 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                 log(f"stop requested at the end of epoch {epoch}")
                 return last
         return last
+    except BaseException:
+        failed = True
+        raise
     finally:
         if stager is not None:
             stager.close()
         if snap is not None:
             snap.close()
+        if not failed:
+            world.barrier()

@@ -9,13 +9,16 @@ flattened (N·C, R) batch, kernel K1 on the card),
 ``detections_from_keep``, ``im_detect_batch``, ``pred_eval`` (forward
 → postprocess → ``max_per_image`` cap → ``imdb.evaluate_detections``)
 and ``generate_proposals`` (the alternate schedule's proposal dump).
+A :class:`Predictor` given several ``devices`` splits each batch across
+them, as the JAX ``Predictor(mesh=...)`` shards it.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,46 +31,77 @@ from mx_rcnn_tpu_torch.ops.nms import nms_mask_batch
 from mx_rcnn_tpu_torch.utils.device import resolve_device
 
 
+# what a pad row of each input holds: im_info rows of 1, as the JAX
+# Predictor pads them, so that no pad row divides by zero
+_PAD_FILLS = {"images": 0, "im_info": 1, "rois": 0, "rois_valid": False}
+
+
+def _forward_fn(kind: str, cfg: Config):
+    """The model call of each forward kind, on tensors of one device."""
+    t = cfg.test
+    return {"raw": lambda m, *a: m(*a),
+            "rois": lambda m, *a: m.detect_rois(*a),
+            "rpn": lambda m, *a: m.rpn_proposals(
+                *a, t.proposal_pre_nms_top_n, t.proposal_post_nms_top_n),
+            }[kind]
+
+
 class Predictor:
     """The test-mode forward of ``model`` on ``device`` (CUDA unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU).
 
-    def __init__(self, model: FasterRCNN, cfg: Config, device="cuda"):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+    With ``devices`` (N of them; a device may repeat in a test rig) it
+    keeps one replica of the model per device and splits each batch: the
+    batch is padded to a multiple of N (pad images of 0, ``im_info`` rows
+    of 1, as the JAX ``Predictor._forward`` pads for its mesh), slice k
+    runs on device k (the launches of different cards overlap without
+    threads), and the outputs are gathered to the host in row order
+    without the pad rows.  ``pred_eval`` postprocesses each slice on its
+    own device (:meth:`raw_shards`)."""
+
+    def __init__(self, model: FasterRCNN, cfg: Config, device="cuda",
+                 devices: Optional[Sequence] = None):
         self.cfg = cfg
+        self.replicas: List[Tuple[torch.device, FasterRCNN]] = []
+        if devices:
+            for i, d in enumerate(devices):
+                dev = resolve_device(d)
+                self.replicas.append(
+                    (dev, (model if i == 0 else copy.deepcopy(model))
+                     .to(dev).eval()))
+        else:
+            dev = resolve_device(device)
+            self.replicas.append((dev, model.to(dev).eval()))
+        self.device, self.model = self.replicas[0]
 
     def raw(self, images, im_info) -> Tuple[torch.Tensor, ...]:
         """Forward returning device tensors without a host sync: rois,
         roi_valid, cls_prob, bbox_deltas.  ``images``/``im_info`` are
-        numpy arrays or tensors."""
-        with torch.inference_mode():
-            return self.model(*self._inputs(images, im_info))
+        numpy arrays or tensors.  Split across several devices, the
+        outputs are gathered to host tensors."""
+        return self._run("raw", images=images, im_info=im_info)
 
-    def _inputs(self, *arrays) -> Tuple[torch.Tensor, ...]:
-        """Numpy arrays or tensors → tensors on the predictor's device."""
+    def _inputs(self, *arrays, device=None) -> Tuple[torch.Tensor, ...]:
+        """Numpy arrays or tensors → tensors on ``device`` (the
+        predictor's first by default)."""
+        device = device or self.device
         if isinstance(arrays[0], np.ndarray):
-            arrays = to_device_batch(*arrays[:2], self.device) + tuple(
+            arrays = to_device_batch(*arrays[:2], device) + tuple(
                 torch.from_numpy(np.ascontiguousarray(a)) for a in arrays[2:])
-        return tuple(a.to(self.device) for a in arrays)
+        return tuple(a.to(device) for a in arrays)
 
     def raw_rois(self, images, im_info, rois, rois_valid
                  ) -> Tuple[torch.Tensor, ...]:
         """The RCNN-only forward on precomputed proposals (N, R, 4) in
         input coordinates: what :meth:`raw` returns, without the RPN."""
-        with torch.inference_mode():
-            return self.model.detect_rois(
-                *self._inputs(images, im_info, rois, rois_valid))
+        return self._run("rois", images=images, im_info=im_info, rois=rois,
+                         rois_valid=rois_valid)
 
     def rpn(self, images, im_info) -> Tuple[torch.Tensor, ...]:
         """The RPN-only forward at the proposal dump's numbers
         (``test.proposal_pre_nms_top_n`` / ``proposal_post_nms_top_n``):
         device tensors (rois (N, R, 4), scores (N, R), valid (N, R))."""
-        t = self.cfg.test
-        with torch.inference_mode():
-            return self.model.rpn_proposals(
-                *self._inputs(images, im_info), t.proposal_pre_nms_top_n,
-                t.proposal_post_nms_top_n)
+        return self._run("rpn", images=images, im_info=im_info)
 
     def raw_batch(self, batch) -> Tuple[torch.Tensor, ...]:
         """A loader batch: an ``RCNNBatch`` runs the RCNN-only forward on
@@ -76,6 +110,50 @@ class Predictor:
             return self.raw_rois(batch.images, batch.im_info, batch.rois,
                                  batch.rois_valid)
         return self.raw(batch.images, batch.im_info)
+
+    def raw_shards(self, batch) -> List[Tuple[range, Tuple[torch.Tensor,
+                                                            ...]]]:
+        """:meth:`raw_batch` left on the devices: one (rows, outputs) per
+        device, ``rows`` the batch rows its outputs begin with (any rows
+        after them are padding; a slice of padding alone has none)."""
+        kind, arrays = (("rois", dict(images=batch.images,
+                                      im_info=batch.im_info, rois=batch.rois,
+                                      rois_valid=batch.rois_valid))
+                        if isinstance(batch, RCNNBatch) else
+                        ("raw", dict(images=batch.images,
+                                     im_info=batch.im_info)))
+        return self._shards(kind, arrays)
+
+    def _shards(self, kind: str, arrays: Dict
+                ) -> List[Tuple[range, Tuple[torch.Tensor, ...]]]:
+        fn = _forward_fn(kind, self.cfg)
+        if len(self.replicas) == 1:
+            with torch.inference_mode():
+                out = fn(self.model, *self._inputs(*arrays.values()))
+            return [(range(len(arrays["images"])), out)]
+        host = {k: (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+                for k, v in arrays.items()}
+        n, k = len(host["images"]), len(self.replicas)
+        per = -(-n // k)
+        padded = [np.concatenate([a, np.full((per * k - n,) + a.shape[1:],
+                                             _PAD_FILLS[name], a.dtype)])
+                  for name, a in host.items()]
+        shards = []
+        for i, (dev, model) in enumerate(self.replicas):
+            part = [a[i * per:(i + 1) * per] for a in padded]
+            with torch.inference_mode():
+                out = fn(model, *self._inputs(*part, device=dev))
+            shards.append((range(min(i * per, n), min((i + 1) * per, n)),
+                           out))
+        return shards
+
+    def _run(self, kind: str, **arrays) -> Tuple[torch.Tensor, ...]:
+        shards = self._shards(kind, arrays)
+        if len(shards) == 1:
+            return shards[0][1]
+        return tuple(torch.cat([out[j][:len(rows)].cpu()
+                                for rows, out in shards])
+                     for j in range(len(shards[0][1])))
 
     def __call__(self, images, im_info) -> Tuple[np.ndarray, ...]:
         return tuple(t.cpu().numpy() for t in self.raw(images, im_info))
@@ -165,7 +243,9 @@ def pred_eval(predictor, test_loader, imdb, cfg: Config, out_dir: str = None,
     ``imdb.evaluate_detections``.  ``predictor.raw_batch(batch)`` takes
     the loader's batch whole (an ``RCNNBatch`` of :class:`ROITestLoader`
     goes through its proposals) and returns (rois, roi_valid, cls_prob,
-    deltas) as tensors or numpy.
+    deltas) as tensors or numpy; a :class:`Predictor` over several
+    devices gives one such output per device (``raw_shards``), and each
+    is postprocessed on its own device, pad rows dropped.
 
     ``out_dir``: the evaluator writes its detection files there (VOC's
     per-class comp4 files, COCO's results json).  ``save_dets``: pickle
@@ -177,30 +257,31 @@ def pred_eval(predictor, test_loader, imdb, cfg: Config, out_dir: str = None,
         [np.zeros((0, 5), np.float32) for _ in range(num_images)]
         for _ in range(num_classes)]
     done = 0
+    raw_shards = getattr(predictor, "raw_shards", None)
     for batch, indices, scales in test_loader:
-        out = predictor.raw_batch(batch)
-        rois, roi_valid, cls_prob, deltas = (torch.as_tensor(t) for t in out)
-        dev = rois.device
-        stds, means = tiled_bbox_stats(cfg, num_classes, dev)
-        with torch.inference_mode():
-            boxes_b, scores_b, keep_b = (t.cpu().numpy() for t in
-                                         _postprocess_batch(
-                rois, roi_valid, cls_prob, deltas,
-                torch.as_tensor(batch.im_info, device=dev),
-                torch.as_tensor(scales, device=dev), stds, means,
-                nms_thresh=cfg.test.nms, score_thresh=cfg.test.score_thresh))
-        for j, i in enumerate(indices):
-            dets = detections_from_keep(boxes_b, scores_b, keep_b, j)
-            for c, arr in dets.items():
-                all_boxes[c][i] = arr
-            if not dets:
+        shards = (raw_shards(batch) if raw_shards is not None else
+                  [(range(len(indices)), predictor.raw_batch(batch))])
+        posted = []
+        for rows, out in shards:
+            if not rows:      # padding alone
                 continue
-            all_scores = np.concatenate([a[:, 4] for a in dets.values()])
-            if len(all_scores) > cfg.test.max_per_image:
-                thresh = np.sort(all_scores)[-cfg.test.max_per_image]
-                for c in range(1, num_classes):
-                    all_boxes[c][i] = all_boxes[c][i][
-                        all_boxes[c][i][:, 4] >= thresh]
+            rois, roi_valid, cls_prob, deltas = (
+                torch.as_tensor(t)[:len(rows)] for t in out)
+            dev = rois.device
+            stds, means = tiled_bbox_stats(cfg, num_classes, dev)
+            with torch.inference_mode():
+                posted.append((rows, _postprocess_batch(
+                    rois, roi_valid, cls_prob, deltas,
+                    torch.as_tensor(batch.im_info[rows.start:rows.stop],
+                                    device=dev),
+                    torch.as_tensor(scales[rows.start:rows.stop],
+                                    device=dev), stds, means,
+                    nms_thresh=cfg.test.nms,
+                    score_thresh=cfg.test.score_thresh)))
+        for rows, post in posted:
+            boxes_b, scores_b, keep_b = (t.cpu().numpy() for t in post)
+            _collect(boxes_b, scores_b, keep_b,
+                     [indices[r] for r in rows], all_boxes, cfg)
         done += len(indices)
         if verbose:
             print(f"eval: {done}/{num_images} images", flush=True)
@@ -211,6 +292,26 @@ def pred_eval(predictor, test_loader, imdb, cfg: Config, out_dir: str = None,
                          "classes": list(imdb.classes)}, f,
                         protocol=pickle.HIGHEST_PROTOCOL)
     return imdb.evaluate_detections(all_boxes, out_dir)
+
+
+def _collect(boxes_b: np.ndarray, scores_b: np.ndarray, keep_b: np.ndarray,
+             indices: Sequence[int], all_boxes: List[List[np.ndarray]],
+             cfg: Config) -> None:
+    """Rows of a postprocessed batch → ``all_boxes[class][image]``, each
+    image capped at ``test.max_per_image`` detections by score."""
+    num_classes = len(all_boxes)
+    for j, i in enumerate(indices):
+        dets = detections_from_keep(boxes_b, scores_b, keep_b, j)
+        for c, arr in dets.items():
+            all_boxes[c][i] = arr
+        if not dets:
+            continue
+        all_scores = np.concatenate([a[:, 4] for a in dets.values()])
+        if len(all_scores) > cfg.test.max_per_image:
+            thresh = np.sort(all_scores)[-cfg.test.max_per_image]
+            for c in range(1, num_classes):
+                all_boxes[c][i] = all_boxes[c][i][
+                    all_boxes[c][i][:, 4] >= thresh]
 
 
 def generate_proposals(model: FasterRCNN, test_loader, cfg: Config,

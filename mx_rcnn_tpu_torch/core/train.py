@@ -38,6 +38,15 @@ s, i), as the JAX step folds ``i`` into the step's key.  With
 the backward pass (``torch.utils.checkpoint``): the same gradients for
 less memory.
 
+Given a data-parallel :class:`~mx_rcnn_tpu_torch.parallel.dp.World`,
+the step runs on this rank's rows, seeds its generator with
+``rank_seed`` of the step's (or microbatch's) seed (the JAX DP step
+folds the device's mesh position into its key) and,
+after the local backward (after the last microbatch's under
+``grad_accum``), averages the gradients and the metrics over the world
+with one all-reduce before the SGD update, as the JAX step's
+``lax.pmean`` does.
+
 Unlike the JAX step, which returns a new state, this one updates the
 model's parameters and the optimizer's trace in place.
 """
@@ -61,6 +70,7 @@ from mx_rcnn_tpu_torch.ops.proposal import propose_batch
 from mx_rcnn_tpu_torch.ops.roi_pool import roi_align_batched
 from mx_rcnn_tpu_torch.ops.targets import (anchor_target, proposal_pool_size,
                                            proposal_target)
+from mx_rcnn_tpu_torch.parallel.dp import World, all_reduce_mean_, rank_seed
 
 Draws = Callable[[str, int, Tuple[int, ...]], torch.Tensor]
 StageHook = Callable[[str], None]
@@ -325,7 +335,8 @@ def setup_training(cfg: Config, device="cuda", seed: int = 0,
     return init_state(model, cfg, steps_per_epoch, seed, **optimizer_kw)
 
 
-def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1):
+def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1,
+                    world: Optional[World] = None):
     """The train step of ``mode`` (``'e2e'``, ``'rpn'`` or ``'rcnn'``, the
     last on :class:`RCNNBatch` es), ``step(state, batch, draws=None,
     stage_hook=None) → metrics``: forward, backward and one SGD update,
@@ -334,12 +345,18 @@ def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1):
     microbatch; the gradient is the mean of the microbatches' gradients
     and the metrics their means.  ``stage_hook`` is called as each of
     the :data:`STAGES` the mode runs ends (the forward and backward
-    stages once per microbatch)."""
+    stages once per microbatch).  With a ``world``, ``batch`` holds this
+    rank's rows, the default draws are seeded through ``rank_seed``,
+    and one all-reduce before the update makes the gradients and the
+    returned metrics the world's means; ``world=None`` is the
+    single-process step."""
     if mode not in LOSS_FNS:
         raise ValueError(f"unknown mode {mode!r}; have {sorted(LOSS_FNS)}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     loss_fn = LOSS_FNS[mode]
+    rank = 0 if world is None else world.rank
+    ranked = lambda seed: rank_seed(seed, rank)  # noqa: E731
 
     def step(state: TrainState, batch, draws=None,
              stage_hook: Optional[StageHook] = None
@@ -348,8 +365,8 @@ def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1):
         state.optimizer.zero_grad()
         if grad_accum == 1:
             if draws is None:
-                state.generator.manual_seed(step_seed(state.seed,
-                                                      state.step))
+                state.generator.manual_seed(
+                    ranked(step_seed(state.seed, state.step)))
                 draws = generator_draws(state.generator)
             total, metrics = loss_fn(state.model, batch, cfg, draws,
                                      stage_hook)
@@ -357,6 +374,9 @@ def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1):
             mark("backward")
         else:
             metrics = _accumulate(state, batch, draws, stage_hook)
+        if world is not None:
+            metrics = all_reduce_mean_(state.optimizer.params, metrics,
+                                       world)
         state.optimizer.step()
         mark("optimizer")
         return {k: v.detach() for k, v in metrics.items()}
@@ -376,7 +396,7 @@ def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1):
         for i, mb in enumerate(batches):
             if draws is None:
                 state.generator.manual_seed(
-                    microbatch_seed(state.seed, state.step, i))
+                    ranked(microbatch_seed(state.seed, state.step, i)))
                 mb_draws = generator_draws(state.generator)
             else:
                 mb_draws = draws[i]

@@ -17,9 +17,10 @@ proposal-fed batch (:class:`RCNNBatch`) the proposals, scaled the same
 way and padded to ``max_rois`` slots.  Batches hold numpy arrays;
 ``core/fit.py`` (through ``data/staging.py``) moves them to the device.
 A resumed run positions a :class:`StreamLoader` mid-epoch by the
-manifest's data cursor (:meth:`StreamLoader.resume_at`).
-Not ported yet: loader shards (``set_shard``), ``StreamTestLoader`` and
-the obs metrics.
+manifest's data cursor (:meth:`StreamLoader.resume_at`).  In a
+data-parallel run each rank's training loader owns a row shard of every
+batch of the global plan (:meth:`AnchorLoader.set_shard`).
+Not ported yet: ``StreamTestLoader`` and the obs metrics.
 """
 
 from __future__ import annotations
@@ -301,14 +302,16 @@ class AnchorLoader(_ImageSource):
     batch share a bucket.  ``load_image(rec)`` gives a record's RGB uint8
     pixels (``IMDB.load_image``).  The plan shuffles each bucket's
     images, chunks them into batches and shuffles the batch list, from
-    one RNG seeded by (seed, epoch)."""
+    one RNG seeded by (seed, epoch).  ``shard=(shard_id, num_shards)``
+    makes the loader yield only its rows of each batch
+    (:meth:`set_shard`)."""
 
     def __init__(self, roidb: Sequence[Dict], cfg: Config,
                  load_image: LoadImage, batch_images: int = None,
                  shuffle: bool = None, seed: int = 0,
                  num_workers: int = None, prefetch: int = None,
                  raw_images: bool = None, cache: DecodedImageCache = None,
-                 decode_pool=None):
+                 decode_pool=None, shard: Tuple[int, int] = None):
         self._init_source(roidb, cfg, load_image, num_workers, prefetch,
                           raw_images, cache, decode_pool)
         self.batch_images = batch_images or cfg.train.batch_images
@@ -316,6 +319,9 @@ class AnchorLoader(_ImageSource):
         self.seed = seed
         self._epoch = 0
         self._skip_next = 0
+        self.shard: Optional[Tuple[int, int]] = None
+        if shard is not None:
+            self.set_shard(*shard)
 
     def __len__(self) -> int:
         return sum(len(self._indices_for(bucket)) // self.batch_images
@@ -325,6 +331,36 @@ class AnchorLoader(_ImageSource):
         """Pin the next epoch's shuffle to ``epoch``: a run resumed at
         epoch k replays the batches the unbroken run saw."""
         self._epoch = epoch
+
+    def set_shard(self, shard_id: int, num_shards: int) -> None:
+        """Own rows ``[shard_id * per, (shard_id + 1) * per)`` of every
+        batch, ``per = batch_images / num_shards``.  The plan stays the
+        global one, the same on every rank for a (seed, epoch); each rank
+        decodes only its rows, so the union of the shards' yields is the
+        unsharded batches byte for byte.  ``num_shards`` of 1 or less
+        clears the shard."""
+        if num_shards is None or num_shards <= 1:
+            self.shard = None
+            return
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(
+                f"shard_id={shard_id} out of range for {num_shards} shards")
+        if self.batch_images % num_shards:
+            raise ValueError(
+                f"batch_images={self.batch_images} is not divisible by "
+                f"num_shards={num_shards} — rows cannot be owned evenly "
+                f"(choose a divisor topology)")
+        self.shard = (int(shard_id), int(num_shards))
+
+    def _shard_rows(self, batches: Plan) -> Plan:
+        """This shard's rows of every (bucket, indices) entry of a global
+        plan (the plan itself without a shard)."""
+        if self.shard is None:
+            return batches
+        sid, n = self.shard
+        per = self.batch_images // n
+        return [(bucket, idx[sid * per:(sid + 1) * per])
+                for bucket, idx in batches]
 
     def skip_next_batches(self, n: int) -> None:
         """Drop the first ``n`` batches of the next epoch only, before any
@@ -375,7 +411,7 @@ class AnchorLoader(_ImageSource):
         return Batch(images, im_info, gt_boxes, gt_classes, gt_valid)
 
     def __iter__(self) -> Iterator[Batch]:
-        return self._batches(self.plan(), self.make_batch)
+        return self._batches(self._shard_rows(self.plan()), self.make_batch)
 
 
 class StreamLoader(AnchorLoader):
@@ -497,9 +533,10 @@ class ROIIter(AnchorLoader):
     def __init__(self, roidb: Sequence[Dict], cfg: Config,
                  load_image: LoadImage, proposals: Sequence,
                  batch_images: int = None, shuffle: bool = None,
-                 seed: int = 0, max_rois: int = None, **source):
+                 seed: int = 0, max_rois: int = None,
+                 shard: Tuple[int, int] = None, **source):
         super().__init__(roidb, cfg, load_image, batch_images, shuffle, seed,
-                         **source)
+                         shard=shard, **source)
         self.proposals = _check_proposals(proposals, self.roidb)
         self.max_rois = max_rois or cfg.test.proposal_post_nms_top_n
 

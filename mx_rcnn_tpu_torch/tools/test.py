@@ -9,6 +9,9 @@ kernel K1 on the card, and the ``max_per_image`` cap) →
 detection files under ``--out_dir``), COCO bbox AP over a COCO tree (the
 results json under ``--out_dir``), or VOC07 AP over ``--synthetic N``
 synthetic images (375x500 for the VOC and COCO presets).
+``--num_devices N`` splits each eval batch, ``test.batch_images`` x N
+images, across the first N cards (``Predictor(devices=...)``); fewer
+cards than N is an error.
 
     python -m mx_rcnn_tpu_torch.tools.test --network resnet101 \\
         --dataset PascalVOC --root_path data --dataset_path data/VOCdevkit \\
@@ -21,13 +24,14 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
                                       parse_set_overrides)
 from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
 from mx_rcnn_tpu_torch.data import load_gt_roidb
 from mx_rcnn_tpu_torch.data.loader import TestLoader
+from mx_rcnn_tpu_torch.parallel.dp import local_devices
 from mx_rcnn_tpu_torch.tools import dataset_args, dataset_overrides
 from mx_rcnn_tpu_torch.utils.checkpoint import load_model
 from mx_rcnn_tpu_torch.utils.device import resolve_device
@@ -50,24 +54,33 @@ def print_results(results: Dict[str, float], verbose: bool = True) -> None:
 def test_rcnn(cfg: Config, *, prefix: str, epoch: int, image_set: str = None,
               out_dir: str = None, verbose: bool = True,
               dataset_kw: dict = None, save_dets: str = None, device="cuda",
-              synthetic: int = 0) -> Dict[str, float]:
+              synthetic: int = 0, num_devices: int = 1,
+              devices: Optional[Sequence[str]] = None) -> Dict[str, float]:
     """Evaluate checkpoint ``prefix``@``epoch`` on ``device`` (CUDA unless
     the caller asks for the CPU); returns the evaluator's numbers (VOC:
     the per-class APs and ``mAP``; COCO: AP, AP50, AP75, AP by area and
     AR_100).  ``out_dir`` receives the detection files; ``synthetic`` > 0
-    scores that many synthetic images."""
+    scores that many synthetic images.  ``num_devices`` > 1 (or a list of
+    ``devices``) splits each batch of ``test.batch_images`` x N across
+    that many devices (``parallel/dp.py — local_devices``)."""
     dev = resolve_device(device)
     imdb, roidb = load_gt_roidb(cfg, image_set=image_set, training=False,
                                 synthetic=synthetic, **(dataset_kw or {}))
-    loader = TestLoader(roidb, cfg, imdb.load_image)
-    predictor = Predictor(load_model(cfg, prefix, epoch, dev), cfg, dev)
+    devs = local_devices(dev, num_devices, devices) \
+        if num_devices > 1 or devices else None
+    loader = TestLoader(roidb, cfg, imdb.load_image,
+                        batch_images=cfg.test.batch_images
+                        * (len(devs) if devs else 1))
+    predictor = Predictor(load_model(cfg, prefix, epoch, dev), cfg, dev,
+                          devices=devs)
     t0 = time.perf_counter()
     results = pred_eval(predictor, loader, imdb, cfg, out_dir=out_dir,
                         verbose=verbose, save_dets=save_dets)
     wall = time.perf_counter() - t0
     if verbose:
         print(f"pred_eval: {len(roidb)} images in {wall:.3f} s, "
-              f"{len(roidb) / wall:.2f} images/s on {dev}", flush=True)
+              f"{len(roidb) / wall:.2f} images/s on {devs or dev}",
+              flush=True)
     print_results(results, verbose)
     return results
 
@@ -84,6 +97,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--save_dets", default=None,
                    help="pickle raw detections here for tools/reeval.py")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="split each eval batch across this many cards")
     p.add_argument("--set", action="append", metavar="SEC__FIELD=VAL",
                    help="override a config field (repeatable)")
     return p.parse_args(argv)
@@ -97,7 +112,7 @@ def main(argv=None) -> Dict[str, float]:
     return test_rcnn(cfg, prefix=args.prefix, epoch=args.epoch,
                      image_set=args.image_set, out_dir=args.out_dir,
                      save_dets=args.save_dets, device=args.device,
-                     synthetic=args.synthetic)
+                     synthetic=args.synthetic, num_devices=args.num_devices)
 
 
 if __name__ == "__main__":

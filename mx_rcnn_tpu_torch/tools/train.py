@@ -1,7 +1,7 @@
 """Train Faster R-CNN on a VOCdevkit, a COCO tree or synthetic images.
 
-Counterpart of ``mx_rcnn_tpu/tools/train.py`` for one device:
-:func:`train_net` builds the training roidb (``--dataset PascalVOC|coco``
+Counterpart of ``mx_rcnn_tpu/tools/train.py``: :func:`train_net` builds
+the training roidb (``--dataset PascalVOC|coco``
 read from ``--dataset_path`` with its gt_roidb cache under
 ``--root_path``, ``--image_set`` '+'-joined sets merged; or with
 ``--synthetic N`` that many synthetic images, the JAX package's
@@ -30,9 +30,24 @@ alternate schedule's stage tools (``train_rpn.py``, ``train_rcnn.py``,
 ``train_alternate.py``) call :func:`train_net` with ``mode='rpn'`` or
 ``'rcnn'`` (``ROIIter``).
 
+``--num_devices N`` trains one model on N cards, one process per card
+(``parallel/dp.py``): the launcher builds the kernels and the roidb, then
+spawns N ranks of a ``torch.distributed`` group (NCCL; gloo with
+``--device cpu``), each owning one card and its row shard of the global
+plan.  ``--batch_images`` stays per device, so the global batch is N x
+``batch_images``; one all-reduce per optimizer step averages the
+gradients, rank 0 alone writes the checkpoints, whose manifests record N
+devices, and the launcher passes a SIGTERM on to every rank.  A
+checkpoint resumes at another N when N x ``batch_images`` x
+``grad_accum`` is kept.  Fewer than N cards is an error.  Across hosts,
+each host runs its share of the ranks: ``--coordinator HOST:PORT
+--num_processes P --process_id I`` (``parallel/multihost.py``), N being
+the global count.
+
     python -m mx_rcnn_tpu_torch.tools.train --network resnet101 \\
         --dataset PascalVOC --root_path data --dataset_path data/VOCdevkit \\
         --batch_images 2 --prefix model/e2e --end_epoch 1             # card
+    python -m mx_rcnn_tpu_torch.tools.train --num_devices 4 ...      # 4 cards
     python -m mx_rcnn_tpu_torch.tools.train --device cpu --network tiny \\
         --dataset synthetic --synthetic 4 --batch_images 2 \\
         --prefix /tmp/p --end_epoch 1
@@ -58,6 +73,9 @@ from mx_rcnn_tpu_torch.data.loader import (AnchorLoader, ROIIter,
                                            StreamLoader, cache_from_config,
                                            decode_pool_from_config)
 from mx_rcnn_tpu_torch.ft.integrity import latest_valid_checkpoint
+from mx_rcnn_tpu_torch.parallel.dp import (World, check_replicas,
+                                           default_backend, launch,
+                                           local_devices, replicate)
 from mx_rcnn_tpu_torch.tools import dataset_args, dataset_overrides
 from mx_rcnn_tpu_torch.utils.checkpoint import (config_fingerprint,
                                                 interrupt_path,
@@ -91,26 +109,28 @@ def _legacy_resume(state: TrainState, prefix: str, steps_per_epoch: int,
     return 0
 
 
-def _check_topology(manifest: dict, cfg: Config, batch_images: int,
-                    grad_accum: int, path: str,
+def _check_topology(manifest: dict, cfg: Config, num_devices: int,
+                    batch_images: int, grad_accum: int, path: str,
                     log: Callable[[str], None]) -> None:
-    """A resume that would change the effective batch (the images an
-    optimizer step takes) changes the lr schedule and the step ↔ epoch
-    mapping: an error, a warning under ``ft.allow_resize_resume``.  A
-    manifest without a topology has nothing to check."""
+    """A resume that would change the effective global batch (the images
+    an optimizer step takes: devices x per-device ``batch_images`` x
+    ``grad_accum``) changes the lr schedule and the step ↔ epoch mapping:
+    an error, a warning under ``ft.allow_resize_resume``.  Another world
+    size at the same global batch resumes.  A manifest without a topology
+    has nothing to check."""
     topo = (manifest or {}).get("topology")
     if not topo or not topo.get("global_batch"):
         return
-    now = batch_images * grad_accum
+    now = num_devices * batch_images * grad_accum
     then = int(topo["global_batch"])
     if then == now:
         return
     msg = (f"checkpoint {path} was trained with effective global batch "
            f"{then} ({topo.get('devices')} devices x batch_images x "
            f"grad_accum {topo.get('grad_accum')}) but this run would "
-           f"train with {now} (1 device x {batch_images} images x "
-           f"grad_accum {grad_accum}) — the LR schedule and step↔epoch "
-           f"mapping would silently change")
+           f"train with {now} ({num_devices} devices x {batch_images} "
+           f"images x grad_accum {grad_accum}) — the LR schedule and "
+           f"step↔epoch mapping would silently change")
     if cfg.ft.allow_resize_resume:
         log(f"resume: {msg} (ft.allow_resize_resume is set — continuing "
             f"anyway)")
@@ -134,13 +154,14 @@ def _check_spe(saved_spe: Optional[int], steps_per_epoch: int,
 
 
 def _verified_resume(state: TrainState, cfg: Config, prefix: str,
-                     steps_per_epoch: int, batch_images: int,
-                     grad_accum: int, log: Callable[[str], None]
+                     steps_per_epoch: int, num_devices: int,
+                     batch_images: int, grad_accum: int,
+                     log: Callable[[str], None]
                      ) -> Tuple[int, Optional[Dict]]:
     """``--resume auto``: restore the newest checkpoint that verifies
     (``ft/integrity.py``), falling back past corrupt ones; an interrupt
-    checkpoint also gives the data cursor.  Returns (begin epoch, data
-    cursor or None)."""
+    checkpoint also gives the data cursor.  ``batch_images`` is per
+    device.  Returns (begin epoch, data cursor or None)."""
     ref = latest_valid_checkpoint(prefix)
     if ref is None:
         if os.path.exists(interrupt_path(prefix)) or \
@@ -158,8 +179,8 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
             f"fingerprint {fp_ckpt} but this run is "
             f"{config_fingerprint(cfg)} — the recipe changed; the "
             f"continued run is NOT the same experiment")
-    _check_topology(ref.manifest, cfg, batch_images, grad_accum, ref.path,
-                    log)
+    _check_topology(ref.manifest, cfg, num_devices, batch_images, grad_accum,
+                    ref.path, log)
     if ref.kind != "interrupt":
         restore_state(state, prefix, ref.epoch)
         log(f"resumed from verified {ref.path} (epoch {ref.epoch}, step "
@@ -187,6 +208,13 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
                          "images_consumed_in_epoch": images}
 
 
+# the arguments of train_net that only its launcher reads; the others go
+# to every rank
+_LAUNCHER_ARGS = ("cfg", "num_devices", "dcn_size", "devices", "backend",
+                  "coordinator", "num_processes", "process_id", "world",
+                  "stop_flag", "log")
+
+
 def train_net(cfg: Config, *, prefix: Optional[str] = None,
               mode: str = "e2e", proposals: Optional[Sequence] = None,
               init_from: Optional[Tuple[str, int]] = None,
@@ -200,9 +228,14 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
               seed: int = 0, device="cuda",
               pretrained: Optional[str] = None, pretrained_epoch: int = 0,
               grad_accum: int = 1,
+              num_devices: Optional[int] = None, dcn_size: int = 1,
+              devices: Optional[Sequence[str]] = None,
+              backend: Optional[str] = None,
+              coordinator: Optional[str] = None, num_processes: int = 1,
+              process_id: int = 0, world: Optional[World] = None,
               stop_flag: Optional[Callable[[], bool]] = None,
               log: Callable[[str], None] = print
-              ) -> Tuple[TrainState, Dict[str, float]]:
+              ) -> Tuple[Optional[TrainState], Dict[str, float]]:
     """Train on ``device`` (CUDA unless the caller asks for the CPU);
     returns the final state and the last log window's mean metrics.
 
@@ -227,8 +260,30 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     the module docstring).  ``grad_accum``: loader batches an optimizer
     step accumulates; an epoch has ``len(loader) // grad_accum`` steps.
     ``stop_flag``: polled after every step; True writes the interrupt
-    checkpoint and returns."""
-    resolve_device(device)
+    checkpoint and returns.
+
+    ``num_devices``: train on that many devices, one spawned process
+    each (see the module docstring); the ranks run this function with
+    their ``world``, rank 0 prints the log, ``stop_flag`` sends every rank
+    SIGTERM, and the returned state is None (the run's weights are in its
+    checkpoints).  ``devices`` and ``backend`` default to the first
+    ``num_devices`` cards over NCCL (the CPU over gloo when ``device`` is
+    the CPU); a test rig may name a card twice over gloo.  ``coordinator``,
+    ``num_processes`` and ``process_id``: this host's share of a world
+    spread over ``num_processes`` hosts.  ``dcn_size`` must divide the
+    world and is recorded (``parallel/dp.py``)."""
+    if world is None and num_devices is not None:
+        kw = {k: v for k, v in locals().items() if k not in _LAUNCHER_ARGS}
+        return _launch_ranks(cfg, kw, num_devices, dcn_size, devices,
+                             backend, coordinator, num_processes, process_id,
+                             stop_flag, log)
+    if dcn_size > 1:
+        raise ValueError(
+            f"dcn_size={dcn_size} requires num_devices > 1 — the (dcn, "
+            f"ici) split only exists in multi-device training")
+    world = world or World.single(resolve_device(device))
+    if not world.lead:
+        log = lambda line: None  # noqa: E731
     if resume not in (False, True, "auto"):
         raise ValueError(f"resume must be False, True or 'auto', got "
                          f"{resume!r}")
@@ -251,6 +306,9 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
         pool = decode_pool_from_config(cfg, **sizes)
         source = dict(decode_pool=pool, cache=None if pool else
                       cache_from_config(cfg, **sizes))
+    # the plan is the global batch's; this rank decodes its rows of it
+    source.update(batch_images=world.size * cfg.train.batch_images,
+                  shard=(world.rank, world.size))
     if mode == "rcnn":
         loader = ROIIter(roidb, cfg, load_image, proposals, seed=seed,
                          **source)
@@ -258,25 +316,29 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
         kind = StreamLoader if cfg.data.streaming else AnchorLoader
         loader = kind(roidb, cfg, load_image, seed=seed, **source)
     steps_per_epoch = max(len(loader) // grad_accum, 1)
-    state = setup_training(cfg, device, seed, steps_per_epoch, base_lr=lr,
-                           lr_step=lr_step, frozen_prefixes=frozen_prefixes)
+    state = setup_training(cfg, world.device, seed, steps_per_epoch,
+                           base_lr=lr, lr_step=lr_step,
+                           frozen_prefixes=frozen_prefixes)
     if pretrained:
         load_pretrained_into(state, pretrained, pretrained_epoch, cfg)
         log(f"[{mode}] grafted pretrained backbone from {pretrained}")
     if init_from is not None:
         state.model.load_state_dict(load_state_dict(*init_from))
         log(f"[{mode}] initialised from {init_from[0]} epoch {init_from[1]}")
+    replicate(state.model, state.optimizer, world)
     data_cursor = None
     if resume and begin_epoch == 0:
         if resume == "auto":
             begin_epoch, data_cursor = _verified_resume(
-                state, cfg, prefix, steps_per_epoch, loader.batch_images,
-                grad_accum, log)
+                state, cfg, prefix, steps_per_epoch, world.size,
+                cfg.train.batch_images, grad_accum, log)
         else:
             begin_epoch = _legacy_resume(state, prefix, steps_per_epoch, log)
+        check_replicas(state.model, state.optimizer, world)
     elif begin_epoch > 0:
         restore_state(state, prefix, begin_epoch)
         log(f"resumed from {prefix} epoch {begin_epoch} (step {state.step})")
+        check_replicas(state.model, state.optimizer, world)
     if end_epoch is None:
         end_epoch = (begin_epoch + math.ceil(steps / steps_per_epoch)
                      if steps else cfg.default.e2e_epoch)
@@ -286,11 +348,16 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
         f"batch_images={loader.batch_images} grad_accum={grad_accum} "
         f"records={len(roidb)} loader={type(loader).__name__} "
         f"epochs={begin_epoch}..{end_epoch} steps={steps}")
+    if world.group is not None:
+        log(f"[{mode}] {world.describe()}: {cfg.train.batch_images} images "
+            f"per rank of each global batch of {loader.batch_images}")
     try:
-        metrics = fit(state, cfg, make_train_step(cfg, mode, grad_accum),
+        metrics = fit(state, cfg, make_train_step(cfg, mode, grad_accum,
+                                                  world),
                       loader, end_epoch, begin_epoch, prefix, steps,
                       frequent, log=log, stop_flag=stop_flag,
-                      grad_accum=grad_accum, data_cursor=data_cursor)
+                      grad_accum=grad_accum, data_cursor=data_cursor,
+                      world=world)
     finally:
         if pool is not None:
             pool.close()
@@ -298,12 +365,87 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     return state, metrics
 
 
+def _launch_ranks(cfg: Config, kw: dict, num_devices: int, dcn_size: int,
+                  devices, backend, coordinator, num_processes: int,
+                  process_id: int, stop_flag, log
+                  ) -> Tuple[None, Dict[str, float]]:
+    """:func:`train_net` over ``num_devices`` ranks: this host's share of
+    them spawned by :func:`parallel.dp.launch`, after the kernels and the
+    roidb were built here once."""
+    if num_devices < 1 or num_devices % num_processes:
+        raise ValueError(f"num_devices={num_devices} is not a multiple of "
+                         f"num_processes={num_processes}")
+    if dcn_size > 1 and num_devices == 1:
+        raise ValueError(
+            f"dcn_size={dcn_size} requires num_devices > 1 — the (dcn, "
+            f"ici) split only exists in multi-device training")
+    if num_processes > 1 and not coordinator:
+        raise ValueError("a world over several hosts needs a coordinator")
+    local = num_devices // num_processes
+    devs = local_devices(kw["device"], local, devices)
+    if len(devs) != local:
+        raise ValueError(f"{len(devs)} devices for {local} ranks")
+    backend = backend or default_backend(devs[0])
+    rig = backend != default_backend(devs[0])
+    if any(d.startswith("cuda") for d in devs):
+        from mx_rcnn_tpu_torch import kernels
+
+        kernels.build_all()
+    if kw["roidb"] is None:
+        # once here, so the ranks neither race on the gt_roidb cache nor
+        # disagree on the records
+        imdb, kw["roidb"] = load_gt_roidb(cfg, training=True,
+                                          synthetic=kw["synthetic"])
+        kw["load_image"] = imdb.load_image
+    log(f"[{kw['mode']}] launching ranks {process_id * local}.."
+        f"{process_id * local + local - 1} of {num_devices} on {devs}, "
+        f"backend {backend}"
+        + (" (a test rig: gloo on a card, not NCCL)" if rig else ""))
+    results = launch(
+        _train_rank, local, devs, backend,
+        init_method=f"tcp://{coordinator}" if coordinator else None,
+        args=(cfg, kw), timeout_s=None, stop_flag=stop_flag,
+        dcn_size=dcn_size, first_rank=process_id * local,
+        world_size=num_devices)
+    log(f"[{kw['mode']}] ranks {process_id * local}.."
+        f"{process_id * local + local - 1} ended at steps "
+        f"{[step for step, _ in results]}")
+    return None, results[0][1]
+
+
+def _train_rank(world: World, cfg: Config, kw: dict
+                ) -> Tuple[int, Dict[str, float]]:
+    """One rank of :func:`_launch_ranks`: :func:`train_net` with its
+    world, rank 0's log on stdout, and a SIGTERM stop flag of its own;
+    returns (the rank's final step, its last metrics)."""
+    with sigterm_stop_flag() as stop_flag:
+        state, metrics = train_net(cfg, world=world, stop_flag=stop_flag,
+                                   log=lambda line: print(line, flush=True),
+                                   **kw)
+    return state.step, metrics
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--network", default="resnet101", choices=NETWORKS)
     dataset_args(p)
     p.add_argument("--batch_images", type=int, default=None,
-                   help="images per step")
+                   help="images per device and step")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="train on this many cards, one process each (the "
+                        "global count across hosts); unset: one process, "
+                        "no process group")
+    p.add_argument("--dcn_size", type=int, default=1,
+                   help="hosts or slices of the world, recorded (it must "
+                        "divide --num_devices)")
+    p.add_argument("--coordinator", default=None,
+                   help="HOST:PORT where the ranks of a world over several "
+                        "hosts meet (with --num_processes, --process_id)")
+    p.add_argument("--num_processes", type=int, default=1,
+                   help="hosts of the world, each launching its share of "
+                        "the ranks")
+    p.add_argument("--process_id", type=int, default=0,
+                   help="this host's index among --num_processes")
     p.add_argument("--prefix", default=None,
                    help="checkpoint prefix: save prefix-%%04d.ckpt after "
                         "each epoch")
@@ -391,7 +533,10 @@ def main(argv=None) -> Dict[str, float]:
             pretrained=args.pretrained,
             pretrained_epoch=args.pretrained_epoch,
             grad_accum=args.grad_accum, stop_flag=stop_flag,
-            log=lambda line: print(line, flush=True))
+            log=lambda line: print(line, flush=True),
+            num_devices=args.num_devices, dcn_size=args.dcn_size,
+            coordinator=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id)
     print("final " + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
           flush=True)
     return metrics

@@ -18,6 +18,8 @@ copies, on the card unless ``--device cpu``.  As in the reference,
 and stage 2 either from the same seeded init (``--stage2_init fresh``,
 the JAX package's default) or from rpn1 (``rpn1``); from a seeded init
 VGG16 diverges at the reference's lr 0.001 and trains at 1e-4.
+``--num_devices N`` trains each stage on N cards, one process each
+(``tools/train.py``); the dumps run in this process.
 Evaluate the final model with ``tools/test.py --prefix <prefix>-final
 --epoch 1``.
 
@@ -52,13 +54,15 @@ def alternate_train(cfg: Config, *, prefix: str, synthetic: int = 0,
                     frequent: int = None, seed: int = 0,
                     stage2_init: str = "fresh", pretrained: str = None,
                     pretrained_epoch: int = 0, device="cuda",
+                    num_devices: int = None,
                     log: Callable[[str], None] = print) -> str:
     """Run the four stages, the two dumps and the combine on ``device``
     (CUDA unless the caller asks for the CPU); returns the final prefix
     (its checkpoint is ``<prefix>-final-0001.ckpt``).  Each stage's
     epochs, lr and lr steps default to ``default__rpn_*`` and
     ``default__rcnn_*``.  ``pretrained`` starts stages 1 and 2; stage 2
-    starts from rpn1 only without it and with ``stage2_init='rpn1'``."""
+    starts from rpn1 only without it and with ``stage2_init='rpn1'``.
+    ``num_devices`` goes to every stage's :func:`train_net`."""
     if stage2_init not in ("fresh", "rpn1"):
         raise ValueError(f"stage2_init must be 'fresh' or 'rpn1', got "
                          f"{stage2_init!r}")
@@ -77,7 +81,7 @@ def alternate_train(cfg: Config, *, prefix: str, synthetic: int = 0,
 
     imdb, roidb = load_gt_roidb(cfg, training=True, synthetic=synthetic)
     common = dict(roidb=roidb, load_image=imdb.load_image, frequent=frequent,
-                  seed=seed, device=device, log=log)
+                  seed=seed, device=device, num_devices=num_devices, log=log)
 
     def dump(stage: str):
         return dump_proposals(cfg, roidb, imdb.load_image,
@@ -133,6 +137,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         ".npz or VGG16 .pth, or a prefix of "
                         "PREFIX-%%04d.params)")
     p.add_argument("--pretrained_epoch", type=int, default=0)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="train each stage on this many cards, one process "
+                        "each")
     return p.parse_args(argv)
 
 
@@ -146,6 +153,7 @@ def main(argv=None) -> str:
         frequent=args.frequent, seed=args.seed,
         stage2_init=args.stage2_init, pretrained=args.pretrained,
         pretrained_epoch=args.pretrained_epoch, device=args.device,
+        num_devices=args.num_devices,
         log=lambda line: print(line, flush=True))
 
 

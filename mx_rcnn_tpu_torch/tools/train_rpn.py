@@ -8,7 +8,8 @@ images) and its flipped copies.  ``--init_from PREFIX
 optimizer); ``--frozen_shared`` freezes ``network.fixed_params_shared``
 (stage 3: the shared convs stay as they were).  ``--pretrained FILE``
 grafts ImageNet backbone weights first (``utils/pretrained.py``), as the
-reference's stages start.
+reference's stages start.  ``--num_devices N`` trains the stage on N
+cards, one process each (``tools/train.py``).
 
     python -m mx_rcnn_tpu_torch.tools.train_rpn --network vgg \\
         --dataset PascalVOC --synthetic 8 --batch_images 2 \\
@@ -62,6 +63,8 @@ def stage_args(p: argparse.ArgumentParser, default_prefix: str) -> None:
     p.add_argument("--lr_step", default=None)
     p.add_argument("--frequent", type=int, default=None,
                    help="log every this many steps")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="train on this many cards, one process each")
 
 
 def run_stage(args, mode: str, proposals=None) -> Dict[str, float]:
@@ -83,6 +86,7 @@ def run_stage(args, mode: str, proposals=None) -> Dict[str, float]:
         lr=pick(args.lr, d.rpn_lr, d.rcnn_lr),
         lr_step=pick(args.lr_step, d.rpn_lr_step, d.rcnn_lr_step),
         frequent=args.frequent, seed=args.seed, device=args.device,
+        num_devices=args.num_devices,
         log=lambda line: print(line, flush=True))
     print("final " + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
           flush=True)
