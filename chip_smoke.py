@@ -153,19 +153,27 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    the plain versions (sampled rois and labels equal, averaged gradients
    and metrics within a relative 1e-4, the ranks' states bit-equal after
    3 steps); ``tools/train.py --num_devices 1`` (NCCL at world size 1)
-   byte-equal to the run without the flag; ResNet-101 with 81 classes, 2
-   images a rank, bf16, on the two-rank rig at grad_accum 1 and 2 (ms per
-   optimizer step, the all-reduce's own ms and bytes, peak memory and
-   launches, K1 = K2 = K3 = grad_accum per step on each rank); the rig's
-   two-epoch checkpoint resumed in a world of one at 2 images x
+   byte-equal to the run without the flag (ms per step through ``fit``
+   for both, the rank's launches); ResNet-101 with 81 classes, 2 images
+   a rank, bf16, on the two-rank rig at grad_accum 1 and 2, the step
+   alone without ``fit`` (ms per optimizer step, the all-reduce's own ms
+   and bytes, peak memory and launches, K1 = K2 = K3 = grad_accum per
+   step on each rank); the rig through ``tools/train.py``'s rank
+   launcher and ``fit`` for two epochs (ms per optimizer step with the
+   collective stop and rank 0's snapshots inside, each rank's launches);
+   that run's checkpoint resumed in a world of one at 2 images x
    grad_accum 2 and refused at grad_accum 1; SIGTERM to the rig's
    launcher mid-epoch (exit 0, both ranks at the same step, one
    interrupt checkpoint with ``topology.devices = 2``) and ``--resume
    auto`` byte-equal to the unbroken run; ``tools/test.py``'s eval split
    over cuda:0 twice equal to one device's (the pad row's slice
    included); where the machine has several cards, the rig over NCCL on
-   2 and up to 4 of them and ``tools/train.py --num_devices`` on up to 4
-   (else one line says why not); ``dryrun_multichip(2)`` on the rig.
+   2 and up to 4 of them, ``tools/train.py --num_devices`` on up to 4
+   through ``fit`` (ms per step, launches per rank) and ``tools/test.py
+   --num_devices`` equal to one card's eval (else one line says why
+   not); ``tools/multihost_demo.py`` on the cards (NCCL; a world of one
+   on one card) and its refusal of more workers than cards;
+   ``dryrun_multichip(2)`` on the rig.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -3660,9 +3668,10 @@ DP_STEPS = 6               # timed optimizer steps of the two-rank rig
 DP_SIGTERM_AT = 1          # the SIGTERM run's signal after Epoch[1] Batch [1]
 DP_NETWORK = "resnet101"   # BASELINE.json's data-parallel config's model
 DP_RIG = ("cuda:0", "cuda:0")  # the test rig's two ranks: one card twice
-# tools/train.py's flags through train_net over ranks named by the
-# caller, in a process of its own with this script's algorithms (the
-# test rig: two ranks on one card over gloo)
+# tools/train.py's flags through its rank launcher (the path of
+# train_net(num_devices=N)) over ranks named by the caller, in a process
+# of its own with this script's algorithms (the test rig: two ranks on
+# one card over gloo)
 RIG_PROCESS = """
 import sys, torch
 torch.backends.cudnn.deterministic = True
@@ -3672,13 +3681,47 @@ torch.backends.cuda.matmul.allow_tf32 = False
 from mx_rcnn_tpu_torch.tools import train as t
 args = t.parse_args(sys.argv[2:])
 with t.sigterm_stop_flag() as stop:
-    t.train_net(t.config_from_args(args), prefix=args.prefix,
-                end_epoch=args.end_epoch, resume=args.resume,
-                frequent=args.frequent, seed=args.seed,
-                grad_accum=args.grad_accum, num_devices=args.num_devices,
-                devices=sys.argv[1].split(","), backend="gloo",
-                stop_flag=stop, log=lambda line: print(line, flush=True))
+    t._launch_ranks(t.config_from_args(args), args.num_devices,
+                    devices=sys.argv[1].split(","), backend="gloo",
+                    prefix=args.prefix, end_epoch=args.end_epoch,
+                    resume=args.resume, frequent=args.frequent,
+                    seed=args.seed, grad_accum=args.grad_accum,
+                    stop_flag=stop,
+                    log=lambda line: print(line, flush=True))
 """
+KERNEL_NAMES = ("nms_sweep", "roi_align_fwd", "roi_align_bwd")
+
+
+def fit_numbers(text: str, epoch: int, images: int) -> dict:
+    """From a ``tools/train.py`` run's stdout at ``--frequent 1``: ms per
+    optimizer step through ``fit`` (the stager, the collective stop and
+    rank 0's snapshots inside), the median of ``images`` / samples per
+    second over the Speedometer lines, one step each, of epochs
+    ``epoch`` on, but each epoch's first (its loader's start and the
+    previous epoch's end), host clock; and each rank's kernel launches
+    over the whole run from the rank launcher's last line (None for a run
+    without ranks)."""
+    import ast
+    import statistics
+
+    speeds = [float(v) for e, b, v in re.findall(
+        r"^Epoch\[(\d+)\] Batch \[(\d+)\] Speed: ([0-9.]+) samples/sec",
+        text, re.M) if int(e) >= epoch and int(b) > 0]
+    if not speeds:
+        raise AssertionError(f"no Speedometer line past epoch {epoch}'s "
+                             f"first")
+    m = re.search(r"kernel launches (\[.*\])$", text, re.M)
+    return dict(ms_per_step=statistics.median(images / v * 1e3
+                                              for v in speeds),
+                steps_timed=len(speeds),
+                launches=ast.literal_eval(m.group(1)) if m else None)
+
+
+def check_launches(what: str, launches, ranks: int, steps: int) -> None:
+    """Every rank launched K1, K2 and K3 once per step of the run."""
+    want = [dict.fromkeys(KERNEL_NAMES, steps)] * ranks
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
 
 
 def dp_config(**over):
@@ -3888,8 +3931,7 @@ def dp_rig(roidb, load_image, devices, backend: str, card: str,
                 f"bytes; peak {r['peak_gib']:.3f} GiB; launches per step "
                 f"{r['launches_per_step']}")
             if r["launches_per_step"] != dict.fromkeys(
-                    ("nms_sweep", "roi_align_fwd", "roi_align_bwd"),
-                    float(accum)) or not all(
+                    KERNEL_NAMES, float(accum)) or not all(
                         math.isfinite(v) for v in r["losses"]):
                 raise AssertionError(f"{what}: rank {r}")
         out[f"grad_accum_{accum}"] = ranks
@@ -3917,14 +3959,22 @@ def dp_cli_world_of_one(card: str) -> dict:
     a, b = (_sha256(checkpoint_path(str(DP_DIR / t), 1))
             for t in ("plain", "nccl"))
     manifest = read_manifest(checkpoint_path(str(DP_DIR / "nccl"), 1))
+    fits = {t: fit_numbers((OUT_DIR / f"dp_cli_{t}.txt").read_text(), 0, 2)
+            for t in ("plain", "nccl")}
     out.update(byte_equal=a == b, steps=manifest["step"],
-               topology=manifest["topology"])
+               topology=manifest["topology"], fit=fits)
     log(f"tools/train.py --num_devices 1 (NCCL, world of one, {card}): "
         f"{out['nccl_s']:.1f} s against {out['plain_s']:.1f} s without the "
-        f"flag, {manifest['step']} steps; checkpoints byte-equal {a == b}; "
-        f"topology {manifest['topology']}")
+        f"flag, {manifest['step']} steps; through fit "
+        f"{fits['nccl']['ms_per_step']:.2f} against "
+        f"{fits['plain']['ms_per_step']:.2f} ms per optimizer step (median "
+        f"of {fits['nccl']['steps_timed']}, the first step left out); "
+        f"the rank's launches {fits['nccl']['launches']}; checkpoints "
+        f"byte-equal {a == b}; topology {manifest['topology']}")
     if a != b or "backend nccl" not in text:
         raise AssertionError(f"the NCCL world of one differs: {text[-2000:]}")
+    check_launches("the NCCL world of one", fits["nccl"]["launches"], 1,
+                   manifest["step"])
     return out
 
 
@@ -3935,6 +3985,33 @@ def dp_rig_args() -> list:
             "--root_path", str(DP_DIR), "--dataset_path",
             str(DP_DIR / "coco"), "--batch_images", "2", "--seed", "0",
             "--frequent", "1", "--end_epoch", "2", "--num_devices", "2"]
+
+
+def dp_unbroken(prefix_u: str, card: str) -> dict:
+    """The rig through ``tools/train.py``'s launcher and ``fit`` for two
+    epochs (6 steps each at 4 images a step): ms per optimizer step over
+    epoch 2, each rank's launches (K1 = K2 = K3 = steps); the reference of
+    the resize and the SIGTERM resume."""
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    read_manifest)
+
+    res = subprocess.run([sys.executable, "-c", RIG_PROCESS, *dp_rig_args(),
+                          "--prefix", prefix_u], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    (OUT_DIR / "dp_unbroken.txt").write_text(res.stdout + res.stderr)
+    if res.returncode:
+        raise AssertionError(f"the unbroken two-rank run: "
+                             f"{res.stderr[-3000:]}")
+    steps = read_manifest(checkpoint_path(prefix_u, 2))["step"]
+    fit = fit_numbers(res.stdout, 1, 4)
+    log(f"two ranks through tools/train.py's launcher and fit (gloo, "
+        f"cuda:0 twice; a test rig, its times are not NCCL's; {card}), 2 "
+        f"images a rank, bf16: {fit['ms_per_step']:.2f} ms per optimizer "
+        f"step (median of epoch 2's {fit['steps_timed']} past its first); "
+        f"launches per "
+        f"rank over {steps} steps {fit['launches']}")
+    check_launches("the unbroken two-rank run", fit["launches"], 2, steps)
+    return dict(steps=steps, **fit)
 
 
 def dp_sigterm(prefix_u: str, card: str) -> dict:
@@ -4045,6 +4122,24 @@ def dp_resize(dev, prefix_u: str) -> dict:
     return dict(steps=steps, wall_s=wall, refused=refused)
 
 
+def rig_eval(cfg, prefix: str, dev, devices, dets: str) -> dict:
+    """``tools/test.py — test_rcnn``'s steps (epoch 1 of ``prefix``) with
+    its ``Predictor`` over ``devices`` as named: the rig names cuda:0
+    twice, which ``--num_devices`` never does."""
+    from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import TestLoader
+    from mx_rcnn_tpu_torch.utils.checkpoint import load_model
+
+    imdb, roidb = load_gt_roidb(cfg, training=False)
+    loader = TestLoader(roidb, cfg, imdb.load_image,
+                        batch_images=cfg.test.batch_images * len(devices))
+    predictor = Predictor(load_model(cfg, prefix, 1, dev), cfg, dev,
+                          devices=devices)
+    return pred_eval(predictor, loader, imdb, cfg, verbose=False,
+                     save_dets=dets)
+
+
 def dp_eval(dev, prefix: str, card: str) -> dict:
     """Step 6: ``tools/test.py``'s ``test_rcnn`` over the odd val2017 set
     at one image a device, split over cuda:0 twice and on one device: the
@@ -4066,8 +4161,9 @@ def dp_eval(dev, prefix: str, card: str) -> dict:
         t0 = time.perf_counter()
         with open(OUT_DIR / f"dp_eval_{tag}.txt", "w") as f, \
                 contextlib.redirect_stdout(f):
-            results = test_rcnn(cfg, prefix=prefix, epoch=1, device=dev,
-                                devices=devices, save_dets=dets)
+            results = (rig_eval(cfg, prefix, dev, devices, dets) if devices
+                       else test_rcnn(cfg, prefix=prefix, epoch=1,
+                                      device=dev, save_dets=dets))
         torch.cuda.synchronize()
         with open(dets, "rb") as f:
             boxes = pickle.load(f)["all_boxes"]
@@ -4099,14 +4195,23 @@ def dp_eval(dev, prefix: str, card: str) -> dict:
                     wall_s=r["wall_s"]) for t, r in runs.items()}
 
 
-def dp_cards(roidb, load_image, card: str):
+def dp_cards(roidb, load_image, card: str, eval_prefix: str,
+             single_eval: dict):
     """Step 7, where the machine has two cards or more: the rig of step 3
-    over NCCL on 2 cards and on min(count, 4), then step 2's
-    ``tools/train.py --num_devices N`` (N = min(count, 4)) for an epoch in
-    a process of its own, its manifest recording N devices.  On one card,
-    one line says why it is not run."""
+    over NCCL on 2 cards and on min(count, 4); ``tools/train.py
+    --num_devices N`` (N = min(count, 4)) for four epochs in a process
+    of its own, its manifest recording N devices, ms per optimizer step
+    through ``fit`` over epochs 2-4 (each epoch's first step left out)
+    and each rank's launches (K1 = K2 = K3 = steps); and ``tools/test.py``'s ``test_rcnn --num_devices N`` over
+    the odd val2017 set, equal to the one-device eval ``single_eval`` of
+    step 6, with both walls.  On one card, one line says why it is not
+    run."""
+    import pickle
+
     import torch
 
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools.test import test_rcnn
     from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                     read_manifest)
 
@@ -4126,20 +4231,92 @@ def dp_cards(roidb, load_image, card: str):
     _train_process(["--network", DP_NETWORK, "--dataset", "coco",
                     "--root_path", str(DP_DIR), "--dataset_path",
                     str(DP_DIR / "coco"), "--batch_images", "2", "--seed",
-                    "0", "--frequent", "1", "--end_epoch", "1",
+                    "0", "--frequent", "1", "--end_epoch", "4",
                     "--num_devices", str(n), "--prefix", prefix],
                    OUT_DIR / "dp_cards_cli.txt")
     wall = time.perf_counter() - t0
-    manifest = read_manifest(checkpoint_path(prefix, 1))
+    manifest = read_manifest(checkpoint_path(prefix, 4))
     text = (OUT_DIR / "dp_cards_cli.txt").read_text()
-    log(f"tools/train.py --num_devices {n} (NCCL, {n} cards, {card}): an "
-        f"epoch of {manifest['step']} steps in {wall:.1f} s; topology "
-        f"{manifest['topology']}")
+    fit = fit_numbers(text, 1, 2 * n)
+    log(f"tools/train.py --num_devices {n} (NCCL, {n} cards, {card}): four "
+        f"epochs, {manifest['step']} steps, in {wall:.1f} s; through fit "
+        f"{fit['ms_per_step']:.2f} ms per optimizer step (median of "
+        f"{fit['steps_timed']} past epoch 1, each epoch's first left out); "
+        f"launches per rank {fit['launches']}; "
+        f"topology {manifest['topology']}")
     if manifest["topology"]["devices"] != n or "backend nccl" not in text:
         raise AssertionError(f"the {n}-card CLI run: {text[-2000:]}")
+    check_launches(f"the {n}-card CLI run", fit["launches"], n,
+                   manifest["step"])
     out["cli"] = dict(cards=n, wall_s=wall, steps=manifest["step"],
-                      topology=manifest["topology"])
+                      topology=manifest["topology"], **fit)
+    dets = str(DP_DIR / "dets_cards.pkl")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(OUT_DIR / "dp_eval_cards.txt", "w") as f, \
+            contextlib.redirect_stdout(f):
+        results = test_rcnn(dp_config(test__batch_images=1),
+                            prefix=eval_prefix, epoch=1,
+                            device=torch.device("cuda", 0), num_devices=n,
+                            save_dets=dets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    with open(dets, "rb") as f:
+        boxes = pickle.load(f)["all_boxes"]
+    with open(DP_DIR / "dets_single.pkl", "rb") as f:
+        want = pickle.load(f)["all_boxes"]
+    same = json.dumps(results, sort_keys=True) == json.dumps(
+        single_eval["results"], sort_keys=True) and all(
+        a.tobytes() == b.tobytes()
+        for ca, cb in zip(boxes, want) for a, b in zip(ca, cb))
+    log(f"tools/test.py's test_rcnn --num_devices {n} (one image a card, "
+        f"{n} cards, {card}) on {DP_VAL_IMAGES} COCO images: "
+        f"{wall:.2f} s against {single_eval['wall_s']:.2f} s on one card; "
+        f"detections and COCO numbers equal to one card's {same}; launches "
+        f"{launches}")
+    if not same:
+        raise AssertionError(f"the {n}-card eval: {results} vs "
+                             f"{single_eval['results']}")
+    out["eval"] = dict(cards=n, wall_s=wall, single_wall_s=single_eval[
+        "wall_s"], launches=launches, equal=same)
     return out
+
+
+def dp_demo(card: str) -> dict:
+    """``tools/multihost_demo.py --launch N`` on the cards (its default
+    device; N = min(count, 4), a world of one over NCCL on a machine of
+    one card): exit 0, every worker's loss equal at each step, NCCL
+    named; then one worker more than the machine has cards, refused."""
+    import torch
+
+    n = min(torch.cuda.device_count(), 4)
+    runs = {}
+    for tag, workers in (("run", n),
+                         ("refused", torch.cuda.device_count() + 1)):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m",
+                              "mx_rcnn_tpu_torch.tools.multihost_demo",
+                              "--launch", str(workers), "--steps", "2"],
+                             cwd=REPO, capture_output=True, text=True,
+                             timeout=300)
+        (OUT_DIR / f"dp_demo_{tag}.txt").write_text(res.stdout + res.stderr)
+        runs[tag] = dict(workers=workers, exit=res.returncode,
+                         wall_s=time.perf_counter() - t0, text=res.stdout,
+                         err=res.stderr)
+    run, refused = runs["run"], runs["refused"]
+    log(f"tools/multihost_demo.py --launch {n} on the card(s) (NCCL, "
+        f"{card}): exit {run['exit']} in {run['wall_s']:.1f} s, "
+        f"{run['text'].count('AGREE')} steps agreed; --launch "
+        f"{refused['workers']}: exit {refused['exit']} (too few cards)")
+    if run["exit"] or "MULTIHOST DEMO: OK" not in run["text"] or \
+            "backend nccl" not in run["text"] or not refused["exit"] or \
+            "CUDA devices wanted" not in refused["err"]:
+        raise AssertionError(f"the demo: {run['text'][-2000:]}"
+                             f"{run['err'][-2000:]}{refused['err'][-1000:]}")
+    return {t: dict(workers=r["workers"], exit=r["exit"], wall_s=r["wall_s"])
+            for t, r in runs.items()}
 
 
 def phase_data_parallel(dev, card: str) -> dict:
@@ -4178,14 +4355,7 @@ def phase_data_parallel(dev, card: str) -> dict:
                      "times are not NCCL's)")
         done("two-rank rig")
         prefix_u = str(DP_DIR / "unbroken")
-        res = subprocess.run([sys.executable, "-c", RIG_PROCESS,
-                              *dp_rig_args(), "--prefix", prefix_u],
-                             cwd=REPO, capture_output=True, text=True,
-                             timeout=600)
-        (OUT_DIR / "dp_unbroken.txt").write_text(res.stdout + res.stderr)
-        if res.returncode:
-            raise AssertionError(f"the unbroken two-rank run: "
-                                 f"{res.stderr[-3000:]}")
+        unbroken = dp_unbroken(prefix_u, card)
         done("unbroken two-rank run")
         resize = dp_resize(dev, prefix_u)
         done("resize")
@@ -4198,8 +4368,11 @@ def phase_data_parallel(dev, card: str) -> dict:
         del state
         evaluation = dp_eval(dev, str(DP_DIR / "scaled"), card)
         done("split eval")
-        more = dp_cards(roidb, imdb.load_image, card)
+        more = dp_cards(roidb, imdb.load_image, card,
+                        str(DP_DIR / "scaled"), evaluation["single"])
         done("NCCL across cards")
+        demo = dp_demo(card)
+        done("multihost demo")
         dry = dryrun_multichip(2, devices=DP_RIG, backend="gloo", log=log)
         done("dryrun_multichip")
     finally:
@@ -4209,8 +4382,9 @@ def phase_data_parallel(dev, card: str) -> dict:
     log(f"phase 14 took {wall:.1f} s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts.items()))
     return dict(parity=parity, nccl_world_of_one=cli, gloo_rig=rig,
-                resize=resize, sigterm=sigterm, split_eval=evaluation,
-                nccl_cards=more, dryrun=dry, parts_s=parts, wall_s=wall)
+                unbroken=unbroken, resize=resize, sigterm=sigterm,
+                split_eval=evaluation, nccl_cards=more, demo=demo,
+                dryrun=dry, parts_s=parts, wall_s=wall)
 
 
 def kernel_line(kern, res: dict, launches: int) -> dict:

@@ -94,9 +94,12 @@ def suppression_sweep_cuda(boxes: torch.Tensor, alive_init: torch.Tensor,
     mask = torch.empty((b, n, 64 * n), dtype=torch.int64,
                        device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    NMS_SWEEP.launch(boxes.data_ptr(), alive_init.data_ptr(), b, k,
-                     float(iou_threshold), mask.data_ptr(), keep.data_ptr(),
-                     torch.cuda.current_stream(boxes.device).cuda_stream)
+    # the launch goes to the current device: make it the tensors' card
+    with torch.cuda.device(boxes.device):
+        NMS_SWEEP.launch(boxes.data_ptr(), alive_init.data_ptr(), b, k,
+                         float(iou_threshold), mask.data_ptr(),
+                         keep.data_ptr(),
+                         torch.cuda.current_stream(boxes.device).cuda_stream)
     return keep
 
 

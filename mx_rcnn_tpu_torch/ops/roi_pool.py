@@ -111,11 +111,13 @@ def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor,
     rois = rois.to(torch.float32).contiguous()
     out = torch.empty((n, r, ph, pw, c), dtype=features.dtype,
                       device=features.device)
-    ROI_ALIGN_FWD.launch(
-        features.data_ptr(), rois.data_ptr(), out.data_ptr(),
-        int(features.dtype == torch.bfloat16), n, r, h, w, c, ph, pw,
-        sampling_ratio, float(spatial_scale),
-        torch.cuda.current_stream(features.device).cuda_stream)
+    # the launch goes to the current device: make it the tensors' card
+    with torch.cuda.device(features.device):
+        ROI_ALIGN_FWD.launch(
+            features.data_ptr(), rois.data_ptr(), out.data_ptr(),
+            int(features.dtype == torch.bfloat16), n, r, h, w, c, ph, pw,
+            sampling_ratio, float(spatial_scale),
+            torch.cuda.current_stream(features.device).cuda_stream)
     return out
 
 
@@ -180,11 +182,13 @@ def roi_align_bwd_cuda(g: torch.Tensor, rois: torch.Tensor,
     dfeat = torch.empty((n, h, w, c), dtype=g.dtype, device=g.device)
     scratch = torch.empty(_bwd_scratch_bytes(n * r, ph, pw, sampling_ratio),
                           dtype=torch.uint8, device=g.device)
-    ROI_ALIGN_BWD.launch(
-        g.data_ptr(), rois.data_ptr(), dfeat.data_ptr(), scratch.data_ptr(),
-        scratch.numel(), int(g.dtype == torch.bfloat16), n, r, h, w, c, ph,
-        pw, sampling_ratio, float(spatial_scale),
-        torch.cuda.current_stream(g.device).cuda_stream)
+    with torch.cuda.device(g.device):
+        ROI_ALIGN_BWD.launch(
+            g.data_ptr(), rois.data_ptr(), dfeat.data_ptr(),
+            scratch.data_ptr(), scratch.numel(),
+            int(g.dtype == torch.bfloat16), n, r, h, w, c, ph, pw,
+            sampling_ratio, float(spatial_scale),
+            torch.cuda.current_stream(g.device).cuda_stream)
     return dfeat
 
 

@@ -51,6 +51,7 @@ from dataclasses import dataclass
 from datetime import timedelta
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
+from urllib.parse import urlsplit
 
 import torch
 import torch.distributed as dist
@@ -291,14 +292,29 @@ def _adopt(settings: Dict[str, Any]) -> None:
     torch.backends.cudnn.benchmark = settings["cudnn_benchmark"]
 
 
+def loopback_env(init_method: str) -> Dict[str, str]:
+    """The interface variables a rank meeting at ``init_method`` sets
+    where its environment leaves them unset: the loopback interface for
+    gloo and NCCL's bootstrap when every rank must be on this host (a
+    ``file://`` store, or ``tcp://`` on localhost or 127.x), nothing for
+    a ``tcp://`` coordinator elsewhere, whose ranks on other hosts reach
+    this one only through the interface the libraries choose or the user
+    names."""
+    if init_method.startswith("file://"):
+        local = True
+    else:
+        host = urlsplit(init_method).hostname or ""
+        local = host in ("localhost", "::1") or host.startswith("127.")
+    return dict.fromkeys(("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"),
+                         "lo") if local else {}
+
+
 def _rank_main(fn, rank, size, device, backend, init_method, dcn_size,
                settings, args, results) -> None:
     """A spawned rank: join the world, run ``fn(world, *args)`` and put
     (rank, True, result) or (rank, False, traceback) on ``results``."""
-    # every rank of a local launch is on this host: gloo and NCCL's
-    # bootstrap bind the loopback interface unless told otherwise
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    for name, value in loopback_env(init_method).items():
+        os.environ.setdefault(name, value)
     world = None
     try:
         _adopt(settings)
@@ -331,7 +347,9 @@ def launch(fn: Callable, size: int, devices: Optional[Sequence[Device]] = None,
     ``devices[r]`` is local rank r's device (all ``'cpu'`` by default);
     ``backend`` defaults to :func:`default_backend` of rank 0's device;
     the group meets at ``init_method``, by default a ``file://`` store in
-    a fresh temporary directory, so concurrent launches never collide.
+    a fresh temporary directory, so concurrent launches never collide
+    (the ranks of a wholly local launch bind the loopback interface:
+    :func:`loopback_env`).
     ``fn`` and ``args`` are pickled (``fn`` by its import path) and each
     result is pickled back: return host data.  The ranks adopt the
     launcher's thread count, TF32 and cuDNN settings.  When

@@ -3,16 +3,20 @@
 Counterpart of ``mx_rcnn_tpu/parallel/multihost.py``.  The JAX package
 runs one process per host (``jax.distributed.initialize``) that drives
 all of the host's devices; here every card is a process and a rank of
-its own, so :func:`initialize` maps (host ``process_id``, local rank) to
-a global rank and a card and joins the world at ``tcp://coordinator``.
-``tools/train.py --coordinator .. --num_processes P --process_id I``
-launches each host's share of the ranks this way.
+its own, and this module owns the map from (host ``process_id``, local
+rank) to global rank: :func:`host_ranks` gives a host its share of the
+world, which ``tools/train.py --coordinator .. --num_processes P
+--process_id I`` spawns through ``dp.launch``, and :func:`initialize`
+joins one such rank to the world at ``tcp://coordinator`` from a process
+started by other means (``tools/multihost_demo.py``).
 
 The JAX ``global_batch`` and ``replicate_global`` have no counterpart:
 they assemble host-local shards into global arrays and lift host copies
 into one replicated tree, while here each rank holds its own rows (its
 loader's shard, or :func:`local_image_slice`) and its own replica (made
-equal by ``dp.replicate``).
+equal by ``dp.replicate``).  Nor does ``global_mesh``'s ``dcn_size``
+default: ``dcn_size`` is recorded, not a level of the reduction
+(``dp.py``), and a world joined here records 1.
 """
 
 from __future__ import annotations
@@ -34,25 +38,41 @@ def global_rank(process_id: int, local_rank: int, local_devices: int) -> int:
     return process_id * local_devices + local_rank
 
 
+def _check_host(process_id: int, num_processes: int) -> None:
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id={process_id} out of range for "
+                         f"{num_processes} processes")
+
+
+def host_ranks(num_devices: int, num_processes: int,
+               process_id: int) -> range:
+    """The global ranks of host ``process_id`` in a world of
+    ``num_devices`` ranks spread evenly over ``num_processes`` hosts."""
+    _check_host(process_id, num_processes)
+    if num_devices < 1 or num_devices % num_processes:
+        raise ValueError(f"num_devices={num_devices} is not a multiple of "
+                         f"num_processes={num_processes}")
+    local = num_devices // num_processes
+    return range(global_rank(process_id, 0, local),
+                 global_rank(process_id, local - 1, local) + 1)
+
+
 def initialize(coordinator: str, num_processes: int, process_id: int,
                local_devices: int = 1, local_rank: int = 0,
-               backend: Optional[str] = None, device_type: str = "cuda",
-               dcn_size: Optional[int] = None) -> World:
+               backend: Optional[str] = None,
+               device_type: str = "cuda") -> World:
     """Join the world of ``num_processes`` hosts with ``local_devices``
     ranks each, as local rank ``local_rank`` of host ``process_id``,
     meeting at ``tcp://coordinator`` (HOST:PORT; global rank 0 serves
     it).  The rank owns card ``local_rank`` (the CPU when ``device_type``
-    is ``'cpu'``).  ``dcn_size`` defaults to the host count, one slice
-    per host, as the JAX ``global_mesh``."""
-    if not 0 <= process_id < num_processes:
-        raise ValueError(f"process_id={process_id} out of range for "
-                         f"{num_processes} processes")
+    is ``'cpu'``); ``backend`` defaults to NCCL on a card, gloo on the
+    CPU."""
+    _check_host(process_id, num_processes)
     device = (torch.device("cuda", local_rank) if device_type == "cuda"
               else torch.device(device_type))
     return init_world(global_rank(process_id, local_rank, local_devices),
                       num_processes * local_devices, f"tcp://{coordinator}",
-                      backend, device,
-                      num_processes if dcn_size is None else dcn_size)
+                      backend, device)
 
 
 def local_image_slice(batch, world: World):

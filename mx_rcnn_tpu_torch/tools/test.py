@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict
 
 from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
                                       parse_set_overrides)
@@ -54,20 +54,20 @@ def print_results(results: Dict[str, float], verbose: bool = True) -> None:
 def test_rcnn(cfg: Config, *, prefix: str, epoch: int, image_set: str = None,
               out_dir: str = None, verbose: bool = True,
               dataset_kw: dict = None, save_dets: str = None, device="cuda",
-              synthetic: int = 0, num_devices: int = 1,
-              devices: Optional[Sequence[str]] = None) -> Dict[str, float]:
+              synthetic: int = 0, num_devices: int = 1
+              ) -> Dict[str, float]:
     """Evaluate checkpoint ``prefix``@``epoch`` on ``device`` (CUDA unless
     the caller asks for the CPU); returns the evaluator's numbers (VOC:
     the per-class APs and ``mAP``; COCO: AP, AP50, AP75, AP by area and
     AR_100).  ``out_dir`` receives the detection files; ``synthetic`` > 0
-    scores that many synthetic images.  ``num_devices`` > 1 (or a list of
-    ``devices``) splits each batch of ``test.batch_images`` x N across
-    that many devices (``parallel/dp.py — local_devices``)."""
+    scores that many synthetic images.  ``num_devices`` > 1 splits each
+    batch of ``test.batch_images`` x N across the first N cards (the CPU
+    N times when ``device`` is the CPU; ``parallel/dp.py —
+    local_devices``)."""
     dev = resolve_device(device)
     imdb, roidb = load_gt_roidb(cfg, image_set=image_set, training=False,
                                 synthetic=synthetic, **(dataset_kw or {}))
-    devs = local_devices(dev, num_devices, devices) \
-        if num_devices > 1 or devices else None
+    devs = local_devices(dev, num_devices) if num_devices > 1 else None
     loader = TestLoader(roidb, cfg, imdb.load_image,
                         batch_images=cfg.test.batch_images
                         * (len(devs) if devs else 1))

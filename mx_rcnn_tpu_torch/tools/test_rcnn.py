@@ -16,7 +16,7 @@ on the datasets ``tools/test.py`` reads, with its ``--num_devices``.
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Optional, Sequence
+from typing import Dict, Sequence
 
 from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
                                       parse_set_overrides)
@@ -35,19 +35,17 @@ def test_rcnn_stage(cfg: Config, *, prefix: str, epoch: int,
                     proposals: Sequence, image_set: str = None,
                     out_dir: str = None, verbose: bool = True,
                     dataset_kw: dict = None, save_dets: str = None,
-                    device="cuda", synthetic: int = 0, num_devices: int = 1,
-                    devices: Optional[Sequence[str]] = None
+                    device="cuda", synthetic: int = 0, num_devices: int = 1
                     ) -> Dict[str, float]:
     """Evaluate RCNN-stage checkpoint ``prefix``@``epoch`` on
     ``proposals`` (one raw-coordinate (k, 5) array per test-roidb record)
     on ``device`` (CUDA unless the caller asks for the CPU); returns the
     evaluator's numbers, as :func:`tools.test.test_rcnn` does, split
-    across ``num_devices`` or ``devices`` as it does."""
+    across ``num_devices`` as it does."""
     dev = resolve_device(device)
     imdb, roidb = load_gt_roidb(cfg, image_set=image_set, training=False,
                                 synthetic=synthetic, **(dataset_kw or {}))
-    devs = local_devices(dev, num_devices, devices) \
-        if num_devices > 1 or devices else None
+    devs = local_devices(dev, num_devices) if num_devices > 1 else None
     loader = ROITestLoader(roidb, cfg, imdb.load_image, proposals,
                            batch_images=cfg.test.batch_images
                            * (len(devs) if devs else 1))

@@ -76,6 +76,7 @@ from mx_rcnn_tpu_torch.ft.integrity import latest_valid_checkpoint
 from mx_rcnn_tpu_torch.parallel.dp import (World, check_replicas,
                                            default_backend, launch,
                                            local_devices, replicate)
+from mx_rcnn_tpu_torch.parallel.multihost import host_ranks
 from mx_rcnn_tpu_torch.tools import dataset_args, dataset_overrides
 from mx_rcnn_tpu_torch.utils.checkpoint import (config_fingerprint,
                                                 interrupt_path,
@@ -210,9 +211,8 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
 
 # the arguments of train_net that only its launcher reads; the others go
 # to every rank
-_LAUNCHER_ARGS = ("cfg", "num_devices", "dcn_size", "devices", "backend",
-                  "coordinator", "num_processes", "process_id", "world",
-                  "stop_flag", "log")
+_LAUNCHER_ARGS = ("cfg", "num_devices", "dcn_size", "coordinator",
+                  "num_processes", "process_id", "world", "stop_flag", "log")
 
 
 def train_net(cfg: Config, *, prefix: Optional[str] = None,
@@ -229,8 +229,6 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
               pretrained: Optional[str] = None, pretrained_epoch: int = 0,
               grad_accum: int = 1,
               num_devices: Optional[int] = None, dcn_size: int = 1,
-              devices: Optional[Sequence[str]] = None,
-              backend: Optional[str] = None,
               coordinator: Optional[str] = None, num_processes: int = 1,
               process_id: int = 0, world: Optional[World] = None,
               stop_flag: Optional[Callable[[], bool]] = None,
@@ -263,20 +261,22 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     checkpoint and returns.
 
     ``num_devices``: train on that many devices, one spawned process
-    each (see the module docstring); the ranks run this function with
-    their ``world``, rank 0 prints the log, ``stop_flag`` sends every rank
-    SIGTERM, and the returned state is None (the run's weights are in its
-    checkpoints).  ``devices`` and ``backend`` default to the first
-    ``num_devices`` cards over NCCL (the CPU over gloo when ``device`` is
-    the CPU); a test rig may name a card twice over gloo.  ``coordinator``,
-    ``num_processes`` and ``process_id``: this host's share of a world
-    spread over ``num_processes`` hosts.  ``dcn_size`` must divide the
-    world and is recorded (``parallel/dp.py``)."""
+    each (:func:`_launch_ranks`, see the module docstring): the first
+    ``num_devices`` cards over NCCL, or the CPU over gloo when ``device``
+    is the CPU; the ranks run this function with their ``world``, rank 0
+    prints the log, ``stop_flag`` sends every rank SIGTERM, and the
+    returned state is None (the run's weights are in its checkpoints).
+    ``coordinator``, ``num_processes`` and ``process_id``: this host's
+    share of a world spread over ``num_processes`` hosts.  ``dcn_size``
+    must divide the world and is recorded in each rank's ``World``; it
+    changes no number (``parallel/dp.py``)."""
     if world is None and num_devices is not None:
         kw = {k: v for k, v in locals().items() if k not in _LAUNCHER_ARGS}
-        return _launch_ranks(cfg, kw, num_devices, dcn_size, devices,
-                             backend, coordinator, num_processes, process_id,
-                             stop_flag, log)
+        return _launch_ranks(cfg, num_devices, dcn_size=dcn_size,
+                             coordinator=coordinator,
+                             num_processes=num_processes,
+                             process_id=process_id, stop_flag=stop_flag,
+                             log=log, **kw)
     if dcn_size > 1:
         raise ValueError(
             f"dcn_size={dcn_size} requires num_devices > 1 — the (dcn, "
@@ -365,64 +365,74 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     return state, metrics
 
 
-def _launch_ranks(cfg: Config, kw: dict, num_devices: int, dcn_size: int,
-                  devices, backend, coordinator, num_processes: int,
-                  process_id: int, stop_flag, log
+def _launch_ranks(cfg: Config, num_devices: int, *, dcn_size: int = 1,
+                  devices: Optional[Sequence[str]] = None,
+                  backend: Optional[str] = None,
+                  coordinator: Optional[str] = None, num_processes: int = 1,
+                  process_id: int = 0,
+                  stop_flag: Optional[Callable[[], bool]] = None,
+                  log: Callable[[str], None] = print, **kw
                   ) -> Tuple[None, Dict[str, float]]:
-    """:func:`train_net` over ``num_devices`` ranks: this host's share of
-    them spawned by :func:`parallel.dp.launch`, after the kernels and the
-    roidb were built here once."""
-    if num_devices < 1 or num_devices % num_processes:
-        raise ValueError(f"num_devices={num_devices} is not a multiple of "
-                         f"num_processes={num_processes}")
+    """:func:`train_net` over ``num_devices`` ranks, each given ``kw``
+    (the rest of :func:`train_net`'s arguments): this host's share of
+    them (``parallel/multihost.py — host_ranks``) spawned by
+    :func:`parallel.dp.launch`, after the kernels and the roidb were
+    built here once.  ``devices`` and ``backend`` default to the first
+    cards over NCCL (the CPU over gloo when ``kw['device']`` is the CPU);
+    a test rig names one card twice over gloo, and every line says so.
+    Logs each rank's final step and kernel launches."""
     if dcn_size > 1 and num_devices == 1:
         raise ValueError(
             f"dcn_size={dcn_size} requires num_devices > 1 — the (dcn, "
             f"ici) split only exists in multi-device training")
     if num_processes > 1 and not coordinator:
         raise ValueError("a world over several hosts needs a coordinator")
-    local = num_devices // num_processes
-    devs = local_devices(kw["device"], local, devices)
-    if len(devs) != local:
-        raise ValueError(f"{len(devs)} devices for {local} ranks")
+    ranks = host_ranks(num_devices, num_processes, process_id)
+    devs = local_devices(kw.get("device", "cuda"), len(ranks), devices)
+    if len(devs) != len(ranks):
+        raise ValueError(f"{len(devs)} devices for {len(ranks)} ranks")
     backend = backend or default_backend(devs[0])
     rig = backend != default_backend(devs[0])
     if any(d.startswith("cuda") for d in devs):
         from mx_rcnn_tpu_torch import kernels
 
         kernels.build_all()
-    if kw["roidb"] is None:
+    if kw.get("roidb") is None:
         # once here, so the ranks neither race on the gt_roidb cache nor
         # disagree on the records
         imdb, kw["roidb"] = load_gt_roidb(cfg, training=True,
-                                          synthetic=kw["synthetic"])
+                                          synthetic=kw.get("synthetic", 0))
         kw["load_image"] = imdb.load_image
-    log(f"[{kw['mode']}] launching ranks {process_id * local}.."
-        f"{process_id * local + local - 1} of {num_devices} on {devs}, "
+    mode = kw.get("mode", "e2e")
+    span = f"{ranks[0]}..{ranks[-1]}"
+    log(f"[{mode}] launching ranks {span} of {num_devices} on {devs}, "
         f"backend {backend}"
         + (" (a test rig: gloo on a card, not NCCL)" if rig else ""))
     results = launch(
-        _train_rank, local, devs, backend,
+        _train_rank, len(ranks), devs, backend,
         init_method=f"tcp://{coordinator}" if coordinator else None,
         args=(cfg, kw), timeout_s=None, stop_flag=stop_flag,
-        dcn_size=dcn_size, first_rank=process_id * local,
-        world_size=num_devices)
-    log(f"[{kw['mode']}] ranks {process_id * local}.."
-        f"{process_id * local + local - 1} ended at steps "
-        f"{[step for step, _ in results]}")
+        dcn_size=dcn_size, first_rank=ranks[0], world_size=num_devices)
+    log(f"[{mode}] ranks {span} ended at steps "
+        f"{[step for step, _, _ in results]}; kernel launches "
+        f"{[launches for _, _, launches in results]}")
     return None, results[0][1]
 
 
 def _train_rank(world: World, cfg: Config, kw: dict
-                ) -> Tuple[int, Dict[str, float]]:
+                ) -> Tuple[int, Dict[str, float], Dict[str, int]]:
     """One rank of :func:`_launch_ranks`: :func:`train_net` with its
     world, rank 0's log on stdout, and a SIGTERM stop flag of its own;
-    returns (the rank's final step, its last metrics)."""
+    returns the rank's final step, its last metrics and its kernel
+    launches (``kernels.launch_counts``: the whole run's, in a process
+    that ran nothing else)."""
+    from mx_rcnn_tpu_torch import kernels
+
     with sigterm_stop_flag() as stop_flag:
         state, metrics = train_net(cfg, world=world, stop_flag=stop_flag,
                                    log=lambda line: print(line, flush=True),
                                    **kw)
-    return state.step, metrics
+    return state.step, metrics, kernels.launch_counts()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -436,8 +446,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "global count across hosts); unset: one process, "
                         "no process group")
     p.add_argument("--dcn_size", type=int, default=1,
-                   help="hosts or slices of the world, recorded (it must "
-                        "divide --num_devices)")
+                   help="the JAX CLI's (dcn, ici) split: it must divide "
+                        "--num_devices and is shown in the ranks' log, but "
+                        "the all-reduce is flat over the world and NCCL "
+                        "picks its own algorithm, so it changes no number "
+                        "and no checkpoint records it")
     p.add_argument("--coordinator", default=None,
                    help="HOST:PORT where the ranks of a world over several "
                         "hosts meet (with --num_processes, --process_id)")

@@ -413,11 +413,48 @@ def test_multihost_maps_hosts_to_ranks():
             for r in range(4)] == list(range(8))
     with pytest.raises(ValueError):
         multihost.global_rank(0, 4, 4)
+    # the train CLI's share of each host, through the same map
+    assert [list(multihost.host_ranks(8, 2, p)) for p in range(2)] == \
+        [[multihost.global_rank(p, r, 4) for r in range(4)]
+         for p in range(2)]
+    assert list(multihost.host_ranks(3, 1, 0)) == [0, 1, 2]
+    with pytest.raises(ValueError, match="not a multiple"):
+        multihost.host_ranks(3, 2, 0)
+    with pytest.raises(ValueError, match="out of range"):
+        multihost.host_ranks(4, 2, 2)
     batch = _global_batches(4, 4)[0]
     world = dp.World(rank=1, size=2, device=CPU)
     got = multihost.local_image_slice([batch, batch], world)
     assert len(got) == 2
     np.testing.assert_array_equal(got[0].images, batch.images[2:])
+
+
+@pytest.mark.parametrize("init_method,pinned", [
+    ("file:///tmp/mx_rcnn_world/store", True),
+    ("tcp://localhost:29500", True),
+    ("tcp://127.0.0.1:29500", True),
+    ("tcp://node0.cluster:29500", False),
+    ("tcp://10.1.2.3:29500", False),
+])
+def test_only_a_local_world_pins_the_loopback_interface(init_method, pinned):
+    """A rank binds gloo and NCCL's bootstrap to ``lo`` only when every
+    rank must be on this host; a ``tcp://`` coordinator elsewhere leaves
+    the interface variables as the user set them (or unset)."""
+    want = ({"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}
+            if pinned else {})
+    assert dp.loopback_env(init_method) == want
+
+
+def test_a_rank_keeps_the_interface_the_user_named(monkeypatch):
+    """A spawned rank of a local launch sets the loopback interface only
+    where the environment names none."""
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "eth7")
+    got = dp.launch(workers.interface_env, 1, timeout_s=120)
+    assert got == [{"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "eth7"}]
+    monkeypatch.delenv("NCCL_SOCKET_IFNAME")
+    got = dp.launch(workers.interface_env, 1, timeout_s=120)
+    assert got == [{"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}]
 
 
 def test_two_hosts_each_launch_their_share_of_the_world(tmp_path):
@@ -458,7 +495,7 @@ def test_two_hosts_each_launch_their_share_of_the_world(tmp_path):
 def test_the_port_demo_agrees_across_two_processes():
     from mx_rcnn_tpu_torch.tools import multihost_demo
 
-    assert multihost_demo.launch(2, steps=2) == 0
+    assert multihost_demo.launch(2, steps=2, device="cpu") == 0
 
 
 def test_dryrun_multichip_on_two_cpu_ranks():
@@ -478,10 +515,13 @@ def test_too_few_cards_raise(monkeypatch):
                             synthetic=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    from mx_rcnn_tpu_torch.tools import multihost_demo
+
     for call in (lambda: train_cli.train_net(workers.small_config(),
                                              num_devices=2, synthetic=2),
                  lambda: test_rcnn(workers.small_config(), prefix="p",
-                                   epoch=1, synthetic=2, num_devices=2)):
+                                   epoch=1, synthetic=2, num_devices=2),
+                 lambda: multihost_demo.launch(2, steps=1)):
         with pytest.raises(RuntimeError, match="2 CUDA devices wanted but "
                            "torch.cuda.device_count\\(\\) is 1"):
             call()

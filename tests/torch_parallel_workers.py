@@ -174,3 +174,9 @@ def failing_rank(world: World, how: str) -> None:
 
 def rank_of(world: World) -> tuple:
     return world.rank, world.size, str(world.device), world.backend
+
+
+def interface_env(world: World) -> dict:
+    """The interface variables this rank ran with."""
+    return {k: os.environ.get(k)
+            for k in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME")}
