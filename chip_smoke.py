@@ -3689,7 +3689,7 @@ with t.sigterm_stop_flag() as stop:
                     stop_flag=stop,
                     log=lambda line: print(line, flush=True))
 """
-KERNEL_NAMES = ("nms_sweep", "roi_align_fwd", "roi_align_bwd")
+PATH_KERNELS = ("nms_sweep", "roi_align_fwd", "roi_align_bwd")
 
 
 def fit_numbers(text: str, epoch: int, images: int) -> dict:
@@ -3719,7 +3719,7 @@ def fit_numbers(text: str, epoch: int, images: int) -> dict:
 
 def check_launches(what: str, launches, ranks: int, steps: int) -> None:
     """Every rank launched K1, K2 and K3 once per step of the run."""
-    want = [dict.fromkeys(KERNEL_NAMES, steps)] * ranks
+    want = [dict.fromkeys(PATH_KERNELS, steps)] * ranks
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, want {want}")
 
@@ -3931,7 +3931,7 @@ def dp_rig(roidb, load_image, devices, backend: str, card: str,
                 f"bytes; peak {r['peak_gib']:.3f} GiB; launches per step "
                 f"{r['launches_per_step']}")
             if r["launches_per_step"] != dict.fromkeys(
-                    KERNEL_NAMES, float(accum)) or not all(
+                    PATH_KERNELS, float(accum)) or not all(
                         math.isfinite(v) for v in r["losses"]):
                 raise AssertionError(f"{what}: rank {r}")
         out[f"grad_accum_{accum}"] = ranks
