@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's detection forward, training step, checkpoints,
 evaluation, the alternate schedule, the serving engine, the
-real-dataset input plane, the long training run and data parallelism on
-one NVIDIA card.
+real-dataset input plane, the long training run, data parallelism and
+the device-resident training epoch on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -173,7 +173,29 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    --num_devices`` equal to one card's eval (else one line says why
    not); ``tools/multihost_demo.py`` on the cards (NCCL; a world of one
    on one card) and its refusal of more workers than cards;
-   ``dryrun_multichip(2)`` on the rig.
+   ``dryrun_multichip(2)`` on the rig;
+15. the device-resident epoch, the ninth main path (``tools/train.py
+   --device_cache`` → ``core/fit.py`` → ``data/device_cache.py``), on a
+   generated COCO tree (12 train2017 480x640 JPEGs and their flips: 24
+   records, one 608x1024 bucket) under ``_chip/cache``, ResNet-101, 81
+   classes, batch 2, bf16 with fp32 masters, deterministic cuDNN: (a)
+   the epoch staged on the card (its bytes, the memory it takes) and two
+   epochs of the shuffled gather, each taking every staged image once and
+   regrouping them; (b) one epoch at ``shuffle=False`` from the cache
+   byte-equal to the streamed epoch, K1/K2/K3 once a step; (d) three-epoch
+   runs at ``shuffle=True`` in turns cached, streamed, streamed, cached:
+   the second epoch timed (ms/step, images/s, the data-wait share), the
+   third traced (device time and busy share, host-to-device copies and
+   bytes a step: a cached step copies none of a batch), K1/K2/K3 once a
+   step, the two cached runs byte-equal; (c) ``tools/train.py
+   --device_cache`` for two epochs in processes of their own: straight,
+   and stopped by SIGTERM mid-epoch then ``--resume auto``, byte-equal;
+   (e) the phase 14 rig (two ranks over gloo on cuda:0) cached against
+   streamed at ``shuffle=False`` (byte-equal), each rank's shuffled
+   epochs its own shard once, and the NCCL world of one's cached run
+   byte-equal to (b)'s; (f) ``tools/train.py --dataset synthetic_hard
+   --device_cache --dataset_kw "{'num_images': 16}"``, 4 steps, exit 0;
+   (g) ``tools/data_bench.py --smoke --check`` on the card, exit 0.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -183,7 +205,7 @@ at the training shapes); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
-directory and remove them at their end, and phases 13 and 14 their
+directory and remove them at their end, and phases 13–15 their
 weight files, checkpoints and datasets likewise.
 """
 
@@ -196,6 +218,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -4387,6 +4410,566 @@ def phase_data_parallel(dev, card: str) -> dict:
                 dryrun=dry, parts_s=parts, wall_s=wall)
 
 
+CACHE_DIR = REPO / "_chip" / "cache"  # trees, the hard set, checkpoints
+CACHE_TRAIN_IMAGES = 12    # train2017 480x640 JPEGs: 24 records, one bucket
+CACHE_SIGTERM_AT = 5       # the SIGTERM run's signal after Epoch[1] Batch [5]
+# the rig's two ranks over gloo, in a process of their own: no argument
+# of a spawned rank may be a closure, so the config travels as overrides
+CACHE_OVER = dict(train__batch_images=2)
+
+
+def cache_config(**over):
+    """ResNet-101, 81 COCO classes, batch 2, bf16 with fp32 masters (the
+    preset), over the phase's COCO tree."""
+    from mx_rcnn_tpu_torch.config import generate_config
+
+    return generate_config("resnet101", "coco",
+                           dataset__root_path=str(CACHE_DIR),
+                           dataset__dataset_path=str(CACHE_DIR / "coco"),
+                           **{**CACHE_OVER, **over})
+
+
+def state_sha256(state) -> str:
+    """SHA-256 over every weight, buffer and momentum trace, in name
+    order, and the step."""
+    import torch
+
+    h = hashlib.sha256()
+    sd = state.model.state_dict()
+    tensors = [sd[k] for k in sorted(sd)] + [
+        state.optimizer.trace[k] for k in sorted(state.optimizer.trace)]
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    h.update(str(state.step).encode())
+    return h.hexdigest()
+
+
+def stage_epoch(dev, cfg, roidb, load_image) -> tuple:
+    """Step (a): the training plan's epoch 0 staged on the card by
+    ``build_caches``: its bytes, the memory it takes, the time."""
+    import torch
+
+    from mx_rcnn_tpu_torch.data.device_cache import build_caches
+    from mx_rcnn_tpu_torch.data.loader import StreamLoader
+
+    loader = StreamLoader(roidb, cfg, load_image, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    caches = build_caches(loader, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(caches) != 1:
+        raise AssertionError(f"{len(caches)} buckets staged, want 1")
+    cache = caches[0]
+    images = cache.num_images * BUCKET[0] * BUCKET[1] * 3
+    res = dict(batches=cache.num_batches, images=cache.num_images,
+               nbytes=cache.nbytes, image_bytes=images,
+               resident_bytes=torch.cuda.memory_allocated(dev) - before,
+               peak_bytes=torch.cuda.max_memory_allocated(dev) - before,
+               stage_s=wall)
+    log(f"device cache: {cache.num_batches} batches of "
+        f"{cache.batch_images} images staged on {dev} in {wall:.2f} s "
+        f"(decode included): nbytes {cache.nbytes} ({images} of them "
+        f"uint8 images), {res['resident_bytes']} bytes resident, peak "
+        f"{res['peak_bytes']} above the start")
+    if cache.num_batches != len(roidb) // 2 or \
+            cache.data.images.dtype != torch.uint8 or \
+            res["resident_bytes"] < cache.nbytes:
+        raise AssertionError(f"the staged epoch: {res}")
+    return cache, res
+
+
+def flat_positions(cache, images) -> list:
+    """The staged positions of ``images`` (a gathered batch's), each
+    found by its bytes."""
+    import torch
+
+    flat = cache.data.images.flatten(0, 1)
+    return [next(j for j in range(len(flat)) if torch.equal(flat[j], img))
+            for img in images]
+
+
+def cache_regroups(cache, make_step, epochs: int = 2) -> list:
+    """Step (c), the gather: ``epochs`` epochs of the cached step at
+    ``shuffle=True`` (seed 0) over ``cache`` with a step that records the
+    staged positions of the images it is given.  Each epoch must take
+    every staged image once; the batches' composition must change
+    between epochs."""
+
+    class Stub:
+        step, seed = 0, 0
+
+    seen = []
+
+    def spy(stub, batch):
+        seen.extend(flat_positions(cache, batch.images))
+        stub.step += 1
+
+    step = make_step(spy, cache)
+    stub = Stub()
+    for _ in range(epochs * cache.num_batches):
+        step(stub, cache)
+    n, bi = cache.num_images, cache.batch_images
+    order = [seen[e * n:(e + 1) * n] for e in range(epochs)]
+    comps = [{frozenset(o[i:i + bi]) for i in range(0, n, bi)}
+             for o in order]
+    if any(sorted(o) != list(range(n)) for o in order) or \
+            len({frozenset(c) for c in comps}) != epochs:
+        raise AssertionError(f"the shuffled gather: {order}")
+    return order
+
+
+def cache_train(cfg, dev, roidb, load_image, device_cache: bool,
+                out: Path):
+    """One epoch of ``train_net`` from seed 0 over ``roidb``, every
+    launch count set to 0 just before: (final state's SHA-256, launches,
+    log text)."""
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools.train import train_net
+
+    lines = []
+    kernels.reset_launch_counts()
+    state, _ = train_net(cfg, roidb=roidb, load_image=load_image,
+                         end_epoch=1, seed=0, device=dev, frequent=1,
+                         device_cache=device_cache, log=lines.append)
+    launches = kernels.launch_counts()
+    sha = state_sha256(state)
+    text = "\n".join(lines)
+    out.write_text(text + "\n")
+    return sha, launches, text
+
+
+def cache_equals_streaming(dev, roidb, load_image, card: str) -> dict:
+    """Step (b): one epoch at ``shuffle=False`` streamed and from the
+    device cache, from one state and seed: the end states byte-equal,
+    K1/K2/K3 once a cached step."""
+    cfg = cache_config(train__shuffle=False)
+    steps = len(roidb) // 2
+    runs = {}
+    for cached in (False, True):
+        runs[cached] = cache_train(cfg, dev, roidb, load_image, cached,
+                                   OUT_DIR / f"cache_b_{cached}.txt")
+    equal = runs[True][0] == runs[False][0]
+    log(f"one epoch of {steps} steps at shuffle=False ({card}), ResNet-101 "
+        f"bf16, batch 2: cached end state byte-equal to streamed {equal} "
+        f"(SHA-256 {runs[True][0][:16]}); cached launches {runs[True][1]}")
+    if not equal:
+        raise AssertionError("the cached epoch differs from the streamed one")
+    check_launches("the cached epoch", [runs[True][1]], 1, steps)
+    return dict(steps=steps, byte_equal=equal, sha256=runs[True][0],
+                launches=runs[True][1])
+
+
+def cache_sigterm(card: str) -> dict:
+    """Step (c), the runs: two epochs at ``shuffle=True`` from the cache
+    through ``tools/train.py`` in processes of their own: straight, and
+    stopped by SIGTERM after ``Epoch[1] Batch [CACHE_SIGTERM_AT]`` (exit
+    0, an interrupt checkpoint) then ``--resume auto`` to the end: the
+    epoch-2 checkpoints byte-equal."""
+    import signal
+
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    interrupt_path,
+                                                    read_manifest)
+
+    base = ["--network", "resnet101", "--dataset", "coco", "--root_path",
+            str(CACHE_DIR), "--dataset_path", str(CACHE_DIR / "coco"),
+            "--batch_images", "2", "--seed", "0", "--frequent", "1",
+            "--end_epoch", "2", "--device_cache"]
+    straight, prefix = str(CACHE_DIR / "straight"), str(CACHE_DIR / "sig")
+    t0 = time.perf_counter()
+    _train_process(base + ["--prefix", straight],
+                   OUT_DIR / "cache_straight.txt")
+    straight_s = time.perf_counter() - t0
+    err_path = OUT_DIR / "cache_sigterm.err"
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen([sys.executable, "-c", TRAIN_PROCESS, *base,
+                                 "--prefix", prefix], cwd=REPO,
+                                stdout=subprocess.PIPE, stderr=err_file,
+                                text=True)
+        lines, sent = [], None
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if sent is None and line.startswith(
+                        f"Epoch[1] Batch [{CACHE_SIGTERM_AT}]"):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.perf_counter()
+            rc = proc.wait(timeout=300)
+        finally:
+            proc.kill()
+            proc.wait()
+    stop_s = time.perf_counter() - (sent or t0)
+    (OUT_DIR / "cache_sigterm.txt").write_text("".join(lines))
+    manifest = read_manifest(interrupt_path(prefix)) or {}
+    if rc != 0 or sent is None or manifest.get("kind") != "interrupt" or \
+            not 12 < manifest.get("step", 0) < 24:
+        raise AssertionError(f"the SIGTERM run: exit {rc}, manifest "
+                             f"{manifest}\n{err_path.read_text()[-3000:]}")
+    t0 = time.perf_counter()
+    _train_process(base + ["--prefix", prefix, "--resume", "auto"],
+                   OUT_DIR / "cache_resume.txt")
+    resume_s = time.perf_counter() - t0
+    text = (OUT_DIR / "cache_resume.txt").read_text()
+    got, want = (_sha256(checkpoint_path(p, 2)) for p in (prefix, straight))
+    log(f"SIGTERM to the cached run ({card}) after Epoch[1] Batch "
+        f"[{CACHE_SIGTERM_AT}]: exit {rc}, {stop_s:.2f} s to the exit, "
+        f"interrupt at step {manifest['step']}; --resume auto "
+        f"({resume_s:.1f} s): epoch 2 byte-equal to the straight run "
+        f"({straight_s:.1f} s) {got == want}")
+    if got != want or "resumed mid-epoch from verified" not in text or \
+            "skipping" not in text:
+        raise AssertionError("the resumed cached run differs from the "
+                             "straight one")
+    return dict(straight_s=straight_s, sigterm_exit=rc,
+                signal_to_exit_s=stop_s, interrupt_step=manifest["step"],
+                resume_s=resume_s, byte_equal=True)
+
+
+def h2d_copies(prof, iters: int) -> dict:
+    """Host-to-device copies per step in a finished device trace: their
+    count, and their bytes from the exported Chrome trace (None where the
+    trace gives none)."""
+    from torch.autograd import DeviceType
+
+    count = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "HtoD" in e.key)
+    path = CACHE_DIR / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    path.unlink()
+    sizes = [e.get("args", {}).get("bytes") for e in events
+             if "HtoD" in str(e.get("name", "")) and e.get("ph") == "X"
+             and "memcpy" in str(e.get("cat", "")).lower()]
+    nbytes = (sum(sizes) / iters
+              if sizes and all(s is not None for s in sizes) else None)
+    return dict(h2d_copies_per_step=count / iters,
+                h2d_bytes_per_step=nbytes,
+                h2d_sizes=sorted(set(s for s in sizes if s is not None)))
+
+
+def cache_run(cfg, dev, roidb, load_image, cached: bool, out: Path,
+              label: str) -> dict:
+    """Step (d), one run: three epochs of ``train_net`` over the COCO
+    tree, cached or streamed, every launch count set to 0 just before;
+    the second epoch timed as it runs (ms/step, images/s, data-wait
+    share), the third under a device-only profiler trace (device time,
+    busy share, host-to-device copies per step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools.train import train_net
+
+    lines = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def collect(line):
+        lines.append(line)
+        if re.match(r"Epoch\[1\] \d+ steps in", line):
+            prof.start()
+        elif re.match(r"Epoch\[2\] \d+ steps in", line):
+            torch.cuda.synchronize()
+            prof.stop()
+
+    kernels.reset_launch_counts()
+    state, _ = train_net(cfg, roidb=roidb, load_image=load_image,
+                         end_epoch=3, frequent=4, seed=0, device=dev,
+                         device_cache=cached, log=collect)
+    launches = kernels.launch_counts()
+    sha = state_sha256(state)
+    del state
+    text = "\n".join(lines)
+    out.write_text(text + "\n")
+    warm, traced = epoch_line(text, 1, label), epoch_line(text, 2, label)
+    trace = trace_summary(prof, traced["steps"])
+    res = dict(warm, traced_ms_per_step=traced["ms_per_step"],
+               traced_data_wait_share=traced["data_wait_share"],
+               device_ms_per_step=trace["device_ms_per_iter"],
+               copy_ms_per_step=trace["copy_ms_per_iter"],
+               busy_share=busy_share(trace, traced["ms_per_step"]),
+               kernels_per_step=trace["kernels_per_iter"],
+               launches=launches, sha256=sha,
+               **h2d_copies(prof, traced["steps"]))
+    log(f"{label}: epoch 2 {res['ms_per_step']:.2f} ms/step, "
+        f"{res['images_per_s']:.2f} images/s, data wait "
+        f"{100 * res['data_wait_share']:.2f}%; epoch 3 traced: "
+        f"{res['traced_ms_per_step']:.2f} ms/step, "
+        f"{res['device_ms_per_step']:.3f} ms of device time a step, busy "
+        f"share {res['busy_share']}, host-to-device copies a step "
+        f"{res['h2d_copies_per_step']:.2f} ({res['h2d_bytes_per_step']} "
+        f"bytes; sizes {res['h2d_sizes'][:8]}); launches {launches}")
+    return res
+
+
+def cache_turns(dev, roidb, load_image, card: str) -> dict:
+    """Step (d): cached and streamed runs in turns (cached, streamed,
+    streamed, cached) at ``shuffle=True``, with this phase's
+    deterministic cuDNN: the two cached runs end byte-equal (step c's
+    "two runs"), each run launches K1/K2/K3 once a step, and a cached
+    step copies none of a batch's bytes from the host (the copies left
+    are the step's own small constants, as in the streamed step)."""
+    cfg = cache_config()
+    steps = 3 * (len(roidb) // 2)
+    g = cfg.train.max_gt_boxes
+    # a batch's five tensors: images, im_info, gt boxes, classes, valid
+    fields = {2 * BUCKET[0] * BUCKET[1] * 3, 2 * 3 * 4, 2 * g * 4 * 4,
+              2 * g * 4, 2 * g}
+    batch_bytes = sum(fields)
+    runs = {"cached": [], "streamed": []}
+    for i, cached in enumerate((True, False, False, True)):
+        kind = "cached" if cached else "streamed"
+        runs[kind].append(cache_run(
+            cfg, dev, roidb, load_image, cached,
+            OUT_DIR / f"cache_turn_{i}_{kind}.txt",
+            f"{kind} run {i} ({card}), ResNet-101 bf16 batch 2"))
+    for kind, rs in runs.items():
+        for r in rs:
+            check_launches(f"the {kind} run", [r["launches"]], 1, steps)
+    c, s = runs["cached"], runs["streamed"]
+    if c[0]["sha256"] != c[1]["sha256"] or \
+            s[0]["sha256"] != s[1]["sha256"]:
+        raise AssertionError("two runs of one kind differ")
+    # the trace sees a streamed step's data copies, and a cached step
+    # copies none of a batch's tensors: what it copies is the step's own
+    # few constants (small tensors made from Python numbers), in both
+    cached_n = max(r["h2d_copies_per_step"] for r in c)
+    streamed_n = min(r["h2d_copies_per_step"] for r in s)
+    cached_b = max(r["h2d_bytes_per_step"] or 0 for r in c)
+    streamed_b = min(r["h2d_bytes_per_step"] or 0 for r in s)
+    cached_sizes = set().union(*(r["h2d_sizes"] for r in c))
+    if not all(fields <= set(r["h2d_sizes"]) for r in s) or \
+            cached_sizes & fields or cached_b >= 1024:
+        raise AssertionError(f"a cached step copies from the host: "
+                             f"{cached_n} copies, {cached_b} bytes a step, "
+                             f"sizes {sorted(cached_sizes)} (streamed "
+                             f"{streamed_n}, {streamed_b}; a batch's "
+                             f"tensors {sorted(fields)})")
+    med = lambda rs, k: statistics.median(r[k] for r in rs)  # noqa: E731
+    out = dict(runs=runs, batch_bytes=batch_bytes,
+               cached_h2d_sizes=sorted(cached_sizes),
+               cached_ms_per_step=med(c, "ms_per_step"),
+               streamed_ms_per_step=med(s, "ms_per_step"),
+               cached_data_wait=med(c, "data_wait_share"),
+               streamed_data_wait=med(s, "data_wait_share"),
+               cached_h2d_bytes_per_step=cached_b,
+               streamed_h2d_bytes_per_step=streamed_b,
+               cached_h2d_copies_per_step=cached_n,
+               streamed_h2d_copies_per_step=streamed_n)
+    log(f"cached against streamed ({card}): {out['cached_ms_per_step']:.2f} "
+        f"against {out['streamed_ms_per_step']:.2f} ms/step (medians of 2 "
+        f"runs each), data wait {100 * out['cached_data_wait']:.2f}% "
+        f"against {100 * out['streamed_data_wait']:.2f}%, host-to-device "
+        f"copies a step {cached_n:.2f} against {streamed_n:.2f}, bytes "
+        f"{cached_b} against {streamed_b} (a batch: {batch_bytes})")
+    return out
+
+
+def cache_rig_rank(world, over: dict, roidb, load_image) -> dict:
+    """Step (e) on one rank: ``train_net`` in this world for one epoch at
+    ``shuffle=False``, streamed and cached (the final states' SHA-256 and
+    the cached run's launches), then this rank's row shard staged at
+    ``shuffle=True`` and two epochs of ``make_dp_cached_step`` over it
+    with a recording step (the staged (index, flipped) identities each
+    epoch took)."""
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.data.device_cache import build_caches
+    from mx_rcnn_tpu_torch.data.loader import StreamLoader
+    from mx_rcnn_tpu_torch.parallel.dp import make_dp_cached_step
+    from mx_rcnn_tpu_torch.tools.train import train_net
+
+    cfg = cache_config(**over)
+    out = {"rank": world.rank, "device": str(world.device),
+           "backend": world.backend}
+    for cached in ((False, True) if world.size > 1 else (True,)):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, _ = train_net(cfg.replace_in("train", shuffle=False),
+                             world=world, roidb=roidb, load_image=load_image,
+                             end_epoch=1, seed=0, device=world.device,
+                             device_cache=cached, log=lambda line: None)
+        out[f"cached_{cached}"] = dict(
+            sha256=state_sha256(state), steps=state.step,
+            launches=kernels.launch_counts(), wall_s=time.perf_counter() - t0)
+        del state
+    if world.size == 1:
+        return out
+    loader = StreamLoader(roidb, cfg, load_image,
+                          batch_images=world.size * cfg.train.batch_images,
+                          seed=0, shard=(world.rank, world.size))
+    loader.record_decodes()
+    (cache,) = build_caches(loader, device=world.device)
+    order = cache_regroups(
+        cache, lambda spy, c: make_dp_cached_step(spy, world, c, True))
+    out["staged"] = list(loader.decoded_ids)
+    out["epochs"] = [[out["staged"][j] for j in o] for o in order]
+    return out
+
+
+def cache_worlds(roidb, load_image, cached_sha: str, card: str) -> dict:
+    """Step (e): the phase 14 rig (two ranks over gloo on cuda:0 twice)
+    cached against streamed at ``shuffle=False`` (byte-equal states),
+    each rank's ``shuffle=True`` epochs its own shard exactly once; then
+    the NCCL world of one's cached run against step (b)'s plain cached
+    run (byte-equal)."""
+    from mx_rcnn_tpu_torch.data.loader import StreamLoader
+    from mx_rcnn_tpu_torch.parallel.dp import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(cache_rig_rank, 2, DP_RIG, "gloo",
+                   args=(CACHE_OVER, roidb, load_image), timeout_s=600)
+    rig_s = time.perf_counter() - t0
+    shas = {r[f"cached_{c}"]["sha256"] for r in ranks for c in (False, True)}
+    steps = ranks[0]["cached_True"]["steps"]
+    staged = [r["staged"] for r in ranks]
+    own_once = all(sorted(e) == sorted(r["staged"])
+                   for r in ranks for e in r["epochs"])
+    # the union of the shards is epoch 0's global plan
+    plan = StreamLoader(roidb, cache_config(), load_image, batch_images=4,
+                        seed=0)._plan(0, 4)
+    split = sorted(staged[0] + staged[1]) == sorted(
+        (int(roidb[i]["index"]), bool(roidb[i]["flipped"]))
+        for _, idx in plan for i in idx)
+    launches = [r["cached_True"]["launches"] for r in ranks]
+    log(f"two ranks over gloo on cuda:0 twice (a test rig; {card}), 2 "
+        f"images a rank, {steps} steps at shuffle=False: cached world "
+        f"byte-equal to the streamed world {len(shas) == 1}; at "
+        f"shuffle=True each rank's epochs take its own {len(staged[0])} "
+        f"staged images once {own_once}, the shards split the epoch "
+        f"{split}; launches per rank {launches} ({rig_s:.1f} s)")
+    if len(shas) != 1 or not own_once or not split:
+        raise AssertionError(f"the cached rig: {ranks}")
+    check_launches("the cached rig", launches, 2, steps)
+    t0 = time.perf_counter()
+    (one,) = launch(cache_rig_rank, 1, ["cuda:0"], "nccl",
+                    args=(CACHE_OVER, roidb, load_image), timeout_s=600)
+    nccl_s = time.perf_counter() - t0
+    equal = one["cached_True"]["sha256"] == cached_sha
+    log(f"the NCCL world of one ({card}), cached, shuffle=False: byte-equal "
+        f"to the plain cached run {equal} ({nccl_s:.1f} s); launches "
+        f"{one['cached_True']['launches']}")
+    if not equal:
+        raise AssertionError("the NCCL world of one's cached run differs")
+    check_launches("the cached NCCL world of one",
+                   [one["cached_True"]["launches"]], 1,
+                   one["cached_True"]["steps"])
+    return dict(rig=ranks, rig_s=rig_s, nccl_world_of_one=one,
+                nccl_s=nccl_s)
+
+
+def cache_hard_cli(card: str) -> dict:
+    """Step (f): ``tools/train.py --dataset synthetic_hard --device_cache
+    --dataset_kw "{'num_images': 16}"`` in a process of its own: 4
+    ResNet-101 steps from the staged 240x320 bucket at phase 10's lr
+    1e-4 (random weights), exit 0."""
+    t0 = time.perf_counter()
+    res = _train_process(
+        ["--network", "resnet101", "--dataset", "synthetic_hard",
+         "--root_path", str(CACHE_DIR), "--dataset_path",
+         str(CACHE_DIR / "synthetic_hard"), "--dataset_kw",
+         "{'num_images': 16}", "--device_cache", "--batch_images", "2",
+         "--steps", "4", "--frequent", "1", "--lr", SCHEDULE_LR],
+        OUT_DIR / "cache_hard_cli.txt")
+    wall = time.perf_counter() - t0
+    staged = _parse(r"device cache: (\d+) batches of (\d+) images", res.stdout,
+                    "device cache line")
+    final = _parse(r"^final .*loss=([-0-9.naif]+)$", res.stdout.strip()
+                   .splitlines()[-1], "final line")
+    speeds = res.stdout.count(" Speed: ")
+    log(f"tools/train.py --dataset synthetic_hard --device_cache ({card}): "
+        f"{staged.group(1)} batches of {staged.group(2)} staged, {speeds} "
+        f"steps, final loss {final.group(1)}, exit 0 in {wall:.1f} s")
+    if staged.group(1) != "16" or speeds != 4 or \
+            not math.isfinite(float(final.group(1))):
+        raise AssertionError(f"the hard-set CLI run:\n{res.stdout[-2000:]}")
+    return dict(wall_s=wall, batches=int(staged.group(1)), steps=speeds,
+                final_loss=float(final.group(1)))
+
+
+def cache_data_bench(card: str) -> dict:
+    """Step (g): ``tools/data_bench.py --smoke --check`` on the card, in a
+    process of its own; its record goes to the results."""
+    t0 = time.perf_counter()
+    record = OUT_DIR / "data_bench.json"
+    res = subprocess.run(
+        [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.data_bench",
+         "--smoke", "--check", "--root_path", str(CACHE_DIR), "--out",
+         str(record)], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    (OUT_DIR / "data_bench.txt").write_text(res.stdout + res.stderr)
+    if res.returncode:
+        raise AssertionError(f"data_bench --smoke --check: exit "
+                             f"{res.returncode}\n{res.stderr[-3000:]}")
+    rec = json.loads(record.read_text())
+    se = rec["stream_epoch"]
+    log(f"tools/data_bench.py --smoke --check on {se['device']} ({card}): "
+        f"exit 0 in {wall:.1f} s; streaming epoch {se['images']} images at "
+        f"{se['imgs_per_sec']:.1f} images/s, stager hits "
+        f"{se['stage']['hits']} / misses {se['stage']['misses']}, peak RSS "
+        f"{se['peak_rss_mb']:.0f} MiB; control data wait p50 "
+        f"{rec['control']['data_wait_frac_p50']}; checks {rec['checks']}")
+    return dict(wall_s=wall, record=rec)
+
+
+def phase_device_cache(dev, card: str) -> dict:
+    """Phase 15 (see the module docstring), its files under
+    ``_chip/cache``, removed at the end."""
+    import torch
+
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.device_cache import make_cached_step
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    CACHE_DIR.mkdir(parents=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # seed 7: every image has a gt box, so 24 records, 12 steps
+        write_coco_tree(CACHE_DIR, seed=7, counts=(CACHE_TRAIN_IMAGES, 1))
+        imdb, roidb = load_gt_roidb(cache_config(), training=True)
+        load_image = imdb.load_image
+        cache, staged = stage_epoch(dev, cache_config(), roidb, load_image)
+        order = cache_regroups(cache, lambda spy, c: make_cached_step(
+            spy, c.num_batches, True))
+        del cache
+        torch.cuda.empty_cache()
+        done("generate, stage, gather")
+        plain = cache_equals_streaming(dev, roidb, load_image, card)
+        done("cached = streamed")
+        turns = cache_turns(dev, roidb, load_image, card)
+        done("cached and streamed in turns")
+        sigterm = cache_sigterm(card)
+        done("SIGTERM and resume")
+        worlds = cache_worlds(roidb, load_image, plain["sha256"], card)
+        done("rig and NCCL world of one")
+        hard = cache_hard_cli(card)
+        done("hard-set CLI")
+        bench = cache_data_bench(card)
+        done("data_bench")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 15 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(staged=staged, shuffled_orders=order, cached_equals=plain,
+                turns=turns, sigterm=sigterm, worlds=worlds, hard_cli=hard,
+                data_bench=bench, parts_s=parts, wall_s=wall)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -4444,6 +5027,7 @@ def main() -> int:
     real_data = phase_real_data(dev, card)
     long_run = phase_long_run(dev, card, alternate)
     data_parallel = phase_data_parallel(dev, card)
+    device_cache = phase_device_cache(dev, card)
 
     # no single PyTorch call computes any of the three functions (the
     # repo's bilinear rules are not torchvision's, which is absent), so
@@ -4460,7 +5044,7 @@ def main() -> int:
         forward_parity=parity, train_parity=train_parity, serving=serving,
         training=training, evaluation=evaluation, alternate=alternate,
         engine=engine, real_data=real_data, long_run=long_run,
-        data_parallel=data_parallel), indent=1))
+        data_parallel=data_parallel, device_cache=device_cache), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -34,10 +34,21 @@ loop needs no such step, because its step is one collective program; a
 rank that stopped alone here would leave the others blocked in the next
 all-reduce.  A normal return ends with a barrier, so that no rank tears
 the group down while rank 0 still writes.
+
+With ``device_cache`` the loader runs once, its epoch 0 is staged on the
+device (``data/device_cache.py``), and every step gathers its batch there
+by the state's step: no stager, no host batch, a data wait of about 0.
+It takes a one-bucket epoch and one batch per step (``grad_accum`` 1);
+each rank of a data-parallel run stages its own row shard
+(``parallel/dp.py — make_dp_cached_step``).  ``profile_dir`` records
+steps [skip+2, skip+5) of the first epoch with ``torch.profiler`` into a
+Chrome trace there (the JAX loop's ``jax.profiler`` window).
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import time
 from typing import Callable, Dict, Iterator, List, Optional
 
@@ -45,9 +56,12 @@ import torch
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.train import TrainState, to_device
+from mx_rcnn_tpu_torch.data.device_cache import (build_caches,
+                                                 make_cached_step)
 from mx_rcnn_tpu_torch.data.staging import DeviceStager
 from mx_rcnn_tpu_torch.ft.snapshot import make_snapshotter
-from mx_rcnn_tpu_torch.parallel.dp import World, any_rank
+from mx_rcnn_tpu_torch.parallel.dp import (World, any_rank,
+                                           make_dp_cached_step)
 from mx_rcnn_tpu_torch.utils.checkpoint import make_topology
 
 _END = object()
@@ -107,13 +121,64 @@ def _accum_iter(batches: Iterator, grad_accum: int) -> Iterator[list]:
         yield group
 
 
+def _stage_epoch(loader, step_fn, world: World, grad_accum: int,
+                 log: Callable[[str], None]):
+    """The device-cache path: the loader's epoch 0 staged on this rank's
+    device, and ``step_fn`` wrapped to gather from it.  Refuses what the
+    cache cannot feed: several buckets, several batches a step."""
+    if grad_accum > 1:
+        raise ValueError(
+            "device_cache does not compose with grad_accum > 1 (the device "
+            "epoch cache gathers exactly one batch per step); use the "
+            "streaming loader")
+    loader.set_epoch(0)
+    caches = build_caches(loader, device=world.device)
+    if len(caches) != 1:
+        raise ValueError(
+            f"device_cache needs a single-bucket dataset (got {len(caches)} "
+            f"buckets); use the streaming loader")
+    cache = caches[0]
+    if world.group is None:
+        step = make_cached_step(step_fn, cache.num_batches, loader.shuffle)
+    else:
+        step = make_dp_cached_step(step_fn, world, cache, loader.shuffle)
+    log(f"device cache: {cache.num_batches} batches of "
+        f"{cache.batch_images} images staged on {world.device} "
+        f"({cache.nbytes / 1e6:.1f} MB), shuffle={loader.shuffle}")
+    return cache, step
+
+
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, world: World,
+                  log: Callable[[str], None]) -> None:
+    if world.device.type == "cuda":
+        torch.cuda.synchronize(world.device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json" if world.size == 1
+                        else f"trace-rank{world.rank}.json")
+    prof.export_chrome_trace(path)
+    log(f"profiler trace written to {path}")
+
+
 def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
         begin_epoch: int = 0, prefix: Optional[str] = None,
         max_steps: Optional[int] = None, frequent: Optional[int] = None,
         log: Callable[[str], None] = print,
         stop_flag: Optional[Callable[[], bool]] = None,
         grad_accum: int = 1, data_cursor: Optional[Dict] = None,
-        world: Optional[World] = None) -> Dict[str, float]:
+        world: Optional[World] = None, device_cache: bool = False,
+        profile_dir: Optional[str] = None) -> Dict[str, float]:
     """Run epochs ``begin_epoch .. end_epoch - 1``, saving a checkpoint
     under ``prefix`` (when given) after each whole one; ``max_steps`` ends
     the run early, and an epoch it cuts is not saved.  ``step_fn`` takes
@@ -123,8 +188,10 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
     ``loader_batch_images`` and ``images_consumed_in_epoch`` of the run
     that wrote it.  ``world``: this rank's place in a data-parallel run,
     whose ``loader`` has the global plan and yields this rank's rows (a
-    world of one by default).  Returns the last log window's mean
-    metrics."""
+    world of one by default).  ``device_cache``: stage the epoch on the
+    device and gather each step's batch there; ``profile_dir``: trace
+    three steps of the first epoch there (module docstring).  Returns the
+    last log window's mean metrics."""
     if len(loader) == 0:
         raise ValueError("the loader yields no full batch")
     if grad_accum > len(loader):
@@ -147,15 +214,20 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
     done = state.step
     step = 0
     stager = None
+    prof = None
     failed = False
+    cache = None
     try:
+        if device_cache:
+            cache, step_fn = _stage_epoch(loader, step_fn, world,
+                                          grad_accum, log)
         for epoch in range(begin_epoch, end_epoch):
             loader.set_epoch(epoch)
             skip = 0
             if epoch == begin_epoch:
                 skip = min(max(done - epoch * steps_per_epoch, 0),
                            steps_per_epoch)
-            if skip:
+            if skip and cache is None:
                 cur = data_cursor or {}
                 if hasattr(loader, "resume_at"):
                     loader.resume_at(
@@ -164,11 +236,15 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                         cur.get("loader_batch_images"))
                 else:
                     loader.skip_next_batches(skip * grad_accum)
+            if skip:
                 log(f"Epoch[{epoch}] resuming mid-epoch: skipping {skip} "
                     f"consumed steps")
             window: List[Dict[str, torch.Tensor]] = []
             nbatch = skip - 1
-            if cfg.data.staging:
+            if cache is not None:
+                # the step gathers by state.step, past the skipped prefix
+                batches = itertools.repeat(cache, steps_per_epoch - skip)
+            elif cfg.data.staging:
                 stager = DeviceStager(loader, device, cfg.data.stage_depth)
                 batches = iter(stager)
             else:
@@ -185,8 +261,14 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                     break
                 wait_epoch += wait_s
                 nbatch += 1
+                if (profile_dir is not None and epoch == begin_epoch
+                        and nbatch == skip + 2):
+                    prof = _start_profile(world.device)
                 window.append(step_fn(state, batch))
                 step += 1
+                if prof is not None and nbatch == skip + 4:
+                    _stop_profile(prof, profile_dir, world, log)
+                    prof = None
                 stop = step == max_steps
                 interrupt = any_rank(stop_flag is not None and stop_flag(),
                                      world)
@@ -217,6 +299,9 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
             if stager is not None:
                 stager.close()
                 stager = None
+            if prof is not None:  # an epoch shorter than the window
+                _stop_profile(prof, profile_dir, world, log)
+                prof = None
             wall = time.perf_counter() - t_epoch
             log(f"Epoch[{epoch}] {nbatch + 1 - skip} steps in {wall:.3f} s, "
                 f"data wait {wait_epoch:.3f} s "
@@ -234,6 +319,8 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
     finally:
         if stager is not None:
             stager.close()
+        if prof is not None:
+            _stop_profile(prof, profile_dir, world, log)
         if snap is not None:
             snap.close()
         if not failed:

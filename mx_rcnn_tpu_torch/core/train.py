@@ -303,16 +303,35 @@ class TrainState:
         return self.optimizer.count
 
 
+_M64 = 2 ** 64 - 1
+
+
+def mix64(*words: int) -> int:
+    """splitmix64 over ``words``: each word is added into the state and
+    the state finalised, so all 64 bits depend on every word (and, for
+    fixed earlier words, the last maps one to one).  Torch's CPU
+    generator keeps only the low 32 bits of a seed, so a seed must carry
+    everything that distinguishes it there."""
+    z = 0
+    for w in words:
+        z = ((z ^ (w & _M64)) + 0x9E3779B97F4A7C15) & _M64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+        z ^= z >> 31
+    return z
+
+
 def step_seed(seed: int, step: int) -> int:
-    """The generator seed of step ``step`` of a run seeded ``seed``."""
-    return (seed % 2 ** 31) << 32 | (step % 2 ** 32)
+    """The generator seed of step ``step`` of a run seeded ``seed``: the
+    mix of both, top bit clear."""
+    return mix64(seed, step) >> 1
 
 
 def microbatch_seed(seed: int, step: int, micro: int) -> int:
     """The generator seed of microbatch ``micro`` of step ``step`` when a
     step accumulates several (``grad_accum > 1``): the top bit set, so no
     :func:`step_seed` (below 2**63) is one."""
-    return 1 << 63 | (step_seed(seed, step) * 1_000_003 + micro) % 2 ** 63
+    return 1 << 63 | mix64(seed, step, micro) >> 1
 
 
 def init_state(model: FasterRCNN, cfg: Config, steps_per_epoch: int,

@@ -2,11 +2,13 @@
 
 Counterpart of ``mx_rcnn_tpu/data/``.  :func:`load_gt_roidb` reads the
 on-disk datasets (a VOCdevkit through :class:`PascalVOC`, a COCO tree
-through :class:`COCODataset`) and builds the synthetic images, for the
-synthetic presets and for any preset when the caller asks for
-``synthetic`` stand-in images (VOC-sized, labelled with the preset's
-classes).  This package's ``__init__`` imports no torch, so that the
-decode pool's workers start light; the loaders are in
+through :class:`COCODataset`) and builds the generated sets: the
+in-memory synthetic images (for the ``synthetic`` preset, and for any
+preset when the caller asks for ``synthetic`` stand-in images, VOC-sized
+or at a generated set's canvas, labelled with the preset's classes) and
+the PNG-backed ``synthetic_hard`` and ``synthetic_stream`` sets.  This
+package's ``__init__`` imports no torch, so that the decode pool's
+workers start light; the loaders are in
 :mod:`mx_rcnn_tpu_torch.data.loader`.
 """
 
@@ -16,11 +18,17 @@ from mx_rcnn_tpu_torch.data.coco import COCODataset
 from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
 from mx_rcnn_tpu_torch.data.roidb import (IMDB, filter_roidb, merge_roidbs,
                                           reads_files)
-from mx_rcnn_tpu_torch.data.synthetic import (SyntheticDataset,
+from mx_rcnn_tpu_torch.data.synthetic import (HardSyntheticDataset,
+                                              StreamSyntheticDataset,
+                                              SyntheticDataset,
                                               default_image_size)
 
 _READERS = {"PascalVOC": PascalVOC, "coco": COCODataset,
-            "synthetic": SyntheticDataset}
+            "synthetic": SyntheticDataset,
+            "synthetic_hard": HardSyntheticDataset,
+            "synthetic_stream": StreamSyntheticDataset}
+# the sets generated from a seed, which take the preset's class count
+_GENERATED = ("synthetic", "synthetic_hard", "synthetic_stream")
 
 
 def get_dataset(name: str, image_set: str, root_path: str, dataset_path: str,
@@ -43,10 +51,12 @@ def load_gt_roidb(cfg, image_set: str = None, training: bool = True,
     ``2007_trainval+2012_trainval``) is merged (train only), and training
     drops images without gt, then appends each set's flipped copies
     (``flip``, default ``cfg.train.flip``).  ``synthetic`` > 0 makes that
-    many synthetic images per set in place of the dataset's files; ``kw``
-    goes to the reader (``use_difficult`` for VOC) or to
-    :class:`SyntheticDataset`.  Returns the first imdb (the evaluator)
-    and the merged roidb."""
+    many synthetic images per set in place of the dataset's files, at the
+    preset's canvas (:func:`default_image_size`); ``kw`` goes to the
+    reader (``use_difficult`` for VOC, ``num_images`` for a generated
+    set: ``tools/train.py --dataset_kw``).  A generated set gets the
+    preset's ``num_classes``.  Returns the first imdb (the evaluator) and
+    the merged roidb."""
     ds = cfg.dataset
     if image_set is None:
         image_set = ds.image_set if training else ds.test_image_set
@@ -54,11 +64,11 @@ def load_gt_roidb(cfg, image_set: str = None, training: bool = True,
         raise ValueError(
             f"'+'-joined image sets are train-only; got {image_set!r}")
     name = "synthetic" if synthetic > 0 else ds.name
-    if name == "synthetic":
-        if synthetic > 0:
-            kw.setdefault("num_images", synthetic)
-        kw.setdefault("num_classes", ds.num_classes)
+    if synthetic > 0:
+        kw.setdefault("num_images", synthetic)
         kw.setdefault("image_size", default_image_size(ds.name))
+    if name in _GENERATED:
+        kw.setdefault("num_classes", ds.num_classes)
     imdbs, roidbs = [], []
     for sset in image_set.split("+"):
         imdb = get_dataset(name, sset, ds.root_path, ds.dataset_path, **kw)
@@ -72,6 +82,6 @@ def load_gt_roidb(cfg, image_set: str = None, training: bool = True,
     return imdbs[0], merge_roidbs(roidbs)
 
 
-__all__ = ["COCODataset", "IMDB", "PascalVOC", "SyntheticDataset",
-           "filter_roidb", "get_dataset", "load_gt_roidb", "merge_roidbs",
-           "reads_files"]
+__all__ = ["COCODataset", "HardSyntheticDataset", "IMDB", "PascalVOC",
+           "StreamSyntheticDataset", "SyntheticDataset", "filter_roidb",
+           "get_dataset", "load_gt_roidb", "merge_roidbs", "reads_files"]

@@ -7,7 +7,8 @@ Counterpart of ``mx_rcnn_tpu/data/image.py`` (``imread_rgb``,
 ``load_resized_uint8``'s flip, resize and shrink-to-fit as
 ``flip_resize_fit``), and ``prepare_image``, the canvas and ``im_info``
 of one served or demo image.  Images are RGB uint8 (H, W, 3).  Files are
-decoded by OpenCV (BGR to RGB), or by PIL where ``cv2`` does not import.
+decoded (and the generated sets' PNGs written, ``imwrite_rgb``) by
+OpenCV (BGR to RGB), or by PIL where ``cv2`` does not import.
 Resizing uses OpenCV's bilinear resize where ``cv2`` imports, else a
 numpy bilinear resize with the same half-pixel-centre convention;
 :data:`RESIZE_BACKEND` says which one this process uses.  This module
@@ -39,6 +40,18 @@ def imread_rgb(path: str) -> np.ndarray:
 
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def imwrite_rgb(path: str, img: np.ndarray) -> None:
+    """Write RGB uint8 (H, W, 3) ``img`` to ``path``, its format by the
+    extension."""
+    if cv2 is not None:
+        if not cv2.imwrite(path, np.ascontiguousarray(img[:, :, ::-1])):
+            raise OSError(f"cannot write image {path!r}")
+        return
+    from PIL import Image
+
+    Image.fromarray(img).save(path)
 
 
 def _resize_bilinear_np(img: np.ndarray, new_w: int, new_h: int

@@ -13,7 +13,9 @@ wait in a bounded queue.  On the CPU a batch is staged with a plain
 The values pass through unchanged: the same batches in the same order.
 An error from the source or the copy re-raises in the consumer, and
 :meth:`DeviceStager.close` releases the thread without draining the
-epoch.
+epoch.  ``hits`` counts the batches that were staged before the consumer
+asked for them and ``misses`` those it waited for (the JAX stager's
+``loader.stage_hits``/``stage_misses``).
 """
 
 from __future__ import annotations
@@ -35,11 +37,16 @@ class DeviceStager:
 
     def __init__(self, source: Iterable, device, depth: int = 2):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the stage thread makes this card current: name it
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._stream: Optional[torch.cuda.Stream] = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda"
             else None)
         self._q: "queue.Queue" = queue.Queue(maxsize=max(int(depth), 1))
         self._closed = False
+        self.hits = 0
+        self.misses = 0
         self._thread = threading.Thread(
             target=self._run, args=(iter(source),), name="device-stager",
             daemon=True)
@@ -88,11 +95,18 @@ class DeviceStager:
 
     def __iter__(self) -> Iterator:
         while True:
-            item = self._q.get()
+            try:
+                item, ready = self._q.get_nowait(), True
+            except queue.Empty:
+                item, ready = self._q.get(), False
             if item is _END:
                 return
             if isinstance(item, BaseException):
                 raise item
+            if ready:
+                self.hits += 1
+            else:
+                self.misses += 1
             batch, event = item
             if event is not None:
                 stream = torch.cuda.current_stream(self.device)

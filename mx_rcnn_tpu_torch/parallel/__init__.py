@@ -15,6 +15,7 @@ from mx_rcnn_tpu_torch.parallel.dp import (  # noqa: F401
     close_world,
     init_world,
     launch,
+    make_dp_cached_step,
     rank_seed,
     replicate,
 )

@@ -19,6 +19,8 @@ bit-identical, as the mesh's replicated state does.
   JAX ``replicate``), and :func:`check_replicas` holds every rank to one
   checksum;
 - :func:`rank_seed`, the counterpart of ``fold_in(key, axis_index)``;
+- :func:`make_dp_cached_step`, the train step fed from each rank's
+  device-resident epoch (``data/device_cache.py``);
 - :func:`launch` runs N local ranks in spawned processes (the counterpart
   of the tests' 8-virtual-device CPU mesh).
 
@@ -33,7 +35,6 @@ Stated differences from the JAX package:
 - The JAX step cannot stop on one device alone.  Here each rank polls its
   own stop flag, so ``core/fit.py`` reduces the flags over the world after
   every step (:func:`any_rank`).
-- ``make_dp_cached_step`` waits for ``data/device_cache.py``.
 """
 
 from __future__ import annotations
@@ -160,11 +161,43 @@ def rank_seed(seed: int, rank: int) -> int:
     ``seed`` itself on rank 0, so a world of one draws what the
     single-process step draws; on every other rank ``seed`` XOR an odd
     multiple of the rank, which no other rank shares in all 64 bits nor
-    in the low 32 (all that seeds the CPU generator).  The counterpart of
-    the JAX step's ``fold_in(key, axis_index)``."""
+    in the low 32 (all that seeds the CPU generator).  ``seed`` carries
+    the run's seed and the step in its low 32 bits as well
+    (``core/train.py — mix64``), so every rank's draws follow both on the
+    CPU too.  The counterpart of the JAX step's ``fold_in(key,
+    axis_index)``."""
     if rank == 0:
         return seed
     return seed ^ (rank * 0x9E3779B97F4A7C15) % 2 ** 64
+
+
+def make_dp_cached_step(base_step: Callable, world: World, cache,
+                        shuffle: bool = True, permutation=None) -> Callable:
+    """The data-parallel train step fed from this rank's device-resident
+    epoch ``cache``, a :class:`~mx_rcnn_tpu_torch.data.device_cache.
+    DeviceEpochCache` of its loader's row shard (``set_shard``) on its own
+    card: ``data/device_cache.py — make_cached_step`` over ``base_step``,
+    the world's train step (``make_train_step(..., world=world)``, one
+    gradient all-reduce per step).  Every rank gathers its batch from its
+    own shard at the same position; with ``shuffle`` each regroups its
+    own images by the same (seed, epoch) permutation, so images never move
+    between cards (the JAX ``make_dp_cached_step``'s residual).  Raises
+    unless every rank staged the same number of batches and images a
+    batch, which the lockstep all-reduce needs.  The counterpart of
+    ``mx_rcnn_tpu/parallel/dp.py — make_dp_cached_step``."""
+    from mx_rcnn_tpu_torch.data.device_cache import make_cached_step
+
+    if world.control is not None:
+        local = torch.tensor([cache.num_batches, cache.batch_images])
+        hi, lo = local.clone(), -local
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=world.control)
+        dist.all_reduce(lo, op=dist.ReduceOp.MAX, group=world.control)
+        if not torch.equal(hi, -lo):
+            raise ValueError(
+                f"the ranks staged different epochs: (batches, images a "
+                f"batch) from {(-lo).tolist()} to {hi.tolist()}")
+    return make_cached_step(base_step, cache.num_batches, shuffle,
+                            permutation)
 
 
 def _packed(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

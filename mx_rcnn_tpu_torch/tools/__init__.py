@@ -8,7 +8,8 @@ import argparse
 def dataset_args(p: argparse.ArgumentParser) -> None:
     """The dataset flags every training and eval CLI shares."""
     p.add_argument("--dataset", default="PascalVOC",
-                   choices=["PascalVOC", "coco", "synthetic"])
+                   choices=["PascalVOC", "coco", "synthetic",
+                            "synthetic_hard", "synthetic_stream"])
     p.add_argument("--image_set", default=None,
                    help="the dataset's image set ('+'-joined sets merge "
                         "for training); default: the preset's")

@@ -3,16 +3,22 @@
 Counterpart of ``mx_rcnn_tpu/tools/train.py``: :func:`train_net` builds
 the training roidb (``--dataset PascalVOC|coco``
 read from ``--dataset_path`` with its gt_roidb cache under
-``--root_path``, ``--image_set`` '+'-joined sets merged; or with
-``--synthetic N`` that many synthetic images, the JAX package's
+``--root_path``, ``--image_set`` '+'-joined sets merged; ``--dataset
+synthetic_hard|synthetic_stream``, the generated benchmark sets written
+once as PNG files, ``--dataset_kw "{'num_images': 16}"`` sizing them; or
+with ``--synthetic N`` that many synthetic images, the JAX package's
 rectangles rendered in memory, 375x500 like VOC unless the dataset is a
-synthetic one), with its flipped copies unless ``--no_flip`` → the
+generated one), with its flipped copies unless ``--no_flip`` → the
 decode cache and pool of the config's ``default`` section for the
 on-disk sets → ``StreamLoader`` (``data__streaming``, the default, as in
 the JAX package) or ``AnchorLoader`` → epochs ``--begin_epoch ..
 --end_epoch`` of train steps, each batch staged to the device ahead of
-its step (``--grad_accum N`` batches an optimizer step) → Speedometer
-lines, and with ``--prefix`` a checkpoint after each epoch
+its step (``--grad_accum N`` batches an optimizer step; ``--no_shuffle``
+keeps the plan's order), or with ``--device_cache`` the whole one-bucket
+epoch staged on the device once and each step's batch gathered there
+(``data/device_cache.py``) → Speedometer lines (``--profile_dir``: a
+``torch.profiler`` trace of three early steps), and with ``--prefix`` a
+checkpoint after each epoch
 (``prefix-%04d.ckpt``, the JAX package's layout) written in the
 background.  Weights start random, made from ``--seed``, unless
 ``--pretrained`` names an ImageNet file (MXNet ``.params`` or ``.npz``,
@@ -42,7 +48,9 @@ checkpoint resumes at another N when N x ``batch_images`` x
 ``grad_accum`` is kept.  Fewer than N cards is an error.  Across hosts,
 each host runs its share of the ranks: ``--coordinator HOST:PORT
 --num_processes P --process_id I`` (``parallel/multihost.py``), N being
-the global count.
+the global count.  ``--device_cache`` stages each rank's row shard on its
+card (``parallel/dp.py — make_dp_cached_step``); a world over several
+hosts refuses it, as the JAX CLI refuses it with ``--coordinator``.
 
     python -m mx_rcnn_tpu_torch.tools.train --network resnet101 \\
         --dataset PascalVOC --root_path data --dataset_path data/VOCdevkit \\
@@ -51,11 +59,15 @@ the global count.
     python -m mx_rcnn_tpu_torch.tools.train --device cpu --network tiny \\
         --dataset synthetic --synthetic 4 --batch_images 2 \\
         --prefix /tmp/p --end_epoch 1
+    python -m mx_rcnn_tpu_torch.tools.train --device cpu --network tiny \\
+        --dataset synthetic_hard --dataset_kw "{'num_images': 16}" \\
+        --device_cache --prefix /tmp/h --end_epoch 1
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import math
 import os
@@ -220,14 +232,16 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
               init_from: Optional[Tuple[str, int]] = None,
               frozen_prefixes: Optional[Sequence[str]] = None,
               roidb=None, load_image: Optional[Callable] = None,
-              synthetic: int = 0, begin_epoch: int = 0,
+              synthetic: int = 0, dataset_kw: Optional[Dict] = None,
+              begin_epoch: int = 0,
               end_epoch: Optional[int] = None,
               resume: Union[bool, str] = False,
               lr: Optional[float] = None, lr_step: Optional[str] = None,
               steps: Optional[int] = None, frequent: Optional[int] = None,
               seed: int = 0, device="cuda",
               pretrained: Optional[str] = None, pretrained_epoch: int = 0,
-              grad_accum: int = 1,
+              grad_accum: int = 1, device_cache: bool = False,
+              profile_dir: Optional[str] = None,
               num_devices: Optional[int] = None, dcn_size: int = 1,
               coordinator: Optional[str] = None, num_processes: int = 1,
               process_id: int = 0, world: Optional[World] = None,
@@ -243,7 +257,9 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     on ``proposals`` (one raw-coordinate (k, 5) array per roidb record)
     through :class:`ROIIter`.  ``roidb`` and its ``load_image`` may be
     given (the alternate schedule does); by default the config's training
-    roidb is read, or that of ``synthetic`` synthetic images is built.
+    roidb is read (``dataset_kw`` going to its reader, e.g. a generated
+    set's ``num_images``), or that of ``synthetic`` synthetic images is
+    built.
     Records read from files decode through the config's cache or decode
     pool (``default.image_cache_mb``, ``image_cache_dir``,
     ``decode_procs``); the pool is closed when the run ends.
@@ -257,8 +273,11 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     ``resume``: True or ``'auto'`` (verified, with the data cursor; see
     the module docstring).  ``grad_accum``: loader batches an optimizer
     step accumulates; an epoch has ``len(loader) // grad_accum`` steps.
-    ``stop_flag``: polled after every step; True writes the interrupt
-    checkpoint and returns.
+    ``device_cache``: stage the epoch on the device and gather each
+    step's batch there (``core/fit.py``; one bucket, ``grad_accum`` 1, not
+    across hosts).  ``profile_dir``: a ``torch.profiler`` trace of steps
+    2-4 of the first epoch.  ``stop_flag``: polled after every step; True
+    writes the interrupt checkpoint and returns.
 
     ``num_devices``: train on that many devices, one spawned process
     each (:func:`_launch_ranks`, see the module docstring): the first
@@ -270,6 +289,11 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     share of a world spread over ``num_processes`` hosts.  ``dcn_size``
     must divide the world and is recorded in each rank's ``World``; it
     changes no number (``parallel/dp.py``)."""
+    if device_cache and (num_processes > 1 or coordinator):
+        raise ValueError(
+            "device_cache does not compose with a world over several hosts "
+            "(--coordinator/--num_processes; the JAX CLI refuses it with "
+            "multiproc); use the streaming loader")
     if world is None and num_devices is not None:
         kw = {k: v for k, v in locals().items() if k not in _LAUNCHER_ARGS}
         return _launch_ranks(cfg, num_devices, dcn_size=dcn_size,
@@ -292,7 +316,8 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     if (resume or begin_epoch) and not prefix:
         raise ValueError("resume and begin_epoch need a prefix")
     if roidb is None:
-        imdb, roidb = load_gt_roidb(cfg, training=True, synthetic=synthetic)
+        imdb, roidb = load_gt_roidb(cfg, training=True, synthetic=synthetic,
+                                    **(dataset_kw or {}))
         load_image = imdb.load_image
     elif load_image is None:
         raise ValueError("a roidb needs its load_image")
@@ -357,7 +382,8 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
                       loader, end_epoch, begin_epoch, prefix, steps,
                       frequent, log=log, stop_flag=stop_flag,
                       grad_accum=grad_accum, data_cursor=data_cursor,
-                      world=world)
+                      world=world, device_cache=device_cache,
+                      profile_dir=profile_dir)
     finally:
         if pool is not None:
             pool.close()
@@ -401,7 +427,8 @@ def _launch_ranks(cfg: Config, num_devices: int, *, dcn_size: int = 1,
         # once here, so the ranks neither race on the gt_roidb cache nor
         # disagree on the records
         imdb, kw["roidb"] = load_gt_roidb(cfg, training=True,
-                                          synthetic=kw.get("synthetic", 0))
+                                          synthetic=kw.get("synthetic", 0),
+                                          **(kw.get("dataset_kw") or {}))
         kw["load_image"] = imdb.load_image
     mode = kw.get("mode", "e2e")
     span = f"{ranks[0]}..{ranks[-1]}"
@@ -484,10 +511,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="end the run after this many steps")
     p.add_argument("--lr", type=float, default=None,
                    help="base learning rate (default: default__e2e_lr)")
+    p.add_argument("--lr_step", default=None,
+                   help="comma-separated epochs at which the lr drops by "
+                        "default__lr_factor (default: default__e2e_lr_step)")
     p.add_argument("--frequent", type=int, default=None,
                    help="log every this many steps")
     p.add_argument("--no_flip", action="store_true",
                    help="train without the flipped copies")
+    p.add_argument("--no_shuffle", action="store_true",
+                   help="train on the plan's order, the same every epoch")
+    p.add_argument("--dataset_kw", default=None,
+                   help="Python-literal dict for the dataset's reader, e.g. "
+                        "\"{'num_images': 16}\" for a generated set")
+    p.add_argument("--device_cache", action="store_true",
+                   help="stage the one-bucket epoch on the device once and "
+                        "gather each step's batch there")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of three early steps "
+                        "of the first epoch here")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the weights, the draws and the shuffle")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -499,7 +540,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def config_from_args(args) -> Config:
     """The config of the training CLIs' ``--network``, ``--dataset``,
     ``--image_set``, ``--root_path``, ``--dataset_path``,
-    ``--batch_images``, ``--no_flip`` and ``--set`` flags."""
+    ``--batch_images``, ``--no_flip``, ``--no_shuffle`` and ``--set``
+    flags."""
     overrides = dataset_overrides(args)
     if args.image_set:
         overrides["dataset__image_set"] = args.image_set
@@ -508,6 +550,8 @@ def config_from_args(args) -> Config:
         overrides["train__batch_images"] = args.batch_images
     if args.no_flip:
         overrides["train__flip"] = False
+    if getattr(args, "no_shuffle", False):
+        overrides["train__shuffle"] = False
     return generate_config(args.network, args.dataset, **overrides)
 
 
@@ -540,12 +584,16 @@ def main(argv=None) -> Dict[str, float]:
     with sigterm_stop_flag() as stop_flag:
         _, metrics = train_net(
             cfg, prefix=args.prefix, synthetic=args.synthetic,
+            dataset_kw=(ast.literal_eval(args.dataset_kw)
+                        if args.dataset_kw else None),
             begin_epoch=args.begin_epoch, end_epoch=args.end_epoch,
-            resume=args.resume, lr=args.lr, steps=args.steps,
+            resume=args.resume, lr=args.lr, lr_step=args.lr_step,
+            steps=args.steps,
             frequent=args.frequent, seed=args.seed, device=args.device,
             pretrained=args.pretrained,
             pretrained_epoch=args.pretrained_epoch,
-            grad_accum=args.grad_accum, stop_flag=stop_flag,
+            grad_accum=args.grad_accum, device_cache=args.device_cache,
+            profile_dir=args.profile_dir, stop_flag=stop_flag,
             log=lambda line: print(line, flush=True),
             num_devices=args.num_devices, dcn_size=args.dcn_size,
             coordinator=args.coordinator, num_processes=args.num_processes,

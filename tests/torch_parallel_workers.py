@@ -180,3 +180,77 @@ def interface_env(world: World) -> dict:
     """The interface variables this rank ran with."""
     return {k: os.environ.get(k)
             for k in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME")}
+
+
+def cached_world(world: World, spec: dict) -> dict:
+    """The two-rank checks of ``tests/test_torch_device_cache.py``:
+
+    - ``jax``: cached steps at ``shuffle=True`` on this rank's staged rows
+      (``spec['rows']``) with the JAX package's permutations
+      (``spec['perms']``) and its DP step's draws (``spec['draws']``);
+    - ``fit``: ``train_net`` in this world from seed 0 at ``shuffle=False``,
+      streamed and with the device cache: the final states' hashes;
+    - ``staged`` / ``gathered``: this rank's staged (roidb index, flipped)
+      identities and, for each of three epochs at ``shuffle=True``, those
+      a spy step gathered, in order."""
+    from mx_rcnn_tpu_torch.data.device_cache import (DeviceEpochCache,
+                                                     build_caches)
+    from mx_rcnn_tpu_torch.data.loader import StreamLoader
+    from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+    from mx_rcnn_tpu_torch.parallel.dp import make_dp_cached_step
+    from mx_rcnn_tpu_torch.tools.train import train_net
+
+    out = {}
+    cfg = small_config()
+    cache = DeviceEpochCache(spec["rows"][world.rank], CPU)
+    model = build_model(cfg, "cpu", seed=2, train=True)
+    state = ttrain.init_state(model, cfg, cache.num_batches, base_lr=0.01)
+    perms = spec["perms"]
+    step = make_dp_cached_step(
+        ttrain.make_train_step(cfg, world=world), world, cache, shuffle=True,
+        permutation=lambda seed, epoch, n, device: torch.from_numpy(
+            perms[epoch]))
+    metrics = [{k: float(v) for k, v in step(
+        state, cache, draws=replayed(recorded)).items()}
+        for recorded in spec["draws"][world.rank]]
+    out["jax"] = dict(params=_copy(model.state_dict()), metrics=metrics,
+                      step=state.step)
+
+    out["fit"] = {}
+    for device_cache in (False, True):
+        state, _ = train_net(small_config(train__shuffle=False), world=world,
+                             synthetic=4, end_epoch=2, lr=0.01, seed=0,
+                             device="cpu", device_cache=device_cache,
+                             log=lambda line: None)
+        out["fit"][device_cache] = state_sha(state)
+
+    ds = SyntheticDataset("train", 4, cfg.num_classes, SIZE)
+    c2 = small_config(train__batch_images=2)
+    loader = StreamLoader(ds.append_flipped_images(ds.gt_roidb()), c2,
+                          ds.load_image, batch_images=4, seed=0,
+                          shard=(world.rank, world.size))
+    loader.record_decodes()
+    (staged,) = build_caches(loader, device=CPU)
+    out["staged"] = list(loader.decoded_ids)
+    flat = staged.data.images.flatten(0, 1)
+
+    class Stub:
+        step, seed = 0, 0
+
+    gathered = []
+
+    def spy(stub, batch):
+        gathered.extend(next(j for j in range(len(flat))
+                             if torch.equal(flat[j], img))
+                        for img in batch.images)
+        stub.step += 1
+
+    step = make_dp_cached_step(spy, world, staged, shuffle=True)
+    stub = Stub()
+    for _ in range(3 * staged.num_batches):
+        step(stub, staged)
+    n = staged.num_images
+    out["gathered"] = [[out["staged"][j] for j in gathered[e * n:(e + 1) * n]]
+                       for e in range(3)]
+    out["batch_images"] = staged.batch_images
+    return out
