@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's detection forward, training step, checkpoints,
 evaluation, the alternate schedule, the serving engine, the
-real-dataset input plane, the long training run, data parallelism and
-the device-resident training epoch on one NVIDIA card.
+real-dataset input plane, the long training run, data parallelism, the
+device-resident training epoch and quantized inference on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -195,13 +196,34 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    epochs its own shard once, and the NCCL world of one's cached run
    byte-equal to (b)'s; (f) ``tools/train.py --dataset synthetic_hard
    --device_cache --dataset_kw "{'num_images': 16}"``, 4 steps, exit 0;
-   (g) ``tools/data_bench.py --smoke --check`` on the card, exit 0.
+   (g) ``tools/data_bench.py --smoke --check`` on the card, exit 0;
+16. quantized inference, the tenth main path (``tools/test.py --set
+   quant__enabled=true`` → ``core/tester.py — quant_predictor``: the
+   calibration sweep, then the quantized ResNet-101): K4, the activation
+   quantizer (``csrc/quantize.cu``), bytes equal to its plain version in
+   int8 at weight_bits 8 and 4 and in fp8, on bf16 and fp32 input with
+   exact .5 ties and values past +-qmax; K5, the int8 convolution
+   (``csrc/qconv.cu``), bit-equal to its plain version (a float64
+   contraction, exact) in bf16 and fp32 output, and K6, the e4m3 one,
+   within its bound, at conv0 7x7/2 (C_in 3) on 608x1024, a stage-1 1x1
+   and 3x3, a stage-3 3x3/2 (pads (0, 1)), the per-ROI stage-4 1x1 and
+   3x3/2 on 600x14x14 and VGG16's fc6 as a dense layer, each timed
+   beside its bound and, for the 1x1 and dense cases, ``torch._int_mm``
+   or ``torch._scaled_mm``; sim against native int8 bit-equal with
+   cuDNN's TF32 on; the percentile on 19.9 M elements against numpy's;
+   then ``tools/test.py`` on 16 synthetic images at batch 2 from a
+   seeded ResNet-101 (every conv3 drawn non-zero) in bf16, int8 native,
+   fp8 native and int8 sim: exit 0, mAP and the fingerprint printed, and
+   every launch count (K1, K2, K4 and K5 or K6 launched, K3 not); each
+   arm's steady images/s and device time in turns; last
+   ``tools/quant_smoke.py --check`` on the card (its ``main``).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
 before the last are the card's name and power limit and one
-``{"kernels": [...]}`` JSON object (launches from the training path, times
-at the training shapes); the last line is ``{"ok": true, "device":
+``{"kernels": [...]}`` JSON object (K1-K3: launches from the training
+path, times at the training shapes; K4-K6: launches from the quantized
+eval, times at a stage-1 activation and the per-ROI 1x1); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
@@ -248,7 +270,28 @@ THRESHOLDS = (0.3, 0.5, 0.7)   # every K1 check runs at each
 # (K3 by its prefix: its tables pass and its walk, then the tables alone)
 KERNEL_NAMES = {"k1_mask": "nms_mask_kernel", "k1_reduce": "nms_reduce_kernel",
                 "k2": "roi_align_fwd_kernel", "k3": "roi_align_bwd",
-                "k3_tables": "roi_align_bwd_tables_kernel"}
+                "k3_tables": "roi_align_bwd_tables_kernel",
+                "k4": "quantize_act_kernel", "k5_k6": "qconv_kernel"}
+
+
+# K4-K6 run only on the quantized path (phase 16): the fp phases read the
+# three kernels they drive and hold the quantized ones at zero launches
+QUANT_KERNELS = ("quantize_act", "qconv_s8", "qconv_e4m3")
+
+
+def fp_only(counts: dict) -> dict:
+    stray = {k: counts[k] for k in QUANT_KERNELS if counts.get(k)}
+    if stray:
+        raise AssertionError(f"an fp path launched quantized kernels: "
+                             f"{stray}")
+    return {k: v for k, v in counts.items() if k not in QUANT_KERNELS}
+
+
+def fp_launches() -> dict:
+    """Every kernel's launch count but K4-K6's, which must be zero."""
+    from mx_rcnn_tpu_torch import kernels
+
+    return fp_only(kernels.launch_counts())
 
 
 def log(msg: str) -> None:
@@ -955,7 +998,7 @@ def phase_serving(dev, card: str) -> dict:
                                  f"finite={finite}")
         runs[batch] = dict(images_per_s=len(images) / wall,
                            wall_s=wall, detections=ndet)
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     log(f"serving launches over {forwards} forwards: {launches}; per "
         f"forward: " + ", ".join(f"{k} {v / forwards:g}"
                                  for k, v in launches.items()))
@@ -1187,7 +1230,7 @@ def phase_training(dev, card: str) -> dict:
             final = train_cli.main(argv + ["--batch_images", str(batch)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kernels.launch_counts()
+        launches = fp_launches()
         if not all(n > 0 for n in launches.values()) or \
                 not all(math.isfinite(v) for v in final.values()):
             raise AssertionError(f"training batch {batch}: launches "
@@ -1379,7 +1422,7 @@ def eval_parity(dev, prefix: str, work: Path) -> dict:
 
     kernels.reset_launch_counts()
     res_k = run("kernels")
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     with plain_versions():
         res_p = run("plain")
     count_diff, box_err, score_err, total = compare_dets(work)
@@ -1424,6 +1467,8 @@ def steady_eval(run, images: int, batches: int, label: str,
                   k1_mask_ms_per_batch=ours["k1_mask"] / batches,
                   k1_reduce_ms_per_batch=ours["k1_reduce"] / batches,
                   k2_ms_per_batch=ours["k2"] / batches,
+                  k4_ms_per_batch=ours["k4"] / batches,
+                  k5_k6_ms_per_batch=ours["k5_k6"] / batches,
                   device_ops_per_image=prof["kernels_per_iter"] / images,
                   top=prof["top"][:8])
     log(f"{label}, {images} images at batch {images // batches}, steady: "
@@ -1492,7 +1537,7 @@ def eval_cli(dev, work: Path, card: str) -> dict:
             prefix, "--epoch", "1", "--synthetic", "16",
             "--set", "test__batch_images=2"])
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     text = (OUT_DIR / "eval_test.txt").read_text()
     rate = re.search(r"pred_eval: 16 images in ([0-9.]+) s, ([0-9.]+) "
                      r"images/s", text)
@@ -1687,7 +1732,7 @@ def phase_vgg_parity(dev, work: Path) -> dict:
     torch.backends.cudnn.deterministic = True
     kernels.reset_launch_counts()
     res_k = run("kernels")
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     with plain_versions():
         res_p = run("plain")
     torch.backends.cudnn.deterministic = False
@@ -1746,14 +1791,14 @@ def instrumented_stages(stages: list, writes: list):
             rec = dict(kind=kind, name=os.path.basename(name_of(args, kw)),
                        mode=kw.get("mode"), step_ms=[])
             stages.append(rec)
-            before = kernels.launch_counts()
+            before = fp_launches()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             rec.update(wall_s=time.perf_counter() - t0,
                        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                        launches={k: v - before[k] for k, v in
-                                 kernels.launch_counts().items()})
+                                 fp_launches().items()})
             if kind == "train":
                 rec["final_metrics"] = out[1]
             else:
@@ -1922,7 +1967,7 @@ def run_schedule(dev, card: str) -> dict:
         final = train_alternate.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     log(f"alternate schedule, VGG16 bf16 608x1024, {SCHEDULE_IMAGES} images "
         f"and their flips at batch 2, one epoch a stage: {wall:.1f} s, "
         f"launches {launches}")
@@ -2011,7 +2056,7 @@ def schedule_evals(dev, final: str, card: str) -> dict:
             out = main(common + argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kernels.launch_counts()
+        launches = fp_launches()
         log(f"{name} CLI, VGG16 bf16, {images} images at batch 2: "
             f"{wall:.2f} s (first call), launches {launches}")
         if launches != want:
@@ -2078,7 +2123,7 @@ def vgg_e2e_cli(card: str) -> dict:
                             "--steps", str(steps), "--frequent", "1",
                             "--seed", "0"], OUT_DIR / "vgg_e2e.txt")
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     rec = summarise_stage(stages[0])
     log(stage_line(rec, card) + f"; final loss {final['loss']:.4f}")
     if launches != dict.fromkeys(launches, steps) or \
@@ -2418,7 +2463,7 @@ def engine_profile(prefix: str, dev, card: str) -> dict:
         loop = device_profile(lambda: run.update(run_closed_loop(
             engine, traffic, 2.0, 2 * ENGINE_BATCH, 2000.0)), 1, cpu=False)
         wall_ms = run["wall_s"] * 1e3
-        launches = kernels.launch_counts()
+        launches = fp_launches()
         snap = engine.metrics.snapshot()
     finally:
         engine.close()
@@ -2644,7 +2689,7 @@ def real_train(dev, voc_args, prefix: str, card: str):
     final = _train_cli(base + ["--prefix", prefix, "--end_epoch", "1"], out)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     text = out.read_text()
     steps = 2 * REAL_IMAGES // 2
@@ -2840,7 +2885,7 @@ def real_test(args, label: str, out_name: str, n_images: int, card: str):
     with open(out, "w") as f, contextlib.redirect_stdout(f):
         results = test_cli.main(args + ["--set", "test__batch_images=2"])
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     rate = _parse(rf"pred_eval: {n_images} images in ([0-9.]+) s, "
                   r"([0-9.]+) images/s", out.read_text(), "eval rate")
     batches = n_images // 2
@@ -2917,7 +2962,7 @@ def real_eval_parity(dev, prefix: str, over: dict, work: Path) -> dict:
 
     kernels.reset_launch_counts()
     res_k = run("kernels")
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     with plain_versions():
         res_p = run("plain")
     count_diff, box_err, score_err, total = compare_dets(work)
@@ -3262,7 +3307,7 @@ def imagenet_start(dev, card: str) -> dict:
         final = _train_cli(argv, OUT_DIR / "long_pretrained.txt")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     text = (OUT_DIR / "long_pretrained.txt").read_text()
     log(f"ImageNet start on {card}: tools/train.py --network resnet101 "
         f"--pretrained (a seeded {len(named)}-array zoo file, "
@@ -3625,7 +3670,7 @@ def accum_costs(dev, card: str) -> dict:
             losses.append(step(state, inputs[i % len(inputs)])["loss"])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / iters * 1e3
-        launches = {k: v / iters for k, v in kernels.launch_counts().items()}
+        launches = {k: v / iters for k, v in fp_launches().items()}
         peak = torch.cuda.max_memory_allocated(dev)
         losses = [float(v) for v in losses]
         res[label] = dict(batch_images=batch, grad_accum=accum, remat=remat,
@@ -3737,7 +3782,8 @@ def fit_numbers(text: str, epoch: int, images: int) -> dict:
     return dict(ms_per_step=statistics.median(images / v * 1e3
                                               for v in speeds),
                 steps_timed=len(speeds),
-                launches=ast.literal_eval(m.group(1)) if m else None)
+                launches=[fp_only(d) for d in ast.literal_eval(m.group(1))]
+                if m else None)
 
 
 def check_launches(what: str, launches, ranks: int, steps: int) -> None:
@@ -3912,7 +3958,7 @@ def dp_rig_rank(world, cfg, roidb, load_image, grad_accum: int,
     losses = [step(state, x)["loss"] for x in inputs[2:]]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / steps * 1e3
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     metrics = {"loss": losses[-1]}
     reduce_ms = []
@@ -4190,7 +4236,7 @@ def dp_eval(dev, prefix: str, card: str) -> dict:
         torch.cuda.synchronize()
         with open(dets, "rb") as f:
             boxes = pickle.load(f)["all_boxes"]
-        runs[tag] = dict(results=results, launches=kernels.launch_counts(),
+        runs[tag] = dict(results=results, launches=fp_launches(),
                          wall_s=time.perf_counter() - t0, boxes=boxes)
     # equal numbers, NaN (an area with no object) equal to NaN
     same = json.dumps(runs["single"]["results"], sort_keys=True) == \
@@ -4285,7 +4331,7 @@ def dp_cards(roidb, load_image, card: str, eval_prefix: str,
                             save_dets=dets)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     with open(dets, "rb") as f:
         boxes = pickle.load(f)["all_boxes"]
     with open(DP_DIR / "dets_single.pkl", "rb") as f:
@@ -4535,7 +4581,7 @@ def cache_train(cfg, dev, roidb, load_image, device_cache: bool,
     state, _ = train_net(cfg, roidb=roidb, load_image=load_image,
                          end_epoch=1, seed=0, device=dev, frequent=1,
                          device_cache=device_cache, log=lines.append)
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     sha = state_sha256(state)
     text = "\n".join(lines)
     out.write_text(text + "\n")
@@ -4680,7 +4726,7 @@ def cache_run(cfg, dev, roidb, load_image, cached: bool, out: Path,
     state, _ = train_net(cfg, roidb=roidb, load_image=load_image,
                          end_epoch=3, frequent=4, seed=0, device=dev,
                          device_cache=cached, log=collect)
-    launches = kernels.launch_counts()
+    launches = fp_launches()
     sha = state_sha256(state)
     del state
     text = "\n".join(lines)
@@ -4796,7 +4842,7 @@ def cache_rig_rank(world, over: dict, roidb, load_image) -> dict:
                              device_cache=cached, log=lambda line: None)
         out[f"cached_{cached}"] = dict(
             sha256=state_sha256(state), steps=state.step,
-            launches=kernels.launch_counts(), wall_s=time.perf_counter() - t0)
+            launches=fp_launches(), wall_s=time.perf_counter() - t0)
         del state
     if world.size == 1:
         return out
@@ -4970,13 +5016,477 @@ def phase_device_cache(dev, card: str) -> dict:
                 data_bench=bench, parts_s=parts, wall_s=wall)
 
 
+# ---- phase 16: quantized inference, the tenth main path -------------------
+
+QUANT_DIR = REPO / "_chip" / "quant"     # the seeded checkpoint
+QUANT_IMAGES = 16          # synthetic 375x500 images in the 608x1024 bucket
+QUANT_BATCHES = 8          # eval batches of 2
+QUANT_LAYERS_R101 = 104    # quantized convolutions per ResNet-101 forward
+CALIB_BATCHES = 2          # quant__calibration_batches
+# dense int8 and fp8 tensor-core rate of an H100 SXM (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12
+# the shapes K5/K6 meet on the 608x1024 batch-2 ResNet-101 path, and
+# VGG16's fc6 as a dense layer: (label, (n, h, w, cin), cout, kernel,
+# stride, with bias)
+QCONV_SHAPES = (
+    ("conv0 7x7/2", (2, 608, 1024, 3), 64, 7, 2, False),
+    ("stage1 1x1", (2, 152, 256, 256), 64, 1, 1, False),
+    ("stage1 3x3", (2, 152, 256, 64), 64, 3, 1, False),
+    ("stage3 3x3/2", (2, 76, 128, 256), 256, 3, 2, False),
+    ("stage4 roi 1x1", (600, 14, 14, 1024), 512, 1, 1, False),
+    ("stage4 roi 3x3/2", (600, 14, 14, 512), 512, 3, 2, False),
+    ("vgg fc6 dense", (600, 1, 1, 25088), 4096, 1, 1, True),
+)
+# the shape the kernels line reports K5 and K6 at (a library call exists)
+QCONV_LINE_SHAPE = "stage4 roi 1x1"
+# K4's shape: a stage-1 activation (2 x 256 x 152 x 256, bf16)
+K4_SHAPE = (2, 152, 256, 256)
+
+
+def quant_bound(nbytes: float, ops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k4_inputs(dev, qmax: float, seed: int):
+    """bf16 activations whose quotients by the unit hit exact .5 ties,
+    land past +-qmax and spread at random, with the unit a power of two
+    (the estimate is qmax * 2^-3), so every quotient is exact."""
+    import torch
+
+    unit = 2.0 ** -3
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = math.prod(K4_SHAPE)
+    x = torch.randn(n, generator=g, device=dev) * (qmax * unit * 0.6)
+    ties = (torch.arange(-int(qmax) - 8, int(qmax) + 8, device=dev) + 0.5)
+    x[:ties.numel()] = ties * unit
+    x[ties.numel():ties.numel() + 64] = torch.linspace(
+        -3 * qmax * unit, 3 * qmax * unit, 64, device=dev)
+    x = x.to(torch.bfloat16).view(K4_SHAPE[0], K4_SHAPE[3], K4_SHAPE[1],
+                                  K4_SHAPE[2])
+    # NCHW view of channels-last memory, as the backbone hands it over
+    x = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    return x, torch.tensor(qmax * unit, device=dev)
+
+
+def check_k4(dev) -> dict:
+    """K4 against its plain version, bytes equal: int8 at weight_bits 8
+    and 4 and fp8, on bf16 and fp32 input; then its time at the stage-1
+    activation."""
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.quant import (QuantSpec, quantize_act_cuda,
+                                             quantize_act_plain)
+
+    out = {}
+    for label, spec in (("int8 b8", QuantSpec()),
+                        ("int8 b4", QuantSpec(weight_bits=4)),
+                        ("fp8", QuantSpec(dtype="fp8"))):
+        x, est = k4_inputs(dev, spec.qmax, seed=len(out))
+        for dtype in (torch.bfloat16, torch.float32):
+            xi = x.to(dtype)
+            got, _ = quantize_act_cuda(xi, est, spec)
+            want, _ = quantize_act_plain(xi, est, spec)
+            torch.cuda.synchronize()
+            if not xi.is_contiguous(memory_format=torch.channels_last) or \
+                    not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError("K4 lost the channels-last layout")
+            if not torch.equal(got.view(torch.uint8),
+                               want.contiguous(
+                                   memory_format=torch.channels_last)
+                               .view(torch.uint8)):
+                raise AssertionError(f"K4 {label} {dtype}: bytes differ")
+        n = x.numel()
+        ms = time_ms(lambda: quantize_act_cuda(x, est, spec), 20)
+        plain_ms = time_ms(lambda: quantize_act_plain(x, est, spec), 5)
+        b_ms, b_by = quant_bound(n * (2 + 1), 0)
+        out[label] = dict(shape=list(K4_SHAPE), ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+        log(f"K4 {label}: bytes equal to the plain version on bf16 and "
+            f"fp32 (ties, clipping); {n} bf16 elements in {ms:.4f} ms "
+            f"(plain {plain_ms:.4f}, bound {b_ms:.4f} ms by {b_by})")
+    return out
+
+
+def qconv_case(dev, spec, shape, cout: int, k: int, stride: int,
+               bias: bool, seed: int):
+    """Quantized operands of one QCONV_SHAPES case: bf16 activations
+    through K4 against their absmax, fp32 weights with a per-channel
+    spread through the plain weight quantizer, packed."""
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.quant import (pack_weight, quantize_act,
+                                             quantize_weight)
+
+    n, h, w, c = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16)
+    wt = torch.randn((cout, c, k, k), generator=g, device=dev) * \
+        torch.linspace(0.5, 2.0, cout, device=dev)[:, None, None, None]
+    b = (torch.randn(cout, generator=g, device=dev) if bias else None)
+    qx, x_unit = quantize_act(x, x.float().abs().max(), spec)
+    qw, w_unit = quantize_weight(wt, spec)
+    return qx, qw, pack_weight(qw), x_unit, w_unit, b
+
+
+def qconv_pads(shape, k: int, stride: int):
+    from mx_rcnn_tpu_torch.models.layers import same_pads
+
+    return (same_pads(shape[1], k, stride), same_pads(shape[2], k, stride))
+
+
+def check_qconv(dev, dtype: str) -> dict:
+    """K5 (int8) or K6 (fp8) against the plain version at every
+    QCONV_SHAPES case: K5 bit-equal in bf16 and fp32 output; K6 in fp32
+    output within its bound, and its bf16 output bit-equal to its fp32
+    output cast once (the epilogue's one rounding).  The bound: the plain
+    version sums the e4m3 products exactly and rounds once; K6 sums 32 at
+    a time on the tensor cores and adds those partial sums in fp32, so
+    each accumulator may differ by K * 2^-24 of the sum of the |products|
+    (K = kh*kw*cin), scaled by the units, and the rescale may round once
+    more (2^-23 of the output).  Then each case's time, the plain
+    version's, the bound and, for the 1x1 and dense cases, one library
+    call's (torch._int_mm; torch._scaled_mm at unit scales)."""
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.quant import (QuantSpec, _accum_plain,
+                                             _conv_nhwc, _epilogue,
+                                             qconv_cuda)
+
+    spec = QuantSpec(dtype=dtype)
+    name = "K5" if dtype == "int8" else "K6"
+    out = {}
+    for i, (label, shape, cout, k, stride, bias) in enumerate(QCONV_SHAPES):
+        qx, qw, packed, x_unit, w_unit, b = qconv_case(
+            dev, spec, shape, cout, k, stride, bias, seed=100 + i)
+        pads = qconv_pads(shape, k, stride)
+        conv = ((stride, stride), pads)
+        kdepth = k * k * shape[3]
+
+        def run(out_dtype):
+            return qconv_cuda(qx, packed, x_unit, w_unit, b, out_dtype,
+                              (k, k), (stride, stride), pads)
+
+        acc = _accum_plain(qx, qw, spec, conv)
+        got32, got16 = run(torch.float32), run(torch.bfloat16)
+        want32 = _epilogue(acc, x_unit, w_unit, b, torch.float32)
+        torch.cuda.synchronize()
+        err = (got32 - want32).abs()
+        ratio = 0.0
+        if dtype == "int8":
+            want16 = _epilogue(acc, x_unit, w_unit, b, torch.bfloat16)
+            if not (torch.equal(got32, want32) and
+                    torch.equal(got16, want16)):
+                raise AssertionError(
+                    f"K5 {label}: not bit-equal, max |diff| fp32 "
+                    f"{float(err.max())}, bf16 "
+                    f"{float((got16.float() - want16.float()).abs().max())}")
+        else:
+            with torch.no_grad():
+                abs_sum = _conv_nhwc(qx.to(torch.float64).abs(),
+                                     qw.to(torch.float64).abs(), *conv)
+                allow = (kdepth * 2.0 ** -24 * abs_sum
+                         * (x_unit * w_unit).abs().double()
+                         + 2.0 ** -23 * want32.double().abs() + 1e-30)
+                ratio = float((err.double() / allow).max())
+            if ratio > 1.0 or not torch.equal(got16, got32.to(torch.bfloat16)):
+                raise AssertionError(
+                    f"K6 {label}: fp32 error {float(err.max())} against its "
+                    f"bound (worst ratio {ratio:.3f}), or bf16 output not "
+                    f"the fp32 output cast once")
+        del acc, got16
+        n, h, w, c = shape
+        m = got32.shape[0] * got32.shape[1] * got32.shape[2]
+        ms = time_ms(lambda: run(torch.bfloat16), 10)
+        plain_ms = time_ms(lambda: _epilogue(
+            _accum_plain(qx, qw, spec, conv), x_unit, w_unit, b,
+            torch.bfloat16), 2, warmup=1)
+        b_ms, b_by = quant_bound(qx.numel() + packed.numel() + m * cout * 2,
+                                 2.0 * m * cout * kdepth)
+        lib_ms = None
+        if k == 1 and stride == 1:
+            a2 = qx.reshape(m, c)
+            bt = packed[:, :kdepth].contiguous().t()
+            if dtype == "int8":
+                lib_ms = time_ms(lambda: torch._int_mm(a2, bt), 10)
+            else:
+                one = torch.ones((), device=dev)
+                lib_ms = time_ms(lambda: torch._scaled_mm(
+                    a2, bt, scale_a=one, scale_b=one,
+                    out_dtype=torch.bfloat16), 10)
+        out[label] = dict(shape=list(shape), cout=cout, kernel=k,
+                          stride=stride, pads=[list(p) for p in pads],
+                          m=m, k=kdepth, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          max_abs_err=float(err.max()),
+                          worst_bound_ratio=ratio)
+        log(f"{name} {label} ({m}x{cout}x{kdepth}): "
+            + ("bit-equal to the plain version in bf16 and fp32"
+               if dtype == "int8" else
+               f"fp32 max |err| {float(err.max()):.3g}, worst err/bound "
+               f"{ratio:.3f}, bf16 = fp32 cast once")
+            + f"; {ms:.4f} ms (plain {plain_ms:.2f}, bound {b_ms:.4f} ms by "
+              f"{b_by}, library "
+              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms") + ")")
+    return out
+
+
+def check_sim_and_percentile(dev) -> dict:
+    """The sim path (K4, then an fp32 convolution with TF32 off, whatever
+    the global flag) bit-equal to native int8 (K4, K5) at a tile-level
+    size, where every integer sum is exact in fp32 (3*3*8 * 127^2 < 2^24),
+    with cuDNN's TF32 switched on around it; the dense pair likewise at
+    K = 64.  Then the percentile estimator on a 19.9 M-element tensor
+    against numpy's float64 percentile of the same values."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.ops.quant import QuantSpec, percentile, qconv, qdot
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((2, 10, 12, 8), generator=g, device=dev) * 2
+    w = torch.randn((16, 8, 3, 3), generator=g, device=dev)
+    est = x.abs().max()
+    xd = torch.randn((5, 64), generator=g, device=dev) * 3
+    wd = torch.randn((7, 64), generator=g, device=dev)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        sim = qconv(x, w, est, QuantSpec(mode="sim"), (1, 1), "SAME")
+        nat = qconv(x, w, est, QuantSpec(mode="native"), (1, 1), "SAME")
+        sim_d = qdot(xd, wd, xd.abs().max(), QuantSpec(mode="sim"))
+        nat_d = qdot(xd, wd, xd.abs().max(), QuantSpec(mode="native"))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    if not (torch.equal(sim, nat) and torch.equal(sim_d, nat_d)):
+        raise AssertionError(
+            f"sim differs from native int8: conv max |diff| "
+            f"{float((sim - nat).abs().max())}, dense "
+            f"{float((sim_d - nat_d).abs().max())}")
+    ax = torch.randn(math.prod(K4_SHAPE), generator=g, device=dev).abs()
+    t0 = time.perf_counter()
+    ours = float(percentile(ax, 99.9))
+    pct_ms = (time.perf_counter() - t0) * 1e3
+    ref = float(np.percentile(ax.cpu().numpy().astype(np.float64), 99.9))
+    rel = abs(ours - ref) / ref
+    # the fp32 index arithmetic (jnp.percentile's) against numpy's float64
+    # one may pick neighbours one rank apart: ~1e-5 of the value here
+    if not rel <= 5e-5:
+        raise AssertionError(f"percentile {ours} against numpy {ref}")
+    log(f"sim == native int8 bit for bit at 2x10x12x8 3x3 and 5x64 dense "
+        f"with cuDNN TF32 on; percentile 99.9 over {ax.numel()} elements "
+        f"{ours:.7f} against numpy float64 {ref:.7f} (relative "
+        f"{rel:.2e}) in {pct_ms:.1f} ms")
+    return dict(sim_equals_native=True, percentile=ours,
+                percentile_numpy=ref, percentile_rel_err=rel,
+                percentile_ms=pct_ms, elements=ax.numel())
+
+
+def quant_checkpoint(dev, prefix: str) -> None:
+    """A seeded ResNet-101 checkpoint whose every quantized layer has a
+    non-zero kernel: the zero-initialised conv3 of each unit gets a
+    normal draw (std 0.5 / sqrt(fan-in), keeping activations O(10)), and
+    the classifier is scaled by SERVE_CLS_SCALE as in phase 11."""
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.utils.checkpoint import save_params
+
+    cfg = generate_config("resnet101", "PascalVOC")
+    model = build_model(cfg, dev, seed=0, train=True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("conv3.weight"):
+                p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                        * (0.5 / math.sqrt(p.shape[1])))
+        model.cls_score.weight.mul_(SERVE_CLS_SCALE)
+    save_params(prefix, 1, model.state_dict())
+
+
+def quant_eval_cli(prefix: str, tag: str, sets: list) -> dict:
+    """``tools/test.py`` over QUANT_IMAGES synthetic images at batch 2
+    with ``sets``, in-process, counts zeroed just before and read just
+    after; its output to ``quant_<tag>.txt``."""
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools import test as test_cli
+
+    argv = ["--network", "resnet101", "--dataset", "PascalVOC", "--prefix",
+            prefix, "--epoch", "1", "--synthetic", str(QUANT_IMAGES),
+            "--set", "test__batch_images=2"]
+    for s in sets:
+        argv += ["--set", s]
+    out = OUT_DIR / f"quant_{tag}.txt"
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(out, "w") as f, contextlib.redirect_stdout(f):
+        results = test_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    text = out.read_text()
+    rate = re.search(r"pred_eval: \d+ images in ([0-9.]+) s, ([0-9.]+) "
+                     r"images/s", text)
+    fp = re.search(r"^quant calibration fingerprint: ([0-9a-f]{16})$", text,
+                   re.M)
+    if not re.search(r"^mAP = [0-9.]+$", text, re.M) or rate is None or \
+            not math.isfinite(results["mAP"]):
+        raise AssertionError(f"{tag}: no mAP or rate in {out}")
+    return dict(argv=argv, results=results, wall_s=wall, launches=launches,
+                fingerprint=fp.group(1) if fp else None,
+                cli_images_per_s=float(rate.group(2)))
+
+
+def quant_predictor_for(prefix: str, dev, sets: dict):
+    """The eval path's predictor, built as tools/test.py builds it."""
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor, quant_predictor
+    from mx_rcnn_tpu_torch.utils.checkpoint import load_model, load_state_dict
+
+    cfg = generate_config("resnet101", "PascalVOC", test__batch_images=2,
+                          **sets)
+    if cfg.quant.enabled:
+        return cfg, quant_predictor(cfg, load_state_dict(prefix, 1), dev,
+                                    synthetic=QUANT_IMAGES)
+    return cfg, Predictor(load_model(cfg, prefix, 1, dev), cfg, dev)
+
+
+QUANT_ARMS = {
+    "fp_bf16": {},
+    "int8_native": {"quant__enabled": True},
+    "fp8_native": {"quant__enabled": True, "quant__dtype": "fp8"},
+    "int8_sim": {"quant__enabled": True, "quant__mode": "sim"},
+}
+
+
+def quant_want(arm: str) -> dict:
+    """Each arm's launches over the eval CLI run: K1 twice and K2 once an
+    eval batch, plus K1 and K2 once per calibration batch (the proposal
+    forward; the calibration phase runs fp); K4 once per quantized layer
+    and batch; K5 (int8 native) or K6 (fp8) as often; the sim arm's
+    contraction is the fp32 one; K3 never."""
+    calib = CALIB_BATCHES if arm != "fp_bf16" else 0
+    per = QUANT_LAYERS_R101 * QUANT_BATCHES
+    want = {"nms_sweep": 2 * QUANT_BATCHES + calib,
+            "roi_align_fwd": QUANT_BATCHES + calib, "roi_align_bwd": 0,
+            "quantize_act": per if arm != "fp_bf16" else 0,
+            "qconv_s8": per if arm == "int8_native" else 0,
+            "qconv_e4m3": per if arm == "fp8_native" else 0}
+    return want
+
+
+def phase_quant(dev, card: str) -> dict:
+    """Phase 16: K4-K6 against their plain versions at the path's shapes
+    and timed, sim against native, the percentile; then the quantized
+    eval of a seeded ResNet-101 through tools/test.py (int8 native, fp8
+    native, int8 sim, beside the fp bf16 eval), its launches, and each
+    arm's steady images/s and device time in turns; then
+    tools/quant_smoke.py --check on the card."""
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import pred_eval
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import TestLoader
+
+    t0 = time.perf_counter()
+    parts = {}
+    k4 = check_k4(dev)
+    k5 = check_qconv(dev, "int8")
+    k6 = check_qconv(dev, "fp8")
+    sim = check_sim_and_percentile(dev)
+    parts["kernels"] = time.perf_counter() - t0
+    shutil.rmtree(QUANT_DIR, ignore_errors=True)
+    QUANT_DIR.mkdir(parents=True)
+    try:
+        prefix = str(QUANT_DIR / "m")
+        quant_checkpoint(dev, prefix)
+        runs = {}
+        for arm, over in QUANT_ARMS.items():
+            sets = [f"{k}={v}" for k, v in over.items()]
+            run = quant_eval_cli(prefix, arm, sets)
+            want = quant_want(arm)
+            if run["launches"] != want:
+                raise AssertionError(f"{arm}: launches {run['launches']}, "
+                                     f"want {want}")
+            if arm != "fp_bf16" and run["fingerprint"] is None:
+                raise AssertionError(f"{arm}: no fingerprint line")
+            runs[arm] = run
+            log(f"tools/test.py {arm}: mAP {run['results']['mAP']:.4f} "
+                f"(seeded weights: printed, not gated), fingerprint "
+                f"{run['fingerprint']}, {run['cli_images_per_s']:.2f} "
+                f"images/s (first call), launches {run['launches']}")
+        parts["cli"] = time.perf_counter() - t0 - sum(parts.values())
+        # steady eval in turns: fp, int8, fp8, sim
+        imdb, roidb = load_gt_roidb(
+            generate_config("resnet101", "PascalVOC"), training=False,
+            synthetic=QUANT_IMAGES)
+        steady = {arm: [] for arm in QUANT_ARMS}
+        order = list(QUANT_ARMS)
+        preds = {arm: quant_predictor_for(prefix, dev, over)
+                 for arm, over in QUANT_ARMS.items()}
+        for arm in order:
+            cfg, pred = preds[arm]
+            steady[arm].append(steady_eval(
+                lambda: pred_eval(pred, TestLoader(roidb, cfg,
+                                                   imdb.load_image),
+                                  imdb, cfg, verbose=False),
+                QUANT_IMAGES, QUANT_BATCHES, f"eval {arm} on {card}",
+                k1_launches=2))
+        del preds
+        parts["steady"] = time.perf_counter() - t0 - sum(parts.values())
+        smoke = quant_smoke_on_card()
+        parts["quant_smoke"] = time.perf_counter() - t0 - sum(parts.values())
+    finally:
+        shutil.rmtree(QUANT_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for arm, recs in steady.items():
+        log(f"phase 16 {arm} on {card}: images/s "
+            f"{[round(r['images_per_s'], 3) for r in recs]}, device ms per "
+            f"image {[round(r['device_ms_per_image'], 3) for r in recs]}, "
+            f"K4 ms per batch {[round(r['k4_ms_per_batch'], 3) for r in recs]}"
+            f", K5/K6 ms per batch "
+            f"{[round(r['k5_k6_ms_per_batch'], 3) for r in recs]}")
+    log(f"phase 16 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(k4=k4, k5=k5, k6=k6, sim=sim, runs=runs, steady=steady,
+                quant_smoke=smoke, parts_s=parts, wall_s=wall)
+
+
+def quant_smoke_on_card() -> dict:
+    """``tools/quant_smoke.py --check`` on the card (tiny network), its
+    ``main`` in this process: exit 0."""
+    from mx_rcnn_tpu_torch.tools import quant_smoke
+
+    out = OUT_DIR / "quant_smoke.txt"
+    t0 = time.perf_counter()
+    with open(out, "w") as f, contextlib.redirect_stdout(f):
+        rc = quant_smoke.main(["--check", "--workdir",
+                               str(QUANT_DIR / "smoke")])
+    wall = time.perf_counter() - t0
+    text = out.read_text()
+    if rc != 0:
+        raise AssertionError(f"quant_smoke --check exit {rc}: "
+                             f"{text[-2000:]}")
+    rec = json.loads(next(ln for ln in text.splitlines()
+                          if ln.startswith('{"metric": "quant_smoke"')))
+    log(f"tools/quant_smoke.py --check on the card: exit 0 in {wall:.1f} s; "
+        f"mAP fp {rec['mAP_fp']}, int8 {rec['mAP_int8']}, red team "
+        f"{rec['mAP_redteam_2bit']} (budget {rec['budget']})")
+    return dict(wall_s=wall, record=rec)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
                 replaces=kern.replaces, launches=launches,
                 max_abs_err=res["max_abs_err"], ms=res["ms"],
                 plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
-                bound_by=res["bound_by"], library_ms=None)
+                bound_by=res["bound_by"], library_ms=res.get("library_ms"))
 
 
 def main() -> int:
@@ -5028,23 +5538,35 @@ def main() -> int:
     long_run = phase_long_run(dev, card, alternate)
     data_parallel = phase_data_parallel(dev, card)
     device_cache = phase_device_cache(dev, card)
+    quant = phase_quant(dev, card)
 
-    # no single PyTorch call computes any of the three functions (the
-    # repo's bilinear rules are not torchvision's, which is absent), so
-    # library_ms is null; launches are the batch-2 training CLI run's
+    # no single PyTorch call computes any of K1-K3 (the repo's bilinear
+    # rules are not torchvision's, which is absent), so library_ms is
+    # null; their launches are the batch-2 training CLI run's.  K4 and K5
+    # count the int8 quantized eval's launches, K6 the fp8 one's; K5 and
+    # K6 are timed at QCONV_LINE_SHAPE beside torch._int_mm and
+    # torch._scaled_mm, K4 at a stage-1 activation (no library call)
     launches = training[2]["launches"]
+    qrun = quant["runs"]
     lines = [kernel_line(kernels.NMS_SWEEP, k1["train_proposal"],
                          launches["nms_sweep"]),
              kernel_line(kernels.ROI_ALIGN_FWD, k2["train"]["bf16"],
                          launches["roi_align_fwd"]),
              kernel_line(kernels.ROI_ALIGN_BWD, k3["train"]["bf16"],
-                         launches["roi_align_bwd"])]
+                         launches["roi_align_bwd"]),
+             kernel_line(kernels.QUANTIZE_ACT, quant["k4"]["int8 b8"],
+                         qrun["int8_native"]["launches"]["quantize_act"]),
+             kernel_line(kernels.QCONV_S8, quant["k5"][QCONV_LINE_SHAPE],
+                         qrun["int8_native"]["launches"]["qconv_s8"]),
+             kernel_line(kernels.QCONV_E4M3, quant["k6"][QCONV_LINE_SHAPE],
+                         qrun["fp8_native"]["launches"]["qconv_e4m3"])]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
         card=card, host=host, build_s=build_s, k1=k1, k2=k2, k3=k3,
         forward_parity=parity, train_parity=train_parity, serving=serving,
         training=training, evaluation=evaluation, alternate=alternate,
         engine=engine, real_data=real_data, long_run=long_run,
-        data_parallel=data_parallel, device_cache=device_cache), indent=1))
+        data_parallel=data_parallel, device_cache=device_cache,
+        quant=quant), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

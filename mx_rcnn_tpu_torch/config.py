@@ -213,6 +213,38 @@ class FTConfig:
 
 
 @dataclass(frozen=True)
+class QuantConfig:
+    """Mirrors ``mx_rcnn_tpu.config.QuantConfig``: the post-training
+    quantized inference forward (``ops/quant.py``), per-output-channel
+    symmetric weights and per-tensor activation scales from a calibration
+    sweep over held-out training batches.  Off by default, and then every
+    output is the fp model's; training is never quantized.  Outside the
+    config fingerprint, as in the JAX package."""
+
+    # quantize the inference forward (eval Predictor, serving engine)
+    enabled: bool = False
+    # container: 'int8' (int32-accumulated) or 'fp8' (e4m3, fp32-accumulated)
+    dtype: str = "int8"
+    # 'native' runs the low-precision contraction (kernels K5/K6 on the
+    # card); 'sim' runs the same quantized values in fp32 arithmetic
+    mode: str = "native"
+    # activation-scale estimator: 'absmax' (running max of |x|) or
+    # 'percentile' (mean of the per-batch ``percentile``-th of |x|)
+    estimator: str = "absmax"
+    percentile: float = 99.9
+    # integer bits of the int8 container, shared by weights and
+    # activations (qmax = 2^(b-1) - 1); below 8 is the red-team arm
+    weight_bits: int = 8
+    # the calibration sweep: batches of a seeded subsample of the
+    # training roidb, in roidb order
+    calibration_batches: int = 2
+    calibration_seed: int = 0
+    # |mAP delta| the quantized eval may lose against the fp eval
+    # (tools/quant_smoke.py)
+    map_delta_budget: float = 0.05
+
+
+@dataclass(frozen=True)
 class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     test: TestConfig = field(default_factory=TestConfig)
@@ -223,6 +255,7 @@ class Config:
     serve: ServeConfig = field(default_factory=ServeConfig)
     data: DataConfig = field(default_factory=DataConfig)
     ft: FTConfig = field(default_factory=FTConfig)
+    quant: QuantConfig = field(default_factory=QuantConfig)
 
     @property
     def num_classes(self) -> int:

@@ -11,11 +11,18 @@ flattened (N·C, R) batch, kernel K1 on the card),
 and ``generate_proposals`` (the alternate schedule's proposal dump).
 A :class:`Predictor` given several ``devices`` splits each batch across
 them, as the JAX ``Predictor(mesh=...)`` shards it.
+
+Quantized inference (``cfg.quant``): ``calibration_batches`` (a seeded
+subsample of the training roidb), ``calibrate_quant`` (the fp forward
+recording activation statistics → per-layer scales) and
+``quant_predictor`` (the quantized model with those scales in a
+:class:`Predictor`, which carries the calibration fingerprint).
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import os
 import pickle
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -25,10 +32,18 @@ import torch
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.train import RCNNBatch
-from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, to_device_batch
+from mx_rcnn_tpu_torch.models.faster_rcnn import (FasterRCNN, build_model,
+                                                  to_device_batch)
 from mx_rcnn_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from mx_rcnn_tpu_torch.ops.nms import nms_mask_batch
+from mx_rcnn_tpu_torch.ops.quant import (calibration_fingerprint,
+                                         finalize_calibration,
+                                         quant_program_tag)
+from mx_rcnn_tpu_torch.utils.bridge import (load_quant, quant_stats_to_flax,
+                                            quant_to_flax)
 from mx_rcnn_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger("mx_rcnn_tpu_torch")
 
 
 # what a pad row of each input holds: im_info rows of 1, as the JAX
@@ -57,11 +72,36 @@ class Predictor:
     runs on device k (the launches of different cards overlap without
     threads), and the outputs are gathered to the host in row order
     without the pad rows.  ``pred_eval`` postprocesses each slice on its
-    own device (:meth:`raw_shards`)."""
+    own device (:meth:`raw_shards`).
+
+    With ``cfg.quant.enabled`` the model must be the quantized one with
+    its calibrated scales (:func:`quant_predictor`), or this raises; the
+    predictor then carries ``quant_fingerprint`` and ``program_tag``
+    (the port has no program cache: the tag is logged and keys
+    nothing)."""
 
     def __init__(self, model: FasterRCNN, cfg: Config, device="cuda",
                  devices: Optional[Sequence] = None):
         self.cfg = cfg
+        self.quant_fingerprint: Optional[str] = None
+        self.program_tag = ""
+        if cfg.quant.enabled:
+            if model.quant is None or model.quant.phase != "apply":
+                raise ValueError(
+                    "cfg.quant.enabled but the model is not the quantized "
+                    "apply-phase model — build it with cfg.quant enabled "
+                    "(core/tester.py — quant_predictor)")
+            try:
+                col = quant_to_flax(model)
+            except ValueError as e:
+                raise ValueError(
+                    "cfg.quant.enabled but the model carries no calibrated "
+                    "'quant' scales — calibrate first (core/tester.py — "
+                    f"quant_predictor): {e}") from None
+            self.quant_fingerprint = calibration_fingerprint(col, cfg.quant)
+            self.program_tag = quant_program_tag(cfg.quant,
+                                                 self.quant_fingerprint)
+            logger.info("quant program tag %s", self.program_tag)
         self.replicas: List[Tuple[torch.device, FasterRCNN]] = []
         if devices:
             for i, d in enumerate(devices):
@@ -312,6 +352,83 @@ def _collect(boxes_b: np.ndarray, scores_b: np.ndarray, keep_b: np.ndarray,
             for c in range(1, num_classes):
                 all_boxes[c][i] = all_boxes[c][i][
                     all_boxes[c][i][:, 4] >= thresh]
+
+
+def calibration_batches(cfg: Config, dataset_kw: dict = None,
+                        synthetic: int = 0
+                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The held-out calibration sweep: ``cfg.quant.calibration_batches``
+    test-mode batches of ``test.batch_images`` from a
+    ``calibration_seed`` subsample of the TRAINING roidb (never the eval
+    set), taken in roidb order on the caller's thread.  ``synthetic`` as
+    in ``load_gt_roidb``.  Returns ``(images, im_info)`` pairs."""
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import TestLoader
+
+    q = cfg.quant
+    imdb, roidb = load_gt_roidb(cfg, training=True, synthetic=synthetic,
+                                **(dataset_kw or {}))
+    per_batch = max(1, cfg.test.batch_images)
+    want = max(1, q.calibration_batches) * per_batch
+    order = np.random.RandomState(q.calibration_seed).permutation(len(roidb))
+    roidb = [roidb[i] for i in order[:want]]
+    loader = TestLoader(roidb, cfg, imdb.load_image, batch_images=per_batch,
+                        num_workers=0)
+    out = []
+    for batch, _, _ in loader:
+        out.append((np.asarray(batch.images), np.asarray(batch.im_info)))
+        if len(out) >= q.calibration_batches:
+            break
+    return out
+
+
+def calibrate_quant(cfg: Config, state_dict, device="cuda", *,
+                    dataset_kw: dict = None, synthetic: int = 0,
+                    batches=None) -> dict:
+    """The calibration sweep on ``device`` (CUDA unless the caller asks
+    for the CPU): the fp forward of the calibration-phase model with the
+    fp32 weights ``state_dict`` over ``batches`` (default
+    :func:`calibration_batches`), in order, recording each quantized
+    layer's activation statistics; returns the ``quant`` collection of
+    per-layer scales (``ops/quant.py — finalize_calibration``).  The same
+    batches in the same order give the same scales."""
+    if not cfg.quant.enabled:
+        raise ValueError("calibrate_quant needs cfg.quant.enabled")
+    dev = resolve_device(device)
+    model = build_model(cfg, dev, seed=None, quant_phase="calib")
+    model.load_state_dict(state_dict)
+    seen = 0
+    with torch.inference_mode():
+        for images, im_info in (batches if batches is not None else
+                                calibration_batches(cfg, dataset_kw,
+                                                    synthetic)):
+            model(*to_device_batch(np.asarray(images), np.asarray(im_info),
+                                   dev))
+            seen += 1
+    if not seen:
+        raise ValueError("calibration sweep saw zero batches")
+    return finalize_calibration(quant_stats_to_flax(model), cfg.quant)
+
+
+def quant_predictor(cfg: Config, state_dict, device="cuda", *,
+                    dataset_kw: dict = None, synthetic: int = 0,
+                    batches=None, devices: Optional[Sequence] = None
+                    ) -> Predictor:
+    """The quantized-inference :class:`Predictor` on ``device``:
+    :func:`calibrate_quant` → the apply-phase quantized model with the
+    fp32 weights ``state_dict`` and the scales (each layer's weight
+    quantized once) → a Predictor carrying the calibration fingerprint
+    (over ``devices``, when given, as :class:`Predictor` splits a batch).
+    Eval (``tools/test.py``) and serving (``tools/serve.py``) take it
+    unchanged."""
+    quant_col = calibrate_quant(cfg, state_dict, device,
+                                dataset_kw=dataset_kw, synthetic=synthetic,
+                                batches=batches)
+    dev = resolve_device(device)
+    model = build_model(cfg, dev, seed=None)
+    model.load_state_dict(state_dict)
+    load_quant(model, quant_col)
+    return Predictor(model, cfg, dev, devices=devices)
 
 
 def generate_proposals(model: FasterRCNN, test_loader, cfg: Config,

@@ -160,7 +160,29 @@ ROI_ALIGN_BWD = CudaKernel(
      _F, _P],
     replaces="mx_rcnn_tpu/ops/roi_align_pallas.py:126")  # _bwd_kernel
 
-KERNELS: Tuple[CudaKernel, ...] = (NMS_SWEEP, ROI_ALIGN_FWD, ROI_ALIGN_BWD)
+# K4-K6 have no Pallas counterpart: the JAX package computes the
+# quantizer and the quantized contraction with XLA; ``replaces`` names
+# that code
+QUANTIZE_ACT = CudaKernel(
+    "quantize_act", "quantize.cu", "quantize_act_launch",
+    # x, is_bf16, unit, qmax, fp8, out, n, stream
+    [_P, _I, _P, _F, _I, _P, ctypes.c_longlong, _P],
+    replaces="mx_rcnn_tpu/ops/quant.py:133")  # _quantize
+
+# x, w, x_unit, w_unit, bias, out, out_bf16, n, h, w, c, oh, ow, cout, kh,
+# kw, sh, sw, pt, pl, kp, stream
+_QCONV_ARGS = [_P, _P, _P, _P, _P, _P, _I] + [_I] * 14 + [_P]
+
+QCONV_S8 = CudaKernel(
+    "qconv_s8", "qconv.cu", "qconv_s8_launch", _QCONV_ARGS,
+    replaces="mx_rcnn_tpu/ops/quant.py:179")  # _accum, int8 native
+
+QCONV_E4M3 = CudaKernel(
+    "qconv_e4m3", "qconv.cu", "qconv_e4m3_launch", _QCONV_ARGS,
+    replaces="mx_rcnn_tpu/ops/quant.py:179")  # _accum, fp8
+
+KERNELS: Tuple[CudaKernel, ...] = (NMS_SWEEP, ROI_ALIGN_FWD, ROI_ALIGN_BWD,
+                                   QUANTIZE_ACT, QCONV_S8, QCONV_E4M3)
 
 
 def build_all() -> Dict[str, str]:

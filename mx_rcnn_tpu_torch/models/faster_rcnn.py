@@ -16,6 +16,13 @@ flax does.  For serving the weights are stored in the compute dtype, so
 the cast is free; for training they stay fp32 masters
 (``build_model(train=True)``) and the optimizer updates those.  Frozen-BN
 parameters and statistics stay fp32 either way.
+
+``quant`` (``ops/quant.py — QuantSpec``, from ``cfg.quant``) quantizes the
+backbone's convolutions and the head's trunk (``models/layers.py —
+QuantConv2dSame/QuantDense``, whose weights stay fp32 and are quantized
+once when the calibrated scales are loaded); the RPN head and
+``cls_score``/``bbox_pred`` stay floating point, the PTQ recipe's
+first/last-layer exemption.  ``quant=None`` is the unchanged fp model.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from mx_rcnn_tpu_torch.config import Config
-from mx_rcnn_tpu_torch.models.layers import Conv2dSame, Dense
+from mx_rcnn_tpu_torch.models.layers import QUANT_LAYERS, Conv2dSame, Dense
 from mx_rcnn_tpu_torch.models.resnet import ResNetBackbone, ResNetHead
 from mx_rcnn_tpu_torch.models.rpn import RPNHead
 from mx_rcnn_tpu_torch.models.tiny import TinyBackbone, TinyHead
@@ -35,6 +42,7 @@ from mx_rcnn_tpu_torch.models.vgg import VGGBackbone, VGGHead
 from mx_rcnn_tpu_torch.ops.anchors import generate_shifted_anchors
 from mx_rcnn_tpu_torch.ops.normalize import normalize_images
 from mx_rcnn_tpu_torch.ops.proposal import propose_batch
+from mx_rcnn_tpu_torch.ops.quant import QuantSpec, spec_from_config
 from mx_rcnn_tpu_torch.ops.roi_pool import roi_align
 from mx_rcnn_tpu_torch.utils.device import resolve_device
 
@@ -53,7 +61,8 @@ class FasterRCNN(nn.Module):
                  test_post_nms_top_n: int = 300,
                  test_nms_thresh: float = 0.7, test_min_size: int = 16,
                  pixel_means: Tuple[float, ...] = (123.68, 116.779, 103.939),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 quant: Optional[QuantSpec] = None):
         super().__init__()
         self.network = network
         self.num_classes = num_classes
@@ -67,18 +76,19 @@ class FasterRCNN(nn.Module):
         self.test_min_size = test_min_size
         self.pixel_means = tuple(pixel_means)
         self.dtype = dtype
+        self.quant = quant
         if network == "vgg":
-            self.backbone = VGGBackbone(dtype)
+            self.backbone = VGGBackbone(dtype, quant)
             self.head = VGGHead(self.pooled_size, VGGBackbone.out_channels,
-                                dtype)
+                                dtype, quant=quant)
         elif network in ("resnet50", "resnet101"):
             depth = int(network.replace("resnet", ""))
-            self.backbone = ResNetBackbone(depth, dtype)
-            self.head = ResNetHead(depth, dtype)
+            self.backbone = ResNetBackbone(depth, dtype, quant)
+            self.head = ResNetHead(depth, dtype, quant)
         elif network == "tiny":
-            self.backbone = TinyBackbone(dtype)
+            self.backbone = TinyBackbone(dtype, quant)
             self.head = TinyHead(self.pooled_size,
-                                 TinyBackbone.out_channels, dtype)
+                                 TinyBackbone.out_channels, dtype, quant)
         else:
             raise ValueError(f"unknown network {network!r}")
         num_anchors = len(self.anchor_scales) * len(self.anchor_ratios)
@@ -96,9 +106,12 @@ class FasterRCNN(nn.Module):
                 m.init_(generator)
 
     def cast_compute_dtype(self) -> "FasterRCNN":
-        """Store conv/dense weights in the compute dtype, channels-last."""
+        """Store conv/dense weights in the compute dtype, channels-last.
+        Quantized layers keep fp32 weights: they are quantized from the
+        fp32 values, as the JAX package quantizes its fp32 params."""
         for m in self.modules():
-            if isinstance(m, (Conv2dSame, Dense)):
+            if isinstance(m, (Conv2dSame, Dense)) and \
+                    not isinstance(m, QUANT_LAYERS):
                 for p in m.parameters(recurse=False):
                     p.data = p.data.to(self.dtype)
         return self.channels_last_()
@@ -226,7 +239,8 @@ class FasterRCNN(nn.Module):
 
 
 def build_model(cfg: Config, device="cuda", seed: Optional[int] = 0,
-                train: bool = False) -> FasterRCNN:
+                train: bool = False, quant_phase: str = "apply"
+                ) -> FasterRCNN:
     """The model for a Config, randomly initialised from ``seed`` (an
     explicit ``torch.Generator``; ``None`` leaves the weights for a
     checkpoint to fill), on ``device``.  CUDA is the default; without a
@@ -234,7 +248,19 @@ def build_model(cfg: Config, device="cuda", seed: Optional[int] = 0,
 
     ``train=False``: eval mode, weights stored in the compute dtype.
     ``train=True``: train mode, fp32 master weights that each op casts to
-    the compute dtype."""
+    the compute dtype.
+
+    With ``cfg.quant.enabled`` (inference only) the model is the
+    quantized one: ``quant_phase='apply'`` runs quantized once its scales
+    are loaded (``core/tester.py — quant_predictor``), ``'calib'`` is the
+    fp forward recording activation statistics (``calibrate_quant``).
+    Quant disabled gives the unchanged fp model."""
+    if cfg.quant.enabled and train:
+        raise ValueError(
+            "quant__enabled=true is inference-only — train with the fp "
+            "config and enable quant at test/serve/export time")
+    quant = (spec_from_config(cfg.quant, quant_phase)
+             if cfg.quant.enabled else None)
     dev = resolve_device(device)
     model = FasterRCNN(
         network=cfg.network.name,
@@ -249,6 +275,7 @@ def build_model(cfg: Config, device="cuda", seed: Optional[int] = 0,
         test_min_size=cfg.test.rpn_min_size,
         pixel_means=tuple(cfg.network.pixel_means),
         dtype=_DTYPES[cfg.network.compute_dtype],
+        quant=quant,
     )
     if seed is not None:
         model.init_weights(torch.Generator().manual_seed(seed))

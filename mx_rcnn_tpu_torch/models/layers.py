@@ -12,11 +12,17 @@ a weight already stored in the activation dtype casts to itself.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mx_rcnn_tpu_torch.ops.quant import (QuantSpec, new_act_stats,
+                                         pack_weight, qconv_prepared,
+                                         qdot_prepared, quantize_weight,
+                                         record_act_stats)
 
 # std of a unit normal truncated to [-2, 2]: flax's truncated-normal
 # variance scaling divides by it
@@ -133,3 +139,104 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class _QuantMixin:
+    """The state a quantized layer adds, none of it in the state_dict:
+    the calibrated activation scale ``act_scale`` (apply phase), the
+    weight quantized once by :meth:`prepare_` (``qweight`` in the
+    weight's layout, ``w_unit`` per output channel, and ``packed``, the
+    rows K5/K6 read), and the calibration phase's statistics ``stats``."""
+
+    def _init_quant(self, spec: QuantSpec) -> None:
+        self.spec = spec
+        for name in ("act_scale", "qweight", "w_unit", "packed"):
+            self.register_buffer(name, None, persistent=False)
+        self.stats: Optional[Dict[str, torch.Tensor]] = None
+
+    def prepare_(self, act_scale) -> None:
+        """Set the calibrated scale and quantize the (fp32) weight."""
+        if not torch.is_tensor(act_scale):
+            act_scale = torch.from_numpy(np.array(act_scale, np.float32))
+        self.act_scale = act_scale.to(torch.float32).to(
+            self.weight.device).reshape(())
+        qw, self.w_unit = quantize_weight(self.weight, self.spec)
+        self.qweight = qw
+        sim = self.spec.dtype == "int8" and self.spec.mode == "sim"
+        self.packed = None if sim else pack_weight(qw)
+
+    def _record(self, x: torch.Tensor) -> None:
+        if self.stats is None:
+            self.stats = new_act_stats(x.device)
+        record_act_stats(self.stats, x, self.spec)
+
+    def _check_prepared(self) -> None:
+        if self.act_scale is None or self.qweight is None:
+            raise RuntimeError(
+                "quantized layer has no calibrated act_scale: calibrate "
+                "first (core/tester.py — quant_predictor)")
+
+
+class QuantConv2dSame(_QuantMixin, Conv2dSame):
+    """Inference-only quantized NCHW convolution with flax "SAME"
+    padding: the input is quantized per tensor against ``act_scale``
+    and contracted with the per-channel quantized weight (K4 then K5/K6
+    on the card), rescaled once, the bias added in fp32 and the result
+    cast once to the input's dtype, as the JAX ``QuantConv``.  In the
+    calibration phase it is :class:`Conv2dSame` recording statistics."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 bias: bool = True, init: str = "he_normal",
+                 spec: QuantSpec = QuantSpec()):
+        super().__init__(cin, cout, kernel, stride, bias, init)
+        self._init_quant(spec)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spec.phase == "calib":
+            self._record(x)
+            return super().forward(x)
+        self._check_prepared()
+        y = qconv_prepared(x.permute(0, 2, 3, 1), self.qweight, self.packed,
+                           self.w_unit, self.act_scale, self.spec,
+                           (self.stride, self.stride), "SAME",
+                           bias=self.bias, out_dtype=x.dtype)
+        return y.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+
+
+class QuantDense(_QuantMixin, Dense):
+    """The :class:`QuantConv2dSame` contract for ``(…, in) → (…, out)``."""
+
+    def __init__(self, cin: int, cout: int, init: str = "lecun_normal",
+                 spec: QuantSpec = QuantSpec()):
+        super().__init__(cin, cout, init)
+        self._init_quant(spec)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spec.phase == "calib":
+            self._record(x)
+            return super().forward(x)
+        self._check_prepared()
+        return qdot_prepared(x, self.qweight, self.packed, self.w_unit,
+                             self.act_scale, self.spec, bias=self.bias,
+                             out_dtype=x.dtype)
+
+
+QUANT_LAYERS = (QuantConv2dSame, QuantDense)
+
+
+def conv(cin: int, cout: int, kernel: int, stride: int = 1,
+         bias: bool = True, init: str = "he_normal",
+         quant: Optional[QuantSpec] = None) -> Conv2dSame:
+    """:class:`Conv2dSame`, or with a ``quant`` recipe the
+    :class:`QuantConv2dSame` of the same parameters."""
+    if quant is None:
+        return Conv2dSame(cin, cout, kernel, stride, bias, init)
+    return QuantConv2dSame(cin, cout, kernel, stride, bias, init, quant)
+
+
+def dense(cin: int, cout: int, init: str = "lecun_normal",
+          quant: Optional[QuantSpec] = None) -> Dense:
+    """:class:`Dense`, or its :class:`QuantDense` for a ``quant`` recipe."""
+    if quant is None:
+        return Dense(cin, cout, init)
+    return QuantDense(cin, cout, init, quant)

@@ -6,17 +6,21 @@ the first activation), a 3x3/2 max-pool padded with −inf, and a head that
 runs the 2048-filter stage per ROI and closes with ``bn1`` → relu →
 spatial mean.  Module names match the flax names so the weight bridge is
 mechanical.  Layers run NCHW; the head takes NHWC pooled features.
+``quant`` (an ``ops/quant.py — QuantSpec``) makes every convolution a
+quantized one: conv0 and each unit's conv1/conv2/conv3/sc, in the
+backbone and in the per-ROI stage 4.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mx_rcnn_tpu_torch.models.layers import Conv2dSame, FrozenBatchNorm
+from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm, conv
+from mx_rcnn_tpu_torch.ops.quant import QuantSpec
 
 STAGE_UNITS = {
     50: (3, 4, 6, 3),
@@ -29,21 +33,22 @@ class BottleneckUnit(nn.Module):
     the identity or a 1x1 projection of the first activation."""
 
     def __init__(self, cin: int, filters: int, stride: int, dim_match: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, quant: Optional[QuantSpec] = None):
         super().__init__()
         mid = filters // 4
         self.dim_match = dim_match
         self.bn1 = FrozenBatchNorm(cin, dtype)
-        self.conv1 = Conv2dSame(cin, mid, 1, bias=False)
+        self.conv1 = conv(cin, mid, 1, bias=False, quant=quant)
         self.bn2 = FrozenBatchNorm(mid, dtype)
-        self.conv2 = Conv2dSame(mid, mid, 3, stride, bias=False)
+        self.conv2 = conv(mid, mid, 3, stride, bias=False, quant=quant)
         self.bn3 = FrozenBatchNorm(mid, dtype)
         # zero-init residual output: with frozen identity BN a he-init
         # conv3 doubles the activation variance per unit (2^33 by the end
         # of ResNet-101); pretrained weights overwrite it
-        self.conv3 = Conv2dSame(mid, filters, 1, bias=False, init="zeros")
+        self.conv3 = conv(mid, filters, 1, bias=False, init="zeros",
+                          quant=quant)
         if not dim_match:
-            self.sc = Conv2dSame(cin, filters, 1, stride, bias=False)
+            self.sc = conv(cin, filters, 1, stride, bias=False, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act1 = F.relu(self.bn1(x))
@@ -55,13 +60,14 @@ class BottleneckUnit(nn.Module):
 
 
 def _add_stage(parent: nn.Module, cin: int, filters: int, units: int,
-               stride: int, dtype: torch.dtype, prefix: str) -> List[str]:
+               stride: int, dtype: torch.dtype, prefix: str,
+               quant: Optional[QuantSpec] = None) -> List[str]:
     names = []
     for u in range(units):
         name = f"{prefix}_unit{u + 1}"
         parent.add_module(name, BottleneckUnit(
             cin if u == 0 else filters, filters, stride if u == 0 else 1,
-            dim_match=u != 0, dtype=dtype))
+            dim_match=u != 0, dtype=dtype, quant=quant))
         names.append(name)
     return names
 
@@ -71,16 +77,19 @@ class ResNetBackbone(nn.Module):
 
     out_channels = 1024
 
-    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32):
+    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32,
+                 quant: Optional[QuantSpec] = None):
         super().__init__()
         units = STAGE_UNITS[depth]
         self.dtype = dtype
         self.bn_data = FrozenBatchNorm(3, dtype)
-        self.conv0 = Conv2dSame(3, 64, 7, 2, bias=False)
+        self.conv0 = conv(3, 64, 7, 2, bias=False, quant=quant)
         self.bn0 = FrozenBatchNorm(64, dtype)
-        self.units = (_add_stage(self, 64, 256, units[0], 1, dtype, "stage1")
-                      + _add_stage(self, 256, 512, units[1], 2, dtype, "stage2")
-                      + _add_stage(self, 512, 1024, units[2], 2, dtype, "stage3"))
+        self.units = (
+            _add_stage(self, 64, 256, units[0], 1, dtype, "stage1", quant)
+            + _add_stage(self, 256, 512, units[1], 2, dtype, "stage2", quant)
+            + _add_stage(self, 512, 1024, units[2], 2, dtype, "stage3",
+                         quant))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bn_data(x.to(self.dtype))
@@ -98,11 +107,12 @@ class ResNetHead(nn.Module):
     out_channels = 2048
     dropout_sites = ()
 
-    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32):
+    def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32,
+                 quant: Optional[QuantSpec] = None):
         super().__init__()
         self.dtype = dtype
         self.units = _add_stage(self, 1024, 2048, STAGE_UNITS[depth][3], 2,
-                                dtype, "stage4")
+                                dtype, "stage4", quant)
         self.bn1 = FrozenBatchNorm(2048, dtype)
 
     def forward(self, pooled: torch.Tensor) -> torch.Tensor:

@@ -10,18 +10,20 @@ and fc7 (4096 each, ReLU), each followed in train mode by dropout 0.5.
 Dropout takes its uniforms from the caller, ``u`` of the activation's
 shape: an element is kept where ``u < keep_prob`` and scaled by
 ``1 / keep_prob``, flax's ``bernoulli(keep_prob)`` rule, so a mask drawn
-by flax can be replayed exactly.
+by flax can be replayed exactly.  ``quant`` quantizes the 13 convolutions
+and fc6/fc7 (``ops/quant.py``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mx_rcnn_tpu_torch.models.layers import Conv2dSame, Dense
+from mx_rcnn_tpu_torch.models.layers import conv, dense
+from mx_rcnn_tpu_torch.ops.quant import QuantSpec
 
 # (block name, number of convs, filters); a pool after blocks 1-4 only
 VGG16_BLOCKS = (
@@ -36,7 +38,8 @@ VGG16_BLOCKS = (
 class VGGBackbone(nn.Module):
     out_channels = 512
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 quant: Optional[QuantSpec] = None):
         super().__init__()
         self.dtype = dtype
         self.blocks = []
@@ -44,7 +47,8 @@ class VGGBackbone(nn.Module):
         for name, n_convs, filters in VGG16_BLOCKS:
             names = []
             for j in range(n_convs):
-                setattr(self, f"{name}_{j + 1}", Conv2dSame(cin, filters, 3))
+                setattr(self, f"{name}_{j + 1}",
+                        conv(cin, filters, 3, quant=quant))
                 names.append(f"{name}_{j + 1}")
                 cin = filters
             self.blocks.append(names)
@@ -75,12 +79,14 @@ class VGGHead(nn.Module):
 
     def __init__(self, pooled_size=(7, 7), in_channels: int = 512,
                  dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5,
+                 quant: Optional[QuantSpec] = None):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
-        self.fc6 = Dense(pooled_size[0] * pooled_size[1] * in_channels, 4096)
-        self.fc7 = Dense(4096, 4096)
+        self.fc6 = dense(pooled_size[0] * pooled_size[1] * in_channels, 4096,
+                         quant=quant)
+        self.fc7 = dense(4096, 4096, quant=quant)
 
     def forward(self, pooled: torch.Tensor,
                 dropout_uniforms: Tuple[torch.Tensor, ...] = ()

@@ -52,13 +52,13 @@ import torch
 
 from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
                                       parse_set_overrides)
-from mx_rcnn_tpu_torch.core.tester import Predictor
+from mx_rcnn_tpu_torch.core.tester import Predictor, quant_predictor
 from mx_rcnn_tpu_torch.data.image import RESIZE_BACKEND
 from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
 from mx_rcnn_tpu_torch.serve.engine import ServingEngine
 from mx_rcnn_tpu_torch.serve.queue import (DeadlineExceeded, RequestFailed,
                                            ShedError)
-from mx_rcnn_tpu_torch.utils.checkpoint import load_model
+from mx_rcnn_tpu_torch.utils.checkpoint import load_model, load_state_dict
 from mx_rcnn_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("mx_rcnn_tpu_torch")
@@ -79,8 +79,16 @@ def init_predictor(cfg: Config, prefix: str = None, epoch: int = 0,
                    seed: int = 0, device="cuda") -> Predictor:
     """A predictor on ``device`` (CUDA unless the caller asks for the
     CPU) from checkpoint ``prefix``@``epoch``, else from random weights
-    made from ``seed``: serving throughput does not depend on them."""
+    made from ``seed``: serving throughput does not depend on them.  With
+    ``cfg.quant.enabled`` it is the quantized predictor (a calibration
+    sweep over held-out training batches first, ``quant_predictor``), so
+    every serving CLI gains the quant mode through one ``--set``."""
     dev = resolve_device(device)
+    if cfg.quant.enabled:
+        state = (load_state_dict(prefix, epoch) if prefix else build_model(
+            cfg.replace_in("quant", enabled=False), "cpu", seed,
+            train=True).state_dict())
+        return quant_predictor(cfg, state, dev)
     model = (load_model(cfg, prefix, epoch, dev) if prefix
              else build_model(cfg, dev, seed))
     return Predictor(model, cfg, dev)

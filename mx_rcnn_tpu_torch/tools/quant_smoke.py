@@ -1,0 +1,157 @@
+"""Prove the quantized inference path end to end on the tiny network.
+
+Counterpart of the first three legs of ``mx_rcnn_tpu/tools/quant_smoke.py``:
+train the tiny network briefly on synthetic data, then check
+
+* **fp bit-identity with quant off**: the Predictor's outputs are
+  bit-equal to the model's own forward, and the quantized model's
+  parameters (names and shapes) are the fp model's, so fp32 checkpoints
+  load into it unchanged;
+* **the accuracy gate passes on int8**: the quantized eval (calibration
+  sweep → int8 forward) stays within ``quant.map_delta_budget`` mAP of
+  the fp eval of the same checkpoint;
+* **the red-team arm fires the gate**: ``weight_bits=2`` loses more
+  than the budget, so the gate has teeth.
+
+The JAX tool's export round trip and store admission legs wait for the
+port of ``serve/export.py``.  ``--check`` turns the checks into the exit
+code.  Runs on the card by default; ``--device cpu`` on the CPU.
+
+    python -m mx_rcnn_tpu_torch.tools.quant_smoke --check
+    python -m mx_rcnn_tpu_torch.tools.quant_smoke --device cpu --check
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import tempfile
+
+import numpy as np
+import torch
+
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.tester import Predictor
+from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+from mx_rcnn_tpu_torch.tools.test import test_rcnn
+from mx_rcnn_tpu_torch.tools.train import train_net
+from mx_rcnn_tpu_torch.utils.checkpoint import load_model
+from mx_rcnn_tpu_torch.utils.device import resolve_device
+
+# the JAX smoke's miniature recipe (tools/obs_smoke.py — _TINY): a
+# 128x160 canvas, short proposal lists, no flips
+_TINY = {
+    "train__rpn_pre_nms_top_n": 1024, "train__rpn_post_nms_top_n": 300,
+    "train__max_gt_boxes": 8, "train__flip": False,
+    "test__rpn_pre_nms_top_n": 512, "test__rpn_post_nms_top_n": 64,
+    "bucket__scale": 128, "bucket__max_size": 160,
+    "bucket__shapes": ((128, 160), (160, 128)),
+    "default__frequent": 10_000,
+}
+
+
+def _cfg(workdir: str, **kw):
+    over = dict(_TINY)
+    over.update({
+        "dataset__root_path": os.path.join(workdir, "data"),
+        "dataset__dataset_path": os.path.join(workdir, "data", "synthetic"),
+    })
+    over.update(kw)
+    return generate_config("tiny", "synthetic", **over)
+
+
+def run_smoke(workdir: str, num_images: int, epochs: int,
+              device="cuda") -> dict:
+    """Train, then gather the three checks' evidence; returns the
+    record."""
+    dev = resolve_device(device)
+    cfg = _cfg(workdir)
+    dataset_kw = {"num_images": num_images}
+    prefix = os.path.join(workdir, "model", "e2e")
+    train_net(cfg, prefix=prefix, end_epoch=epochs, seed=0,
+              dataset_kw=dataset_kw, device=dev, log=lambda line: None)
+    ev: dict = {"epochs": epochs, "num_images": num_images,
+                "device": str(dev)}
+
+    # ---- fp bit-identity with quant off -------------------------------
+    model = load_model(cfg, prefix, epochs, dev)
+    rng = np.random.RandomState(0)
+    images = (rng.rand(2, 128, 160, 3) * 255.0).astype(np.float32)
+    im_info = np.tile(np.array([128, 160, 1.0], np.float32), (2, 1))
+    via_pred = Predictor(model, cfg, dev)(images, im_info)
+    with torch.inference_mode():
+        direct = [t.cpu().numpy() for t in model(
+            torch.from_numpy(images).to(dev),
+            torch.from_numpy(im_info).to(dev))]
+    ev["fp_bit_identical"] = all(
+        a.dtype == b.dtype and a.shape == b.shape and (a == b).all()
+        for a, b in zip(via_pred, direct))
+    qcfg = cfg.replace_in("quant", enabled=True)
+    fp_params = {k: tuple(v.shape) for k, v in
+                 build_model(cfg, "cpu", None).state_dict().items()}
+    q_params = {k: tuple(v.shape) for k, v in
+                build_model(qcfg, "cpu", None).state_dict().items()}
+    ev["param_tree_unchanged"] = fp_params == q_params
+
+    # ---- accuracy gate: fp, int8, red team ----------------------------
+    def m_ap(c) -> float:
+        return float(test_rcnn(c, prefix=prefix, epoch=epochs, verbose=False,
+                               dataset_kw=dataset_kw, device=dev)["mAP"])
+
+    res_fp = m_ap(cfg)
+    res_q = m_ap(qcfg)
+    res_rt = m_ap(cfg.replace_in("quant", enabled=True, weight_bits=2))
+    budget = cfg.quant.map_delta_budget
+    ev.update({
+        "mAP_fp": round(res_fp, 4),
+        "mAP_int8": round(res_q, 4),
+        "mAP_redteam_2bit": round(res_rt, 4),
+        "budget": budget,
+        "quant_delta": round(res_q - res_fp, 4),
+        "redteam_delta": round(res_rt - res_fp, 4),
+    })
+    ev["accuracy_gate_pass"] = abs(ev["quant_delta"]) <= budget
+    ev["redteam_gate_fires"] = ev["redteam_delta"] < -budget
+    return ev
+
+
+def check(ev: dict) -> list:
+    """The checks; returns a list of problems."""
+    return [f"{flag} is false" for flag in
+            ("fp_bit_identical", "param_tree_unchanged",
+             "accuracy_gate_pass", "redteam_gate_fires")
+            if not ev.get(flag)]
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--workdir", default=None,
+                   help="default: a fresh temp dir, removed on success")
+    p.add_argument("--num_images", type=int, default=64)
+    p.add_argument("--epochs", type=int, default=6)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--check", action="store_true",
+                   help="exit non-zero unless every check holds")
+    args = p.parse_args(argv)
+    workdir = args.workdir or tempfile.mkdtemp(prefix="quant_smoke_")
+    ev = run_smoke(workdir, args.num_images, args.epochs, args.device)
+    problems = check(ev)
+    ev["problems"] = problems
+    print(json.dumps({"metric": "quant_smoke", "ok": not problems, **ev}),
+          flush=True)
+    if problems:
+        for pr in problems:
+            print(f"CHECK FAIL: {pr}")
+        return 1 if args.check else 0
+    if not args.workdir:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"CHECK OK: fp bit-identical, |quant delta| "
+          f"{abs(ev['quant_delta']):.4f} <= {ev['budget']}, red-team delta "
+          f"{ev['redteam_delta']:.4f} fired the gate")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,8 +7,11 @@ package's file) on the device, wrapped in the micro-batching
 per bucket before the first request (``--no_warmup`` skips it), then
 ``/detect``, ``/healthz`` and ``/metrics`` over stdlib HTTP
 (``serve/server.py``) until SIGINT.  Policy is ``cfg.serve``
-(``--set serve__batch_size=8``).  Not ported: the JAX CLI's obs session,
-its compile cache and quantized serving.
+(``--set serve__batch_size=8``).  ``--set quant__enabled=true`` serves
+the quantized predictor (a calibration sweep over held-out training
+batches first; the log names the calibration fingerprint), which the
+engine takes unchanged.  Not ported: the JAX CLI's observability hooks
+(``cli_obs``) and its compile cache.
 
     python -m mx_rcnn_tpu_torch.tools.serve --prefix model/e2e --epoch 1
     python -m mx_rcnn_tpu_torch.tools.serve --device cpu --network tiny \\
@@ -60,6 +63,9 @@ def main(argv=None) -> None:
     # the device is resolved (and refused) before the checkpoint is read
     predictor = init_predictor(cfg, args.prefix, args.epoch,
                                device=args.device)
+    if cfg.quant.enabled:
+        logger.info("quant serving: %s/%s fingerprint=%s", cfg.quant.dtype,
+                    cfg.quant.mode, predictor.quant_fingerprint)
     engine = ServingEngine(predictor, cfg)
     if not args.no_warmup:
         logger.info("warming %d bucket(s) at batch %d ...",

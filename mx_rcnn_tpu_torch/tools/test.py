@@ -11,13 +11,19 @@ results json under ``--out_dir``), or VOC07 AP over ``--synthetic N``
 synthetic images (375x500 for the VOC and COCO presets).
 ``--num_devices N`` splits each eval batch, ``test.batch_images`` x N
 images, across the first N cards (``Predictor(devices=...)``); fewer
-cards than N is an error.
+cards than N is an error.  ``--set quant__enabled=true`` evaluates the
+quantized forward (``core/tester.py — quant_predictor``): a calibration
+sweep over held-out training batches, then the int8 or fp8 model; it
+logs the recipe and the calibration fingerprint.
 
     python -m mx_rcnn_tpu_torch.tools.test --network resnet101 \\
         --dataset PascalVOC --root_path data --dataset_path data/VOCdevkit \\
         --prefix model/e2e --epoch 1 --out_dir model/dets
     python -m mx_rcnn_tpu_torch.tools.test --device cpu --network tiny \\
         --dataset synthetic --synthetic 4 --prefix /tmp/p --epoch 1
+    python -m mx_rcnn_tpu_torch.tools.test --device cpu --network tiny \\
+        --dataset synthetic --synthetic 4 --prefix /tmp/p --epoch 1 \\
+        --set quant__enabled=true
 """
 
 from __future__ import annotations
@@ -28,12 +34,13 @@ from typing import Dict
 
 from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
                                       parse_set_overrides)
-from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
+from mx_rcnn_tpu_torch.core.tester import (Predictor, pred_eval,
+                                           quant_predictor)
 from mx_rcnn_tpu_torch.data import load_gt_roidb
 from mx_rcnn_tpu_torch.data.loader import TestLoader
 from mx_rcnn_tpu_torch.parallel.dp import local_devices
 from mx_rcnn_tpu_torch.tools import dataset_args, dataset_overrides
-from mx_rcnn_tpu_torch.utils.checkpoint import load_model
+from mx_rcnn_tpu_torch.utils.checkpoint import load_model, load_state_dict
 from mx_rcnn_tpu_torch.utils.device import resolve_device
 
 
@@ -71,8 +78,23 @@ def test_rcnn(cfg: Config, *, prefix: str, epoch: int, image_set: str = None,
     loader = TestLoader(roidb, cfg, imdb.load_image,
                         batch_images=cfg.test.batch_images
                         * (len(devs) if devs else 1))
-    predictor = Predictor(load_model(cfg, prefix, epoch, dev), cfg, dev,
-                          devices=devs)
+    if cfg.quant.enabled:
+        # quantized eval: calibrate on held-out training batches, then
+        # evaluate the quantized forward; its mAP against the fp eval of
+        # the same checkpoint is the accuracy gate (tools/quant_smoke.py)
+        q = cfg.quant
+        if verbose:
+            print(f"quant eval: {q.dtype}/{q.mode} estimator={q.estimator} "
+                  f"bits={q.weight_bits}", flush=True)
+        predictor = quant_predictor(
+            cfg, load_state_dict(prefix, epoch), dev,
+            dataset_kw=dataset_kw, synthetic=synthetic, devices=devs)
+        if verbose:
+            print("quant calibration fingerprint: "
+                  f"{predictor.quant_fingerprint}", flush=True)
+    else:
+        predictor = Predictor(load_model(cfg, prefix, epoch, dev), cfg, dev,
+                              devices=devs)
     t0 = time.perf_counter()
     results = pred_eval(predictor, loader, imdb, cfg, out_dir=out_dir,
                         verbose=verbose, save_dets=save_dets)

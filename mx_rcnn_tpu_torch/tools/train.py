@@ -288,7 +288,14 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     ``coordinator``, ``num_processes`` and ``process_id``: this host's
     share of a world spread over ``num_processes`` hosts.  ``dcn_size``
     must divide the world and is recorded in each rank's ``World``; it
-    changes no number (``parallel/dp.py``)."""
+    changes no number (``parallel/dp.py``).  ``cfg.quant.enabled`` is
+    refused: quantization is inference-only."""
+    if cfg.quant.enabled:
+        # the quantized model needs calibrated scales no training step
+        # has; refuse before anything is built
+        raise ValueError(
+            "quant__enabled=true is inference-only — train with the fp "
+            "config and enable quant at test/serve/export time")
     if device_cache and (num_processes > 1 or coordinator):
         raise ValueError(
             "device_cache does not compose with a world over several hosts "

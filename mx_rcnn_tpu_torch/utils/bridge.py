@@ -15,6 +15,13 @@ SGD momentum trace in the layouts of the weights (a bfloat16 trace as
 ``torch.bfloat16`` tensors, which numpy cannot hold), the optimizer's
 update count and ``step``, in the tree ``flax.serialization.to_state_dict``
 makes of the JAX package's ``TrainState``.  Both directions copy bits.
+
+The quantized model's calibration state crosses too: the flax ``quant``
+collection (``{'backbone': {'conv0': {'act_scale': s}}, ...}``) into each
+quantized layer's scale (:func:`load_quant`, which also quantizes the
+layer's weight) and back (:func:`quant_to_flax`), and the calibration
+phase's ``quant_stats`` collection (``{amax, psum, pcnt}`` per layer)
+likewise (:func:`load_quant_stats`, :func:`quant_stats_to_flax`).
 """
 
 from __future__ import annotations
@@ -258,3 +265,84 @@ def load_train_state(tree: Mapping, model: torch.nn.Module, optimizer) -> None:
                              f"here")
         dst.copy_(t)
     optimizer.count = count
+
+
+def _quant_layers(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
+    from mx_rcnn_tpu_torch.models.layers import QUANT_LAYERS
+
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, QUANT_LAYERS)}
+
+
+def _quant_nodes(col: Mapping, leaf: str) -> Dict[str, Mapping]:
+    """Module name → the node that holds ``leaf`` in a quant collection."""
+    out = {}
+    for path, _ in _walk(col):
+        if path[-1] == leaf:
+            node = col
+            for key in path[:-1]:
+                node = node[key]
+            out[".".join(path[:-1])] = node
+    return out
+
+
+def _match(layers: Mapping, nodes: Mapping, what: str) -> None:
+    if set(layers) != set(nodes):
+        raise ValueError(
+            f"the {what} collection does not cover the quantized layers: "
+            f"layers without an entry {sorted(set(layers) - set(nodes))}, "
+            f"entries without a layer {sorted(set(nodes) - set(layers))}")
+
+
+def load_quant(model: torch.nn.Module, quant_col: Mapping) -> None:
+    """Give each quantized layer of ``model`` its ``act_scale`` from a
+    ``quant`` collection (the JAX package's or :func:`quant_to_flax`'s)
+    and quantize its weight (``models/layers.py — prepare_``).  The
+    collection must name exactly the model's quantized layers."""
+    layers = _quant_layers(model)
+    nodes = _quant_nodes(quant_col, "act_scale")
+    _match(layers, nodes, "quant")
+    with torch.no_grad():
+        for name, m in layers.items():
+            m.prepare_(np.asarray(nodes[name]["act_scale"], np.float32))
+
+
+def quant_to_flax(model: torch.nn.Module) -> dict:
+    """The ``quant`` collection of a model whose quantized layers have
+    their scales: ``{path: {'act_scale': fp32 scalar}}``."""
+    col: dict = {}
+    for name, m in _quant_layers(model).items():
+        if m.act_scale is None:
+            raise ValueError(f"quantized layer {name} has no act_scale: "
+                             "calibrate first (core/tester.py — "
+                             "quant_predictor)")
+        _set(col, tuple(name.split(".")) + ("act_scale",),
+             np.asarray(_host_fp32(m.act_scale), np.float32))
+    return col
+
+
+def quant_stats_to_flax(model: torch.nn.Module) -> dict:
+    """The ``quant_stats`` collection a calibration sweep recorded:
+    ``{path: {'amax', 'psum', 'pcnt'}}`` as fp32 scalars."""
+    col: dict = {}
+    for name, m in _quant_layers(model).items():
+        if m.stats is None:
+            raise ValueError(f"quantized layer {name} recorded no "
+                             "statistics: the sweep saw no batch")
+        for key, t in m.stats.items():
+            _set(col, tuple(name.split(".")) + (key,), _host_fp32(t))
+    return col
+
+
+def load_quant_stats(model: torch.nn.Module, stats_col: Mapping) -> None:
+    """Seed each quantized layer's calibration statistics from a
+    ``quant_stats`` collection, as the JAX sweep carries them from one
+    batch to the next."""
+    layers = _quant_layers(model)
+    nodes = _quant_nodes(stats_col, "amax")
+    _match(layers, nodes, "quant_stats")
+    for name, m in layers.items():
+        dev = m.weight.device
+        m.stats = {k: torch.as_tensor(np.asarray(nodes[name][k], np.float32),
+                                      device=dev)
+                   for k in ("amax", "psum", "pcnt")}
