@@ -206,10 +206,13 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    (``csrc/qconv.cu``), bit-equal to its plain version (a float64
    contraction, exact) in bf16 and fp32 output, and K6, the e4m3 one,
    within its bound, at conv0 7x7/2 (C_in 3) on 608x1024, a stage-1 1x1
-   and 3x3, a stage-3 3x3/2 (pads (0, 1)), the per-ROI stage-4 1x1 and
-   3x3/2 on 600x14x14 and VGG16's fc6 as a dense layer, each timed
-   beside its bound and, for the 1x1 and dense cases, ``torch._int_mm``
-   or ``torch._scaled_mm``; sim against native int8 bit-equal with
+   and 3x3, a stage-3 3x3/2 (pads (0, 1)), stage 3's two 1x1 shapes and
+   its 1x1/2 projection, the per-ROI stage-4 1x1 and 3x3/2 on
+   600x14x14 and VGG16's fc6 as a dense layer, each timed (also in a
+   CUDA graph, without host time) beside its bound and, for the 1x1 and
+   dense cases, ``torch._int_mm`` or ``torch._scaled_mm``; the built
+   K5 / K6 libraries' wgmma (GMMA) instructions counted in the SASS and
+   no ptxas serialization of them; sim against native int8 bit-equal with
    cuDNN's TF32 on; the percentile on 19.9 M elements against numpy's;
    then ``tools/test.py`` on 16 synthetic images at batch 2 from a
    seeded ResNet-101 (every conv3 drawn non-zero) in bf16, int8 native,
@@ -372,6 +375,30 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` with no host time between calls:
+    ``iters`` calls captured in one CUDA graph, replayed once."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
 
 
 def bound(nbytes: float, ops: float):
@@ -5033,6 +5060,11 @@ QCONV_SHAPES = (
     ("stage1 1x1", (2, 152, 256, 256), 64, 1, 1, False),
     ("stage1 3x3", (2, 152, 256, 64), 64, 3, 1, False),
     ("stage3 3x3/2", (2, 76, 128, 256), 256, 3, 2, False),
+    # stage 3's 23 units run these 1x1 layers 23 times a batch each, and
+    # its first unit the 1x1/2 projection
+    ("stage3 1x1 1024->256", (2, 38, 64, 1024), 256, 1, 1, False),
+    ("stage3 1x1 256->1024", (2, 38, 64, 256), 1024, 1, 1, False),
+    ("stage3 1x1/2 512->1024", (2, 76, 128, 512), 1024, 1, 2, False),
     ("stage4 roi 1x1", (600, 14, 14, 1024), 512, 1, 1, False),
     ("stage4 roi 3x3/2", (600, 14, 14, 512), 512, 3, 2, False),
     ("vgg fc6 dense", (600, 1, 1, 25088), 4096, 1, 1, True),
@@ -5136,6 +5168,34 @@ def qconv_pads(shape, k: int, stride: int):
     return (same_pads(shape[1], k, stride), same_pads(shape[2], k, stride))
 
 
+def qconv_sass(build_logs: dict) -> dict:
+    """The wgmma instructions in the built K5 and K6 libraries (SASS
+    GMMA lines, by cuobjdump) and any ptxas note that it serialized them;
+    a library with none, or serialized, fails."""
+    from mx_rcnn_tpu_torch import kernels
+
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    out = {}
+    for kern in (kernels.QCONV_S8, kernels.QCONV_E4M3):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(kern.library_path())], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        gmma = [ln.split()[1] for ln in sass.splitlines() if "GMMA" in ln]
+        serial = [ln.strip() for ln in build_logs[kern.name].splitlines()
+                  if "serialized" in ln]
+        kinds = sorted(set(g.split(".")[0] + "." + g.split(".")[1]
+                           for g in gmma))
+        log(f"{kern.name}: {len(gmma)} GMMA instructions in the SASS "
+            f"({', '.join(kinds)}); ptxas serialization warnings: "
+            + ("; ".join(serial) if serial else "none"))
+        if not gmma or serial:
+            raise AssertionError(f"{kern.name}: no wgmma in the SASS, or "
+                                 f"ptxas serialized it")
+        out[kern.name] = dict(gmma=len(gmma), kinds=kinds,
+                              serialized=serial)
+    return out
+
+
 def check_qconv(dev, dtype: str) -> dict:
     """K5 (int8) or K6 (fp8) against the plain version at every
     QCONV_SHAPES case: K5 bit-equal in bf16 and fp32 output; K6 in fp32
@@ -5147,7 +5207,10 @@ def check_qconv(dev, dtype: str) -> dict:
     (K = kh*kw*cin), scaled by the units, and the rescale may round once
     more (2^-23 of the output).  Then each case's time, the plain
     version's, the bound and, for the 1x1 and dense cases, one library
-    call's (torch._int_mm; torch._scaled_mm at unit scales)."""
+    call's (torch._int_mm; torch._scaled_mm at unit scales); the kernel's
+    and the library call's times also with no host time between calls
+    (``graph_ms``: at the small shapes the host's launch path, not the
+    card, sets ``time_ms``'s pace)."""
     import torch
 
     from mx_rcnn_tpu_torch.ops.quant import (QuantSpec, _accum_plain,
@@ -5204,21 +5267,27 @@ def check_qconv(dev, dtype: str) -> dict:
             torch.bfloat16), 2, warmup=1)
         b_ms, b_by = quant_bound(qx.numel() + packed.numel() + m * cout * 2,
                                  2.0 * m * cout * kdepth)
-        lib_ms = None
+        dev_ms = graph_ms(lambda: run(torch.bfloat16), 10)
+        lib_ms = lib_dev_ms = None
         if k == 1 and stride == 1:
             a2 = qx.reshape(m, c)
             bt = packed[:, :kdepth].contiguous().t()
             if dtype == "int8":
-                lib_ms = time_ms(lambda: torch._int_mm(a2, bt), 10)
+                def lib():
+                    return torch._int_mm(a2, bt)
             else:
                 one = torch.ones((), device=dev)
-                lib_ms = time_ms(lambda: torch._scaled_mm(
-                    a2, bt, scale_a=one, scale_b=one,
-                    out_dtype=torch.bfloat16), 10)
+
+                def lib():
+                    return torch._scaled_mm(a2, bt, scale_a=one, scale_b=one,
+                                            out_dtype=torch.bfloat16)
+            lib_ms = time_ms(lib, 10)
+            lib_dev_ms = graph_ms(lib, 10)
         out[label] = dict(shape=list(shape), cout=cout, kernel=k,
                           stride=stride, pads=[list(p) for p in pads],
                           m=m, k=kdepth, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          graph_ms=dev_ms, library_graph_ms=lib_dev_ms,
                           max_abs_err=float(err.max()),
                           worst_bound_ratio=ratio)
         log(f"{name} {label} ({m}x{cout}x{kdepth}): "
@@ -5226,9 +5295,10 @@ def check_qconv(dev, dtype: str) -> dict:
                if dtype == "int8" else
                f"fp32 max |err| {float(err.max()):.3g}, worst err/bound "
                f"{ratio:.3f}, bf16 = fp32 cast once")
-            + f"; {ms:.4f} ms (plain {plain_ms:.2f}, bound {b_ms:.4f} ms by "
-              f"{b_by}, library "
-              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms") + ")")
+            + f"; {ms:.4f} ms, {dev_ms:.4f} in a graph (plain "
+              f"{plain_ms:.2f}, bound {b_ms:.4f} ms by {b_by}, library "
+              + ("none" if lib_ms is None else
+                 f"{lib_ms:.4f} ms, {lib_dev_ms:.4f} in a graph") + ")")
     return out
 
 
@@ -5521,8 +5591,10 @@ def main() -> int:
     log(f"built {len(build_logs)} kernels in {build_s:.1f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "Used" in line:
+            spills = "spill" in line and " 0 bytes spill stores" not in line
+            if "Used" in line or spills:
                 log(f"  {name}: {line.strip()}")
+    sass = qconv_sass(build_logs)
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
@@ -5561,7 +5633,8 @@ def main() -> int:
              kernel_line(kernels.QCONV_E4M3, quant["k6"][QCONV_LINE_SHAPE],
                          qrun["fp8_native"]["launches"]["qconv_e4m3"])]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
-        card=card, host=host, build_s=build_s, k1=k1, k2=k2, k3=k3,
+        card=card, host=host, build_s=build_s, qconv_sass=sass, k1=k1,
+        k2=k2, k3=k3,
         forward_parity=parity, train_parity=train_parity, serving=serving,
         training=training, evaluation=evaluation, alternate=alternate,
         engine=engine, real_data=real_data, long_run=long_run,

@@ -169,17 +169,29 @@ QUANTIZE_ACT = CudaKernel(
     [_P, _I, _P, _F, _I, _P, ctypes.c_longlong, _P],
     replaces="mx_rcnn_tpu/ops/quant.py:133")  # _quantize
 
+# K5 and K6 replace the JAX package's XLA contraction with int32 / fp32
+# accumulation (_accum); they are one source, qconv.cu, built twice
+# (-DQCONV_FP8 picks the type, so each library holds only its own tiles,
+# as ops/quant.py — qconv_plan picks them).  On the H100 they are bound by
+# the tensor cores' rate (fc6, the deep 3x3s) or by bytes (the per-ROI
+# 1x1s); the design keeps wgmma fed from a TMA / cp.async ring filled by a
+# producer warpgroup.  K5 runs on the 8-bit tensor cores with exact int32
+# sums.  K6 promotes every 32 deep into fp32 (__fadd_rn): the tensor
+# cores' own sums keep fewer bits, for e4m3 even within one k32 step, so
+# K6 widens e4m3 exactly to f16 and runs f16 wgmma.
 # x, w, x_unit, w_unit, bias, out, out_bf16, n, h, w, c, oh, ow, cout, kh,
-# kw, sh, sw, pt, pl, kp, stream
-_QCONV_ARGS = [_P, _P, _P, _P, _P, _P, _I] + [_I] * 14 + [_P]
+# kw, sh, sw, pt, pl, kp, route, bn, stages, w16 scratch, stream
+_QCONV_ARGS = [_P, _P, _P, _P, _P, _P, _I] + [_I] * 17 + [_P, _P]
 
 QCONV_S8 = CudaKernel(
     "qconv_s8", "qconv.cu", "qconv_s8_launch", _QCONV_ARGS,
-    replaces="mx_rcnn_tpu/ops/quant.py:179")  # _accum, int8 native
+    replaces="mx_rcnn_tpu/ops/quant.py:179",  # _accum, int8 native
+    extra_flags=("-DQCONV_FP8=0",))
 
 QCONV_E4M3 = CudaKernel(
     "qconv_e4m3", "qconv.cu", "qconv_e4m3_launch", _QCONV_ARGS,
-    replaces="mx_rcnn_tpu/ops/quant.py:179")  # _accum, fp8
+    replaces="mx_rcnn_tpu/ops/quant.py:179",  # _accum, fp8
+    extra_flags=("-DQCONV_FP8=1",))
 
 KERNELS: Tuple[CudaKernel, ...] = (NMS_SWEEP, ROI_ALIGN_FWD, ROI_ALIGN_BWD,
                                    QUANTIZE_ACT, QCONV_S8, QCONV_E4M3)

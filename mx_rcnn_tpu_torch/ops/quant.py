@@ -296,6 +296,95 @@ def _epilogue(acc: torch.Tensor, x_unit: torch.Tensor, w_unit: torch.Tensor,
     return y.to(out_dtype)
 
 
+# K5/K6's tiles (csrc/qconv.cu — Tile): a tile is QCONV_BM output rows by
+# BN columns, one block an SM walks them; K moves through a ring of stages
+# QCONV_BK deep in K (K6's B in f16, twice the bytes), at most
+# QCONV_MAX_STAGES and QCONV_STAGE_BUDGET bytes of shared memory, beside a
+# row-origin table (16 bytes a row), the consumers' epilogue buffers
+# (QCONV_EPI_BYTES), two barriers a stage, and 1024 bytes of slack to
+# align the ring for the 128-byte swizzle
+QCONV_BM = 128
+QCONV_BK = 128
+QCONV_STAGE_BUDGET = 192 * 1024
+QCONV_MAX_STAGES = 6
+QCONV_EPI_BYTES = 2 * 64 * (32 * 4 + 32)
+# shared memory one block may take on an H100, and its SMs; BN is chosen
+# by waves of blocks over the SMs times a block's work, BN plus a fixed
+# cost worth QCONV_BLOCK_COST columns (its fill, drain and epilogue)
+QCONV_SMEM_LIMIT = 232448
+H100_SMS = 132
+QCONV_BLOCK_COST = 64
+QCONV_ROUTES = ("gemm", "gather", "bytes")
+
+
+@dataclasses.dataclass(frozen=True)
+class QconvPlan:
+    """How K5/K6 cover one contraction: ``route`` (how A reaches shared
+    memory: ``gemm`` by TMA, ``gather`` by 16-byte cp.async, ``bytes``
+    byte by byte), ``bn`` output columns a tile, ``stages`` in the
+    ring, ``smem`` bytes a block asks for, the ``grid`` of tiles (row
+    tiles, column tiles; min(tiles, SMs) blocks walk it), and the TMA
+    ``maps`` as (operand, global dims innermost first in elements, row
+    stride in bytes, box dims in elements)."""
+
+    route: str
+    bn: int
+    stages: int
+    smem: int
+    grid: Tuple[int, int]
+    maps: Tuple[Tuple[str, Tuple[int, int], int, Tuple[int, int]], ...]
+
+
+def _qconv_slot(bn: int, fp8: bool) -> int:
+    """One stage's bytes: A's 8-bit tile and B's (K6: f16) tile."""
+    return (QCONV_BM + (2 if fp8 else 1) * bn) * QCONV_BK
+
+
+def qconv_stages(bn: int, fp8: bool = False) -> int:
+    """The ring's depth at ``bn``: as many stages as the budget holds, at
+    most QCONV_MAX_STAGES."""
+    return min(QCONV_MAX_STAGES, QCONV_STAGE_BUDGET // _qconv_slot(bn, fp8))
+
+
+def qconv_plan(m: int, c: int, cout: int, kp: int, kernel: Tuple[int, int],
+               stride: Tuple[int, int], pads: Pads, fp8: bool) -> QconvPlan:
+    """K5/K6's tile plan for an M x Cout x K contraction over ``c`` input
+    channels.  A 1x1 stride-1 convolution (or dense layer) reads A as a
+    row-major [M, c] matrix by TMA; other shapes gather it, 16 bytes at a
+    time where ``c % 16 == 0`` (a chunk within one tap), else byte by
+    byte (conv0).  BN is 64 for Cout <= 64, else the width of 64, 128 and
+    256 (K6 and the byte route: 64 and 128; K6's k32 scratch fragment
+    sits beside its accumulators) whose waves of blocks cost least, the
+    narrower on a tie."""
+    one = (tuple(kernel) == (1, 1) and tuple(stride) == (1, 1)
+           and tuple(map(tuple, pads)) == ((0, 0), (0, 0)))
+    if c % 16:
+        route = "bytes"
+    elif one:
+        route = "gemm"
+    else:
+        route = "gather"
+    row_tiles = -(-m // QCONV_BM)
+    widths = ((64,) if cout <= 64 else
+              (64, 128) if fp8 or route == "bytes" else (64, 128, 256))
+
+    def cost(bn):
+        waves = -(-row_tiles * -(-cout // bn) // H100_SMS)
+        return waves * (bn + QCONV_BLOCK_COST), bn
+
+    bn = min(widths, key=cost)
+    stages = qconv_stages(bn, fp8)
+    smem = (1024 + stages * _qconv_slot(bn, fp8) + QCONV_BM * 16
+            + QCONV_EPI_BYTES + 2 * stages * 8)
+    # K6's B is the weight widened to f16: 64 elements make a 128-byte box
+    bsize = 2 if fp8 else 1
+    maps = (("b", (kp, cout), kp * bsize, (QCONV_BK // bsize, bn)),)
+    if route == "gemm":
+        maps += (("a", (c, m), c, (QCONV_BK, QCONV_BM)),)
+    return QconvPlan(route, bn, stages, smem, (row_tiles, -(-cout // bn)),
+                     maps)
+
+
 def qconv_cuda(qx: torch.Tensor, packed: torch.Tensor, x_unit: torch.Tensor,
                w_unit: torch.Tensor, bias: Optional[torch.Tensor],
                out_dtype: torch.dtype, kernel: Tuple[int, int],
@@ -332,13 +421,20 @@ def qconv_cuda(qx: torch.Tensor, packed: torch.Tensor, x_unit: torch.Tensor,
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     out = torch.empty((n, oh, ow, cout), dtype=out_dtype, device=qx.device)
-    k = QCONV_E4M3 if qx.dtype == torch.float8_e4m3fn else QCONV_S8
+    fp8 = qx.dtype == torch.float8_e4m3fn
+    plan = qconv_plan(n * oh * ow, c, cout, kp, kernel, stride, pads, fp8)
+    k = QCONV_E4M3 if fp8 else QCONV_S8
+    # K6 widens the weight to f16 once a call, into this scratch
+    w16 = (torch.empty((cout, kp), dtype=torch.float16, device=qx.device)
+           if fp8 else None)
     with torch.cuda.device(qx.device):
         k.launch(qx.data_ptr(), packed.data_ptr(), x_unit.data_ptr(),
                  w_unit.data_ptr(), 0 if bias is None else bias.data_ptr(),
                  out.data_ptr(), int(out_dtype == torch.bfloat16),
                  n, h, w, c, oh, ow, cout, kh, kw, stride[0], stride[1],
-                 pt, pl, kp, torch.cuda.current_stream(qx.device).cuda_stream)
+                 pt, pl, kp, QCONV_ROUTES.index(plan.route), plan.bn,
+                 plan.stages, 0 if w16 is None else w16.data_ptr(),
+                 torch.cuda.current_stream(qx.device).cuda_stream)
     return out
 
 
