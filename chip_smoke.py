@@ -202,7 +202,14 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    calibration sweep, then the quantized ResNet-101): K4, the activation
    quantizer (``csrc/quantize.cu``), bytes equal to its plain version in
    int8 at weight_bits 8 and 4 and in fp8, on bf16 and fp32 input with
-   exact .5 ties and values past +-qmax; K5, the int8 convolution
+   exact .5 ties and values past +-qmax; then with the frozen BN and
+   ReLU before it at each of the 16 distinct shapes the forward gives it
+   (conv0's fp32 3-channel image, each unit's three BNs, two outputs for
+   a projection unit's bn1), int8 and fp8, bytes equal to the torch ops
+   of ``FrozenBatchNorm``, ``F.relu`` and the plain quantizer (ties,
+   -0.0, NaN, values past +-qmax), each timed (also in a CUDA graph)
+   beside its bound, and their sum over a batch's 100 launches; K5, the
+   int8 convolution
    (``csrc/qconv.cu``), bit-equal to its plain version (a float64
    contraction, exact) in bf16 and fp32 output, and K6, the e4m3 one,
    within its bound, at conv0 7x7/2 (C_in 3) on 608x1024, a stage-1 1x1
@@ -217,8 +224,11 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    then ``tools/test.py`` on 16 synthetic images at batch 2 from a
    seeded ResNet-101 (every conv3 drawn non-zero) in bf16, int8 native,
    fp8 native and int8 sim: exit 0, mAP and the fingerprint printed, and
-   every launch count (K1, K2, K4 and K5 or K6 launched, K3 not); each
-   arm's steady images/s and device time in turns; last
+   every launch count (K1, K2, K4 100 and K5 or K6 104 a batch, K3 not);
+   each arm's steady images/s, device time, K4, K5/K6 and the rest a
+   batch and device ops a forward, in turns; the int8 serving engine
+   (``tools/serve.py``'s ``ServingEngine``) on one image per bucket,
+   equal to the quantized offline batch with the same launches; last
    ``tools/quant_smoke.py --check`` on the card (its ``main``).
 
 Each main path is driven with every launch count set to 0 just before it
@@ -226,7 +236,7 @@ and read just after; each of its kernels must have launched.  The lines
 before the last are the card's name and power limit and one
 ``{"kernels": [...]}`` JSON object (K1-K3: launches from the training
 path, times at the training shapes; K4-K6: launches from the quantized
-eval, times at a stage-1 activation and the per-ROI 1x1); the last line is ``{"ok": true, "device":
+eval, times at the per-ROI stage-4 bn1 and 1x1); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
@@ -959,7 +969,8 @@ def device_profile(run, iters: int, cpu: bool = True) -> dict:
 def trace_summary(prof, iters: int) -> dict:
     """:func:`device_profile`'s numbers from a finished ``torch.profiler``
     trace of ``iters`` calls; ``copy_ms_per_iter`` is the copies' share
-    of the device time."""
+    of the device time, ``elementwise_ms_per_iter`` that of PyTorch's
+    elementwise kernels."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -971,6 +982,11 @@ def trace_summary(prof, iters: int) -> dict:
     return dict(device_ms_per_iter=total_us / 1e3 / iters,
                 copy_ms_per_iter=sum(t for k, t, _ in rows
                                      if "Memcpy" in k) / 1e3 / iters,
+                # PyTorch's elementwise kernels (casts, BN's multiply and
+                # add, ReLU, adds)
+                elementwise_ms_per_iter=sum(
+                    t for k, t, _ in rows if "elementwise_kernel" in k)
+                / 1e3 / iters,
                 top=[dict(name=k[:90], ms_per_iter=t / 1e3 / iters,
                           calls_per_iter=c / iters) for k, t, c in rows[:20]],
                 kernels_per_iter=sum(r[2] for r in rows) / iters,
@@ -1487,6 +1503,8 @@ def steady_eval(run, images: int, batches: int, label: str,
     prof = device_profile(run, 1)
     ours = prof["kernel_ms_per_iter"]
     busy = busy_share(prof, wall * 1e3)
+    hand = sum(ours[k] for k in ("k1_mask", "k1_reduce", "k2", "k3", "k4",
+                                 "k5_k6"))
     steady = dict(images_per_s=images / wall,
                   wall_ms_per_image=wall * 1e3 / images,
                   device_ms_per_image=prof["device_ms_per_iter"] / images,
@@ -1496,7 +1514,14 @@ def steady_eval(run, images: int, batches: int, label: str,
                   k2_ms_per_batch=ours["k2"] / batches,
                   k4_ms_per_batch=ours["k4"] / batches,
                   k5_k6_ms_per_batch=ours["k5_k6"] / batches,
+                  # everything but K1-K6: cuDNN, the elementwise work,
+                  # copies; and the elementwise work alone
+                  other_ms_per_batch=(prof["device_ms_per_iter"] - hand)
+                  / batches,
+                  elementwise_ms_per_batch=prof["elementwise_ms_per_iter"]
+                  / batches,
                   device_ops_per_image=prof["kernels_per_iter"] / images,
+                  device_ops_per_batch=prof["kernels_per_iter"] / batches,
                   top=prof["top"][:8])
     log(f"{label}, {images} images at batch {images // batches}, steady: "
         f"{steady['images_per_s']:.2f} images/s (host rendering and resize "
@@ -5049,6 +5074,11 @@ QUANT_DIR = REPO / "_chip" / "quant"     # the seeded checkpoint
 QUANT_IMAGES = 16          # synthetic 375x500 images in the 608x1024 bucket
 QUANT_BATCHES = 8          # eval batches of 2
 QUANT_LAYERS_R101 = 104    # quantized convolutions per ResNet-101 forward
+# K4 passes per ResNet-101 forward: one per frozen BN that feeds quantized
+# convolutions (bn_data, and each of the 33 units' bn1, bn2, bn3), since
+# K4 takes in the BN and ReLU; a projection unit's bn1 writes conv1's and
+# the shortcut's inputs in one pass, so 100 passes serve 104 convolutions
+K4_PASSES_R101 = 100
 CALIB_BATCHES = 2          # quant__calibration_batches
 # dense int8 and fp8 tensor-core rate of an H100 SXM (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12
@@ -5071,8 +5101,11 @@ QCONV_SHAPES = (
 )
 # the shape the kernels line reports K5 and K6 at (a library call exists)
 QCONV_LINE_SHAPE = "stage4 roi 1x1"
-# K4's shape: a stage-1 activation (2 x 256 x 152 x 256, bf16)
+# K4's shape without a BN: a stage-1 activation (2 x 256 x 152 x 256, bf16)
 K4_SHAPE = (2, 152, 256, 256)
+# the shape the kernels line reports K4 at: the per-ROI stage-4 unit 1's
+# bn1, which writes conv1's and the shortcut's int8 inputs
+K4_LINE_SHAPE = "stage4 bn1 600x1024x14x14 out2"
 
 
 def quant_bound(nbytes: float, ops: float):
@@ -5084,7 +5117,8 @@ def quant_bound(nbytes: float, ops: float):
 def k4_inputs(dev, qmax: float, seed: int):
     """bf16 activations whose quotients by the unit hit exact .5 ties,
     land past +-qmax and spread at random, with the unit a power of two
-    (the estimate is qmax * 2^-3), so every quotient is exact."""
+    (the estimate is qmax * 2^-3), so every quotient is exact; a few
+    are -0.0, NaN and -NaN."""
     import torch
 
     unit = 2.0 ** -3
@@ -5095,6 +5129,7 @@ def k4_inputs(dev, qmax: float, seed: int):
     x[:ties.numel()] = ties * unit
     x[ties.numel():ties.numel() + 64] = torch.linspace(
         -3 * qmax * unit, 3 * qmax * unit, 64, device=dev)
+    x[-3:] = torch.tensor([-0.0, float("nan"), -float("nan")], device=dev)
     x = x.to(torch.bfloat16).view(K4_SHAPE[0], K4_SHAPE[3], K4_SHAPE[1],
                                   K4_SHAPE[2])
     # NCHW view of channels-last memory, as the backbone hands it over
@@ -5102,10 +5137,166 @@ def k4_inputs(dev, qmax: float, seed: int):
     return x, torch.tensor(qmax * unit, device=dev)
 
 
+def k4_launches(batch: int = 2, rois: int = 600, pooled: int = 14) -> dict:
+    """Each distinct K4 launch of the quantized ResNet-101 forward at the
+    608x1024 bucket (eval batch 2, 300 rois an image), as (label, NCHW
+    shape, fp32 input, relu, outputs) -> launches a batch: conv0's
+    bn_data on the fp32 image, then each unit's bn1 (two outputs in a
+    projection unit), bn2 and bn3, the stride on conv2; stage 4 per ROI."""
+    from mx_rcnn_tpu_torch.models.resnet import STAGE_UNITS
+
+    seen = {((batch, 3) + BUCKET, True, False, 1): ["conv0 bn_data", 1]}
+    h, w = BUCKET[0] // 4, BUCKET[1] // 4      # conv0 /2, max-pool /2
+    cin = 64
+    for s, (filters, stride, units) in enumerate(zip(
+            (256, 512, 1024, 2048), (1, 2, 2, 2), STAGE_UNITS[101])):
+        n = batch
+        if s == 3:
+            n, h, w = rois, pooled, pooled
+        mid = filters // 4
+        for u in range(units):
+            st = stride if u == 0 else 1
+            ho, wo = -(-h // st), -(-w // st)
+            for label, shape, outs in (
+                    ("bn1", (n, cin if u == 0 else filters, h, w),
+                     2 if u == 0 else 1),
+                    ("bn2", (n, mid, h, w), 1),
+                    ("bn3", (n, mid, ho, wo), 1)):
+                rec = seen.setdefault((shape, False, True, outs),
+                                      [f"stage{s + 1}", 0])
+                rec[0] += "" if label in rec[0] else f" {label}"
+                rec[1] += 1
+            h, w = ho, wo
+        cin = filters
+    out = {(name,) + key: count for key, (name, count) in seen.items()}
+    if sum(out.values()) != K4_PASSES_R101:
+        raise AssertionError(f"K4 table: {sum(out.values())} launches")
+    return out
+
+
+def k4_fused_case(dev, shape, fp32_in: bool, spec, seed: int,
+                  specials: bool = True):
+    """One fused K4 case on the card: a frozen BN with random statistics
+    (shift -0.0 on every fourth channel), channels-last input (fp32 for
+    conv0, else bf16), with ``specials`` NaN, -0.0 and values far past
+    +-qmax at fixed strides, and two estimates: qmax * 2^-3 (a
+    power-of-two unit: exact quotients, so the bf16 values give .5 ties)
+    and one that is not.  Without ``specials`` (the timed inputs, as a
+    calibrated model sees them) both estimates are of the second kind."""
+    import torch
+
+    from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm
+
+    n, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bn = FrozenBatchNorm(c, torch.bfloat16).to(dev)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 2.0, generator=g)
+        bn.bias.uniform_(-1.0, 1.0, generator=g)
+        bn.running_mean.uniform_(-1.0, 1.0, generator=g)
+        bn.running_var.uniform_(0.2, 3.0, generator=g)
+        bn.bias[1::4] = -0.0
+        bn.running_mean[1::4] = 0.0
+    x = torch.randn((n, h, w, c), generator=g, device=dev) * 4.0
+    ests = (torch.tensor(spec.qmax * 0.0529, device=dev),
+            torch.tensor(spec.qmax * 0.0371, device=dev))
+    if specials:
+        flat = x.view(-1)
+        flat[::997] = float("nan")
+        flat[1::89] = -0.0
+        flat[2::101] = 3 * spec.qmax
+        flat[3::103] = -3 * spec.qmax
+        ests = (torch.tensor(spec.qmax * 2.0 ** -3, device=dev), ests[1])
+    x = x.to(torch.float32 if fp32_in else torch.bfloat16).permute(0, 3, 1, 2)
+    return bn, x, ests
+
+
+def check_k4_fused(dev) -> dict:
+    """K4 with the BN and ReLU before it, at each k4_launches shape, int8
+    and fp8: bytes equal, each output, to the torch ops of the unfused
+    forward (``FrozenBatchNorm`` on ``x.to(bf16)``, ``F.relu``,
+    ``quantize_act_plain``), on inputs with the special values; then, on
+    inputs without them (K4's division route is for the values near a
+    rounding boundary, which those crowd), its time by CUDA events and in
+    a CUDA graph beside its bound (bf16 or fp32 in, a byte out per
+    output), and the plain version's; the per-batch sums weight each
+    shape by its launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from mx_rcnn_tpu_torch.ops.quant import (QuantSpec, _unit,
+                                             quantize_act_fused_cuda,
+                                             quantize_act_plain)
+
+    out = {}
+    for dtype in ("int8", "fp8"):
+        spec = QuantSpec(dtype=dtype)
+        batch = dict(ms=0.0, graph_ms=0.0, bound_ms=0.0)
+        for i, ((label, shape, fp32_in, relu, outs), count) in enumerate(
+                k4_launches().items()):
+            def fused():
+                return quantize_act_fused_cuda(
+                    x, units, spec, affine=bn.folded(),
+                    dtype=torch.bfloat16, relu=relu)
+
+            def plain():
+                y = bn(x.to(torch.bfloat16))
+                if relu:
+                    y = F.relu(y)
+                return [quantize_act_plain(y.permute(0, 2, 3, 1), e,
+                                           spec)[0] for e in ests]
+
+            bn, x, ests = k4_fused_case(dev, shape, fp32_in, spec, 200 + i)
+            ests = ests[:outs] if outs == 2 else ests[i % 2:i % 2 + 1]
+            units = [_unit(e, spec.qmax) for e in ests]
+            with torch.no_grad():
+                got, want = fused(), plain()
+                torch.cuda.synchronize()
+                for o, (a, b) in enumerate(zip(got, want)):
+                    a = a.permute(0, 2, 3, 1).view(torch.uint8)
+                    b = b.view(torch.uint8)
+                    if not torch.equal(a, b):
+                        bad = (a != b).nonzero()[:4].tolist()
+                        raise AssertionError(
+                            f"K4 {dtype} {label} {shape} output {o}: "
+                            f"{int((a != b).sum())} bytes differ, first at "
+                            f"{bad}: {a[tuple(zip(*bad))].tolist()} against "
+                            f"{b[tuple(zip(*bad))].tolist()}")
+                del got, want
+                bn, x, ests = k4_fused_case(dev, shape, fp32_in, spec,
+                                            300 + i, specials=False)
+                ests = ests[:outs]
+                units = [_unit(e, spec.qmax) for e in ests]
+                elems = x.numel()
+                ms = time_ms(fused, 10)
+                dev_ms = graph_ms(fused, 10)
+                plain_ms = time_ms(plain, 2, warmup=1)
+            b_ms, b_by = quant_bound(elems * ((4 if fp32_in else 2) + outs), 0)
+            key = f"{label} {'x'.join(map(str, shape))} out{outs}"
+            out.setdefault(dtype, {})[key] = dict(
+                shape=list(shape), outputs=outs, relu=relu,
+                launches_per_batch=count, ms=ms, graph_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=0.0)
+            for k, v in (("ms", ms), ("graph_ms", dev_ms), ("bound_ms", b_ms)):
+                batch[k] += count * v
+            log(f"K4 fused {dtype} {key} x{count}: bytes equal to the unfused "
+                f"torch ops (ties, -0.0, NaN, past +-qmax); {ms:.4f} ms, "
+                f"{dev_ms:.4f} in a graph (plain "
+                f"{plain_ms:.3f}, bound {b_ms:.4f} ms by {b_by})")
+            del x, bn
+        out.setdefault(dtype, {})["batch"] = batch
+        log(f"K4 fused {dtype}: {K4_PASSES_R101} launches a batch sum to "
+            f"{batch['ms']:.3f} ms by events, {batch['graph_ms']:.3f} in "
+            f"graphs, bound {batch['bound_ms']:.3f} ms")
+    return out
+
+
 def check_k4(dev) -> dict:
     """K4 against its plain version, bytes equal: int8 at weight_bits 8
-    and 4 and fp8, on bf16 and fp32 input; then its time at the stage-1
-    activation."""
+    and 4 and fp8, on bf16 and fp32 input, without a BN (VGG16's and the
+    dense layers' path); then its time at the stage-1 activation; then
+    :func:`check_k4_fused`."""
     import torch
 
     from mx_rcnn_tpu_torch.ops.quant import (QuantSpec, quantize_act_cuda,
@@ -5138,6 +5329,7 @@ def check_k4(dev) -> dict:
         log(f"K4 {label}: bytes equal to the plain version on bf16 and "
             f"fp32 (ties, clipping); {n} bf16 elements in {ms:.4f} ms "
             f"(plain {plain_ms:.4f}, bound {b_ms:.4f} ms by {b_by})")
+    out["fused"] = check_k4_fused(dev)
     return out
 
 
@@ -5438,14 +5630,16 @@ QUANT_ARMS = {
 def quant_want(arm: str) -> dict:
     """Each arm's launches over the eval CLI run: K1 twice and K2 once an
     eval batch, plus K1 and K2 once per calibration batch (the proposal
-    forward; the calibration phase runs fp); K4 once per quantized layer
-    and batch; K5 (int8 native) or K6 (fp8) as often; the sim arm's
+    forward; the calibration phase runs fp); K4 K4_PASSES_R101 times a
+    batch (once per BN feeding quantized convolutions); K5 (int8 native)
+    or K6 (fp8) once per quantized layer and batch; the sim arm's
     contraction is the fp32 one; K3 never."""
     calib = CALIB_BATCHES if arm != "fp_bf16" else 0
     per = QUANT_LAYERS_R101 * QUANT_BATCHES
     want = {"nms_sweep": 2 * QUANT_BATCHES + calib,
             "roi_align_fwd": QUANT_BATCHES + calib, "roi_align_bwd": 0,
-            "quantize_act": per if arm != "fp_bf16" else 0,
+            "quantize_act": (K4_PASSES_R101 * QUANT_BATCHES
+                             if arm != "fp_bf16" else 0),
             "qconv_s8": per if arm == "int8_native" else 0,
             "qconv_e4m3": per if arm == "fp8_native" else 0}
     return want
@@ -5509,6 +5703,8 @@ def phase_quant(dev, card: str) -> dict:
                 k1_launches=2))
         del preds
         parts["steady"] = time.perf_counter() - t0 - sum(parts.values())
+        engine = quant_engine(prefix, dev)
+        parts["engine"] = time.perf_counter() - t0 - sum(parts.values())
         smoke = quant_smoke_on_card()
         parts["quant_smoke"] = time.perf_counter() - t0 - sum(parts.values())
     finally:
@@ -5520,11 +5716,75 @@ def phase_quant(dev, card: str) -> dict:
             f"image {[round(r['device_ms_per_image'], 3) for r in recs]}, "
             f"K4 ms per batch {[round(r['k4_ms_per_batch'], 3) for r in recs]}"
             f", K5/K6 ms per batch "
-            f"{[round(r['k5_k6_ms_per_batch'], 3) for r in recs]}")
+            f"{[round(r['k5_k6_ms_per_batch'], 3) for r in recs]}, the rest "
+            f"{[round(r['other_ms_per_batch'], 3) for r in recs]} ms (of it "
+            f"elementwise "
+            f"{[round(r['elementwise_ms_per_batch'], 3) for r in recs]}), device "
+            f"ops a forward "
+            f"{[round(r['device_ops_per_batch'], 1) for r in recs]}")
     log(f"phase 16 took {wall:.1f} s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts.items()))
     return dict(k4=k4, k5=k5, k6=k6, sim=sim, runs=runs, steady=steady,
-                quant_smoke=smoke, parts_s=parts, wall_s=wall)
+                engine=engine, quant_smoke=smoke, parts_s=parts, wall_s=wall)
+
+
+def quant_engine(prefix: str, dev) -> dict:
+    """The int8 serving engine (``tools/serve.py``'s ``ServingEngine``
+    on the quantized predictor, calibrated as phase 16's eval is) on one
+    image per bucket: ``engine.detect`` equal bit for bit to the
+    quantized offline batch on the same canvas, each with the same
+    launches, K4 K4_PASSES_R101 and K5 QUANT_LAYERS_R101 for its one
+    batch."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import quant_predictor
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.utils.checkpoint import load_state_dict
+
+    cfg = generate_config("resnet101", "PascalVOC", quant__enabled=True)
+    pred = quant_predictor(cfg, load_state_dict(prefix, 1), dev,
+                           synthetic=QUANT_IMAGES)
+    engine = ServingEngine(pred, cfg)
+    images = request_images()
+    rec = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    try:
+        engine.warmup()
+        for img in (images[0], images[-1]):
+            got, served = counted(lambda: engine.detect(img))
+            want, offline = counted(lambda: offline_detections(engine, img))
+            bucket = "x".join(map(str, engine.preprocess(img)[2]))
+            same = sorted(got) == sorted(want) and all(
+                np.array_equal(got[c], want[c]) for c in want)
+            n = sum(len(v) for v in want.values())
+            if not same or served != offline or \
+                    served["quantize_act"] != K4_PASSES_R101 or \
+                    served["qconv_s8"] != QUANT_LAYERS_R101:
+                raise AssertionError(
+                    f"int8 engine bucket {bucket}: {n} detections, equal to "
+                    f"the offline batch {same}; launches served {served}, "
+                    f"offline {offline}")
+            rec[bucket] = dict(detections=n, launches=served)
+    finally:
+        engine.close()
+    log(f"int8 engine (quantized predictor, fingerprint "
+        f"{pred.quant_fingerprint}): detect bit-equal to the quantized "
+        f"offline batch on both buckets, "
+        + ", ".join(f"{b}: {r['detections']} detections" for b, r in
+                    rec.items())
+        + f"; launches a batch equal, K4 {K4_PASSES_R101}, K5 "
+          f"{QUANT_LAYERS_R101}")
+    return rec
 
 
 def quant_smoke_on_card() -> dict:
@@ -5617,7 +5877,7 @@ def main() -> int:
     # null; their launches are the batch-2 training CLI run's.  K4 and K5
     # count the int8 quantized eval's launches, K6 the fp8 one's; K5 and
     # K6 are timed at QCONV_LINE_SHAPE beside torch._int_mm and
-    # torch._scaled_mm, K4 at a stage-1 activation (no library call)
+    # torch._scaled_mm, K4 at the per-ROI stage-4 bn1 (no library call)
     launches = training[2]["launches"]
     qrun = quant["runs"]
     lines = [kernel_line(kernels.NMS_SWEEP, k1["train_proposal"],
@@ -5626,7 +5886,8 @@ def main() -> int:
                          launches["roi_align_fwd"]),
              kernel_line(kernels.ROI_ALIGN_BWD, k3["train"]["bf16"],
                          launches["roi_align_bwd"]),
-             kernel_line(kernels.QUANTIZE_ACT, quant["k4"]["int8 b8"],
+             kernel_line(kernels.QUANTIZE_ACT,
+                         quant["k4"]["fused"]["int8"][K4_LINE_SHAPE],
                          qrun["int8_native"]["launches"]["quantize_act"]),
              kernel_line(kernels.QCONV_S8, quant["k5"][QCONV_LINE_SHAPE],
                          qrun["int8_native"]["launches"]["qconv_s8"]),

@@ -162,11 +162,14 @@ ROI_ALIGN_BWD = CudaKernel(
 
 # K4-K6 have no Pallas counterpart: the JAX package computes the
 # quantizer and the quantized contraction with XLA; ``replaces`` names
-# that code
+# that code.  K4 also takes in the frozen BN and ReLU before the
+# quantizer, which XLA fuses into the same loop.
 QUANTIZE_ACT = CudaKernel(
     "quantize_act", "quantize.cu", "quantize_act_launch",
-    # x, is_bf16, unit, qmax, fp8, out, n, stream
-    [_P, _I, _P, _F, _I, _P, ctypes.c_longlong, _P],
+    # x, is_bf16, n, c, inv, shift, round_bf16, relu, out0, unit0, out1,
+    # unit1, qmax, fp8, stream
+    [_P, _I, ctypes.c_longlong, _I, _P, _P, _I, _I, _P, _P, _P, _P, _F, _I,
+     _P],
     replaces="mx_rcnn_tpu/ops/quant.py:133")  # _quantize
 
 # K5 and K6 replace the JAX package's XLA contraction with int32 / fp32

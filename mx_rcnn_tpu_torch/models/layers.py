@@ -19,10 +19,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mx_rcnn_tpu_torch.ops.quant import (QuantSpec, new_act_stats,
+from mx_rcnn_tpu_torch.ops.quant import (QuantSpec, _unit, new_act_stats,
                                          pack_weight, qconv_prepared,
-                                         qdot_prepared, quantize_weight,
-                                         record_act_stats)
+                                         qdot_prepared, quantize_act_fused,
+                                         quantize_weight, record_act_stats)
 
 # std of a unit normal truncated to [-2, 2]: flax's truncated-normal
 # variance scaling divides by it
@@ -66,7 +66,9 @@ class FrozenBatchNorm(nn.Module):
     """Inference-mode BatchNorm (eps 2e-5): folded to one scale/shift in
     fp32, applied to the fp32 input, then cast once to ``dtype``.  The
     affine ``weight``/``bias`` are parameters (the optimizer's frozen mask
-    decides whether they train); the running statistics are buffers."""
+    decides whether they train); the running statistics are buffers.
+    :meth:`folded` hands the scale/shift to K4, which applies them on the
+    quantized path."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  eps: float = 2e-5):
@@ -77,10 +79,28 @@ class FrozenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self._folded = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _fold(self):
         inv = self.weight / torch.sqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * inv
+        return inv, shift
+
+    def folded(self):
+        """``(inv, shift)``, fp32 on the parameters' device, computed once
+        by the expressions of :meth:`forward` (so the bits are its bits)
+        and again only when a parameter or statistic changes."""
+        key = tuple((t.device, t.data_ptr(), t._version) for t in
+                    (self.weight, self.bias, self.running_mean,
+                     self.running_var))
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                inv, shift = self._fold()
+            self._folded = (key, inv.contiguous(), shift.contiguous())
+        return self._folded[1:]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv, shift = self._fold()
         y = x.to(torch.float32) * inv[:, None, None] + shift[:, None, None]
         return y.to(self.dtype)
 
@@ -143,23 +163,26 @@ class Dense(nn.Module):
 
 class _QuantMixin:
     """The state a quantized layer adds, none of it in the state_dict:
-    the calibrated activation scale ``act_scale`` (apply phase), the
-    weight quantized once by :meth:`prepare_` (``qweight`` in the
-    weight's layout, ``w_unit`` per output channel, and ``packed``, the
-    rows K5/K6 read), and the calibration phase's statistics ``stats``."""
+    the calibrated activation scale ``act_scale`` (apply phase) and its
+    step ``x_unit``, the weight quantized once by :meth:`prepare_`
+    (``qweight`` in the weight's layout, ``w_unit`` per output channel,
+    and ``packed``, the rows K5/K6 read), and the calibration phase's
+    statistics ``stats``."""
 
     def _init_quant(self, spec: QuantSpec) -> None:
         self.spec = spec
-        for name in ("act_scale", "qweight", "w_unit", "packed"):
+        for name in ("act_scale", "x_unit", "qweight", "w_unit", "packed"):
             self.register_buffer(name, None, persistent=False)
         self.stats: Optional[Dict[str, torch.Tensor]] = None
 
     def prepare_(self, act_scale) -> None:
-        """Set the calibrated scale and quantize the (fp32) weight."""
+        """Set the calibrated scale, fold it into the input's step once,
+        and quantize the (fp32) weight."""
         if not torch.is_tensor(act_scale):
             act_scale = torch.from_numpy(np.array(act_scale, np.float32))
         self.act_scale = act_scale.to(torch.float32).to(
             self.weight.device).reshape(())
+        self.x_unit = _unit(self.act_scale, self.spec.qmax)
         qw, self.w_unit = quantize_weight(self.weight, self.spec)
         self.qweight = qw
         sim = self.spec.dtype == "int8" and self.spec.mode == "sim"
@@ -170,8 +193,13 @@ class _QuantMixin:
             self.stats = new_act_stats(x.device)
         record_act_stats(self.stats, x, self.spec)
 
-    def _check_prepared(self) -> None:
-        if self.act_scale is None or self.qweight is None:
+    def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` quantized against this layer's step (K4 on the card)."""
+        self.check_prepared()
+        return quantize_act_fused(x, [self.x_unit], self.spec)[0]
+
+    def check_prepared(self) -> None:
+        if self.x_unit is None or self.qweight is None:
             raise RuntimeError(
                 "quantized layer has no calibrated act_scale: calibrate "
                 "first (core/tester.py — quant_predictor)")
@@ -195,11 +223,19 @@ class QuantConv2dSame(_QuantMixin, Conv2dSame):
         if self.spec.phase == "calib":
             self._record(x)
             return super().forward(x)
-        self._check_prepared()
-        y = qconv_prepared(x.permute(0, 2, 3, 1), self.qweight, self.packed,
-                           self.w_unit, self.act_scale, self.spec,
+        return self.forward_quantized(self.quantize_input(x), x.dtype)
+
+    def forward_quantized(self, q: torch.Tensor, out_dtype: torch.dtype
+                          ) -> torch.Tensor:
+        """The apply phase on ``q``, the NCHW input already quantized
+        against ``x_unit`` (by :meth:`quantize_input`, or by K4 with the
+        BN before this layer); the output in ``out_dtype``."""
+        self.check_prepared()
+        y = qconv_prepared(q.permute(0, 2, 3, 1), self.qweight, self.packed,
+                           self.w_unit, None, self.spec,
                            (self.stride, self.stride), "SAME",
-                           bias=self.bias, out_dtype=x.dtype)
+                           bias=self.bias, out_dtype=out_dtype,
+                           x_unit=self.x_unit)
         return y.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
 
 
@@ -215,10 +251,11 @@ class QuantDense(_QuantMixin, Dense):
         if self.spec.phase == "calib":
             self._record(x)
             return super().forward(x)
-        self._check_prepared()
-        return qdot_prepared(x, self.qweight, self.packed, self.w_unit,
-                             self.act_scale, self.spec, bias=self.bias,
-                             out_dtype=x.dtype)
+        q = self.quantize_input(x.reshape(-1, x.shape[-1]))
+        y = qdot_prepared(q, self.qweight, self.packed, self.w_unit, None,
+                          self.spec, bias=self.bias, out_dtype=x.dtype,
+                          x_unit=self.x_unit)
+        return y.reshape(x.shape[:-1] + y.shape[-1:])
 
 
 QUANT_LAYERS = (QuantConv2dSame, QuantDense)

@@ -8,7 +8,11 @@ spatial mean.  Module names match the flax names so the weight bridge is
 mechanical.  Layers run NCHW; the head takes NHWC pooled features.
 ``quant`` (an ``ops/quant.py — QuantSpec``) makes every convolution a
 quantized one: conv0 and each unit's conv1/conv2/conv3/sc, in the
-backbone and in the per-ROI stage 4.
+backbone and in the per-ROI stage 4.  In the apply phase each frozen BN
+that feeds quantized convolutions, with its ReLU, runs inside the
+quantizer (``ops/quant.py — quantize_act_fused``: K4, one launch, on the
+card), which writes each reading layer's quantized input; the bf16
+activations between BN and convolution are never written.
 """
 
 from __future__ import annotations
@@ -19,13 +23,29 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm, conv
-from mx_rcnn_tpu_torch.ops.quant import QuantSpec
+from mx_rcnn_tpu_torch.models.layers import (FrozenBatchNorm,
+                                             QuantConv2dSame, conv)
+from mx_rcnn_tpu_torch.ops.quant import QuantSpec, quantize_act_fused
 
 STAGE_UNITS = {
     50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
 }
+
+
+def _quant_apply(layer: nn.Module) -> bool:
+    return isinstance(layer, QuantConv2dSame) and layer.spec.phase == "apply"
+
+
+def bn_quantize(x: torch.Tensor, bn: FrozenBatchNorm, layers, relu: bool
+                ) -> List[torch.Tensor]:
+    """``relu(bn(x))`` (or ``bn(x.to(dtype))`` without ``relu``)
+    quantized for each quantized layer of ``layers``, against its folded
+    step, in one pass."""
+    for m in layers:
+        m.check_prepared()
+    return quantize_act_fused(x, [m.x_unit for m in layers], layers[0].spec,
+                              affine=bn.folded(), dtype=bn.dtype, relu=relu)
 
 
 class BottleneckUnit(nn.Module):
@@ -51,11 +71,28 @@ class BottleneckUnit(nn.Module):
             self.sc = conv(cin, filters, 1, stride, bias=False, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _quant_apply(self.conv1):
+            return self._forward_quantized(x)
         act1 = F.relu(self.bn1(x))
         c1 = self.conv1(act1)
         c2 = self.conv2(F.relu(self.bn2(c1)))
         c3 = self.conv3(F.relu(self.bn3(c2)))
         shortcut = x if self.dim_match else self.sc(act1)
+        return c3 + shortcut
+
+    def _forward_quantized(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` with each BN and ReLU inside K4; ``bn1``'s pass
+        writes the projection's input too."""
+        dtype = self.bn1.dtype
+        first = [self.conv1] if self.dim_match else [self.conv1, self.sc]
+        q1 = bn_quantize(x, self.bn1, first, relu=True)
+        c1 = self.conv1.forward_quantized(q1[0], dtype)
+        q2, = bn_quantize(c1, self.bn2, [self.conv2], relu=True)
+        c2 = self.conv2.forward_quantized(q2, dtype)
+        q3, = bn_quantize(c2, self.bn3, [self.conv3], relu=True)
+        c3 = self.conv3.forward_quantized(q3, dtype)
+        shortcut = x if self.dim_match else self.sc.forward_quantized(
+            q1[1], dtype)
         return c3 + shortcut
 
 
@@ -92,8 +129,12 @@ class ResNetBackbone(nn.Module):
                          quant))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn_data(x.to(self.dtype))
-        x = F.relu(self.bn0(self.conv0(x)))
+        if _quant_apply(self.conv0):
+            q, = bn_quantize(x, self.bn_data, [self.conv0], relu=False)
+            x = self.conv0.forward_quantized(q, self.dtype)
+        else:
+            x = self.conv0(self.bn_data(x.to(self.dtype)))
+        x = F.relu(self.bn0(x))
         x = F.max_pool2d(x, 3, 2, padding=1)
         for name in self.units:
             x = getattr(self, name)(x)

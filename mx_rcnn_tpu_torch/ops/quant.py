@@ -18,7 +18,10 @@ views of the channels-last memory the backbone already runs in.
 On a CUDA tensor the activation quantizer is kernel K4
 (``csrc/quantize.cu``) and the native contraction kernel K5 (int8) or K6
 (e4m3) (``csrc/qconv.cu``); there is no way back to the plain versions on
-the card.  On a CPU tensor both are the plain versions below: the
+the card.  K4 also takes in the frozen BN and ReLU that produce a ResNet
+convolution's input (:func:`quantize_act_fused`), writing one quantized
+tensor for each layer that reads it.  On a CPU tensor both are the plain
+versions below: the
 quantizer as the JAX expression, the contraction in float64 on the
 quantized values (exact for int8), rounded once to fp32.  The sim mode's
 fp32 convolution runs with TF32 off, so that it is the fp32 arithmetic
@@ -36,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from fractions import Fraction
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -173,11 +176,119 @@ def _dense(x: torch.Tensor) -> bool:
         x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last))
 
 
+# K4's launch (csrc/quantize.cu): 256-thread blocks, a thread moving 8
+# elements a vector, the BN's per-channel values for at most 2048 channels
+K4_THREADS = 256
+K4_VECTOR = 8
+K4_MAX_CHANNELS = 2048
+
+Affine = Tuple[torch.Tensor, torch.Tensor]
+
+
+def quantize_act_fused_plain(x: torch.Tensor, units: Sequence[torch.Tensor],
+                             spec: QuantSpec, affine: Optional[Affine] = None,
+                             dtype: Optional[torch.dtype] = None,
+                             relu: bool = False) -> List[torch.Tensor]:
+    """The plain version of :func:`quantize_act_fused`: the torch ops of
+    ``FrozenBatchNorm.forward`` on ``x.to(dtype)`` (fp32 ``x * inv +
+    shift`` on channel dim 1, cast to ``dtype``), ``F.relu``, and
+    :func:`quantize_act_plain`'s quantizer once per unit."""
+    if affine is not None:
+        inv, shift = affine
+        view = (-1,) + (1,) * (x.dim() - 2)
+        x = (x.to(dtype).to(torch.float32) * inv.view(view)
+             + shift.view(view)).to(dtype)
+    if relu:
+        x = F.relu(x)
+    return [_quantize_plain(x.to(torch.float32), u, spec) for u in units]
+
+
+def _check_on(t: torch.Tensor, x: torch.Tensor, what: str, numel: int
+              ) -> None:
+    if not (t.device == x.device and t.dtype == torch.float32
+            and t.is_contiguous() and t.numel() == numel):
+        raise ValueError(f"{what} must be {numel} contiguous fp32 values on "
+                         f"{x.device}, got {t.numel()} {t.dtype} on "
+                         f"{t.device}")
+
+
+def quantize_act_fused_cuda(x: torch.Tensor, units: Sequence[torch.Tensor],
+                            spec: QuantSpec, affine: Optional[Affine] = None,
+                            dtype: Optional[torch.dtype] = None,
+                            relu: bool = False) -> List[torch.Tensor]:
+    """Kernel K4 on the card, one launch: :func:`quantize_act_fused`'s
+    contract.  Without ``affine``, ``x`` is any dense tensor; with it, an
+    NCHW view of channels-last memory of at most K4_MAX_CHANNELS
+    channels.  Each output keeps ``x``'s memory layout."""
+    if not x.is_cuda:
+        raise ValueError("quantize_act_fused_cuda needs a CUDA tensor")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"activations must be fp32 or bf16, got {x.dtype}")
+    if not 1 <= len(units) <= 2:
+        raise ValueError(f"K4 writes one or two outputs, got {len(units)}")
+    for u in units:
+        _check_on(u, x, "a unit", 1)
+    if affine is None:
+        if dtype is not None or relu:
+            raise ValueError("dtype and relu come with the BN's affine")
+        if not _dense(x):
+            raise ValueError("K4 needs dense storage")
+        c, inv, shift = 1, None, None
+    else:
+        if x.dim() != 4 or not x.is_contiguous(
+                memory_format=torch.channels_last):
+            raise ValueError("the fused BN needs an NCHW view of "
+                             "channels-last memory")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the model dtype must be fp32 or bf16, got "
+                            f"{dtype}")
+        c = x.shape[1]
+        if c > K4_MAX_CHANNELS:
+            raise ValueError(f"{c} channels: K4 stages at most "
+                             f"{K4_MAX_CHANNELS}")
+        inv, shift = affine
+        _check_on(inv, x, "inv", c)
+        _check_on(shift, x, "shift", c)
+    outs = [torch.empty_like(x, dtype=spec.container) for _ in units]
+    # the second output and unit, or null pointers
+    out1, unit1 = ((outs[1].data_ptr(), units[1].data_ptr())
+                   if len(units) == 2 else (0, 0))
+    with torch.cuda.device(x.device):
+        QUANTIZE_ACT.launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(), c,
+            0 if inv is None else inv.data_ptr(),
+            0 if shift is None else shift.data_ptr(),
+            int(dtype == torch.bfloat16), int(relu), outs[0].data_ptr(),
+            units[0].data_ptr(), out1, unit1, float(spec.qmax),
+            int(spec.dtype == "fp8"),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if spec.dtype == "int8" and spec.mode == "sim":
+        outs = [q.to(torch.float32) for q in outs]
+    return outs
+
+
+def quantize_act_fused(x: torch.Tensor, units: Sequence[torch.Tensor],
+                       spec: QuantSpec, affine: Optional[Affine] = None,
+                       dtype: Optional[torch.dtype] = None,
+                       relu: bool = False) -> List[torch.Tensor]:
+    """``x`` → optional frozen BN (``affine`` = the folded ``(inv,
+    shift)`` of ``models/layers.py — FrozenBatchNorm``, applied to
+    ``x.to(dtype)`` and cast to the model ``dtype``) → optional ReLU →
+    one quantized tensor per unit (each layer reading the activation has
+    its own), in ``x``'s layout.  K4 in one pass for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if x.is_cuda:
+        return quantize_act_fused_cuda(x, units, spec, affine, dtype, relu)
+    if x.device.type == "cpu":
+        return quantize_act_fused_plain(x, units, spec, affine, dtype, relu)
+    raise ValueError(f"unsupported device {x.device}")
+
+
 def quantize_act_cuda(x: torch.Tensor, est: torch.Tensor, spec: QuantSpec
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K4 on the card; same contract as :func:`quantize_act_plain`
-    (the sim mode's fp32 values are K4's int8 output, cast exactly).
-    The output keeps ``x``'s memory layout."""
+    """Kernel K4 on the card, no BN; same contract as
+    :func:`quantize_act_plain` (the sim mode's fp32 values are K4's int8
+    output, cast exactly).  The output keeps ``x``'s memory layout."""
     if not x.is_cuda:
         raise ValueError("quantize_act_cuda needs a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -185,15 +296,7 @@ def quantize_act_cuda(x: torch.Tensor, est: torch.Tensor, spec: QuantSpec
     if not _dense(x):
         x = x.contiguous()
     unit = _unit(est, spec.qmax).to(x.device)
-    q = torch.empty_like(x, dtype=spec.container)
-    with torch.cuda.device(x.device):
-        QUANTIZE_ACT.launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), unit.data_ptr(),
-            float(spec.qmax), int(spec.dtype == "fp8"), q.data_ptr(),
-            x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
-    if spec.dtype == "int8" and spec.mode == "sim":
-        q = q.to(torch.float32)
-    return q, unit
+    return quantize_act_fused_cuda(x, [unit], spec)[0], unit
 
 
 def quantize_act(x: torch.Tensor, est: torch.Tensor, spec: QuantSpec
@@ -440,15 +543,20 @@ def qconv_cuda(qx: torch.Tensor, packed: torch.Tensor, x_unit: torch.Tensor,
 
 def qconv_prepared(x: torch.Tensor, qw: torch.Tensor,
                    packed: Optional[torch.Tensor], w_unit: torch.Tensor,
-                   act_est: torch.Tensor, spec: QuantSpec,
+                   act_est: Optional[torch.Tensor], spec: QuantSpec,
                    stride: Tuple[int, int], padding,
                    bias: Optional[torch.Tensor] = None,
-                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   out_dtype: torch.dtype = torch.float32,
+                   x_unit: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`qconv` with the weight already quantized (``qw`` OIHW and,
-    for the card's native path, its :func:`pack_weight` rows)."""
+    for the card's native path, its :func:`pack_weight` rows).  Given
+    ``x_unit``, ``x`` is the input already quantized against it (K4's
+    output) and ``act_est`` is not read."""
     kh, kw = qw.shape[2:]
     pads = _explicit_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
-    qx, x_unit = quantize_act(x, act_est, spec)
+    qx = x
+    if x_unit is None:
+        qx, x_unit = quantize_act(x, act_est, spec)
     if _on_kernels(x, spec):
         if packed is None:
             raise ValueError("the native path on the card needs the "
@@ -461,12 +569,17 @@ def qconv_prepared(x: torch.Tensor, qw: torch.Tensor,
 
 def qdot_prepared(x: torch.Tensor, qw: torch.Tensor,
                   packed: Optional[torch.Tensor], w_unit: torch.Tensor,
-                  act_est: torch.Tensor, spec: QuantSpec,
+                  act_est: Optional[torch.Tensor], spec: QuantSpec,
                   bias: Optional[torch.Tensor] = None,
-                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """:func:`qdot` with the (out, in) weight already quantized."""
+                  out_dtype: torch.dtype = torch.float32,
+                  x_unit: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`qdot` with the (out, in) weight already quantized; given
+    ``x_unit``, ``x`` is already quantized against it, as in
+    :func:`qconv_prepared`."""
     lead, k = x.shape[:-1], x.shape[-1]
-    qx, x_unit = quantize_act(x.reshape(-1, k), act_est, spec)
+    qx = x.reshape(-1, k)
+    if x_unit is None:
+        qx, x_unit = quantize_act(qx, act_est, spec)
     if _on_kernels(x, spec):
         if packed is None:
             raise ValueError("the native path on the card needs the "

@@ -17,6 +17,12 @@ The JAX tool's export round trip and store admission legs wait for the
 port of ``serve/export.py``.  ``--check`` turns the checks into the exit
 code.  Runs on the card by default; ``--device cpu`` on the CPU.
 
+The run uses PyTorch's deterministic algorithms in full fp32
+(:func:`reproducible`), so it reads the same mAPs every time and from
+every caller, as the JAX tool does on the TPU: with the card's default
+algorithms two fp32 trainings from one seed can end at different
+weights, and the gate would judge a different checkpoint on every run.
+
     python -m mx_rcnn_tpu_torch.tools.quant_smoke --check
     python -m mx_rcnn_tpu_torch.tools.quant_smoke --device cpu --check
 """
@@ -24,6 +30,7 @@ code.  Runs on the card by default; ``--device cpu`` on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -62,10 +69,46 @@ def _cfg(workdir: str, **kw):
     return generate_config("tiny", "synthetic", **over)
 
 
+@contextlib.contextmanager
+def reproducible():
+    """Run the body with ``torch.use_deterministic_algorithms(True)``,
+    cuDNN's benchmark off and TF32 off in convolutions and matmuls (the
+    result then hangs on no setting of the caller's), then restore the
+    caller's settings.  An op with no deterministic version raises
+    instead of running; cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG`` for it,
+    set here where unset."""
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if env is None:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.benchmark = was[2]
+        torch.backends.cudnn.allow_tf32 = was[3]
+        torch.backends.cuda.matmul.allow_tf32 = was[4]
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+
+
 def run_smoke(workdir: str, num_images: int, epochs: int,
               device="cuda") -> dict:
-    """Train, then gather the three checks' evidence; returns the
-    record."""
+    """Train, then gather the three checks' evidence, all under
+    :func:`reproducible`; returns the record."""
+    with reproducible():
+        return _run_smoke(workdir, num_images, epochs, device)
+
+
+def _run_smoke(workdir: str, num_images: int, epochs: int,
+               device) -> dict:
     dev = resolve_device(device)
     cfg = _cfg(workdir)
     dataset_kw = {"num_images": num_images}

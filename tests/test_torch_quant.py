@@ -36,6 +36,7 @@ Tolerances:
 import contextlib
 import dataclasses
 import io
+import os
 import re
 
 import jax
@@ -568,6 +569,41 @@ def test_quantized_forward_equals_jax(network, quant, shallow_resnet):
                                                     pred.quant_fingerprint)
 
 
+def test_quantized_vgg16_features_equal_jax():
+    """The quantized VGG16 as a whole at a 128x160 canvas: the port's
+    own calibration sweep gives the JAX scales (its 13 convolutions at
+    rtol 1e-5; fc6/fc7 within 1e-3, below), and with the JAX-calibrated
+    scales through the bridge the int8 features are bit-equal (every
+    convolution an exact integer sum, the same fp32 rescale, bias and
+    ReLU)."""
+    jcfg, tcfg, variables = _case("vgg")
+    batches = [_images(0, n=1)]
+    qcol = jax.tree_util.tree_map(np.asarray, jtester.calibrate_quant(
+        jcfg, variables["params"], variables.get("batch_stats", {}),
+        batches=batches))
+    ours = ttester.calibrate_quant(tcfg, from_flax(variables), "cpu",
+                                   batches=batches)
+    _compare_scales(ours["backbone"], qcol["backbone"])
+    # fc6 reads ROIAlign of the proposals, which the RPN's fp32
+    # convolution moves by ~1e-2 px (the module's stated tolerance): its
+    # absmax moves by ~1e-4 of itself, and fc7's with it
+    a, b = dict(_leaves(ours["head"])), dict(_leaves(qcol["head"]))
+    assert a.keys() == b.keys() == {("fc6", "act_scale"), ("fc7", "act_scale")}
+    for k in a:
+        np.testing.assert_allclose(np.float32(a[k]), np.float32(b[k]),
+                                   rtol=1e-3, err_msg=str(k))
+    model = _port_model(tcfg, variables, qcol)
+    jmodel = j_build_model(jcfg)
+    images, im_info = _images(5, n=1)
+    jfeat = np.asarray(jmodel.apply({**variables, "quant": qcol},
+                                    jnp.asarray(images), jnp.asarray(im_info),
+                                    method=jmodel.features))
+    with torch.inference_mode():
+        tfeat = model.features(T(images), T(im_info)).numpy()
+    assert tfeat.shape == (1, 8, 10, 512) and np.abs(tfeat).max() > 0
+    np.testing.assert_array_equal(tfeat, jfeat)
+
+
 def test_calibration_batches_equal_jax(tmp_path):
     over = dict(test__batch_images=2, quant__calibration_batches=2,
                 quant__calibration_seed=3,
@@ -679,3 +715,31 @@ def test_quant_smoke_check_on_cpu(tmp_path):
                                str(tmp_path)])
     assert rc == 0, buf.getvalue()[-2000:]
     assert "CHECK OK" in buf.getvalue()
+
+
+def test_quant_smoke_runs_with_deterministic_algorithms(monkeypatch):
+    """quant_smoke's run uses PyTorch's deterministic algorithms in full
+    fp32 (on the card two trainings from one seed otherwise can end at
+    different weights) and hands the caller's settings back."""
+    from mx_rcnn_tpu_torch.tools import quant_smoke
+
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+    try:
+        torch.use_deterministic_algorithms(False)
+        cudnn.benchmark = cudnn.allow_tf32 = matmul.allow_tf32 = True
+        with quant_smoke.reproducible():
+            assert torch.are_deterministic_algorithms_enabled()
+            assert not torch.is_deterministic_algorithms_warn_only_enabled()
+            assert not cudnn.benchmark
+            assert not cudnn.allow_tf32 and not matmul.allow_tf32
+            assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+        assert not torch.are_deterministic_algorithms_enabled()
+        assert cudnn.benchmark and cudnn.allow_tf32 and matmul.allow_tf32
+        assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = was[2:]
