@@ -118,8 +118,8 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    on, against their plain versions and timed; ``--resume`` for a second
    epoch byte-equal to two straight epochs on the streaming plan
    (cuDNN's deterministic algorithms up to here); last, steady training
-   with cuDNN's default algorithms, three-epoch runs in turns over the
-   devkit and over 16 synthetic images of the devkit's two orientations,
+   with cuDNN's default algorithms, a three-epoch run over the devkit
+   then one over 16 synthetic images of the devkit's two orientations,
    each run's second epoch timed and its third traced (device time,
    copies, busy share);
 13. the long training run, the seventh main path: a seeded ResNet-101
@@ -229,7 +229,28 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    batch and device ops a forward, in turns; the int8 serving engine
    (``tools/serve.py``'s ``ServingEngine``) on one image per bucket,
    equal to the quantized offline batch with the same launches; last
-   ``tools/quant_smoke.py --check`` on the card (its ``main``).
+   ``tools/quant_smoke.py --check`` on the card (its ``main``);
+17. the observability plane, the eleventh main path (``obs/``, the lock
+    sanitizer; ResNet-101, 21 classes, the 608x1024 bucket, bf16,
+    seeded weights): ``python -m mx_rcnn_tpu_torch.tools.train`` on 8
+    synthetic images and their flips with every obs piece on, the
+    profiler window over global steps 4-5 and
+    ``MXRCNN_THREAD_SANITIZER=strict``: a mid-run ``/metrics`` scrape
+    with ``train.*``, ``loader.*``, ``snapshot.*``; ``events.jsonl``
+    parsed; ``summary.json`` with ``train_samples_per_sec`` and no obs
+    failure; the rollup's K1 passes, K2 and K3 with device ms and one
+    launch each a profiled step (as ``launch_counts`` says); each of
+    their device events inside its step's ``train.dispatch`` to
+    ``train.sync`` window of the merged chrome trace; a SIGTERM after
+    step 12 leaves the flight dump and the step-exact interrupt
+    checkpoint; ``LOCKSAN_REPORT`` clean.  Then ``tools/serve.py``'s
+    session in process over a seeded checkpoint: a concurrency-8 HTTP
+    burst, half of it with ``X-MXR-Trace`` headers, an OK verdict on
+    ``/healthz``, ``registry`` and ``timeseries`` on ``/metrics``, one
+    ``terminal.*`` span per traced request, K1 2 and K2 1 a batch; each
+    image served alone with the plane on and off, bit-equal with equal
+    launches.  Last, obs-on against obs-off: training ms/step, and
+    served images/s in turns (recorded, not gated).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -247,6 +268,7 @@ weight files, checkpoints and datasets likewise.
 from __future__ import annotations
 
 import contextlib
+import glob
 import hashlib
 import json
 import math
@@ -279,12 +301,6 @@ BUCKET = (608, 1024)
 TRAIN_ROIS = 128           # train__batch_rois: sampled rois per image
 TRAIN_STEPS = 6            # steps of the training CLI run
 THRESHOLDS = (0.3, 0.5, 0.7)   # every K1 check runs at each
-# each kernel (K1's two passes apart) by name in a profiler trace
-# (K3 by its prefix: its tables pass and its walk, then the tables alone)
-KERNEL_NAMES = {"k1_mask": "nms_mask_kernel", "k1_reduce": "nms_reduce_kernel",
-                "k2": "roi_align_fwd_kernel", "k3": "roi_align_bwd",
-                "k3_tables": "roi_align_bwd_tables_kernel",
-                "k4": "quantize_act_kernel", "k5_k6": "qconv_kernel"}
 
 
 # K4-K6 run only on the quantized path (phase 16): the fp phases read the
@@ -970,8 +986,12 @@ def trace_summary(prof, iters: int) -> dict:
     """:func:`device_profile`'s numbers from a finished ``torch.profiler``
     trace of ``iters`` calls; ``copy_ms_per_iter`` is the copies' share
     of the device time, ``elementwise_ms_per_iter`` that of PyTorch's
-    elementwise kernels."""
+    elementwise kernels (the kernel names and both classes are
+    ``obs/profiler.py``'s, which the obs rollup reads too)."""
     from torch.autograd import DeviceType
+
+    from mx_rcnn_tpu_torch.obs.profiler import (KERNEL_NAMES, is_copy,
+                                                is_elementwise)
 
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -981,11 +1001,9 @@ def trace_summary(prof, iters: int) -> dict:
             for p, name in KERNEL_NAMES.items()}
     return dict(device_ms_per_iter=total_us / 1e3 / iters,
                 copy_ms_per_iter=sum(t for k, t, _ in rows
-                                     if "Memcpy" in k) / 1e3 / iters,
-                # PyTorch's elementwise kernels (casts, BN's multiply and
-                # add, ReLU, adds)
+                                     if is_copy(k)) / 1e3 / iters,
                 elementwise_ms_per_iter=sum(
-                    t for k, t, _ in rows if "elementwise_kernel" in k)
+                    t for k, t, _ in rows if is_elementwise(k))
                 / 1e3 / iters,
                 top=[dict(name=k[:90], ms_per_iter=t / 1e3 / iters,
                           calls_per_iter=c / iters) for k, t, c in rows[:20]],
@@ -2258,13 +2276,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _http(url: str, payload=None, timeout: float = 60.0):
+def _http(url: str, payload=None, timeout: float = 60.0, headers=None):
     import urllib.error
     import urllib.request
 
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data, headers={
-        "Content-Type": "application/json"})
+        "Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.status, json.loads(resp.read())
@@ -2866,10 +2884,9 @@ def warm_pairs(dev, voc_over: dict, card: str) -> dict:
     three-epoch ``train_net`` runs of one config over the devkit (2
     decode workers, cache, streaming, staging) and over 16 synthetic
     images in memory, 375x500 and 500x375 in turns like the devkit's (no
-    files, so no pool and no cache), in turns real, synthetic,
-    synthetic, real; each run's second epoch, when the process, the cache
-    and the workers are warm, timed, and its third traced
-    (:func:`warm_run`)."""
+    files, so no pool and no cache), real then synthetic; each run's
+    second epoch, when the process, the cache and the workers are warm,
+    timed, and its third traced (:func:`warm_run`)."""
     import torch
 
     from mx_rcnn_tpu_torch.config import generate_config
@@ -2883,7 +2900,7 @@ def warm_pairs(dev, voc_over: dict, card: str) -> dict:
     sources = {"real": {},
                "synthetic": dict(roidb=roidb, load_image=load_image)}
     runs = {"real": [], "synthetic": []}
-    for i, kind in enumerate(("real", "synthetic", "synthetic", "real")):
+    for i, kind in enumerate(("real", "synthetic")):
         runs[kind].append(warm_run(
             cfg, dev, sources[kind], OUT_DIR / f"real_warm_{i}_{kind}.txt",
             f"{kind} run {i} on {card}"))
@@ -5810,6 +5827,509 @@ def quant_smoke_on_card() -> dict:
     return dict(wall_s=wall, record=rec)
 
 
+# ---- phase 17: the observability plane, the eleventh main path ------------
+
+OBS_DIR = REPO / "_chip" / "obs"     # run records, checkpoints
+OBS_IMAGES = 8             # synthetic 375x500 images: 16 records, 8 steps
+OBS_PROFILE_AT = 3         # the window opens after global step 3 ...
+OBS_PROFILE_STEPS = 2      # ... and covers steps 4 and 5
+OBS_SCRAPE_AFTER = "Epoch[1] Batch [1]"   # step 10: a snapshot committed
+OBS_SIGTERM_AFTER = "Epoch[1] Batch [3]"  # after step 12: the interrupt
+OBS_KERNEL_CLASSES = ("K1 nms_mask_kernel", "K1 nms_reduce_kernel",
+                      "K2 roi_align_fwd_kernel",
+                      "K3 roi_align_bwd_tables_kernel",
+                      "K3 roi_align_bwd_kernel")
+OBS_TURNS = 2              # obs-off/obs-on turns of the serving arms
+OBS_STALL_S = 150          # the training run's longest silence
+
+
+def _one(pattern: str, what: str) -> Path:
+    found = sorted(Path(p) for p in glob.glob(pattern))
+    if len(found) != 1:
+        raise AssertionError(f"{what}: expected one match of {pattern}, "
+                             f"got {found}")
+    return found[0]
+
+
+def step_windows(events: list, pid: int) -> list:
+    """Each step's [train.dispatch start, train.sync end] in the merged
+    trace's host spans of process ``pid`` (the fit loop logs every step,
+    so each dispatch has its sync)."""
+    host = sorted((e for e in events if e.get("pid") == pid
+                   and e.get("ph") == "X"
+                   and e.get("name") in ("train.dispatch", "train.sync")),
+                  key=lambda e: e["ts"])
+    windows, start = [], None
+    for e in host:
+        if e["name"] == "train.dispatch":
+            start = e["ts"]
+        elif start is not None:
+            windows.append((start, e["ts"] + e["dur"]))
+            start = None
+    return windows
+
+
+def device_events_in_steps(events: list, pid: int) -> dict:
+    """Where each K1-K3 device event of the merged trace falls among the
+    step windows: the windows holding any, the events in each class a
+    window, and the events outside every window (with the distance to
+    the nearest, in µs)."""
+    from mx_rcnn_tpu_torch.obs.profiler import op_class
+
+    windows = step_windows(events, pid)
+    per_window: dict = {}
+    outside = []
+    for e in events:
+        if not str(e.get("pid", "")).startswith("device:cuda"):
+            continue
+        cls = op_class(e.get("name", ""))
+        if cls not in OBS_KERNEL_CLASSES:
+            continue
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        hit = [i for i, (a, b) in enumerate(windows) if a <= t0 and t1 <= b]
+        if hit:
+            per_window.setdefault(hit[0], {}).setdefault(cls, 0)
+            per_window[hit[0]][cls] += 1
+        else:
+            gap = min((max(a - t0, t1 - b, 0.0) for a, b in windows),
+                      default=None)
+            outside.append({"class": cls, "ts": t0, "gap_us": gap})
+    return {"windows": len(windows), "per_window": per_window,
+            "outside": outside}
+
+
+def obs_training(card: str) -> dict:
+    """``tools/train.py`` in a process of its own with the whole plane on
+    and the strict lock sanitizer; scraped mid-run, stopped by
+    SIGTERM."""
+    import queue
+    import signal
+    import threading
+
+    from mx_rcnn_tpu_torch.utils.checkpoint import (interrupt_path,
+                                                    read_manifest)
+
+    port = _free_port()
+    runs = OBS_DIR / "runs"
+    prefix = str(OBS_DIR / "train" / "e2e")
+    argv = [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.train",
+            "--network", "resnet101", "--dataset", "PascalVOC",
+            "--synthetic", str(OBS_IMAGES), "--batch_images", "2",
+            "--frequent", "1", "--end_epoch", "2", "--seed", "0",
+            "--prefix", prefix,
+            "--set", "obs__enabled=true", "--set", "obs__trace=true",
+            "--set", "obs__timeseries=true", "--set", "obs__health=true",
+            "--set", "obs__flight=true",
+            "--set", f"obs__profile_at_step={OBS_PROFILE_AT}",
+            "--set", f"obs__profile_steps={OBS_PROFILE_STEPS}",
+            "--set", f"obs__metrics_port={port}",
+            "--set", "obs__sample_interval_s=0.25",
+            "--set", f"obs__run_dir={runs}"]
+    # a stalled run dumps every thread's stack into its .err (SIGABRT
+    # under the fault handler) and fails the phase, rather than the call
+    env = dict(os.environ, MXRCNN_THREAD_SANITIZER="strict",
+               PYTHONFAULTHANDLER="1")
+    err_path = OUT_DIR / "obs_train.err"
+    out_path = OUT_DIR / "obs_train.txt"
+    scrape, sent, lines, rc = None, None, [], None
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err_file, open(out_path, "w") as out_file:
+        proc = subprocess.Popen(argv, cwd=REPO, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=err_file)
+        feed: "queue.Queue" = queue.Queue()
+
+        def pump():
+            for out_line in proc.stdout:
+                feed.put(out_line)
+            feed.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+        try:
+            while True:
+                try:
+                    line = feed.get(timeout=OBS_STALL_S)
+                except queue.Empty:
+                    proc.send_signal(signal.SIGABRT)
+                    proc.wait(timeout=60)
+                    raise AssertionError(
+                        f"the observed training run printed nothing for "
+                        f"{OBS_STALL_S} s after {len(lines)} lines "
+                        f"({lines[-1:]}); its stacks:\n"
+                        f"{err_path.read_text()[-6000:]}")
+                if line is None:
+                    break
+                lines.append(line)
+                out_file.write(line)
+                out_file.flush()
+                if scrape is None and line.startswith(OBS_SCRAPE_AFTER):
+                    status, scrape = _http(
+                        f"http://127.0.0.1:{port}/metrics", timeout=30)
+                    if status != 200:
+                        raise AssertionError(f"/metrics answered {status}")
+                if sent is None and line.startswith(OBS_SIGTERM_AFTER):
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.perf_counter()
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    err = err_path.read_text()
+    if rc != 0 or scrape is None or sent is None:
+        raise AssertionError(f"the observed training run: exit {rc}, "
+                             f"scraped {scrape is not None}, SIGTERM sent "
+                             f"{sent is not None}\n{err[-3000:]}")
+    # the mid-run scrape
+    names = (set(scrape["counters"]) | set(scrape["gauges"])
+             | set(scrape["hists"]))
+    # (the epoch checkpoint's stall is the step thread's; its commit
+    # may still be on the writer, so the summary's registry holds it)
+    want = ("train.steps", "train.step_ms", "train.data_wait_ms",
+            "train.samples_per_sec", "train.loss_ema", "loader.decode_ms",
+            "loader.assemble_ms", "loader.queue_depth", "loader.stage_hits",
+            "snapshot.stall_ms", "health.verdict")
+    missing = [n for n in want if n not in names]
+    if missing or "timeseries" not in scrape:
+        raise AssertionError(f"mid-run /metrics lacks {missing} (time "
+                             f"series {'timeseries' in scrape})")
+    run = _one(str(runs / "train-*"), "the training run record")
+    events = [json.loads(ln) for ln in
+              (run / "events.jsonl").read_text().splitlines()]
+    kinds = {e["event"] for e in events}
+    if not {"run_start", "epoch_start", "log", "epoch_end", "snapshot",
+            "interrupt", "run_finish"} <= kinds or not all(
+                isinstance(e["ts"], float) for e in events):
+        raise AssertionError(f"events.jsonl kinds {sorted(kinds)}")
+    summary = json.loads((run / "summary.json").read_text())
+    launches = summary["kernel_launches"]
+    steps = summary["steps"]
+    commits = summary["metrics"]["counters"].get("snapshot.commits")
+    if summary["metric"] != "train_samples_per_sec" or \
+            not summary["value"] or summary["obs_failures"] or \
+            not 12 <= steps < 16 or commits != 2 or \
+            fp_only(launches) != {k: steps for k in PATH_KERNELS}:
+        raise AssertionError(f"summary.json: {summary['metric']} "
+                             f"{summary['value']}, steps {summary['steps']}"
+                             f", failures {summary['obs_failures']}, "
+                             f"snapshot commits {commits}, launches "
+                             f"{launches}")
+    # the profiler window
+    roll = json.loads((run / "profile" / "rollup.json").read_text())
+    calls, ms = roll["op_class_calls"], roll["by_op_class"]
+    bad = {c: (calls.get(c), ms.get(c)) for c in OBS_KERNEL_CLASSES
+           if calls.get(c) != OBS_PROFILE_STEPS or not ms.get(c, 0) > 0}
+    window = {k: v for k, v in roll["launch_counts"].items() if v}
+    if bad or window != {k: OBS_PROFILE_STEPS for k in PATH_KERNELS}:
+        raise AssertionError(f"rollup: kernel classes {bad}, launches in "
+                             f"the window {window}")
+    # host spans and device events on one clock
+    merged = json.loads((run / "trace.json").read_text())["traceEvents"]
+    pid = int(run.name.rsplit("-", 1)[1])
+    placed = device_events_in_steps(merged, pid)
+    counts = list(placed["per_window"].values())
+    if placed["outside"] or len(counts) != OBS_PROFILE_STEPS or any(
+            c != {k: 1 for k in OBS_KERNEL_CLASSES} for c in counts):
+        raise AssertionError(f"device events against the step windows: "
+                             f"{counts}, outside {placed['outside'][:5]} "
+                             f"of {placed['windows']} windows")
+    # SIGTERM: the flight dump and the step-exact interrupt checkpoint
+    flight = json.loads(_one(str(run / "flight" / "*-sigterm" /
+                                 "flight.json"), "the SIGTERM dump")
+                        .read_text())
+    manifest = read_manifest(interrupt_path(prefix)) or {}
+    if flight["reason"] != "sigterm" or not flight["samples"] or \
+            "train" not in flight["context"] or \
+            manifest.get("kind") != "interrupt" or \
+            manifest.get("step") != steps:
+        raise AssertionError(f"flight dump {flight['reason']} with "
+                             f"{len(flight['samples'])} samples, context "
+                             f"{sorted(flight['context'])}; interrupt "
+                             f"manifest {manifest}")
+    report = [ln for ln in lines if ln.startswith("LOCKSAN_REPORT ")]
+    locksan = json.loads(report[-1].split(" ", 1)[1]) if report else {}
+    if not locksan.get("armed") or not locksan.get("strict") or \
+            locksan.get("inversions") or locksan.get("watchdog_trips") or \
+            not locksan.get("locks_wrapped"):
+        raise AssertionError(f"LOCKSAN_REPORT {locksan}")
+    k1 = ms["K1 nms_mask_kernel"] + ms["K1 nms_reduce_kernel"]
+    k3 = ms["K3 roi_align_bwd_tables_kernel"] + ms["K3 roi_align_bwd_kernel"]
+    w = OBS_PROFILE_STEPS
+    log(f"obs training on {card}: {steps} steps, interrupt checkpoint at "
+        f"step {steps}, exit {rc} {time.perf_counter() - sent:.2f} s after "
+        f"SIGTERM ({wall:.1f} s in all); summary {summary['value']:.2f} "
+        f"images/s; the window's device {roll['device_ms'] / w:.3f} ms a "
+        f"step: K1 {k1 / w:.4f}, K2 "
+        f"{ms['K2 roi_align_fwd_kernel'] / w:.4f}, K3 {k3 / w:.4f}, "
+        + ", ".join(f"{c} {v / w:.3f}" for c, v in ms.items()
+                    if not c.startswith("K")) + " ms; by scope "
+        + ", ".join(f"{c} {v / w:.3f}"
+                    for c, v in roll["by_scope"].items())
+        + f"; every K1-K3 event inside its step's window; the strict lock "
+        f"sanitizer: {locksan['locks_wrapped']} locks wrapped, no "
+        f"inversion")
+    return dict(wall_s=wall, sigterm_to_exit_s=time.perf_counter() - sent,
+                summary={k: v for k, v in summary.items() if k != "metrics"},
+                rollup=roll, placement=placed, locksan=locksan,
+                flight={"reason": flight["reason"],
+                        "samples": len(flight["samples"]),
+                        "events": len(flight["events"])},
+                interrupt_step=manifest.get("step"),
+                scrape_names=sorted(names))
+
+
+def obs_checkpoint(dev) -> str:
+    """A seeded ResNet-101 checkpoint, its classifier scaled as phase
+    11's (a seeded model otherwise answers background everywhere)."""
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.utils.checkpoint import save_params
+
+    prefix = str(OBS_DIR / "serve" / "m")
+    model = build_model(generate_config("resnet101", "PascalVOC"), dev,
+                        seed=0, train=True)
+    with torch.no_grad():
+        model.cls_score.weight.mul_(SERVE_CLS_SCALE)
+    save_params(prefix, 1, model.state_dict())
+    return prefix
+
+
+def sequential_detections(engine, images) -> tuple:
+    """Each image alone in its batch; the detections and the launches."""
+    from mx_rcnn_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    dets = [engine.detect(img) for img in images]
+    return dets, fp_launches()
+
+
+def obs_serving(dev, prefix: str, card: str) -> dict:
+    """``tools/serve.py``'s session in process, a traced concurrency-8
+    HTTP burst, then each image served alone with the plane on and
+    off."""
+    import base64
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.obs import trace as obs_trace
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.serve.server import make_server
+    from mx_rcnn_tpu_torch.tools import serve as serve_tool
+    from mx_rcnn_tpu_torch.tools.loadgen import init_predictor
+
+    cfg = generate_config(
+        "resnet101", "PascalVOC", obs__enabled=True, obs__trace=True,
+        obs__timeseries=True, obs__health=True, obs__flight=True,
+        obs__sample_interval_s=0.25, obs__trace_slow_pct=0.0,
+        obs__run_dir=str(OBS_DIR / "runs"))
+    images = request_images()
+    predictor = init_predictor(cfg, prefix, 1, device=dev)
+    obs_sess, metrics = serve_tool.open_obs(cfg)
+    engine = ServingEngine(predictor, cfg, metrics=metrics)
+    srv = None
+    try:
+        engine.warmup()
+        serve_tool.watch_engine(obs_sess, engine)
+        srv = make_server(engine, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        requests = [(i, images[i % len(images)]) for i in range(16)]
+
+        def post(item):
+            i, img = item
+            headers = ({"X-MXR-Trace": f"v1;id=17.{i};parent=0;hop=0;s=1"}
+                       if i % 2 == 0 else None)
+            return _http(url + "/detect", {
+                "pixels_b64": base64.b64encode(img.tobytes()).decode(),
+                "shape": list(img.shape)}, headers=headers)
+
+        engine.metrics.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            replies = list(pool.map(post, requests))
+        burst_s = time.perf_counter() - t0
+        burst_launches = fp_launches()
+        batches = engine.metrics.counters["batches"]
+        failed = [i for i, (st, body) in enumerate(replies)
+                  if st != 200 or not body.get("detections")]
+        if failed or burst_launches != {"nms_sweep": 2 * batches,
+                                        "roi_align_fwd": batches,
+                                        "roi_align_bwd": 0}:
+            raise AssertionError(f"burst: requests {failed} failed; "
+                                 f"launches {burst_launches} in {batches} "
+                                 f"batches")
+        time.sleep(2 * cfg.obs.sample_interval_s)  # a sample past the burst
+        status, health = _http(url + "/healthz")
+        verdict = (health.get("health") or {}).get("verdict")
+        status_m, snap = _http(url + "/metrics")
+        if status != 200 or verdict != "OK" or status_m != 200 or \
+                "registry" not in snap or \
+                snap.get("timeseries", {}).get("samples", 0) < 2:
+            raise AssertionError(f"/healthz {status} verdict {verdict}; "
+                                 f"/metrics {status_m} keys {sorted(snap)}")
+        trees = {t["trace"]: t for t in obs_trace.kept_trees()}
+        audit = {}
+        for i, _ in requests[::2]:
+            spans = trees.get(f"17.{i}", {}).get("spans", [])
+            names = [s["name"] for s in spans]
+            audit[f"17.{i}"] = names
+            if sum(n.startswith("terminal.") for n in names) != 1 or \
+                    "terminal.served" not in names or \
+                    "serve.request" not in names:
+                raise AssertionError(f"trace 17.{i}: spans {names}")
+        dets_on, launches_on = sequential_detections(engine, images)
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        engine.close()
+        serve_tool.close_obs(obs_sess, engine)
+    summary = json.loads((Path(obs_sess.record.dir) / "summary.json")
+                         .read_text())
+    if summary["obs_failures"] or summary["value"] != \
+            engine.metrics.counters["served"]:
+        raise AssertionError(f"serve summary {summary['value']}, failures "
+                             f"{summary['obs_failures']}")
+    off_cfg = generate_config("resnet101", "PascalVOC")
+    off = ServingEngine(predictor, off_cfg)
+    try:
+        off.warmup()
+        dets_off, launches_off = sequential_detections(off, images)
+    finally:
+        off.close()
+    same = all(sorted(a) == sorted(b) and all(
+        np.array_equal(a[c], b[c]) for c in a)
+        for a, b in zip(dets_on, dets_off))
+    n = [sum(len(v) for v in d.values()) for d in dets_on]
+    if not same or launches_on != launches_off or not all(n):
+        raise AssertionError(f"plane on against off: bit-equal {same}, "
+                             f"launches {launches_on} / {launches_off}, "
+                             f"detections {n}")
+    log(f"obs serving on {card}: 16 requests at concurrency 8 in "
+        f"{burst_s:.3f} s, {batches} batches, launches {burst_launches}; "
+        f"/healthz verdict {verdict}; 8 traced requests, one terminal span "
+        f"each; alone with the plane on and off: bit-equal, launches "
+        f"{launches_on}, detections {n}")
+    return dict(burst_s=burst_s, batches=batches, launches=burst_launches,
+                verdict=verdict, timeseries=snap["timeseries"],
+                traced=audit, alone_launches=launches_on, detections=n)
+
+
+def obs_overhead(dev, prefix: str, card: str) -> dict:
+    """Obs-on against obs-off: training ms/step (a ``train_net`` run of 8
+    steps at batch 2, the first 2 left out; off then on) and served
+    images/s (a closed loop at concurrency 8 for 2 s on one engine an
+    arm, in turns off, on, off, on).  On: spans, the registry, the
+    sampler and the health rules (``tools/obs_smoke.py — ObsPlane``)."""
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.obs.metrics import ServeMetrics, registry
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.tools.loadgen import (init_predictor,
+                                                 run_closed_loop)
+    from mx_rcnn_tpu_torch.tools.obs_smoke import (ObsPlane, overhead_turns,
+                                                   step_ms_of)
+
+    def config(enabled: bool):
+        return generate_config(
+            "resnet101", "PascalVOC", obs__enabled=enabled,
+            obs__trace=enabled, obs__timeseries=enabled,
+            obs__health=enabled, obs__sample_interval_s=0.25,
+            train__batch_images=2)
+
+    def train_arm(enabled: bool):
+        cfg = config(enabled)
+        with ObsPlane(cfg, enabled):
+            return step_ms_of(cfg, dev, skip=2, synthetic=4, end_epoch=2)
+
+    train = overhead_turns(train_arm, 1)
+    images = request_images()
+    predictor = init_predictor(config(False), prefix, 1, device=dev)
+
+    gc_log = []
+
+    def serve_arm(enabled: bool):
+        cfg = config(enabled)
+        with ObsPlane(cfg, enabled):
+            engine = ServingEngine(predictor, cfg, metrics=(
+                ServeMetrics(registry=registry()) if enabled else None))
+            try:
+                engine.warmup()
+                with gc_time() as spent:
+                    run = run_closed_loop(engine, images, 2.0, 8, 0.0)
+            finally:
+                engine.close()
+        served = max(run["client"]["ok"], 1)
+        gc_log.append(dict(enabled=enabled, served=served, **spent))
+        # ms an image, so that overhead_turns' sign is the slowdown's
+        return [run["wall_s"] * 1e3 / served]
+
+    serve = overhead_turns(serve_arm, OBS_TURNS)
+    log(f"obs overhead on {card}, in turns: training ms/step off "
+        f"{train['disabled_turns_ms_p50']} on "
+        f"{train['enabled_turns_ms_p50']} (median "
+        f"{train['disabled_ms_p50']:.3f} → {train['enabled_ms_p50']:.3f}, "
+        f"{train['overhead_pct']:+.2f}%); "
+        f"served images/s off "
+        f"{[round(1e3 / v, 2) for v in serve['disabled_turns_ms_p50']]} on "
+        f"{[round(1e3 / v, 2) for v in serve['enabled_turns_ms_p50']]}; "
+        f"the loops' garbage collections: " + ", ".join(
+            f"{'on' if g['enabled'] else 'off'} {g['ms']:.1f} ms in "
+            f"{g['collections']}" for g in gc_log))
+    return dict(train=train, serve=serve, serve_gc=gc_log,
+                served_imgs_per_s={
+                    "off": [1e3 / v for v in serve["disabled_turns_ms_p50"]],
+                    "on": [1e3 / v for v in serve["enabled_turns_ms_p50"]]})
+
+
+@contextlib.contextmanager
+def gc_time():
+    """The garbage collector's passes and ms while the block runs."""
+    import gc
+
+    spent = {"ms": 0.0, "collections": 0}
+    t0 = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            spent["ms"] += (time.perf_counter() - t0[0]) * 1e3
+            spent["collections"] += 1
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield spent
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def phase_obs(dev, card: str) -> dict:
+    """Phase 17: the plane on the training CLI, the serving session and
+    the overhead turns, under the ignored ``_chip/obs/``, removed at the
+    end."""
+    t0 = time.perf_counter()
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    try:
+        training = obs_training(card)
+        prefix = obs_checkpoint(dev)
+        serving = obs_serving(dev, prefix, card)
+        overhead = obs_overhead(dev, prefix, card)
+    finally:
+        shutil.rmtree(OBS_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 17 took {wall:.1f} s")
+    return dict(training=training, serving=serving, overhead=overhead,
+                wall_s=wall)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -5871,6 +6391,7 @@ def main() -> int:
     data_parallel = phase_data_parallel(dev, card)
     device_cache = phase_device_cache(dev, card)
     quant = phase_quant(dev, card)
+    obs = phase_obs(dev, card)
 
     # no single PyTorch call computes any of K1-K3 (the repo's bilinear
     # rules are not torchvision's, which is absent), so library_ms is
@@ -5900,7 +6421,7 @@ def main() -> int:
         training=training, evaluation=evaluation, alternate=alternate,
         engine=engine, real_data=real_data, long_run=long_run,
         data_parallel=data_parallel, device_cache=device_cache,
-        quant=quant), indent=1))
+        quant=quant, obs=obs), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

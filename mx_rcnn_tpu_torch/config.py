@@ -245,6 +245,57 @@ class QuantConfig:
 
 
 @dataclass(frozen=True)
+class ObsConfig:
+    """Mirrors ``mx_rcnn_tpu.config.ObsConfig``: the observability plane
+    (``obs/``), every field with the JAX package's default.  Everything
+    is off by default, and then the hot paths pay one flag read (pinned
+    by ``tests/test_torch_obs.py``)."""
+
+    # master switch: the process registry records the fit loop, the
+    # loaders and the snapshotter, and the CLIs write runs/<id>/
+    # (events.jsonl and summary.json)
+    enabled: bool = False
+    run_dir: str = "runs"
+    # JSON GET /metrics of the process registry from tools/train.py on
+    # this port (0: off; tools/serve.py answers /metrics on its own port)
+    metrics_port: int = 0
+    # host spans (obs/trace.py), exported as a chrome trace on exit
+    trace: bool = False
+    trace_cap: int = 100_000     # span buffer bound (overflow counted)
+    # a profile_steps-step torch.profiler window from this global step
+    # (0: never), rolled up into device ms by scope and by op class
+    profile_at_step: int = 0
+    profile_steps: int = 3
+    profile_dir: str = ""        # "" = <run record dir>/profile
+    # SIGUSR2 toggles a profiler window in the CLIs
+    sigusr2: bool = False
+    # smoothing of the train.loss_ema gauge (one update a log window)
+    loss_ema: float = 0.9
+    # time-series plane (obs/timeseries.py): the sampler's ring store
+    timeseries: bool = False
+    sample_interval_s: float = 1.0
+    ts_capacity: int = 600
+    # SLO rules (obs/health.py) after every sample: health.* gauges,
+    # transitions in the run record, the verdict on /healthz
+    health: bool = False
+    health_window_s: float = 30.0
+    # flight recorder (obs/flightrec.py): dumps under runs/<id>/flight/
+    # on a crash, SIGTERM, a lock-watchdog trip or a CRITICAL verdict
+    flight: bool = False
+    flight_window_s: float = 120.0
+    flight_events: int = 512
+    # comma-separated /metrics URLs (host:port, a URL, or name=url) for
+    # obs/collect.py's merged view
+    collect_urls: str = ""
+    # distributed tracing: the head's sampling probability (0: off),
+    # kept span trees, the slowest percentile kept, the skew alarm
+    trace_sample: float = 0.0
+    trace_ring: int = 256
+    trace_slow_pct: float = 99.0
+    skew_alarm_ms: float = 50.0
+
+
+@dataclass(frozen=True)
 class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     test: TestConfig = field(default_factory=TestConfig)
@@ -256,6 +307,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     ft: FTConfig = field(default_factory=FTConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     @property
     def num_classes(self) -> int:

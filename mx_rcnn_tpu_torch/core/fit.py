@@ -2,9 +2,9 @@
 checkpoint after each epoch and an interrupt checkpoint on a stop.
 
 Counterpart of ``mx_rcnn_tpu/core/fit.py — fit`` with its staging,
-gradient accumulation, snapshots, mid-epoch resume and multi-process
-data parallelism, and without observability: each epoch's batches come
-from the loader
+gradient accumulation, snapshots, mid-epoch resume, multi-process data
+parallelism and observability: each epoch's batches come from the
+loader
 in the order its (seed, epoch) plan gives, reach the device through a
 :class:`DeviceStager` (the next batch is copied while the step runs;
 ``data.staging``, on by default) or a plain copy, are grouped
@@ -43,6 +43,20 @@ each rank of a data-parallel run stages its own row shard
 (``parallel/dp.py — make_dp_cached_step``).  ``profile_dir`` records
 steps [skip+2, skip+5) of the first epoch with ``torch.profiler`` into a
 Chrome trace there (the JAX loop's ``jax.profiler`` window).
+
+With ``cfg.obs.enabled`` the loop records into the process registry
+(``obs/metrics.py``): ``train.steps``, ``train.epochs``, ``train.step_ms``,
+``train.data_wait_ms``, the per-step ``train.data_wait_frac`` (gauge and
+percent histogram), ``train.samples_per_sec`` and ``train.metric.<k>``
+(the Speedometer's), ``train.loss_ema`` and ``train.epoch_s``; it opens
+the spans ``train.data_wait``, ``train.dispatch`` (the step's launches:
+the step is asynchronous, so the span ends before its kernels do),
+``train.sync`` (the log window's one device sync) and ``train.snapshot``;
+it runs the ``obs.profile_at_step`` window (``obs/profiler.py``), opens
+and closes a SIGUSR2 window after the step the signal came in, and
+appends ``epoch_start``, ``log``, ``epoch_end``, ``snapshot`` and
+``interrupt`` events to ``run_record``.  Off, every touch is behind one
+``rec is None`` branch, and the spans are one flag read each.
 """
 
 from __future__ import annotations
@@ -60,6 +74,8 @@ from mx_rcnn_tpu_torch.data.device_cache import (build_caches,
                                                  make_cached_step)
 from mx_rcnn_tpu_torch.data.staging import DeviceStager
 from mx_rcnn_tpu_torch.ft.snapshot import make_snapshotter
+from mx_rcnn_tpu_torch.obs import trace as obs_trace
+from mx_rcnn_tpu_torch.obs.profiler import poll_sigusr2
 from mx_rcnn_tpu_torch.parallel.dp import (World, any_rank,
                                            make_dp_cached_step)
 from mx_rcnn_tpu_torch.utils.checkpoint import make_topology
@@ -71,11 +87,15 @@ class Speedometer:
     """Samples/s, the data-wait share and the window's metric means on
     each log call (ref ``rcnn/core/callback.py — Speedometer``).  Call
     once per batch with the seconds it waited for that batch, and with
-    the window's metrics on log batches and ``None`` otherwise."""
+    the window's metrics on log batches and ``None`` otherwise.  With a
+    ``registry`` each log call also sets ``train.samples_per_sec`` and
+    ``train.metric.<name>``; the line stays the same."""
 
-    def __init__(self, batch_size: int, log: Callable[[str], None] = print):
+    def __init__(self, batch_size: int, log: Callable[[str], None] = print,
+                 registry=None):
         self.batch_size = batch_size
         self.log = log
+        self.registry = registry
         self._tic = time.perf_counter()
         self._since = 0
         self._wait = 0.0
@@ -89,6 +109,10 @@ class Speedometer:
             return
         elapsed = max(time.perf_counter() - self._tic, 1e-9)
         speed = self._since * self.batch_size / elapsed
+        if self.registry is not None:
+            self.registry.set_gauge("train.samples_per_sec", speed)
+            for k, v in metrics.items():
+                self.registry.set_gauge(f"train.metric.{k}", float(v))
         parts = ", ".join(f"{k}={v:.4f}" for k, v in metrics.items())
         self.log(f"Epoch[{epoch}] Batch [{nbatch}] "
                  f"Speed: {speed:.2f} samples/sec, data wait "
@@ -171,6 +195,25 @@ def _stop_profile(prof, profile_dir: str, world: World,
     log(f"profiler trace written to {path}")
 
 
+def _step_profiler(cfg: Config, run_record, world: World):
+    """The ``obs.profile_at_step`` window, or None."""
+    if cfg.obs.profile_at_step <= 0:
+        return None
+    from mx_rcnn_tpu_torch.obs.profiler import StepProfiler
+
+    pdir = cfg.obs.profile_dir or os.path.join(
+        run_record.dir if run_record is not None else "obs_trace", "profile")
+    if world.size > 1 and cfg.obs.profile_dir:
+        pdir = os.path.join(pdir, f"rank{world.rank}")
+    return StepProfiler(pdir, cfg.obs.profile_at_step, cfg.obs.profile_steps)
+
+
+def _device_sync(device: torch.device) -> Optional[Callable[[], None]]:
+    if device.type != "cuda":
+        return None
+    return lambda: torch.cuda.synchronize(device)
+
+
 def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
         begin_epoch: int = 0, prefix: Optional[str] = None,
         max_steps: Optional[int] = None, frequent: Optional[int] = None,
@@ -178,7 +221,9 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
         stop_flag: Optional[Callable[[], bool]] = None,
         grad_accum: int = 1, data_cursor: Optional[Dict] = None,
         world: Optional[World] = None, device_cache: bool = False,
-        profile_dir: Optional[str] = None) -> Dict[str, float]:
+        profile_dir: Optional[str] = None, run_record=None,
+        step_callback: Optional[Callable[[int], None]] = None
+        ) -> Dict[str, float]:
     """Run epochs ``begin_epoch .. end_epoch - 1``, saving a checkpoint
     under ``prefix`` (when given) after each whole one; ``max_steps`` ends
     the run early, and an epoch it cuts is not saved.  ``step_fn`` takes
@@ -190,8 +235,10 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
     whose ``loader`` has the global plan and yields this rank's rows (a
     world of one by default).  ``device_cache``: stage the epoch on the
     device and gather each step's batch there; ``profile_dir``: trace
-    three steps of the first epoch there (module docstring).  Returns the
-    last log window's mean metrics."""
+    three steps of the first epoch there (module docstring).
+    ``run_record``: an ``obs/runrec.py`` RunRecord the loop appends its
+    events to.  ``step_callback``: called with the global step after
+    each step.  Returns the last log window's mean metrics."""
     if len(loader) == 0:
         raise ValueError("the loader yields no full batch")
     if grad_accum > len(loader):
@@ -204,7 +251,16 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
     if not world.lead:
         log = lambda line: None  # noqa: E731
     steps_per_epoch = len(loader) // grad_accum
-    speed = Speedometer(loader.batch_images * grad_accum, log)
+    # observability: rec stays None when cfg.obs is off, and every touch
+    # below hides behind that one check
+    rec = sprof = loss_ema = None
+    if cfg.obs.enabled:
+        from mx_rcnn_tpu_torch.obs.metrics import registry
+
+        rec = registry()
+        sprof = _step_profiler(cfg, run_record, world)
+    sync = _device_sync(world.device)
+    speed = Speedometer(loader.batch_images * grad_accum, log, registry=rec)
     snap = None
     if prefix is not None and world.lead:
         snap = make_snapshotter(prefix, cfg, steps_per_epoch, make_topology(
@@ -245,17 +301,25 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                 # the step gathers by state.step, past the skipped prefix
                 batches = itertools.repeat(cache, steps_per_epoch - skip)
             elif cfg.data.staging:
-                stager = DeviceStager(loader, device, cfg.data.stage_depth)
+                stager = DeviceStager(loader, device, cfg.data.stage_depth,
+                                      rec=rec)
                 batches = iter(stager)
             else:
                 batches = (to_device(b, device) for b in loader)
             if grad_accum > 1:
                 batches = _accum_iter(batches, grad_accum)
+            if run_record is not None:
+                run_record.event("epoch_start", epoch=epoch, skip=skip,
+                                 steps_per_epoch=steps_per_epoch)
             t_epoch, wait_epoch = time.perf_counter(), 0.0
             interrupt = False
             while True:
                 t0 = time.perf_counter()
-                batch = next(batches, _END)
+                if rec is None:
+                    batch = next(batches, _END)
+                else:
+                    with obs_trace.span("train.data_wait"):
+                        batch = next(batches, _END)
                 wait_s = time.perf_counter() - t0
                 if batch is _END:
                     break
@@ -264,7 +328,21 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                 if (profile_dir is not None and epoch == begin_epoch
                         and nbatch == skip + 2):
                     prof = _start_profile(world.device)
-                window.append(step_fn(state, batch))
+                if rec is None:
+                    window.append(step_fn(state, batch))
+                else:
+                    with obs_trace.span("train.dispatch"):
+                        window.append(step_fn(state, batch))
+                    step_s = time.perf_counter() - t0
+                    frac = wait_s / max(step_s, 1e-9)
+                    rec.inc("train.steps")
+                    rec.observe("train.step_ms", step_s * 1e3)
+                    rec.observe("train.data_wait_ms", wait_s * 1e3)
+                    rec.set_gauge("train.data_wait_frac", frac)
+                    # the per-step share as a distribution (percent, for
+                    # the log buckets): its p50 is the honest statistic
+                    rec.observe("train.data_wait_frac_pct", 100.0 * frac,
+                                lo=0.01, hi=1000.0)
                 step += 1
                 if prof is not None and nbatch == skip + 4:
                     _stop_profile(prof, profile_dir, world, log)
@@ -276,8 +354,35 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                           or (epoch == end_epoch - 1
                               and nbatch == steps_per_epoch - 1))
                 if is_log:
-                    last, window = mean_metrics(window), []
+                    if rec is None:
+                        last = mean_metrics(window)
+                    else:
+                        with obs_trace.span("train.sync"):
+                            last = mean_metrics(window)
+                    window = []
                 speed(epoch, nbatch, last if is_log else None, wait_s)
+                # after the log window's sync: a window opened here starts
+                # on an idle device when every step logs
+                global_step = epoch * steps_per_epoch + nbatch + 1
+                if sprof is not None:
+                    sprof.on_step(global_step, sync=sync)
+                if rec is not None:
+                    poll_sigusr2(sync)
+                if step_callback is not None:
+                    step_callback(global_step)
+                if is_log and rec is not None:
+                    loss = last.get("loss")
+                    if loss is not None:
+                        a = cfg.obs.loss_ema
+                        loss_ema = (loss if loss_ema is None
+                                    else a * loss_ema + (1 - a) * loss)
+                        rec.set_gauge("train.loss_ema", loss_ema)
+                if is_log and run_record is not None:
+                    run_record.event(
+                        "log", epoch=epoch, nbatch=nbatch,
+                        samples_per_sec=(None if rec is None else
+                                         rec.gauge("train.samples_per_sec")),
+                        **last)
                 if stop:
                     return last
                 if interrupt:
@@ -286,7 +391,12 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
                         # on the epoch's last step the epoch checkpoint
                         # below supersedes it
                         if snap is not None:
-                            path = snap.save_interrupt(state)
+                            with obs_trace.span("train.snapshot",
+                                                kind="interrupt"):
+                                path = snap.save_interrupt(state)
+                            if run_record is not None:
+                                run_record.event("interrupt", epoch=epoch,
+                                                 nbatch=nbatch, path=path)
                             log(f"stop requested: saved interrupt "
                                 f'checkpoint to "{path}" (step '
                                 f"{state.step}); rerun with --resume to "
@@ -306,8 +416,18 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
             log(f"Epoch[{epoch}] {nbatch + 1 - skip} steps in {wall:.3f} s, "
                 f"data wait {wait_epoch:.3f} s "
                 f"({100 * wait_epoch / max(wall, 1e-9):.1f}%)")
+            if rec is not None:
+                rec.inc("train.epochs")
+                rec.set_gauge("train.epoch_s", wall)
+            if run_record is not None:
+                run_record.event("epoch_end", epoch=epoch, nbatch=nbatch,
+                                 epoch_s=round(wall, 3),
+                                 data_wait_s=round(wait_epoch, 3), **last)
             if snap is not None and nbatch == steps_per_epoch - 1:
-                path = snap.save_epoch(epoch + 1, state)
+                with obs_trace.span("train.snapshot", kind="epoch"):
+                    path = snap.save_epoch(epoch + 1, state)
+                if run_record is not None:
+                    run_record.event("snapshot", epoch=epoch, path=path)
                 log(f'Epoch[{epoch}] Saved checkpoint to "{path}"')
             if interrupt:
                 log(f"stop requested at the end of epoch {epoch}")
@@ -321,6 +441,8 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
             stager.close()
         if prof is not None:
             _stop_profile(prof, profile_dir, world, log)
+        if sprof is not None:
+            sprof.close(sync)  # a run shorter than the window
         if snap is not None:
             snap.close()
         if not failed:

@@ -34,6 +34,7 @@ from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.train import RCNNBatch
 from mx_rcnn_tpu_torch.models.faster_rcnn import (FasterRCNN, build_model,
                                                   to_device_batch)
+from mx_rcnn_tpu_torch.obs.profiler import scope
 from mx_rcnn_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from mx_rcnn_tpu_torch.ops.nms import nms_mask_batch
 from mx_rcnn_tpu_torch.ops.quant import (calibration_fingerprint,
@@ -228,15 +229,16 @@ def _postprocess_batch(rois, roi_valid, cls_prob, deltas, im_info, scales,
     Returns (boxes (N, R, 4C), scores (N, R, C), keep (N, C, R) bool)."""
     n, r, _ = deltas.shape
     c = cls_prob.shape[-1]
-    boxes_b, scores_b = _decode_batch(rois, roi_valid, cls_prob, deltas,
-                                      im_info, scales, stds, means)
-    boxes_c = boxes_b.reshape(n, r, c, 4).permute(0, 2, 1, 3)  # (N, C, R, 4)
-    scores_c = scores_b.transpose(1, 2)                        # (N, C, R)
-    cand = (scores_c > score_thresh) & roi_valid[:, None, :]
-    keep_flat = nms_mask_batch(
-        boxes_c.reshape(n * c, r, 4), scores_c.reshape(n * c, r),
-        nms_thresh, valid=cand.reshape(n * c, r))
-    keep_b = keep_flat.reshape(n, c, r) & cand
+    with scope("postprocess"):
+        boxes_b, scores_b = _decode_batch(rois, roi_valid, cls_prob, deltas,
+                                          im_info, scales, stds, means)
+        boxes_c = boxes_b.reshape(n, r, c, 4).permute(0, 2, 1, 3)
+        scores_c = scores_b.transpose(1, 2)                    # (N, C, R)
+        cand = (scores_c > score_thresh) & roi_valid[:, None, :]
+        keep_flat = nms_mask_batch(
+            boxes_c.reshape(n * c, r, 4), scores_c.reshape(n * c, r),
+            nms_thresh, valid=cand.reshape(n * c, r))
+        keep_b = keep_flat.reshape(n, c, r) & cand
     return boxes_b, scores_b, keep_b
 
 

@@ -63,6 +63,7 @@ import torch.utils.checkpoint
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.optim import SGD, make_optimizer
 from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, build_model
+from mx_rcnn_tpu_torch.obs.profiler import scope
 from mx_rcnn_tpu_torch.ops.losses import (accuracy_with_ignore,
                                           softmax_cross_entropy_with_ignore,
                                           weighted_smooth_l1)
@@ -184,15 +185,17 @@ def _rcnn_losses(model: FasterRCNN, feat, rois, rois_valid, batch: Batch,
             bbox_means=tr.bbox_means, bbox_stds=tr.bbox_stds,
             gt_append=tr.gt_append)
     mark("proposal_target")
-    pooled = roi_align_batched(feat, pt.rois, model.pooled_size,
-                               1.0 / model.feat_stride)
+    with scope("roi_align"):
+        pooled = roi_align_batched(feat, pt.rois, model.pooled_size,
+                                   1.0 / model.feat_stride)
     mark("roi_align")
     flat = pooled.reshape((-1,) + pooled.shape[2:])
     b, width = pooled.shape[1], model.head.out_channels
     uniforms = tuple(_stacked(draws, site, n, (b, width), flat.device)
                      .reshape(n * b, width)
                      for site in model.head.dropout_sites)
-    cls_logits, bbox_deltas = model.roi_head(flat, uniforms)
+    with scope("head"):
+        cls_logits, bbox_deltas = model.roi_head(flat, uniforms)
     cls_logits = cls_logits.to(torch.float32)
     bbox_deltas = bbox_deltas.to(torch.float32)
     labels = pt.labels.reshape(-1)
@@ -233,7 +236,7 @@ def loss_and_metrics(model: FasterRCNN, batch: Batch, cfg: Config,
         rpn_cls, rpn_box, anchors, batch, draws, cfg)
     mark("rpn")
     # proposals carry no gradient (the JAX step's stop_gradient)
-    with torch.no_grad():
+    with torch.no_grad(), scope("proposal"):
         fg_scores = torch.softmax(rpn_cls.detach().to(torch.float32),
                                   dim=-1)[..., 1]
         rois, _, rois_valid = propose_batch(
@@ -387,16 +390,19 @@ def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1,
                 state.generator.manual_seed(
                     ranked(step_seed(state.seed, state.step)))
                 draws = generator_draws(state.generator)
-            total, metrics = loss_fn(state.model, batch, cfg, draws,
-                                     stage_hook)
-            total.backward()
+            with scope("loss"):
+                total, metrics = loss_fn(state.model, batch, cfg, draws,
+                                         stage_hook)
+            with scope("backward"):
+                total.backward()
             mark("backward")
         else:
             metrics = _accumulate(state, batch, draws, stage_hook)
         if world is not None:
             metrics = all_reduce_mean_(state.optimizer.params, metrics,
                                        world)
-        state.optimizer.step()
+        with scope("optimizer"):
+            state.optimizer.step()
         mark("optimizer")
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -419,9 +425,11 @@ def make_train_step(cfg: Config, mode: str = "e2e", grad_accum: int = 1,
                 mb_draws = generator_draws(state.generator)
             else:
                 mb_draws = draws[i]
-            total, metrics = loss_fn(state.model, mb, cfg, mb_draws,
-                                     stage_hook)
-            (total / grad_accum).backward()
+            with scope("loss"):
+                total, metrics = loss_fn(state.model, mb, cfg, mb_draws,
+                                         stage_hook)
+            with scope("backward"):
+                (total / grad_accum).backward()
             mark("backward")
             window.append({k: v.detach() for k, v in metrics.items()})
         return {k: torch.stack([m[k] for m in window]).mean()

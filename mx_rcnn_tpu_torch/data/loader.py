@@ -20,13 +20,14 @@ A resumed run positions a :class:`StreamLoader` mid-epoch by the
 manifest's data cursor (:meth:`StreamLoader.resume_at`).  In a
 data-parallel run each rank's training loader owns a row shard of every
 batch of the global plan (:meth:`AnchorLoader.set_shard`).
-Not ported yet: ``StreamTestLoader`` and the obs metrics.
+Not ported yet: ``StreamTestLoader``.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 import zlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -140,7 +141,12 @@ class _ImageSource:
     uint8 canvas (``raw_images``) or mean-subtracted into an fp32 one.
     ``images_decoded`` counts the images this loader decoded, and
     :meth:`record_decodes` collects their (roidb index, flipped)
-    identities."""
+    identities.  With ``cfg.obs.enabled`` the loader records into the
+    process registry: ``loader.images_decoded``, ``loader.decode_ms`` (a
+    batch's images), ``loader.assemble_ms`` and ``loader.batches`` (a
+    batch, on its assembly thread) and the ``loader.queue_depth`` gauge
+    (batches in flight when one is handed over; 0: the consumer waits
+    on decoding)."""
 
     def _init_source(self, roidb: Sequence[Dict], cfg: Config,
                      load_image: LoadImage, num_workers, prefetch,
@@ -167,6 +173,11 @@ class _ImageSource:
         self.images_decoded = 0
         self.decoded_ids: Optional[List[Tuple[int, bool]]] = None
         self._decode_count_lock = threading.Lock()
+        self._rec = None
+        if cfg.obs.enabled:
+            from mx_rcnn_tpu_torch.obs.metrics import registry
+
+            self._rec = registry()
 
     def _indices_for(self, bucket) -> List[int]:
         return [i for i, b in enumerate(self._bucket_ids) if b == bucket]
@@ -203,6 +214,17 @@ class _ImageSource:
                 self.decoded_ids.extend(
                     (int(rec.get("index", -1)),
                      bool(rec.get("flipped", False))) for rec in recs)
+        if self._rec is None:
+            return self._decode_into(images, recs, bucket)
+        self._rec.inc("loader.images_decoded", len(recs))
+        t0 = time.perf_counter()
+        out = self._decode_into(images, recs, bucket)
+        self._rec.observe("loader.decode_ms",
+                          (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _decode_into(self, images: np.ndarray, recs: Sequence[Dict], bucket
+                     ) -> List[Tuple[int, int, float]]:
         scale, max_size = self.cfg.bucket.scale, self.cfg.bucket.max_size
         futs = None
         if self.decode_pool is not None:
@@ -238,16 +260,29 @@ class _ImageSource:
 
     def _batches(self, plan: Plan, make: Callable) -> Iterator:
         return _prefetched(plan, lambda b: make(b[1], b[0]),
-                           self.num_workers, self.prefetch)
+                           self.num_workers, self.prefetch, self._rec)
 
 
 def _prefetched(work: Iterable, make: Callable, num_workers: int,
-                prefetch: int) -> Iterator:
+                prefetch: int, rec=None) -> Iterator:
     """``make(item)`` for each item on a pool of ``num_workers`` threads,
     up to ``prefetch`` results in flight, yielded in order (cv2 and numpy
     release the interpreter lock, so assembly overlaps the steps);
     ``num_workers`` 0 assembles on the caller's thread.  Abandoning the
-    iterator drops the queued work."""
+    iterator drops the queued work.  ``rec`` (a registry, or None):
+    ``loader.assemble_ms`` and ``loader.batches`` on the assembling
+    thread, the ``loader.queue_depth`` gauge at each hand-over."""
+    if rec is not None:
+        inner = make
+
+        def make(item):
+            t0 = time.perf_counter()
+            out = inner(item)
+            rec.observe("loader.assemble_ms",
+                        (time.perf_counter() - t0) * 1e3)
+            rec.inc("loader.batches")
+            return out
+
     if num_workers <= 0:
         for item in work:
             yield make(item)
@@ -267,7 +302,10 @@ def _prefetched(work: Iterable, make: Callable, num_workers: int,
                 futures.append(ex.submit(make, item))
             if not futures:
                 break
-            yield futures.popleft().result()
+            fut = futures.popleft()
+            if rec is not None:
+                rec.set_gauge("loader.queue_depth", len(futures))
+            yield fut.result()
     finally:
         ex.shutdown(wait=False, cancel_futures=True)
 

@@ -14,14 +14,19 @@ The values pass through unchanged: the same batches in the same order.
 An error from the source or the copy re-raises in the consumer, and
 :meth:`DeviceStager.close` releases the thread without draining the
 epoch.  ``hits`` counts the batches that were staged before the consumer
-asked for them and ``misses`` those it waited for (the JAX stager's
-``loader.stage_hits``/``stage_misses``).
+asked for them and ``misses`` those it waited for.  Given a registry
+(``rec``, the fit loop's when ``cfg.obs.enabled``), the stager also
+records the JAX stager's metrics: ``loader.staged_batches``, the stage
+thread's ``loader.stage_put_ms`` (pull, pinned copy and its issue),
+``loader.stage_hits``/``loader.stage_misses`` and the
+``loader.stage_depth`` gauge.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
@@ -35,7 +40,7 @@ class DeviceStager:
     arrays) as the same namedtuples of tensors on ``device``, staged by a
     background thread up to ``depth`` batches ahead."""
 
-    def __init__(self, source: Iterable, device, depth: int = 2):
+    def __init__(self, source: Iterable, device, depth: int = 2, rec=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the stage thread makes this card current: name it
@@ -45,6 +50,7 @@ class DeviceStager:
             else None)
         self._q: "queue.Queue" = queue.Queue(maxsize=max(int(depth), 1))
         self._closed = False
+        self._rec = rec
         self.hits = 0
         self.misses = 0
         self._thread = threading.Thread(
@@ -69,11 +75,17 @@ class DeviceStager:
             if self._stream is not None:
                 torch.cuda.set_device(self.device)
             while not self._closed:
+                t0 = time.perf_counter()
                 try:
                     batch = next(it)
                 except StopIteration:
                     break
-                self._put(self._place(batch))
+                placed = self._place(batch)
+                if self._rec is not None:
+                    self._rec.inc("loader.staged_batches")
+                    self._rec.observe("loader.stage_put_ms",
+                                      (time.perf_counter() - t0) * 1e3)
+                self._put(placed)
         except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
             self._put(e)
             return
@@ -107,6 +119,11 @@ class DeviceStager:
                 self.hits += 1
             else:
                 self.misses += 1
+            if self._rec is not None:
+                # real batches only: the end sentinel is not a hit
+                self._rec.inc("loader.stage_hits" if ready
+                              else "loader.stage_misses")
+                self._rec.set_gauge("loader.stage_depth", self._q.qsize())
             batch, event = item
             if event is not None:
                 stream = torch.cuda.current_stream(self.device)

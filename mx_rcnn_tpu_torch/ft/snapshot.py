@@ -22,6 +22,12 @@ on the step's thread at the next request, ``flush`` or ``close``.
 work on the calling thread, through the same :func:`_write_job`, so the
 bytes on disk do not depend on the mode and equal what
 ``utils/checkpoint.py — save_checkpoint`` writes.
+
+With ``cfg.obs.enabled`` a snapshotter records into the process
+registry: ``snapshot.stall_ms`` (what a request costs the step's thread:
+the host copy and the hand-over, or the whole write when synchronous),
+and from the writer ``snapshot.commits``, ``snapshot.bytes`` and
+``snapshot.commit_ms`` (serialise to durable commit).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from typing import Optional
 
 from mx_rcnn_tpu_torch.ft.integrity import gc_checkpoints
@@ -61,7 +68,7 @@ class _Job:
     def __init__(self, kind: str, path: str, host: HostTrainState,
                  epoch: Optional[int], steps_per_epoch: Optional[int],
                  config_fp: Optional[str], clear_interrupt_after: bool,
-                 gc_fn=None, topology=None):
+                 gc_fn=None, topology=None, rec=None):
         self.kind = kind
         self.path = path
         self.host = host
@@ -71,12 +78,14 @@ class _Job:
         self.clear_interrupt_after = clear_interrupt_after
         self.gc_fn = gc_fn
         self.topology = topology
+        self.rec = rec
 
 
 def _write_job(job: _Job, prefix: str) -> str:
     """Serialise and commit one snapshot, then clear the interrupt file
     (only once the epoch checkpoint that supersedes it is durable) and
     run retention."""
+    t0 = time.perf_counter()
     if job.kind == "interrupt":
         data = serialize_interrupt(job.host, job.steps_per_epoch)
     else:
@@ -84,6 +93,11 @@ def _write_job(job: _Job, prefix: str) -> str:
     commit_checkpoint(job.path, data, kind=job.kind, step=job.host.step,
                       epoch=job.epoch, steps_per_epoch=job.steps_per_epoch,
                       config_fp=job.config_fp, topology=job.topology)
+    if job.rec is not None:
+        job.rec.inc("snapshot.commits")
+        job.rec.inc("snapshot.bytes", len(data))
+        job.rec.observe("snapshot.commit_ms",
+                        (time.perf_counter() - t0) * 1e3)
     if job.clear_interrupt_after:
         clear_interrupt(prefix)
     if job.gc_fn is not None:
@@ -105,6 +119,17 @@ class _SnapshotterBase:
         self.topology = topology
         self.config_fp = config_fingerprint(cfg) if cfg is not None else None
         self._last_step: Optional[int] = None
+        self._rec = None
+        if cfg is not None and cfg.obs.enabled:
+            from mx_rcnn_tpu_torch.obs.metrics import registry
+
+            self._rec = registry()
+
+    def _observe_stall(self, t0: float) -> None:
+        """The step thread's cost of one snapshot request."""
+        if self._rec is not None:
+            self._rec.observe("snapshot.stall_ms",
+                              (time.perf_counter() - t0) * 1e3)
 
     def _gc_fn(self):
         if self.cfg is None or not self.cfg.ft.keep_last:
@@ -132,14 +157,15 @@ class _SnapshotterBase:
         return _Job("epoch", checkpoint_path(self.prefix, epoch), host,
                     epoch, self.steps_per_epoch, self.config_fp,
                     clear_interrupt_after=True, gc_fn=self._gc_fn(),
-                    topology=self.topology)
+                    topology=self.topology, rec=self._rec)
 
     def _interrupt_job(self, state) -> _Job:
         host = fetch_owned(state)
         self._check_step(host)
         return _Job("interrupt", interrupt_path(self.prefix), host, None,
                     self.steps_per_epoch, self.config_fp,
-                    clear_interrupt_after=False, topology=self.topology)
+                    clear_interrupt_after=False, topology=self.topology,
+                    rec=self._rec)
 
 
 class AsyncSnapshotter(_SnapshotterBase):
@@ -200,12 +226,17 @@ class AsyncSnapshotter(_SnapshotterBase):
     def save_epoch(self, epoch: int, state) -> str:
         """Copy ``state`` to the host here and hand the write to the
         thread; returns the path the checkpoint will commit to."""
-        return self._submit(self._epoch_job(epoch, state))
+        t0 = time.perf_counter()
+        path = self._submit(self._epoch_job(epoch, state))
+        self._observe_stall(t0)
+        return path
 
     def save_interrupt(self, state) -> str:
         """Copy ``state`` here, write it on the thread and wait for the
         commit: the caller is about to stop."""
+        t0 = time.perf_counter()
         path = self._submit(self._interrupt_job(state))
+        self._observe_stall(t0)
         self.flush()
         return path
 
@@ -230,10 +261,16 @@ class SyncSnapshotter(_SnapshotterBase):
     (``ft.async_snapshots=false``)."""
 
     def save_epoch(self, epoch: int, state) -> str:
-        return _write_job(self._epoch_job(epoch, state), self.prefix)
+        t0 = time.perf_counter()
+        path = _write_job(self._epoch_job(epoch, state), self.prefix)
+        self._observe_stall(t0)
+        return path
 
     def save_interrupt(self, state) -> str:
-        return _write_job(self._interrupt_job(state), self.prefix)
+        t0 = time.perf_counter()
+        path = _write_job(self._interrupt_job(state), self.prefix)
+        self._observe_stall(t0)
+        return path
 
     def flush(self) -> None:
         pass

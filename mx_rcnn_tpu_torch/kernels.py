@@ -10,7 +10,10 @@ of a kernel) builds, and :func:`build_all` starts one ``nvcc`` per source
 in parallel.
 
 Every kernel keeps an integer launch count that its wrapper bumps once
-per successful launch; :func:`reset_launch_counts` zeroes them.  Many
+per successful launch; :func:`reset_launch_counts` zeroes them.
+:func:`load_events` counts the libraries built and loaded in this
+process, so a steady state can be checked to build and load nothing
+(the JAX package's "zero new lowerings").  Many
 threads may launch (the serving engine runs a dispatcher per bucket):
 a kernel is built and loaded once, under its lock, whichever thread
 reaches it first, each build writes a staging file of its own, and
@@ -36,6 +39,22 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# libraries built (nvcc runs) and loaded (dlopen) in this process
+_EVENTS = {"builds": 0, "loads": 0}
+_EVENTS_LOCK = threading.Lock()
+
+
+def _count(event: str) -> None:
+    with _EVENTS_LOCK:
+        _EVENTS[event] += 1
+
+
+def load_events() -> Dict[str, int]:
+    """How many kernel libraries this process has built and loaded."""
+    with _EVENTS_LOCK:
+        return dict(_EVENTS)
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -106,6 +125,7 @@ class CudaKernel:
                 f"nvcc failed for {self.source.name} "
                 f"(exit {proc.returncode}):\n{out}")
         os.replace(tmp, lib)
+        _count("builds")
 
     def fn(self):
         """The loaded C entry point, building the library on first use:
@@ -121,6 +141,7 @@ class CudaKernel:
 
     def _load(self):
         lib = ctypes.CDLL(str(self.library_path()))
+        _count("loads")
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

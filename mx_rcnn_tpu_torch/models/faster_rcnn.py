@@ -39,6 +39,7 @@ from mx_rcnn_tpu_torch.models.resnet import ResNetBackbone, ResNetHead
 from mx_rcnn_tpu_torch.models.rpn import RPNHead
 from mx_rcnn_tpu_torch.models.tiny import TinyBackbone, TinyHead
 from mx_rcnn_tpu_torch.models.vgg import VGGBackbone, VGGHead
+from mx_rcnn_tpu_torch.obs.profiler import scope
 from mx_rcnn_tpu_torch.ops.anchors import generate_shifted_anchors
 from mx_rcnn_tpu_torch.ops.normalize import normalize_images
 from mx_rcnn_tpu_torch.ops.proposal import propose_batch
@@ -130,9 +131,10 @@ class FasterRCNN(nn.Module):
                  im_info: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(N, H, W, 3) RGB, fp32 mean-subtracted or raw uint8 →
         (N, H/16, W/16, C) NHWC features."""
-        images = normalize_images(images, im_info, self.pixel_means)
-        x = images.contiguous().permute(0, 3, 1, 2)  # NCHW view, NHWC memory
-        return self.backbone(x).permute(0, 2, 3, 1).contiguous()
+        with scope("backbone"):
+            images = normalize_images(images, im_info, self.pixel_means)
+            x = images.contiguous().permute(0, 3, 1, 2)  # NCHW view
+            return self.backbone(x).permute(0, 2, 3, 1).contiguous()
 
     def rpn_raw(self, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC feat → ((N, H*W*A, 2) cls logits, (N, H*W*A, 4) deltas)."""
@@ -170,16 +172,19 @@ class FasterRCNN(nn.Module):
                   ) -> Tuple[torch.Tensor, ...]:
         """ROIAlign (K2) → head → softmax: the test forward's second half."""
         n = feat.shape[0]
-        pooled = roi_align(feat, rois, self.pooled_size,
-                           1.0 / self.feat_stride)
+        with scope("roi_align"):
+            pooled = roi_align(feat, rois, self.pooled_size,
+                               1.0 / self.feat_stride)
         mark("roi_align")
         r = pooled.shape[1]
-        flat = pooled.reshape((n * r,) + pooled.shape[2:])
-        cls_logits, deltas = self.roi_head(flat)
-        cls_prob = torch.softmax(cls_logits.to(torch.float32), dim=-1)
-        out = (rois, roi_valid,
-               cls_prob.reshape(n, r, self.num_classes),
-               deltas.to(torch.float32).reshape(n, r, 4 * self.num_classes))
+        with scope("head"):
+            flat = pooled.reshape((n * r,) + pooled.shape[2:])
+            cls_logits, deltas = self.roi_head(flat)
+            cls_prob = torch.softmax(cls_logits.to(torch.float32), dim=-1)
+            out = (rois, roi_valid,
+                   cls_prob.reshape(n, r, self.num_classes),
+                   deltas.to(torch.float32).reshape(
+                       n, r, 4 * self.num_classes))
         mark("head")
         return out
 
@@ -225,15 +230,17 @@ class FasterRCNN(nn.Module):
         mark = stage_hook or (lambda name: None)
         feat = self.features(images, im_info)
         mark("backbone")
-        rpn_cls, rpn_box = self.rpn_raw(feat)
-        _, fh, fw, _ = feat.shape
-        anchors = self.anchors_for(fh, fw)
-        fg_scores = torch.softmax(rpn_cls.to(torch.float32), dim=-1)[..., 1]
-        rois, _, roi_valid = propose_batch(
-            fg_scores, rpn_box, anchors, im_info.to(torch.float32),
-            pre_nms_top_n=self.test_pre_nms_top_n,
-            post_nms_top_n=self.test_post_nms_top_n,
-            nms_thresh=self.test_nms_thresh, min_size=self.test_min_size)
+        with scope("proposal"):
+            rpn_cls, rpn_box = self.rpn_raw(feat)
+            _, fh, fw, _ = feat.shape
+            anchors = self.anchors_for(fh, fw)
+            fg_scores = torch.softmax(rpn_cls.to(torch.float32),
+                                      dim=-1)[..., 1]
+            rois, _, roi_valid = propose_batch(
+                fg_scores, rpn_box, anchors, im_info.to(torch.float32),
+                pre_nms_top_n=self.test_pre_nms_top_n,
+                post_nms_top_n=self.test_post_nms_top_n,
+                nms_thresh=self.test_nms_thresh, min_size=self.test_min_size)
         mark("proposal")
         return self._classify(feat, rois, roi_valid, mark)
 

@@ -15,12 +15,24 @@ import time
 
 _CHUNK = 64 << 10
 
+# default cap of a response body read by read_limited
+DEFAULT_CAP_BYTES = 8 << 20
+
 # widest timeout a peer may ask for: a week in ms.  A finite but huge
 # value (1e38) still overflows Condition.wait, so finite is not enough
 MAX_TIMEOUT_MS = 7 * 86400 * 1000.0
 
 # an X-MXR-Trace header is a short structured string; longer is hostile
 MAX_TRACE_HEADER = 256
+
+
+class ResponseTooLarge(ValueError):
+    """A response body crossed its byte cap mid-read."""
+
+
+class ResponseTooSlow(ValueError):
+    """A response body read crossed its wall-clock deadline (the socket
+    timeout bounds only the gap between bytes)."""
 
 
 class BodyError(ValueError):
@@ -108,3 +120,30 @@ def read_request_body(handler, max_bytes: int,
         raise BodyError(400, f"body ended at {len(body)} of {n} "
                              f"claimed bytes")
     return body
+
+
+def read_limited(resp, max_bytes: int = DEFAULT_CAP_BYTES,
+                 what: str = "response body",
+                 deadline_s: float = None) -> bytes:
+    """Drain ``resp`` (anything with ``.read(n)``) up to ``max_bytes``,
+    in chunks, so that a peer sending more than it claimed is cut off at
+    the cap plus one chunk (:class:`ResponseTooLarge`).  ``deadline_s``
+    bounds the whole read by the wall clock (:class:`ResponseTooSlow`);
+    ``read1`` is preferred then, so a trickling peer is cut off at the
+    deadline."""
+    max_bytes = int(max_bytes)
+    t0 = time.monotonic() if deadline_s else 0.0
+    read1 = getattr(resp, "read1", None) if deadline_s else None
+    out = bytearray()
+    while True:
+        chunk = read1(_CHUNK) if read1 is not None else resp.read(_CHUNK)
+        if not chunk:
+            return bytes(out)
+        out += chunk
+        if len(out) > max_bytes:
+            raise ResponseTooLarge(
+                f"{what} exceeded the {max_bytes}-byte cap")
+        if deadline_s and time.monotonic() - t0 > deadline_s:
+            raise ResponseTooSlow(
+                f"{what} read exceeded {deadline_s:g}s "
+                f"({len(out)} bytes in)")

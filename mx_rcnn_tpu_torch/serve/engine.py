@@ -18,9 +18,15 @@ Counterpart of ``mx_rcnn_tpu/serve/engine.py — ServingEngine``:
   batch, bit for bit.
 
 Every dispatcher launches on its device's default stream, so the two
-buckets' batches share one queue of work on the card.  Not ported: the
-JAX package's bulk (``submit_prepared``), remote wire (``submit_source``)
-and AOT export (``warm_from_export``) seams, and its trace spans.
+buckets' batches share one queue of work on the card.  With host spans on
+(``obs/trace.py``), a request opens a ``serve.request`` interval at
+admission and its batch records ``serve.queue_wait`` per rider and one
+``serve.batch`` span (launches, forward, postprocess and the result's
+copy to the host, the batch's one sync); a request with a distributed
+context (``tctx``) records ``serve.lane_wait`` and ``serve.compute``
+under it.  Not ported: the JAX package's bulk (``submit_prepared``),
+remote wire (``submit_source``) and AOT export (``warm_from_export``)
+seams.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from mx_rcnn_tpu_torch.core.tester import (Predictor, _postprocess_batch,
                                            detections_from_keep,
                                            tiled_bbox_stats)
 from mx_rcnn_tpu_torch.data.image import estimate_bucket, prepare_image
+from mx_rcnn_tpu_torch.obs import trace as obs_trace
 from mx_rcnn_tpu_torch.obs.metrics import ServeMetrics
 from mx_rcnn_tpu_torch.serve.queue import (EXPIRED, FAILED, SERVED, SHED,
                                            BoundedQueue, ServeRequest)
@@ -96,12 +103,13 @@ class ServingEngine:
         pixels an offline eval of it sees."""
         return prepare_image(img, self.cfg)
 
-    def submit(self, img: np.ndarray, timeout_ms: float = None
-               ) -> ServeRequest:
+    def submit(self, img: np.ndarray, timeout_ms: float = None,
+               tctx: "obs_trace.TraceContext" = None) -> ServeRequest:
         """Admit one image and return its handle at once; it ends SERVED,
         SHED, EXPIRED or FAILED, and ``handle.wait()`` blocks and raises
         the matching error.  ``timeout_ms`` overrides
-        ``serve.default_timeout_ms`` (0: no deadline)."""
+        ``serve.default_timeout_ms`` (0: no deadline).  ``tctx``: an
+        inbound distributed trace context (None costs one check)."""
         now = time.monotonic()
         t = (self.cfg.serve.default_timeout_ms if timeout_ms is None
              else timeout_ms)
@@ -114,6 +122,8 @@ class ServingEngine:
         if self._closed or (len(self.queues[rough])
                             >= self.queues[rough].shed_watermark):
             req = ServeRequest(None, None, rough, deadline, now)
+            req.tctx = tctx
+            self._trace_admit(req)
             self.metrics.count("submitted")
             req._finish(SHED)
             self.metrics.count("shed")
@@ -123,11 +133,23 @@ class ServingEngine:
         self.metrics.observe("preprocess_ms",
                              (time.perf_counter() - t0) * 1e3)
         req = ServeRequest(data, im_info, bucket, deadline, now)
+        req.tctx = tctx
+        self._trace_admit(req)
         self.metrics.count("submitted")
         if self._closed or not self.queues[bucket].offer(req):
             req._finish(SHED)
             self.metrics.count("shed")
         return req
+
+    @staticmethod
+    def _trace_admit(req: ServeRequest) -> None:
+        """Open the request's ``serve.request`` interval (a no-op unless
+        spans are on); its id rides the request across threads."""
+        if obs_trace.enabled():
+            req.trace_id = obs_trace.new_trace_id()
+            obs_trace.async_begin(
+                "serve.request", req.trace_id,
+                bucket=f"{req.bucket[0]}x{req.bucket[1]}")
 
     def detect(self, img: np.ndarray, timeout_ms: float = None
                ) -> Dict[int, np.ndarray]:
@@ -201,15 +223,39 @@ class ServingEngine:
         bucket keeps its dispatcher."""
         try:
             now = time.monotonic()
+            tracing = obs_trace.enabled()
+            label = f"{bucket[0]}x{bucket[1]}"
             for r in reqs:
                 r.dispatch_t = now
                 self.metrics.observe("queue_wait_ms",
                                      (now - r.enqueue_t) * 1e3)
+                if tracing and r.trace_id is not None:
+                    # stamped on this thread with the request's id; its
+                    # start lies on the caller's
+                    obs_trace.complete("serve.queue_wait",
+                                       (now - r.enqueue_t) * 1e3,
+                                       trace_id=r.trace_id)
+                if r.tctx is not None:
+                    obs_trace.record_span(r.tctx, "serve.lane_wait",
+                                          (now - r.enqueue_t) * 1e3,
+                                          bucket=label)
             images, im_info = self._compose(bucket, reqs)
             t0 = time.monotonic()
-            boxes_b, scores_b, keep_b = self._run(images, im_info)
+            if tracing:
+                with obs_trace.span(
+                        "serve.batch", bucket=label, rows=len(reqs),
+                        trace_ids=[r.trace_id for r in reqs
+                                   if r.trace_id is not None]):
+                    boxes_b, scores_b, keep_b = self._run(images, im_info)
+            else:
+                boxes_b, scores_b, keep_b = self._run(images, im_info)
+            batch_ms = (time.monotonic() - t0) * 1e3
             self.metrics.observe_batch(len(reqs), self.cfg.serve.batch_size,
-                                       (time.monotonic() - t0) * 1e3)
+                                       batch_ms)
+            for r in reqs:
+                if r.tctx is not None:
+                    obs_trace.record_span(r.tctx, "serve.compute", batch_ms,
+                                          rows=len(reqs), bucket=label)
             for j, r in enumerate(reqs):
                 # a request alive when taken may expire while its batch
                 # runs: it ends EXPIRED (504), never as a late 200

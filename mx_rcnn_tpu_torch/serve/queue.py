@@ -10,9 +10,12 @@ Deadlines are enforced at batch collection (expired requests are
 cancelled before dispatch, so dead work takes no batch row), at
 completion (``engine.py — _serve_batch``: a request that expired while
 its batch ran ends EXPIRED, never as a late success) and in the caller's
-``wait``.  The JAX package's trace hooks have no counterpart until its
-``obs/trace.py`` is ported, nor its done callback (``add_done_callback``,
-its fleet router's hook) until the fleet tier is.
+``wait``.  A request carries its host-trace id (``trace_id``, while
+``obs/trace.py`` collects spans) and its distributed context (``tctx``,
+from an ``X-MXR-Trace`` header): whichever thread ends it closes its
+``serve.request`` interval and records exactly one ``terminal.<state>``
+span.  The JAX package's done callback (``add_done_callback``, its fleet
+router's hook) waits for the fleet tier.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from collections import deque
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+
+from mx_rcnn_tpu_torch.obs import trace as obs_trace
 
 
 class ShedError(RuntimeError):
@@ -56,7 +61,7 @@ class ServeRequest:
 
     __slots__ = ("image", "im_info", "bucket", "enqueue_t", "deadline",
                  "state", "result", "error", "dispatch_t", "done_t",
-                 "batch_rows", "_event", "_lock")
+                 "batch_rows", "trace_id", "tctx", "_event", "_lock")
 
     def __init__(self, image: np.ndarray, im_info: np.ndarray,
                  bucket: Tuple[int, int], deadline: Optional[float],
@@ -72,6 +77,8 @@ class ServeRequest:
         self.dispatch_t: Optional[float] = None
         self.done_t: Optional[float] = None
         self.batch_rows = 0         # real rows of the batch it rode
+        self.trace_id = None        # obs/trace.py span id (None: off)
+        self.tctx = None            # inbound TraceContext (None: none)
         self._event = threading.Event()
         self._lock = threading.Lock()
 
@@ -85,6 +92,16 @@ class ServeRequest:
             self.result = result
             self.error = error
             self.done_t = time.monotonic() if now is None else now
+        if self.trace_id is not None:
+            # closes the interval opened at admission, from whichever
+            # thread ended the request
+            obs_trace.async_end("serve.request", self.trace_id, state=state)
+        if self.tctx is not None:
+            # one terminal span per terminal transition: the trace
+            # audits the exactly-once accounting
+            obs_trace.record_span(
+                self.tctx, f"terminal.{state}", 0.0,
+                total_ms=round((self.done_t - self.enqueue_t) * 1e3, 3))
         self._event.set()
         return True
 

@@ -17,13 +17,18 @@ Endpoints::
                      400 malformed request, 500 engine failure,
                      411 no Content-Length, 413 body over
                      serve.max_body_mb, 408 body read past its deadline
-    GET  /healthz  → 200 liveness and warm buckets (503 once closed)
-    GET  /metrics  → 200 the engine's metrics snapshot
+    GET  /healthz  → 200 liveness and warm buckets (503 once closed, or
+                     while the health engine's verdict is CRITICAL)
+    GET  /metrics  → 200 the engine's metrics snapshot, its registry, and
+                     the time series while a store is active
 
-An ``X-MXR-Trace`` header is checked as the JAX package checks it (a
-malformed one is a 400) and then dropped: the port has no tracing yet.
-The JAX package's SLO verdict on ``/healthz`` and time series on
-``/metrics`` wait for its ``obs/health.py`` and ``obs/timeseries.py``.
+An ``X-MXR-Trace`` header is parsed by ``obs/trace.py — parse_header``
+(a malformed one is a 400) and carried as the request's ``tctx``: the
+engine records the request's spans under it, the queue its one
+``terminal.<state>`` span, and the handler the ``serve.request`` root,
+then closes the trace into the kept ring (``obs/trace.py —
+retain_trace`` decides).  While ``obs/health.py`` has an active engine,
+``/healthz`` carries its verdict.
 """
 
 from __future__ import annotations
@@ -40,45 +45,27 @@ import numpy as np
 
 from mx_rcnn_tpu_torch.netio import (BodyError, check_timeout_ms,
                                      check_trace_header, read_request_body)
+from mx_rcnn_tpu_torch.obs import trace as obs_trace
+from mx_rcnn_tpu_torch.obs.health import active_verdict
+from mx_rcnn_tpu_torch.obs.profiler import poll_sigusr2
+from mx_rcnn_tpu_torch.obs.timeseries import active as active_store
 from mx_rcnn_tpu_torch.serve.engine import ServingEngine
 from mx_rcnn_tpu_torch.serve.queue import (DeadlineExceeded, RequestFailed,
                                            ShedError)
 
 logger = logging.getLogger("mx_rcnn_tpu_torch")
 
-TRACE_HEADER = "X-MXR-Trace"
-_TRACE_ID_CHARS = frozenset("0123456789abcdefABCDEF.-_:")
+TRACE_HEADER = obs_trace.TRACE_HEADER
 
 
-def check_trace_context(value: Optional[str]) -> None:
-    """An ``X-MXR-Trace`` value, ``v1;id=..;parent=..;hop=..;s=..``, as
-    ``mx_rcnn_tpu/obs/trace.py — parse_header`` reads it: None passes,
-    a malformed one raises ValueError (a :class:`BodyError` for one over
-    the length cap or not ascii)."""
+def check_trace_context(value: Optional[str]
+                        ) -> Optional[obs_trace.TraceContext]:
+    """An ``X-MXR-Trace`` value → its :class:`TraceContext` (None for
+    none).  A malformed one raises ValueError (a :class:`BodyError` for
+    one over the length cap or not ascii): a 400, never a default."""
     if check_trace_header(value) is None:
-        return
-    parts = value.strip().split(";")
-    if parts[0] != "v1":
-        raise ValueError(f"trace header version {parts[0]!r} unsupported")
-    kv = {}
-    for p in parts[1:]:
-        if "=" not in p:
-            raise ValueError(f"trace header field {p!r} malformed")
-        k, v = p.split("=", 1)
-        kv[k] = v
-    try:
-        trace_id, s = kv["id"], kv["s"]
-        parent, hop = int(kv["parent"], 16), int(kv["hop"])
-    except KeyError as e:
-        raise ValueError(f"trace header missing field {e.args[0]!r}")
-    except ValueError:
-        raise ValueError("trace header numeric field malformed")
-    if s not in ("0", "1"):
-        raise ValueError(f"trace header sampling bit {s!r} malformed")
-    if not 0 <= parent < (1 << 64) or not 0 <= hop < (1 << 16):
-        raise ValueError("trace header field out of range")
-    if not 1 <= len(trace_id) <= 64 or not set(trace_id) <= _TRACE_ID_CHARS:
-        raise ValueError(f"trace id {trace_id!r} malformed")
+        return None
+    return obs_trace.parse_header(value)
 
 
 def decode_image_payload(body: dict) -> np.ndarray:
@@ -164,10 +151,18 @@ class DetectionHandler(BaseHTTPRequestHandler):
         engine: ServingEngine = self.server.engine
         if self.path == "/healthz":
             h = engine.healthz()
+            verdict = active_verdict()
+            if verdict is not None:
+                # a CRITICAL verdict fails the probe
+                h["health"] = verdict
+                h["ok"] = h["ok"] and verdict["verdict"] != "CRITICAL"
             self._reply(200 if h["ok"] else 503, h)
         elif self.path == "/metrics":
             snap = engine.metrics.snapshot()
             snap["registry"] = engine.metrics.registry.snapshot()
+            store = active_store()
+            if store is not None:
+                snap["timeseries"] = store.scrape_section()
             self._reply(200, snap)
         else:
             self._reply(404, {"error": f"no such path {self.path!r}"})
@@ -188,7 +183,7 @@ class DetectionHandler(BaseHTTPRequestHandler):
             # an inf/NaN timeout dies here as a 400, not in deadline
             # arithmetic
             timeout_ms = check_timeout_ms(body.get("timeout_ms"))
-            check_trace_context(self.headers.get(TRACE_HEADER))
+            tctx = check_trace_context(self.headers.get(TRACE_HEADER))
         except BodyError as e:
             self._reply(e.status, {"error": str(e)})
             return
@@ -196,10 +191,14 @@ class DetectionHandler(BaseHTTPRequestHandler):
             self._reply(400, {"error": str(e)})
             return
         t0 = time.monotonic()
+        req = inbound = None
+        if tctx is not None:
+            # this hop's spans nest under its own root span
+            inbound, tctx = tctx, tctx.child(obs_trace.new_span_id())
         try:
             # submit and wait (not engine.detect): the handle carries the
             # batch_rows the reply promises
-            req = engine.submit(img, timeout_ms=timeout_ms)
+            req = engine.submit(img, timeout_ms=timeout_ms, tctx=tctx)
             wait_s = None
             if req.deadline is not None:
                 wait_s = max(req.deadline - time.monotonic(), 0.0) + 30.0
@@ -218,6 +217,9 @@ class DetectionHandler(BaseHTTPRequestHandler):
             # the image cannot be preprocessed: the client's input
             self._reply(400, {"error": str(e)})
             return
+        finally:
+            if tctx is not None:
+                _close_request_trace(tctx, inbound, req, t0)
         self._reply(200, {
             "detections": detections_to_json(dets,
                                              self.server.class_names),
@@ -226,13 +228,44 @@ class DetectionHandler(BaseHTTPRequestHandler):
         })
 
 
+def _close_request_trace(tctx: obs_trace.TraceContext,
+                         inbound: obs_trace.TraceContext, req, t0: float
+                         ) -> None:
+    """This hop's root span, ``serve.request`` (the handler's submit to
+    the request's end, under the caller's span), then the trace closed
+    into the kept ring."""
+    state = req.state if req is not None else "rejected"
+    total_ms = (time.monotonic() - t0) * 1e3
+    obs_trace.record_span(tctx, "serve.request", total_ms,
+                          span_id=tctx.parent, parent=inbound.parent,
+                          state=state)
+    obs_trace.close_trace(tctx, keep=obs_trace.retain_trace(
+        state.upper(), total_ms=total_ms), state=state)
+
+
+def _sync_devices() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+class DetectionServer(ThreadingHTTPServer):
+    """The front end; its poll loop (``serve_forever``'s thread) is
+    where a SIGUSR2 profiler window opens and closes
+    (``obs/profiler.py — poll_sigusr2``)."""
+
+    def service_actions(self):
+        poll_sigusr2(_sync_devices)
+
+
 def make_server(engine: ServingEngine, host: str = "127.0.0.1",
                 port: int = 8080, class_names: List[str] = None,
                 max_body_mb: float = 64.0) -> ThreadingHTTPServer:
     """Build (not start) the server; ``port=0`` picks a free port (read
     it from ``server.server_address``).  A claimed body over
     ``max_body_mb`` is refused 413 before a byte of it is read."""
-    srv = ThreadingHTTPServer((host, port), DetectionHandler)
+    srv = DetectionServer((host, port), DetectionHandler)
     srv.engine = engine
     srv.class_names = list(class_names) if class_names else None
     srv.max_body_bytes = int(max_body_mb * (1 << 20))

@@ -29,11 +29,11 @@ and prints one JSON record:
   with streaming and staging on ``--device``; the median step's
   data-wait share must be near 0.
 
-Where the JAX tool reads the process-wide obs registry (``loader.*`` and
-``train.*`` metrics, which the port does not have yet), this one reads
-the ``DeviceStager``'s own ``hits``/``misses``, times the loader's batch
-assembly itself, and parses ``fit``'s own data-wait share from its
-Speedometer lines (one step a line).
+Like the JAX tool, it reads the process-wide obs registry: the stager's
+``loader.stage_hits``/``stage_misses`` and the loader's
+``loader.assemble_ms``/``decode_ms`` in the streaming epoch, and in the
+control the fit loop's per-step ``train.data_wait_frac_pct`` (run with
+``obs.enabled``); its p50 is the histogram's upper bucket edge.
 
     python -m mx_rcnn_tpu_torch.tools.data_bench --smoke --check \\
         --device cpu --root_path /tmp/db
@@ -202,20 +202,14 @@ def run_stream_epoch(args, expected) -> dict:
     import torch
 
     from mx_rcnn_tpu_torch.data.staging import DeviceStager
+    from mx_rcnn_tpu_torch.obs.metrics import registry
     from mx_rcnn_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     cfg, roidb, loader, pool = _build(args)
-    assemble_ms: List[float] = []
-    make = loader.make_batch
-
-    def timed_make(indices, bucket):
-        t0 = time.perf_counter()
-        batch = make(indices, bucket)
-        assemble_ms.append((time.perf_counter() - t0) * 1e3)
-        return batch
-
-    loader.make_batch = timed_make
+    rec = registry()
+    rec.reset("loader.")
+    loader._rec = rec  # the loader's metrics without the obs config
 
     def consume(images, gt_boxes, acc):
         # reads every staged byte on the device, in place of a train step
@@ -231,7 +225,8 @@ def run_stream_epoch(args, expected) -> dict:
         torch.cuda.synchronize(device)
     before = _build_state()
     rss_before = _peak_rss_mb()
-    stager = DeviceStager(loader, device, depth=cfg.data.stage_depth)
+    stager = DeviceStager(loader, device, depth=cfg.data.stage_depth,
+                          rec=rec)
     acc, n_img, waits = zero, 0, []
     t0 = time.perf_counter()
     try:
@@ -258,6 +253,10 @@ def run_stream_epoch(args, expected) -> dict:
             pool.close()
     wall = time.perf_counter() - t0
     cache = loader.cache
+    hits = rec.counter("loader.stage_hits")
+    misses = rec.counter("loader.stage_misses")
+    decode_h = rec.hist("loader.decode_ms")
+    assemble_h = rec.hist("loader.assemble_ms")
     return {
         "device": str(device),
         "images": n_img, "roidb_images": len(roidb), "wall_s": wall,
@@ -271,11 +270,14 @@ def run_stream_epoch(args, expected) -> dict:
                   {"hits": cache.hits, "misses": cache.misses,
                    "ram_budget_mb": cache.ram_bytes >> 20}),
         "stage": {
-            "hits": stager.hits, "misses": stager.misses,
-            "hit_rate": stager.hits / max(stager.hits + stager.misses, 1),
+            "hits": hits, "misses": misses,
+            "hit_rate": hits / max(hits + misses, 1),
             "consumer_wait_ms_total": sum(waits),
             "consumer_wait_ms_p50": statistics.median(waits),
-            "assemble_ms_per_batch_p50": statistics.median(assemble_ms),
+            "decode_ms_per_batch_p50": (decode_h.percentile(50)
+                                        if decode_h else None),
+            "assemble_ms_per_batch_p50": (assemble_h.percentile(50)
+                                          if assemble_h else None),
         },
         "simulated_step_ms": args.step_ms,
         "consumer_checksum": checksum,
@@ -305,33 +307,36 @@ def run_eval_leg(args) -> dict:
 
 
 def run_control(args) -> dict:
-    """``train_net`` of the tiny network on the device with streaming and
-    staging: each step's data-wait share, from ``fit``'s Speedometer
-    lines at one step a line (each epoch's first step, which waits for
-    the loader to start, left out)."""
+    """``train_net`` of the tiny network on the device with streaming,
+    staging and ``obs.enabled``: the p50 of the per-step data-wait share
+    (``train.data_wait_frac_pct``) and each epoch's share from its log
+    line."""
     from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.obs.metrics import registry
     from mx_rcnn_tpu_torch.tools.train import train_net
 
+    rec = registry()
+    rec.reset("train.")
+    rec.reset("loader.")
     cfg = generate_config(
         "tiny", "synthetic", dataset__root_path=args.root_path,
         train__flip=False,
         train__rpn_pre_nms_top_n=256, train__rpn_post_nms_top_n=64,
         train__max_gt_boxes=8, bucket__scale=128, bucket__max_size=160,
         bucket__shapes=((128, 160), (160, 128)), train__batch_images=2,
-        data__streaming=True, data__staging=True)
+        data__streaming=True, data__staging=True, obs__enabled=True)
     lines: List[str] = []
-    train_net(cfg, end_epoch=args.control_epochs, frequent=1, seed=0,
+    train_net(cfg, end_epoch=args.control_epochs, frequent=1000, seed=0,
               device=args.device, log=lines.append,
               dataset_kw={"num_images": args.control_images,
                           "image_size": (128, 160), "max_objects": 3})
-    fracs = [float(w) / 100 for b, w in re.findall(
-        r"Batch \[(\d+)\] Speed: .* data wait ([0-9.]+)%", "\n".join(lines))
-        if int(b) > 0]
+    frac_h = rec.hist("train.data_wait_frac_pct")
     epochs = [float(x) / 100 for x in re.findall(
         r"steps in .* data wait .* \(([0-9.]+)%\)", "\n".join(lines))]
-    return {"steps": len(fracs) + args.control_epochs,
+    return {"steps": rec.counter("train.steps"),
             "epochs": args.control_epochs, "images": args.control_images,
-            "data_wait_frac_p50": statistics.median(fracs),
+            "data_wait_frac_p50": (frac_h.percentile(50) / 100.0
+                                   if frac_h else None),
             "data_wait_frac_per_epoch": epochs}
 
 
@@ -357,8 +362,9 @@ def _checks(record: dict, args) -> Dict[str, bool]:
     checks["eval_complete"] = (record["eval_leg"]["images"]
                                == record["eval_leg"]["expected"])
     if "control" in record:
-        checks["control_data_wait_near_zero"] = (
-            record["control"]["data_wait_frac_p50"] < 0.15)
+        frac = record["control"]["data_wait_frac_p50"]
+        checks["control_data_wait_near_zero"] = (frac is not None
+                                                 and frac < 0.15)
     return checks
 
 

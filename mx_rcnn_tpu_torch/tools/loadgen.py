@@ -31,7 +31,11 @@ the exit code say: nothing lost, something served, ratio at least
 The record has the JAX package's keys but ``recompiles_after_warmup``
 (the port compiles no program, so there is nothing to count), and adds
 ``preprocess_ms_p50`` (resize and pad of one request on the caller's
-thread), ``resize_backend`` (cv2 or numpy) and ``device``.
+thread), ``resize_backend`` (cv2 or numpy) and ``device``.  With
+``--set obs__enabled=true`` the run writes a ``runs/<id>/`` record
+(``obs/runrec.py — cli_obs``) whose summary is this record's metric;
+``MXRCNN_THREAD_SANITIZER`` arms the lock sanitizer before the package
+is imported, and ``--check`` fails on what it found.
 
     python -m mx_rcnn_tpu_torch.tools.loadgen --network resnet101 \\
         --dataset PascalVOC --duration 8                        # card
@@ -40,26 +44,35 @@ thread), ``resize_backend`` (cv2 or numpy) and ``device``.
 
 from __future__ import annotations
 
-import argparse
-import json
-import logging
-import threading
-import time
-from typing import List
+# the lock sanitizer first: the locks the package allocates at import
+# are born wrapped only if it is armed before
+from mx_rcnn_tpu_torch.analysis import sanitizer  # isort: skip
 
-import numpy as np
-import torch
+sanitizer.maybe_install_from_env()
 
-from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
-                                      parse_set_overrides)
-from mx_rcnn_tpu_torch.core.tester import Predictor, quant_predictor
-from mx_rcnn_tpu_torch.data.image import RESIZE_BACKEND
-from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
-from mx_rcnn_tpu_torch.serve.engine import ServingEngine
-from mx_rcnn_tpu_torch.serve.queue import (DeadlineExceeded, RequestFailed,
-                                           ShedError)
-from mx_rcnn_tpu_torch.utils.checkpoint import load_model, load_state_dict
-from mx_rcnn_tpu_torch.utils.device import resolve_device
+import argparse  # noqa: E402
+import json  # noqa: E402
+import logging  # noqa: E402
+import threading  # noqa: E402
+import time  # noqa: E402
+from typing import List  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from mx_rcnn_tpu_torch.config import (NETWORKS, Config,  # noqa: E402
+                                      generate_config, parse_set_overrides)
+from mx_rcnn_tpu_torch.core.tester import (Predictor,  # noqa: E402
+                                           quant_predictor)
+from mx_rcnn_tpu_torch.data.image import RESIZE_BACKEND  # noqa: E402
+from mx_rcnn_tpu_torch.models.faster_rcnn import build_model  # noqa: E402
+from mx_rcnn_tpu_torch.obs.runrec import cli_obs  # noqa: E402
+from mx_rcnn_tpu_torch.serve.engine import ServingEngine  # noqa: E402
+from mx_rcnn_tpu_torch.serve.queue import (DeadlineExceeded,  # noqa: E402
+                                           RequestFailed, ShedError)
+from mx_rcnn_tpu_torch.utils.checkpoint import (load_model,  # noqa: E402
+                                                load_state_dict)
+from mx_rcnn_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 logger = logging.getLogger("mx_rcnn_tpu_torch")
 
@@ -261,6 +274,39 @@ def main(argv=None) -> int:
     timeout_ms = (cfg.serve.default_timeout_ms if args.timeout_ms is None
                   else args.timeout_ms)
 
+    obs_sess = cli_obs(cfg, "loadgen")
+    rec = None
+    try:
+        rec = _run(args, cfg, concurrency, timeout_ms)
+    finally:
+        if obs_sess is not None:
+            obs_sess.close(metric="serve_imgs_per_sec",
+                           value=None if rec is None else rec["value"],
+                           unit="imgs/s")
+    print(json.dumps(rec), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
+    if args.check:
+        problems = []
+        if rec["lost"] != 0:
+            problems.append(f"{rec['lost']} requests lost (no terminal "
+                            f"state)")
+        if rec["ratio_vs_offline"] < args.min_ratio:
+            problems.append(f"serving/offline ratio "
+                            f"{rec['ratio_vs_offline']} < {args.min_ratio}")
+        if rec["served"] == 0:
+            problems.append("zero requests served")
+        problems += sanitizer.check_problems()
+        for msg in problems:
+            logger.error("CHECK FAILED: %s", msg)
+        return 1 if problems else 0
+    return 0
+
+
+def _run(args, cfg: Config, concurrency: int, timeout_ms: float) -> dict:
+    """Warm-up, the offline rate, the measured loop and its drain: the
+    record."""
     predictor = init_predictor(cfg, args.prefix, args.epoch, args.seed,
                                args.device)
     images = synthetic_images(cfg, args.images, args.seed)
@@ -331,23 +377,7 @@ def main(argv=None) -> int:
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
-    print(json.dumps(rec), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(rec, f, indent=1)
-    if args.check:
-        problems = []
-        if lost != 0:
-            problems.append(f"{lost} requests lost (no terminal state)")
-        if rec["ratio_vs_offline"] < args.min_ratio:
-            problems.append(f"serving/offline ratio "
-                            f"{rec['ratio_vs_offline']} < {args.min_ratio}")
-        if c["served"] == 0:
-            problems.append("zero requests served")
-        for msg in problems:
-            logger.error("CHECK FAILED: %s", msg)
-        return 1 if problems else 0
-    return 0
+    return rec
 
 
 if __name__ == "__main__":

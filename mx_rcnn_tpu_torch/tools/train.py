@@ -52,6 +52,18 @@ the global count.  ``--device_cache`` stages each rank's row shard on its
 card (``parallel/dp.py — make_dp_cached_step``); a world over several
 hosts refuses it, as the JAX CLI refuses it with ``--coordinator``.
 
+``--set obs__enabled=true`` opens the obs session (``obs/runrec.py —
+cli_obs``) around the run, in each rank's process of ``--num_devices N``
+(its own ``runs/<id>/``; ``obs__metrics_port`` + rank): the ``train.*``,
+``loader.*`` and ``snapshot.*`` metrics, ``/metrics`` on
+``obs__metrics_port``, spans (``obs__trace``), the profiler window
+(``obs__profile_at_step``), the time series, health and flight recorder;
+the summary carries ``train_samples_per_sec`` and the run's kernel
+launches.  The flight recorder's SIGTERM trigger chains to the stop
+flag, so the interrupt checkpoint is written as before.
+``MXRCNN_THREAD_SANITIZER`` arms the lock sanitizer before the package
+is imported.
+
     python -m mx_rcnn_tpu_torch.tools.train --network resnet101 \\
         --dataset PascalVOC --root_path data --dataset_path data/VOCdevkit \\
         --batch_images 2 --prefix model/e2e --end_epoch 1             # card
@@ -66,38 +78,49 @@ hosts refuses it, as the JAX CLI refuses it with ``--coordinator``.
 
 from __future__ import annotations
 
-import argparse
-import ast
-import contextlib
-import math
-import os
-import signal
-import threading
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+# the lock sanitizer first: the locks the package allocates at import
+# (kernels.py's) are born wrapped only if it is armed before
+from mx_rcnn_tpu_torch.analysis import sanitizer  # isort: skip
 
-from mx_rcnn_tpu_torch.config import (NETWORKS, Config, generate_config,
-                                      parse_set_overrides)
-from mx_rcnn_tpu_torch.core.fit import fit
-from mx_rcnn_tpu_torch.core.train import (TrainState, make_train_step,
-                                          setup_training)
-from mx_rcnn_tpu_torch.data import load_gt_roidb, reads_files
-from mx_rcnn_tpu_torch.data.loader import (AnchorLoader, ROIIter,
-                                           StreamLoader, cache_from_config,
+sanitizer.maybe_install_from_env()
+
+import argparse  # noqa: E402
+import ast  # noqa: E402
+import contextlib  # noqa: E402
+import math  # noqa: E402
+import os  # noqa: E402
+import signal  # noqa: E402
+import threading  # noqa: E402
+from typing import (Callable, Dict, Optional, Sequence, Tuple,  # noqa: E402
+                    Union)
+
+from mx_rcnn_tpu_torch import kernels  # noqa: E402
+from mx_rcnn_tpu_torch.config import (NETWORKS, Config,  # noqa: E402
+                                      generate_config, parse_set_overrides)
+from mx_rcnn_tpu_torch.core.fit import fit  # noqa: E402
+from mx_rcnn_tpu_torch.core.train import (TrainState,  # noqa: E402
+                                          make_train_step, setup_training)
+from mx_rcnn_tpu_torch.data import load_gt_roidb, reads_files  # noqa: E402
+from mx_rcnn_tpu_torch.data.loader import (AnchorLoader,  # noqa: E402
+                                           ROIIter, StreamLoader,
+                                           cache_from_config,
                                            decode_pool_from_config)
-from mx_rcnn_tpu_torch.ft.integrity import latest_valid_checkpoint
-from mx_rcnn_tpu_torch.parallel.dp import (World, check_replicas,
-                                           default_backend, launch,
-                                           local_devices, replicate)
-from mx_rcnn_tpu_torch.parallel.multihost import host_ranks
-from mx_rcnn_tpu_torch.tools import dataset_args, dataset_overrides
-from mx_rcnn_tpu_torch.utils.checkpoint import (config_fingerprint,
-                                                interrupt_path,
-                                                latest_checkpoint,
-                                                load_state_dict,
-                                                restore_interrupt,
-                                                restore_state)
-from mx_rcnn_tpu_torch.utils.device import resolve_device
-from mx_rcnn_tpu_torch.utils.pretrained import load_pretrained_into
+from mx_rcnn_tpu_torch.ft.integrity import (  # noqa: E402
+    latest_valid_checkpoint)
+from mx_rcnn_tpu_torch.obs.metrics import registry  # noqa: E402
+from mx_rcnn_tpu_torch.obs.runrec import cli_obs  # noqa: E402
+from mx_rcnn_tpu_torch.parallel.dp import (World,  # noqa: E402
+                                           check_replicas, default_backend,
+                                           launch, local_devices, replicate)
+from mx_rcnn_tpu_torch.parallel.multihost import host_ranks  # noqa: E402
+from mx_rcnn_tpu_torch.tools import (dataset_args,  # noqa: E402
+                                     dataset_overrides)
+from mx_rcnn_tpu_torch.utils.checkpoint import (  # noqa: E402
+    config_fingerprint, interrupt_path, latest_checkpoint, load_state_dict,
+    restore_interrupt, restore_state)
+from mx_rcnn_tpu_torch.utils.device import resolve_device  # noqa: E402
+from mx_rcnn_tpu_torch.utils.pretrained import (  # noqa: E402
+    load_pretrained_into)
 
 
 def _legacy_resume(state: TrainState, prefix: str, steps_per_epoch: int,
@@ -224,7 +247,8 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
 # the arguments of train_net that only its launcher reads; the others go
 # to every rank
 _LAUNCHER_ARGS = ("cfg", "num_devices", "dcn_size", "coordinator",
-                  "num_processes", "process_id", "world", "stop_flag", "log")
+                  "num_processes", "process_id", "world", "stop_flag", "log",
+                  "run_record", "step_callback")
 
 
 def train_net(cfg: Config, *, prefix: Optional[str] = None,
@@ -246,7 +270,8 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
               coordinator: Optional[str] = None, num_processes: int = 1,
               process_id: int = 0, world: Optional[World] = None,
               stop_flag: Optional[Callable[[], bool]] = None,
-              log: Callable[[str], None] = print
+              log: Callable[[str], None] = print, run_record=None,
+              step_callback: Optional[Callable[[int], None]] = None
               ) -> Tuple[Optional[TrainState], Dict[str, float]]:
     """Train on ``device`` (CUDA unless the caller asks for the CPU);
     returns the final state and the last log window's mean metrics.
@@ -277,7 +302,10 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     step's batch there (``core/fit.py``; one bucket, ``grad_accum`` 1, not
     across hosts).  ``profile_dir``: a ``torch.profiler`` trace of steps
     2-4 of the first epoch.  ``stop_flag``: polled after every step; True
-    writes the interrupt checkpoint and returns.
+    writes the interrupt checkpoint and returns.  ``run_record``: the
+    obs session's ``RunRecord``, which the fit loop appends its events
+    to (each rank of ``num_devices`` opens its own).  ``step_callback``:
+    called with the global step after each step.
 
     ``num_devices``: train on that many devices, one spawned process
     each (:func:`_launch_ranks`, see the module docstring): the first
@@ -390,7 +418,8 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
                       frequent, log=log, stop_flag=stop_flag,
                       grad_accum=grad_accum, data_cursor=data_cursor,
                       world=world, device_cache=device_cache,
-                      profile_dir=profile_dir)
+                      profile_dir=profile_dir, run_record=run_record,
+                      step_callback=step_callback)
     finally:
         if pool is not None:
             pool.close()
@@ -427,8 +456,6 @@ def _launch_ranks(cfg: Config, num_devices: int, *, dcn_size: int = 1,
     backend = backend or default_backend(devs[0])
     rig = backend != default_backend(devs[0])
     if any(d.startswith("cuda") for d in devs):
-        from mx_rcnn_tpu_torch import kernels
-
         kernels.build_all()
     if kw.get("roidb") is None:
         # once here, so the ranks neither race on the gt_roidb cache nor
@@ -456,16 +483,15 @@ def _launch_ranks(cfg: Config, num_devices: int, *, dcn_size: int = 1,
 def _train_rank(world: World, cfg: Config, kw: dict
                 ) -> Tuple[int, Dict[str, float], Dict[str, int]]:
     """One rank of :func:`_launch_ranks`: :func:`train_net` with its
-    world, rank 0's log on stdout, and a SIGTERM stop flag of its own;
-    returns the rank's final step, its last metrics and its kernel
-    launches (``kernels.launch_counts``: the whole run's, in a process
-    that ran nothing else)."""
-    from mx_rcnn_tpu_torch import kernels
-
-    with sigterm_stop_flag() as stop_flag:
+    world, rank 0's log on stdout, a SIGTERM stop flag and an obs
+    session of its own; returns the rank's final step, its last metrics
+    and its kernel launches (``kernels.launch_counts``: the whole run's,
+    in a process that ran nothing else)."""
+    with sigterm_stop_flag() as stop_flag, \
+            train_obs(cfg, rank=world.rank) as record:
         state, metrics = train_net(cfg, world=world, stop_flag=stop_flag,
                                    log=lambda line: print(line, flush=True),
-                                   **kw)
+                                   run_record=record, **kw)
     return state.step, metrics, kernels.launch_counts()
 
 
@@ -583,12 +609,43 @@ def sigterm_stop_flag():
             signal.signal(signal.SIGTERM, previous)
 
 
+@contextlib.contextmanager
+def train_obs(cfg: Config, rank: int = 0):
+    """The training process's obs session (None when ``cfg.obs`` is
+    off), with the step counters as flight context; yields its
+    ``RunRecord`` and closes it (summary: ``train_samples_per_sec``, the
+    steps and the kernel launches and library loads) however the run
+    ends.  Open it inside :func:`sigterm_stop_flag`, so that the flight
+    recorder's SIGTERM trigger chains to the stop flag."""
+    obs_sess = cli_obs(cfg, "train", rank=rank)
+    if obs_sess is not None and obs_sess.flight is not None:
+        reg = registry()
+        obs_sess.flight.add_context(
+            "train", lambda: {"step": reg.counter("train.steps"),
+                              "epochs_done": reg.counter("train.epochs"),
+                              "samples_per_sec": reg.gauge(
+                                  "train.samples_per_sec")})
+    try:
+        yield None if obs_sess is None else obs_sess.record
+    finally:
+        if obs_sess is not None:
+            reg = registry()
+            obs_sess.close(metric="train_samples_per_sec",
+                           value=reg.gauge("train.samples_per_sec"),
+                           unit="imgs/s", steps=reg.counter("train.steps"),
+                           kernel_launches=kernels.launch_counts(),
+                           kernel_load_events=kernels.load_events())
+
+
 def main(argv=None) -> Dict[str, float]:
     args = parse_args(argv)
     if (args.resume or args.begin_epoch) and not args.prefix:
         raise SystemExit("--resume and --begin_epoch need --prefix")
     cfg = config_from_args(args)
-    with sigterm_stop_flag() as stop_flag:
+    # the ranks of --num_devices open their own sessions
+    obs_cfg = cfg if args.num_devices is None else \
+        cfg.replace_in("obs", enabled=False)
+    with sigterm_stop_flag() as stop_flag, train_obs(obs_cfg) as record:
         _, metrics = train_net(
             cfg, prefix=args.prefix, synthetic=args.synthetic,
             dataset_kw=(ast.literal_eval(args.dataset_kw)
@@ -604,7 +661,7 @@ def main(argv=None) -> Dict[str, float]:
             log=lambda line: print(line, flush=True),
             num_devices=args.num_devices, dcn_size=args.dcn_size,
             coordinator=args.coordinator, num_processes=args.num_processes,
-            process_id=args.process_id)
+            process_id=args.process_id, run_record=record)
     print("final " + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
           flush=True)
     return metrics

@@ -173,3 +173,46 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+_OBS_MODULES = sorted(
+    [p for p in (PKG / "obs").glob("*.py")]
+    + [p for p in (PKG / "analysis").glob("*.py")]
+    + [PKG / "tools" / "obs_smoke.py"])
+
+
+@pytest.mark.parametrize("path", _OBS_MODULES,
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_observability_modules_stand_alone(path):
+    """Each module of the observability plane and the lock sanitizer
+    imports nothing of JAX or the JAX package, and is among the modules
+    the fresh-interpreter import test loads."""
+    assert not _imported_roots(path) & set(_FORBIDDEN)
+    assert path in _port_sources()
+
+
+def test_observability_plane_imports_without_jax_or_torch():
+    """The plane's host modules load neither JAX nor torch (the
+    profiler imports torch only when a window opens)."""
+    code = (
+        "import sys\n"
+        "import importlib\n"
+        "for m in ('metrics', 'trace', 'timeseries', 'health', 'flightrec',"
+        " 'collect', 'runrec', 'profiler'):\n"
+        "    importlib.import_module('mx_rcnn_tpu_torch.obs.' + m)\n"
+        "import mx_rcnn_tpu_torch.analysis.sanitizer\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN + ('torch',)!r})\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_obs_smoke_refuses_to_drop_to_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from mx_rcnn_tpu_torch.tools import obs_smoke
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        obs_smoke.main(["--workdir", str(tmp_path)])
