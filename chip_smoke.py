@@ -2,8 +2,8 @@
 """Drive the PyTorch port's detection forward, training step, checkpoints,
 evaluation, the alternate schedule, the serving engine, the
 real-dataset input plane, the long training run, data parallelism, the
-device-resident training epoch and quantized inference on one NVIDIA
-card.
+device-resident training epoch, quantized inference, the observability
+plane and bulk scoring over an export-warmed engine on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -154,12 +154,14 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    the plain versions (sampled rois and labels equal, averaged gradients
    and metrics within a relative 1e-4, the ranks' states bit-equal after
    3 steps); ``tools/train.py --num_devices 1`` (NCCL at world size 1)
-   byte-equal to the run without the flag (ms per step through ``fit``
-   for both, the rank's launches); ResNet-101 with 81 classes, 2 images
-   a rank, bf16, on the two-rank rig at grad_accum 1 and 2, the step
-   alone without ``fit`` (ms per optimizer step, the all-reduce's own ms
-   and bytes, peak memory and launches, K1 = K2 = K3 = grad_accum per
-   step on each rank); the rig through ``tools/train.py``'s rank
+   streamed and with ``--device_cache`` (its shard staged on the card),
+   both in one process of their own, restored, byte-equal to
+   ``train_net`` here on the same config without the world (ms per step
+   through ``fit`` for all three, the ranks' launches); ResNet-101 with 81 classes, 2 images a rank, bf16, on the
+   two-rank rig at grad_accum 1 then 2 in one world, the step alone
+   without ``fit`` (ms per optimizer step, the all-reduce's own ms and
+   bytes, peak memory and launches, K1 = K2 = K3 = grad_accum per step
+   on each rank); the rig through ``tools/train.py``'s rank
    launcher and ``fit`` for two epochs (ms per optimizer step with the
    collective stop and rank 0's snapshots inside, each rank's launches);
    that run's checkpoint resumed in a world of one at 2 images x
@@ -172,8 +174,9 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    2 and up to 4 of them, ``tools/train.py --num_devices`` on up to 4
    through ``fit`` (ms per step, launches per rank) and ``tools/test.py
    --num_devices`` equal to one card's eval (else one line says why
-   not); ``tools/multihost_demo.py`` on the cards (NCCL; a world of one
-   on one card) and its refusal of more workers than cards;
+   not); ``tools/multihost_demo.py``'s launcher (here; its workers in
+   processes of their own) on the cards (NCCL; a world of one on one
+   card) and its refusal of more workers than cards;
    ``dryrun_multichip(2)`` on the rig;
 15. the device-resident epoch, the ninth main path (``tools/train.py
    --device_cache`` → ``core/fit.py`` → ``data/device_cache.py``), on a
@@ -184,18 +187,20 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    epochs of the shuffled gather, each taking every staged image once and
    regrouping them; (b) one epoch at ``shuffle=False`` from the cache
    byte-equal to the streamed epoch, K1/K2/K3 once a step; (d) three-epoch
-   runs at ``shuffle=True`` in turns cached, streamed, streamed, cached:
-   the second epoch timed (ms/step, images/s, the data-wait share), the
-   third traced (device time and busy share, host-to-device copies and
-   bytes a step: a cached step copies none of a batch), K1/K2/K3 once a
-   step, the two cached runs byte-equal; (c) ``tools/train.py
-   --device_cache`` for two epochs in processes of their own: straight,
-   and stopped by SIGTERM mid-epoch then ``--resume auto``, byte-equal;
-   (e) the phase 14 rig (two ranks over gloo on cuda:0) cached against
-   streamed at ``shuffle=False`` (byte-equal), each rank's shuffled
-   epochs its own shard once, and the NCCL world of one's cached run
-   byte-equal to (b)'s; (f) ``tools/train.py --dataset synthetic_hard
-   --device_cache --dataset_kw "{'num_images': 16}"``, 4 steps, exit 0;
+   runs at ``shuffle=True``, cached then streamed: the second epoch timed
+   (ms/step, images/s, the data-wait share), the third's steps 5-8
+   traced (device time and busy share, host-to-device copies and bytes a
+   step: a cached step copies none of a batch), K1/K2/K3 once a step;
+   (c) two epochs of the shuffled gather here, then ``tools/train.py
+   --device_cache`` for two epochs in a process of its own, stopped by
+   SIGTERM in the middle of the second, and its ``--resume auto``
+   through ``main`` here, restored, byte-equal to the run here (two
+   cached runs byte-equal); (e) the phase 14 rig (two ranks over gloo on
+   cuda:0) cached against streamed at ``shuffle=False`` (byte-equal),
+   each rank's shuffled epochs its own shard once (the cached NCCL world
+   of one is phase 14's); (f) ``tools/train.py --dataset synthetic_hard
+   --device_cache --dataset_kw "{'num_images': 16}"`` (its ``main``
+   here), 4 steps, exit 0;
    (g) ``tools/data_bench.py --smoke --check`` on the card, exit 0;
 16. quantized inference, the tenth main path (``tools/test.py --set
    quant__enabled=true`` → ``core/tester.py — quant_predictor``: the
@@ -229,7 +234,10 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    batch and device ops a forward, in turns; the int8 serving engine
    (``tools/serve.py``'s ``ServingEngine``) on one image per bucket,
    equal to the quantized offline batch with the same launches; last
-   ``tools/quant_smoke.py --check`` on the card (its ``main``);
+   ``tools/quant_smoke.py --check`` on the card (its ``main``; with the
+   int8 store's round trip, an 8-image burst after the join with no
+   build, and the store's refusals of an fp config and of another
+   estimator);
 17. the observability plane, the eleventh main path (``obs/``, the lock
     sanitizer; ResNet-101, 21 classes, the 608x1024 bucket, bf16,
     seeded weights): ``python -m mx_rcnn_tpu_torch.tools.train`` on 8
@@ -250,7 +258,23 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     ``terminal.*`` span per traced request, K1 2 and K2 1 a batch; each
     image served alone with the plane on and off, bit-equal with equal
     launches.  Last, obs-on against obs-off: training ms/step, and
-    served images/s in turns (recorded, not gated).
+    served images/s in turns (recorded, not gated);
+18. bulk scoring over an export-warmed engine, the twelfth main path
+    (``serve/export.py`` → ``ServingEngine.warm_from_export`` →
+    ``StreamTestLoader`` → ``BulkRunner`` → ``BulkSink``; ResNet-101, 81
+    classes, bf16, engine batch 4) on a COCO tree of 20 val2017 images,
+    480x640 and 640x480 in turns, under ``_chip/bulk``: the store with
+    its weights and the K1/K2 libraries (each program's bits twice);
+    its refusals of another ``serve.score_thresh`` and of an int8
+    engine; two processes over a copy of the package whose ``_build/``
+    is empty, each joining with 0 builds: one SIGKILLed right after
+    shard 2 commits, one running the control (every image once, K1 2
+    and K2 1 launches per engine batch), the killed sink's resume
+    (shards byte-equal to the control's), a closed loop of 8 clients
+    (bulk images/s beside it) and a rate pass over the corpus 16 times
+    over (320 images, 16 plan batches a shard); each control line byte-equal to the
+    offline batch here; ``tools/demo.py --prefix --epoch --image
+    --out`` on the card (a PNG of the image's size).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -261,7 +285,7 @@ eval, times at the per-ROI stage-4 bn1 and 1x1); the last line is ``{"ok": true,
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
-directory and remove them at their end, and phases 13–15 their
+directory and remove them at their end, and phases 13–18 their
 weight files, checkpoints and datasets likewise.
 """
 
@@ -270,6 +294,7 @@ from __future__ import annotations
 import contextlib
 import glob
 import hashlib
+import io
 import json
 import math
 import os
@@ -2694,11 +2719,13 @@ def write_voc_devkit(root: Path, seed: int = 0) -> Path:
 
 
 def write_coco_tree(root: Path, seed: int = 1,
-                    counts=(REAL_IMAGES, REAL_IMAGES)) -> Path:
+                    counts=(REAL_IMAGES, REAL_IMAGES),
+                    portrait_every: int = 0) -> Path:
     """A COCO tree in the real layout: train2017/ and val2017/ of
-    ``counts`` (16 and 16 by default) 480x640 JPEGs and
-    annotations/instances_<set>.json over COCO's 80 category ids, every
-    sixth annotation a crowd."""
+    ``counts`` (16 and 16 by default) 480x640 JPEGs (every
+    ``portrait_every``-th one 640x480 when given, for the second bucket)
+    and annotations/instances_<set>.json over COCO's 80 category ids,
+    every sixth annotation a crowd."""
     import cv2
     import numpy as np
 
@@ -2710,11 +2737,14 @@ def write_coco_tree(root: Path, seed: int = 1,
         (ds / sset).mkdir(exist_ok=True)
         images, anns = [], []
         for i in range(count):
-            img, objs = _scene(rng, 480, 640, len(COCO_IDS))
+            h, w = ((640, 480) if portrait_every
+                    and i % portrait_every == portrait_every - 1
+                    else (480, 640))
+            img, objs = _scene(rng, h, w, len(COCO_IDS))
             name = f"{i:012d}.jpg"
             cv2.imwrite(str(ds / sset / name), img[:, :, ::-1])
-            images.append({"id": i + 1, "file_name": name, "height": 480,
-                           "width": 640})
+            images.append({"id": i + 1, "file_name": name, "height": h,
+                           "width": w})
             for c, (x1, y1, x2, y2) in objs:
                 w, h = x2 - x1 + 1, y2 - y1 + 1
                 anns.append({"id": len(anns) + 1, "image_id": i + 1,
@@ -3175,6 +3205,12 @@ TRAIN_PROCESS = ("import sys, torch; "
                  "torch.backends.cuda.matmul.allow_tf32 = False; "
                  "from mx_rcnn_tpu_torch.tools.train import main; "
                  "main(sys.argv[1:])")
+# two tools/train.py runs in one process, their arguments split by
+# "--then" and their logs by a line "--then"
+TRAIN_TWICE_PROCESS = TRAIN_PROCESS.replace(
+    "main(sys.argv[1:])",
+    "i = sys.argv.index('--then'); main(sys.argv[1:i]); "
+    "print('--then', flush=True); main(sys.argv[i + 1:])")
 
 
 def write_mxnet_params(path: Path, named: dict) -> None:
@@ -3988,13 +4024,13 @@ def dp_parity(dev, card: str) -> dict:
     return dict(ranks=ranks)
 
 
-def dp_rig_rank(world, cfg, roidb, load_image, grad_accum: int,
-                steps: int) -> dict:
-    """Step 3 on one rank: the loader's row shard of the global plan,
-    2 warm-up and ``steps`` timed optimizer steps in bf16 (ms per step by
-    the host clock around synchronised steps), the launches and peak
-    memory over the timed steps, then the all-reduce alone on this step's
-    gradients (ms by the host clock, 5 synchronised calls)."""
+def dp_rig_rank(world, cfg, roidb, load_image, accums, steps: int) -> list:
+    """Step 3 on one rank, for each grad_accum in ``accums`` in turn on
+    one state: the loader's row shard of the global plan, 2 warm-up and
+    ``steps`` timed optimizer steps in bf16 (ms per step by the host
+    clock around synchronised steps), the launches and peak memory over
+    the timed steps, then the all-reduce alone on this step's gradients
+    (ms by the host clock, 5 synchronised calls)."""
     import torch
 
     from mx_rcnn_tpu_torch import kernels
@@ -4005,61 +4041,67 @@ def dp_rig_rank(world, cfg, roidb, load_image, grad_accum: int,
     dev = world.device
     state = train.setup_training(cfg, dev, seed=0, steps_per_epoch=1000)
     replicate(state.model, state.optimizer, world)
-    step = train.make_train_step(cfg, grad_accum=grad_accum, world=world)
     loader = StreamLoader(roidb, cfg, load_image,
                           batch_images=world.size * cfg.train.batch_images,
                           seed=0, shard=(world.rank, world.size))
-    batches = []
+    out = []
     epoch = 0
-    while len(batches) < (steps + 2) * grad_accum:
-        loader.set_epoch(epoch)
-        batches += [train.to_device(b, dev) for b in loader]
-        epoch += 1
-    groups = [batches[i * grad_accum:(i + 1) * grad_accum]
-              for i in range(steps + 2)]
-    inputs = groups if grad_accum > 1 else [g[0] for g in groups]
-    for x in inputs[:2]:
-        step(state, x)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    losses = [step(state, x)["loss"] for x in inputs[2:]]
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / steps * 1e3
-    launches = fp_launches()
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    metrics = {"loss": losses[-1]}
-    reduce_ms = []
-    for _ in range(5):
+    for grad_accum in accums:
+        step = train.make_train_step(cfg, grad_accum=grad_accum, world=world)
+        batches = []
+        while len(batches) < (steps + 2) * grad_accum:
+            loader.set_epoch(epoch)
+            batches += [train.to_device(b, dev) for b in loader]
+            epoch += 1
+        groups = [batches[i * grad_accum:(i + 1) * grad_accum]
+                  for i in range(steps + 2)]
+        inputs = groups if grad_accum > 1 else [g[0] for g in groups]
+        for x in inputs[:2]:
+            step(state, x)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        all_reduce_mean_(state.optimizer.params, metrics, world)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(state, x)["loss"] for x in inputs[2:]]
         torch.cuda.synchronize()
-        reduce_ms.append((time.perf_counter() - t1) * 1e3)
-    return dict(rank=world.rank, backend=world.backend, device=str(dev),
-                grad_accum=grad_accum, ms_per_step=ms,
-                all_reduce_ms=min(reduce_ms),
-                # each trained gradient and the one metric, in fp32
-                all_reduce_bytes=4 * (sum(p.numel() for _, p in
-                                          state.optimizer.params) + 1),
-                peak_gib=peak,
-                launches_per_step={k: v / steps for k, v in launches.items()},
-                losses=[float(v) for v in losses])
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = fp_launches()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        metrics = {"loss": losses[-1]}
+        reduce_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            all_reduce_mean_(state.optimizer.params, metrics, world)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t1) * 1e3)
+        out.append(dict(
+            rank=world.rank, backend=world.backend, device=str(dev),
+            grad_accum=grad_accum, ms_per_step=ms,
+            all_reduce_ms=min(reduce_ms),
+            # each trained gradient and the one metric, in fp32
+            all_reduce_bytes=4 * (sum(p.numel() for _, p in
+                                      state.optimizer.params) + 1),
+            peak_gib=peak,
+            launches_per_step={k: v / steps for k, v in launches.items()},
+            losses=[float(v) for v in losses]))
+    return out
 
 
 def dp_rig(roidb, load_image, devices, backend: str, card: str,
            what: str) -> dict:
-    """Step 3 (and 7): the rig of :func:`dp_rig_rank` at grad_accum 1 and
-    2 over ``devices``: K1 = K2 = K3 = grad_accum launches per optimizer
-    step on every rank."""
+    """Step 3 (and 7): the rig of :func:`dp_rig_rank` at grad_accum 1
+    then 2 in one world over ``devices``: K1 = K2 = K3 = grad_accum
+    launches per optimizer step on every rank."""
     from mx_rcnn_tpu_torch.parallel.dp import launch
 
+    accums = (1, 2)
+    runs = launch(dp_rig_rank, len(devices), devices, backend,
+                  args=(dp_config(), roidb, load_image, accums, DP_STEPS),
+                  timeout_s=600)
     out = {}
-    for accum in (1, 2):
-        ranks = launch(dp_rig_rank, len(devices), devices, backend,
-                       args=(dp_config(), roidb, load_image, accum, DP_STEPS),
-                       timeout_s=600)
+    for i, accum in enumerate(accums):
+        ranks = [r[i] for r in runs]
         for r in ranks:
             log(f"{what}: rank {r['rank']} of {len(devices)} on "
                 f"{r['device']} ({card}), backend {r['backend']}, 2 images a "
@@ -4076,44 +4118,97 @@ def dp_rig(roidb, load_image, devices, backend: str, card: str,
     return out
 
 
-def dp_cli_world_of_one(card: str) -> dict:
-    """Step 2: ``tools/train.py --num_devices 1`` (one spawned rank, NCCL
-    at world size 1) and the same run without the flag, each in a process
-    of its own over the COCO tree (no flips: one epoch of 6 steps at batch
-    2): the checkpoints byte-equal."""
-    base = ["--network", DP_NETWORK, "--dataset", "coco", "--root_path",
-            str(DP_DIR), "--dataset_path", str(DP_DIR / "coco"),
-            "--batch_images", "2", "--no_flip", "--seed", "0", "--frequent",
-            "1", "--end_epoch", "1"]
-    out = {}
-    for tag, extra in (("plain", []), ("nccl", ["--num_devices", "1"])):
-        t0 = time.perf_counter()
-        _train_process(base + ["--prefix", str(DP_DIR / tag), *extra],
-                       OUT_DIR / f"dp_cli_{tag}.txt")
-        out[f"{tag}_s"] = time.perf_counter() - t0
-    from mx_rcnn_tpu_torch.utils.checkpoint import checkpoint_path, read_manifest
+def dp_cli_world_of_one(dev, card: str) -> dict:
+    """Step 2: ``tools/train.py --num_devices 1`` streamed, then with
+    ``--device_cache`` (one spawned rank each, NCCL at world size 1; the
+    cached rank's row shard staged on the card), both in one process of
+    their own (:data:`TRAIN_TWICE_PROCESS`) over the COCO tree (no flips,
+    no shuffle: one epoch at batch 2), and ``train_net`` here on the
+    CLI's own config without the world, streamed and cached: each
+    checkpoint, restored, byte-equal to its kind's end state (NCCL at
+    world size 1, streamed and from the device cache)."""
+    from mx_rcnn_tpu_torch.tools.train import (config_from_args, parse_args,
+                                               train_net)
+    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    read_manifest)
 
-    text = (OUT_DIR / "dp_cli_nccl.txt").read_text()
-    a, b = (_sha256(checkpoint_path(str(DP_DIR / t), 1))
-            for t in ("plain", "nccl"))
-    manifest = read_manifest(checkpoint_path(str(DP_DIR / "nccl"), 1))
-    fits = {t: fit_numbers((OUT_DIR / f"dp_cli_{t}.txt").read_text(), 0, 2)
-            for t in ("plain", "nccl")}
-    out.update(byte_equal=a == b, steps=manifest["step"],
+    prefixes = {k: str(DP_DIR / k) for k in ("nccl", "nccl_cached")}
+    argv = ["--network", DP_NETWORK, "--dataset", "coco", "--root_path",
+            str(DP_DIR), "--dataset_path", str(DP_DIR / "coco"),
+            "--batch_images", "2", "--no_flip", "--no_shuffle", "--seed",
+            "0", "--frequent", "1", "--end_epoch", "1", "--num_devices", "1"]
+    runs = {"nccl": argv + ["--prefix", prefixes["nccl"]],
+            "nccl_cached": argv + ["--prefix", prefixes["nccl_cached"],
+                                   "--device_cache"]}
+    out = {}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", TRAIN_TWICE_PROCESS,
+                          *runs["nccl"], "--then", *runs["nccl_cached"]],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    out["nccl_s"] = time.perf_counter() - t0
+    (OUT_DIR / "dp_cli_nccl.txt").write_text(res.stdout)
+    (OUT_DIR / "dp_cli_nccl.err").write_text(res.stderr)
+    if res.returncode:
+        raise AssertionError(f"the NCCL worlds of one: exit "
+                             f"{res.returncode}\n{res.stderr[-3000:]}")
+    texts = dict(zip(runs, res.stdout.split("\n--then\n")))
+    cfg = config_from_args(parse_args(argv))
+    want, plain = {}, {}
+    t0 = time.perf_counter()
+    for k in runs:   # each held against its own kind without the world
+        lines = []
+        state, _ = train_net(cfg, end_epoch=1, seed=0, device=dev,
+                             frequent=1, device_cache=k == "nccl_cached",
+                             log=lines.append)
+        want[k], plain[k] = state_sha256(state), "\n".join(lines)
+        del state
+    out["plain_s"] = time.perf_counter() - t0
+    equal = {k: checkpoint_state_sha256(cfg, p, 1, dev) == want[k]
+             for k, p in prefixes.items()}
+    (OUT_DIR / "dp_plain.txt").write_text("\n".join(plain.values()) + "\n")
+    manifest = read_manifest(checkpoint_path(prefixes["nccl"], 1))
+    fits = {**{f"plain_{k}": fit_numbers(plain[k], 0, 2) for k in runs},
+            **{k: fit_numbers(texts.get(k, ""), 0, 2) for k in runs}}
+    out.update(byte_equal=equal, steps=manifest["step"],
                topology=manifest["topology"], fit=fits)
-    log(f"tools/train.py --num_devices 1 (NCCL, world of one, {card}): "
-        f"{out['nccl_s']:.1f} s against {out['plain_s']:.1f} s without the "
-        f"flag, {manifest['step']} steps; through fit "
-        f"{fits['nccl']['ms_per_step']:.2f} against "
-        f"{fits['plain']['ms_per_step']:.2f} ms per optimizer step (median "
+    log(f"tools/train.py --num_devices 1 (NCCL, world of one, {card}), "
+        f"streamed then --device_cache: {out['nccl_s']:.1f} s in a process "
+        f"of their own, against train_net here streamed and cached "
+        f"{out['plain_s']:.1f} s, "
+        f"{manifest['step']} steps; through fit "
+        f"{fits['nccl']['ms_per_step']:.2f} streamed and "
+        f"{fits['nccl_cached']['ms_per_step']:.2f} cached against "
+        f"{fits['plain_nccl']['ms_per_step']:.2f} and "
+        f"{fits['plain_nccl_cached']['ms_per_step']:.2f} ms per optimizer "
+        f"step (median "
         f"of {fits['nccl']['steps_timed']}, the first step left out); "
-        f"the rank's launches {fits['nccl']['launches']}; checkpoints "
-        f"byte-equal {a == b}; topology {manifest['topology']}")
-    if a != b or "backend nccl" not in text:
-        raise AssertionError(f"the NCCL world of one differs: {text[-2000:]}")
-    check_launches("the NCCL world of one", fits["nccl"]["launches"], 1,
-                   manifest["step"])
+        f"the ranks' launches {fits['nccl']['launches']} and "
+        f"{fits['nccl_cached']['launches']}; end states byte-equal "
+        f"{equal}; topology {manifest['topology']}")
+    if not all(equal.values()) or \
+            any("backend nccl" not in texts.get(k, "") for k in runs) or \
+            "device cache:" not in texts["nccl_cached"] or \
+            "device cache:" in texts["nccl"]:
+        raise AssertionError(f"the NCCL worlds of one differ: "
+                             f"{res.stdout[-3000:]}")
+    for k in runs:
+        check_launches(f"the NCCL world of one ({k})", fits[k]["launches"],
+                       1, manifest["step"])
     return out
+
+
+def checkpoint_state_sha256(cfg, prefix: str, epoch: int, dev) -> str:
+    """:func:`state_sha256` of a checkpoint restored into a train state
+    built from another seed."""
+    from mx_rcnn_tpu_torch.core import train
+    from mx_rcnn_tpu_torch.utils.checkpoint import restore_state
+
+    state = train.setup_training(cfg, dev, seed=1)
+    restore_state(state, prefix, epoch)
+    sha = state_sha256(state)
+    del state
+    return sha
 
 
 def dp_rig_args() -> list:
@@ -4423,38 +4518,39 @@ def dp_cards(roidb, load_image, card: str, eval_prefix: str,
 
 
 def dp_demo(card: str) -> dict:
-    """``tools/multihost_demo.py --launch N`` on the cards (its default
-    device; N = min(count, 4), a world of one over NCCL on a machine of
-    one card): exit 0, every worker's loss equal at each step, NCCL
-    named; then one worker more than the machine has cards, refused."""
+    """``tools/multihost_demo.py --launch N`` (its ``main`` here, the
+    workers in processes of their own) on the cards (its default device;
+    N = min(count, 4), a world of one over NCCL on a machine of one
+    card): exit 0, every worker's loss equal at each step, NCCL named;
+    then one worker more than the machine has cards, refused before any
+    worker starts."""
     import torch
 
+    from mx_rcnn_tpu_torch.tools import multihost_demo
+
     n = min(torch.cuda.device_count(), 4)
-    runs = {}
-    for tag, workers in (("run", n),
-                         ("refused", torch.cuda.device_count() + 1)):
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m",
-                              "mx_rcnn_tpu_torch.tools.multihost_demo",
-                              "--launch", str(workers), "--steps", "2"],
-                             cwd=REPO, capture_output=True, text=True,
-                             timeout=300)
-        (OUT_DIR / f"dp_demo_{tag}.txt").write_text(res.stdout + res.stderr)
-        runs[tag] = dict(workers=workers, exit=res.returncode,
-                         wall_s=time.perf_counter() - t0, text=res.stdout,
-                         err=res.stderr)
-    run, refused = runs["run"], runs["refused"]
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = multihost_demo.main(["--launch", str(n), "--steps", "2"])
+    text = buf.getvalue()
+    (OUT_DIR / "dp_demo_run.txt").write_text(text)
+    run = dict(workers=n, exit=rc, wall_s=time.perf_counter() - t0)
+    more = torch.cuda.device_count() + 1
+    refused = ""
+    try:
+        multihost_demo.main(["--launch", str(more), "--steps", "2"])
+    except RuntimeError as e:
+        refused = str(e)
     log(f"tools/multihost_demo.py --launch {n} on the card(s) (NCCL, "
         f"{card}): exit {run['exit']} in {run['wall_s']:.1f} s, "
-        f"{run['text'].count('AGREE')} steps agreed; --launch "
-        f"{refused['workers']}: exit {refused['exit']} (too few cards)")
-    if run["exit"] or "MULTIHOST DEMO: OK" not in run["text"] or \
-            "backend nccl" not in run["text"] or not refused["exit"] or \
-            "CUDA devices wanted" not in refused["err"]:
-        raise AssertionError(f"the demo: {run['text'][-2000:]}"
-                             f"{run['err'][-2000:]}{refused['err'][-1000:]}")
-    return {t: dict(workers=r["workers"], exit=r["exit"], wall_s=r["wall_s"])
-            for t, r in runs.items()}
+        f"{text.count('AGREE')} steps agreed; --launch {more}: refused "
+        f"({refused[:80]})")
+    if run["exit"] or "MULTIHOST DEMO: OK" not in text or \
+            "backend nccl" not in text or \
+            "CUDA devices wanted" not in refused:
+        raise AssertionError(f"the demo: {text[-3000:]} refused: {refused}")
+    return dict(run=run, refused=dict(workers=more, error=refused))
 
 
 def phase_data_parallel(dev, card: str) -> dict:
@@ -4486,7 +4582,7 @@ def phase_data_parallel(dev, card: str) -> dict:
         done("generate")
         parity = dp_parity(dev, card)
         done("parity")
-        cli = dp_cli_world_of_one(card)
+        cli = dp_cli_world_of_one(dev, card)
         done("NCCL world of one")
         rig = dp_rig(roidb, imdb.load_image, DP_RIG, "gloo",
                      card, "two ranks (gloo, cuda:0 twice; a test rig, its "
@@ -4528,6 +4624,7 @@ def phase_data_parallel(dev, card: str) -> dict:
 CACHE_DIR = REPO / "_chip" / "cache"  # trees, the hard set, checkpoints
 CACHE_TRAIN_IMAGES = 12    # train2017 480x640 JPEGs: 24 records, one bucket
 CACHE_SIGTERM_AT = 5       # the SIGTERM run's signal after Epoch[1] Batch [5]
+CACHE_TRACE_STEPS = 4      # step (d)'s traced steps: the third epoch's 5-8
 # the rig's two ranks over gloo, in a process of their own: no argument
 # of a spawned rank may be a closure, so the config travels as overrides
 CACHE_OVER = dict(train__batch_images=2)
@@ -4638,17 +4735,17 @@ def cache_regroups(cache, make_step, epochs: int = 2) -> list:
 
 
 def cache_train(cfg, dev, roidb, load_image, device_cache: bool,
-                out: Path):
-    """One epoch of ``train_net`` from seed 0 over ``roidb``, every
-    launch count set to 0 just before: (final state's SHA-256, launches,
-    log text)."""
+                out: Path, epochs: int = 1):
+    """``epochs`` epochs of ``train_net`` from seed 0 over ``roidb``,
+    every launch count set to 0 just before: (final state's SHA-256,
+    launches, log text)."""
     from mx_rcnn_tpu_torch import kernels
     from mx_rcnn_tpu_torch.tools.train import train_net
 
     lines = []
     kernels.reset_launch_counts()
     state, _ = train_net(cfg, roidb=roidb, load_image=load_image,
-                         end_epoch=1, seed=0, device=dev, frequent=1,
+                         end_epoch=epochs, seed=0, device=dev, frequent=1,
                          device_cache=device_cache, log=lines.append)
     launches = fp_launches()
     sha = state_sha256(state)
@@ -4678,33 +4775,36 @@ def cache_equals_streaming(dev, roidb, load_image, card: str) -> dict:
                 launches=runs[True][1])
 
 
-def cache_sigterm(card: str) -> dict:
-    """Step (c), the runs: two epochs at ``shuffle=True`` from the cache
-    through ``tools/train.py`` in processes of their own: straight, and
-    stopped by SIGTERM after ``Epoch[1] Batch [CACHE_SIGTERM_AT]`` (exit
-    0, an interrupt checkpoint) then ``--resume auto`` to the end: the
-    epoch-2 checkpoints byte-equal."""
+def cache_sigterm(dev, roidb, load_image, card: str) -> dict:
+    """Step (c), the runs: two epochs at ``shuffle=True`` from the cache,
+    ``train_net`` here, then through ``tools/train.py`` in a process of
+    its own, stopped by SIGTERM after ``Epoch[1] Batch
+    [CACHE_SIGTERM_AT]`` (exit 0, an interrupt checkpoint), and its
+    ``--resume auto`` to the end through ``main`` here: the checkpoint,
+    restored, byte-equal to the end state here on the same config, so
+    two cached runs of the shuffled gather end byte-equal too."""
     import signal
 
-    from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
-                                                    interrupt_path,
+    from mx_rcnn_tpu_torch.tools.train import config_from_args, parse_args
+    from mx_rcnn_tpu_torch.utils.checkpoint import (interrupt_path,
                                                     read_manifest)
 
+    prefix = str(CACHE_DIR / "sig")
     base = ["--network", "resnet101", "--dataset", "coco", "--root_path",
             str(CACHE_DIR), "--dataset_path", str(CACHE_DIR / "coco"),
             "--batch_images", "2", "--seed", "0", "--frequent", "1",
-            "--end_epoch", "2", "--device_cache"]
-    straight, prefix = str(CACHE_DIR / "straight"), str(CACHE_DIR / "sig")
-    t0 = time.perf_counter()
-    _train_process(base + ["--prefix", straight],
-                   OUT_DIR / "cache_straight.txt")
-    straight_s = time.perf_counter() - t0
+            "--end_epoch", "2", "--device_cache", "--prefix", prefix]
+    cfg = config_from_args(parse_args(base))
+    if repr(cfg) != repr(cache_config()):
+        raise AssertionError("the CLI's config is not the phase's")
+    cached_sha, _, _ = cache_train(cfg, dev, roidb, load_image, True,
+                                   OUT_DIR / "cache_c_here.txt", epochs=2)
     err_path = OUT_DIR / "cache_sigterm.err"
+    t0 = time.perf_counter()
     with open(err_path, "w") as err_file:
-        proc = subprocess.Popen([sys.executable, "-c", TRAIN_PROCESS, *base,
-                                 "--prefix", prefix], cwd=REPO,
-                                stdout=subprocess.PIPE, stderr=err_file,
-                                text=True)
+        proc = subprocess.Popen([sys.executable, "-c", TRAIN_PROCESS, *base],
+                                cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=err_file, text=True)
         lines, sent = [], None
         try:
             for line in proc.stdout:
@@ -4721,37 +4821,37 @@ def cache_sigterm(card: str) -> dict:
     (OUT_DIR / "cache_sigterm.txt").write_text("".join(lines))
     manifest = read_manifest(interrupt_path(prefix)) or {}
     if rc != 0 or sent is None or manifest.get("kind") != "interrupt" or \
-            not 12 < manifest.get("step", 0) < 24:
+            not 12 + CACHE_SIGTERM_AT < manifest.get("step", 0) < 24:
         raise AssertionError(f"the SIGTERM run: exit {rc}, manifest "
                              f"{manifest}\n{err_path.read_text()[-3000:]}")
+    from mx_rcnn_tpu_torch.tools import train as train_tool
+
     t0 = time.perf_counter()
-    _train_process(base + ["--prefix", prefix, "--resume", "auto"],
-                   OUT_DIR / "cache_resume.txt")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_tool.main(base + ["--resume", "auto"])
     resume_s = time.perf_counter() - t0
-    text = (OUT_DIR / "cache_resume.txt").read_text()
-    got, want = (_sha256(checkpoint_path(p, 2)) for p in (prefix, straight))
-    log(f"SIGTERM to the cached run ({card}) after Epoch[1] Batch "
-        f"[{CACHE_SIGTERM_AT}]: exit {rc}, {stop_s:.2f} s to the exit, "
-        f"interrupt at step {manifest['step']}; --resume auto "
-        f"({resume_s:.1f} s): epoch 2 byte-equal to the straight run "
-        f"({straight_s:.1f} s) {got == want}")
-    if got != want or "resumed mid-epoch from verified" not in text or \
-            "skipping" not in text:
+    text = buf.getvalue()
+    (OUT_DIR / "cache_resume.txt").write_text(text)
+    got = checkpoint_state_sha256(cfg, prefix, 2, dev)
+    log(f"SIGTERM to the cached run at shuffle=True ({card}) after "
+        f"Epoch[1] Batch [{CACHE_SIGTERM_AT}]: exit {rc}, {stop_s:.2f} s "
+        f"to the exit, interrupt at step {manifest['step']}; --resume auto "
+        f"({resume_s:.1f} s): the end state byte-equal to the run here "
+        f"{got == cached_sha}")
+    if got != cached_sha or "resumed mid-epoch from verified" not in text \
+            or "skipping" not in text:
         raise AssertionError("the resumed cached run differs from the "
-                             "straight one")
-    return dict(straight_s=straight_s, sigterm_exit=rc,
-                signal_to_exit_s=stop_s, interrupt_step=manifest["step"],
-                resume_s=resume_s, byte_equal=True)
+                             "run here")
+    return dict(sigterm_exit=rc, signal_to_exit_s=stop_s,
+                interrupt_step=manifest["step"], resume_s=resume_s,
+                byte_equal=True)
 
 
 def h2d_copies(prof, iters: int) -> dict:
     """Host-to-device copies per step in a finished device trace: their
-    count, and their bytes from the exported Chrome trace (None where the
-    trace gives none)."""
-    from torch.autograd import DeviceType
-
-    count = sum(e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and "HtoD" in e.key)
+    count and their bytes (None where the trace gives none), from the
+    exported Chrome trace."""
     path = CACHE_DIR / "trace.json"
     prof.export_chrome_trace(str(path))
     with open(path) as f:
@@ -4762,7 +4862,7 @@ def h2d_copies(prof, iters: int) -> dict:
              and "memcpy" in str(e.get("cat", "")).lower()]
     nbytes = (sum(sizes) / iters
               if sizes and all(s is not None for s in sizes) else None)
-    return dict(h2d_copies_per_step=count / iters,
+    return dict(h2d_copies_per_step=len(sizes) / iters,
                 h2d_bytes_per_step=nbytes,
                 h2d_sizes=sorted(set(s for s in sizes if s is not None)))
 
@@ -4772,8 +4872,9 @@ def cache_run(cfg, dev, roidb, load_image, cached: bool, out: Path,
     """Step (d), one run: three epochs of ``train_net`` over the COCO
     tree, cached or streamed, every launch count set to 0 just before;
     the second epoch timed as it runs (ms/step, images/s, data-wait
-    share), the third under a device-only profiler trace (device time,
-    busy share, host-to-device copies per step)."""
+    share), the third's second Speedometer window (CACHE_TRACE_STEPS
+    steps, the loader's start behind them) under a device-only profiler
+    trace (device time, busy share, host-to-device copies per step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4782,52 +4883,70 @@ def cache_run(cfg, dev, roidb, load_image, cached: bool, out: Path,
 
     lines = []
     prof = profile(activities=[ProfilerActivity.CUDA])
+    # the Speedometer restarts its clock after each line: the trace's
+    # start is outside the window it opens
+    opens = f"Epoch[2] Batch [{CACHE_TRACE_STEPS - 1}] "
+    window = f"Epoch[2] Batch [{2 * CACHE_TRACE_STEPS - 1}] "
 
     def collect(line):
         lines.append(line)
-        if re.match(r"Epoch\[1\] \d+ steps in", line):
+        if line.startswith(opens):
             prof.start()
-        elif re.match(r"Epoch\[2\] \d+ steps in", line):
+        elif line.startswith(window):
+            # the window's metrics were read: its steps have ended
             torch.cuda.synchronize()
             prof.stop()
 
+    t0 = time.perf_counter()
     kernels.reset_launch_counts()
     state, _ = train_net(cfg, roidb=roidb, load_image=load_image,
-                         end_epoch=3, frequent=4, seed=0, device=dev,
-                         device_cache=cached, log=collect)
+                         end_epoch=3, frequent=CACHE_TRACE_STEPS, seed=0,
+                         device=dev, device_cache=cached, log=collect)
     launches = fp_launches()
     sha = state_sha256(state)
     del state
+    train_s = time.perf_counter() - t0
     text = "\n".join(lines)
     out.write_text(text + "\n")
-    warm, traced = epoch_line(text, 1, label), epoch_line(text, 2, label)
+    warm = epoch_line(text, 1, label)
+    m = _parse(re.escape(window) + r"Speed: ([0-9.]+) samples/sec, data "
+               r"wait ([0-9.]+)%", text, f"{label} traced window")
+    traced = dict(steps=CACHE_TRACE_STEPS,
+                  ms_per_step=2e3 / float(m.group(1)),
+                  data_wait_share=float(m.group(2)) / 100)
     trace = trace_summary(prof, traced["steps"])
+    summary_s = time.perf_counter() - t0 - train_s
+    copies = h2d_copies(prof, traced["steps"])
+    copies_s = time.perf_counter() - t0 - train_s - summary_s
     res = dict(warm, traced_ms_per_step=traced["ms_per_step"],
                traced_data_wait_share=traced["data_wait_share"],
                device_ms_per_step=trace["device_ms_per_iter"],
                copy_ms_per_step=trace["copy_ms_per_iter"],
                busy_share=busy_share(trace, traced["ms_per_step"]),
                kernels_per_step=trace["kernels_per_iter"],
-               launches=launches, sha256=sha,
-               **h2d_copies(prof, traced["steps"]))
+               launches=launches, sha256=sha, train_s=train_s,
+               summary_s=summary_s, copies_s=copies_s, **copies)
     log(f"{label}: epoch 2 {res['ms_per_step']:.2f} ms/step, "
         f"{res['images_per_s']:.2f} images/s, data wait "
-        f"{100 * res['data_wait_share']:.2f}%; epoch 3 traced: "
+        f"{100 * res['data_wait_share']:.2f}%; {CACHE_TRACE_STEPS} steps "
+        f"of epoch 3 traced: "
         f"{res['traced_ms_per_step']:.2f} ms/step, "
         f"{res['device_ms_per_step']:.3f} ms of device time a step, busy "
         f"share {res['busy_share']}, host-to-device copies a step "
         f"{res['h2d_copies_per_step']:.2f} ({res['h2d_bytes_per_step']} "
-        f"bytes; sizes {res['h2d_sizes'][:8]}); launches {launches}")
+        f"bytes; sizes {res['h2d_sizes'][:8]}); launches {launches}; "
+        f"{train_s:.1f} s training, {summary_s:.1f} s the trace's summary, "
+        f"{copies_s:.1f} s its copies")
     return res
 
 
 def cache_turns(dev, roidb, load_image, card: str) -> dict:
-    """Step (d): cached and streamed runs in turns (cached, streamed,
-    streamed, cached) at ``shuffle=True``, with this phase's
-    deterministic cuDNN: the two cached runs end byte-equal (step c's
-    "two runs"), each run launches K1/K2/K3 once a step, and a cached
-    step copies none of a batch's bytes from the host (the copies left
-    are the step's own small constants, as in the streamed step)."""
+    """Step (d): a cached then a streamed run at ``shuffle=True``, with
+    this phase's deterministic cuDNN: each run launches K1/K2/K3 once a
+    step, and a cached step copies none of a batch's bytes from the host
+    (the copies left are the step's own small constants, as in the
+    streamed step).  That two cached runs end byte-equal is held by step
+    (c)."""
     cfg = cache_config()
     steps = 3 * (len(roidb) // 2)
     g = cfg.train.max_gt_boxes
@@ -4835,52 +4954,46 @@ def cache_turns(dev, roidb, load_image, card: str) -> dict:
     fields = {2 * BUCKET[0] * BUCKET[1] * 3, 2 * 3 * 4, 2 * g * 4 * 4,
               2 * g * 4, 2 * g}
     batch_bytes = sum(fields)
-    runs = {"cached": [], "streamed": []}
-    for i, cached in enumerate((True, False, False, True)):
+    runs = {}
+    for i, cached in enumerate((True, False)):
         kind = "cached" if cached else "streamed"
-        runs[kind].append(cache_run(
+        runs[kind] = cache_run(
             cfg, dev, roidb, load_image, cached,
             OUT_DIR / f"cache_turn_{i}_{kind}.txt",
-            f"{kind} run {i} ({card}), ResNet-101 bf16 batch 2"))
-    for kind, rs in runs.items():
-        for r in rs:
-            check_launches(f"the {kind} run", [r["launches"]], 1, steps)
+            f"{kind} run {i} ({card}), ResNet-101 bf16 batch 2")
+        check_launches(f"the {kind} run", [runs[kind]["launches"]], 1,
+                       steps)
     c, s = runs["cached"], runs["streamed"]
-    if c[0]["sha256"] != c[1]["sha256"] or \
-            s[0]["sha256"] != s[1]["sha256"]:
-        raise AssertionError("two runs of one kind differ")
     # the trace sees a streamed step's data copies, and a cached step
     # copies none of a batch's tensors: what it copies is the step's own
     # few constants (small tensors made from Python numbers), in both
-    cached_n = max(r["h2d_copies_per_step"] for r in c)
-    streamed_n = min(r["h2d_copies_per_step"] for r in s)
-    cached_b = max(r["h2d_bytes_per_step"] or 0 for r in c)
-    streamed_b = min(r["h2d_bytes_per_step"] or 0 for r in s)
-    cached_sizes = set().union(*(r["h2d_sizes"] for r in c))
-    if not all(fields <= set(r["h2d_sizes"]) for r in s) or \
+    cached_n, streamed_n = c["h2d_copies_per_step"], s["h2d_copies_per_step"]
+    cached_b = c["h2d_bytes_per_step"] or 0
+    streamed_b = s["h2d_bytes_per_step"] or 0
+    cached_sizes = set(c["h2d_sizes"])
+    if not fields <= set(s["h2d_sizes"]) or \
             cached_sizes & fields or cached_b >= 1024:
         raise AssertionError(f"a cached step copies from the host: "
                              f"{cached_n} copies, {cached_b} bytes a step, "
                              f"sizes {sorted(cached_sizes)} (streamed "
                              f"{streamed_n}, {streamed_b}; a batch's "
                              f"tensors {sorted(fields)})")
-    med = lambda rs, k: statistics.median(r[k] for r in rs)  # noqa: E731
     out = dict(runs=runs, batch_bytes=batch_bytes,
                cached_h2d_sizes=sorted(cached_sizes),
-               cached_ms_per_step=med(c, "ms_per_step"),
-               streamed_ms_per_step=med(s, "ms_per_step"),
-               cached_data_wait=med(c, "data_wait_share"),
-               streamed_data_wait=med(s, "data_wait_share"),
+               cached_ms_per_step=c["ms_per_step"],
+               streamed_ms_per_step=s["ms_per_step"],
+               cached_data_wait=c["data_wait_share"],
+               streamed_data_wait=s["data_wait_share"],
                cached_h2d_bytes_per_step=cached_b,
                streamed_h2d_bytes_per_step=streamed_b,
                cached_h2d_copies_per_step=cached_n,
                streamed_h2d_copies_per_step=streamed_n)
     log(f"cached against streamed ({card}): {out['cached_ms_per_step']:.2f} "
-        f"against {out['streamed_ms_per_step']:.2f} ms/step (medians of 2 "
-        f"runs each), data wait {100 * out['cached_data_wait']:.2f}% "
-        f"against {100 * out['streamed_data_wait']:.2f}%, host-to-device "
-        f"copies a step {cached_n:.2f} against {streamed_n:.2f}, bytes "
-        f"{cached_b} against {streamed_b} (a batch: {batch_bytes})")
+        f"against {out['streamed_ms_per_step']:.2f} ms/step, data wait "
+        f"{100 * out['cached_data_wait']:.2f}% against "
+        f"{100 * out['streamed_data_wait']:.2f}%, host-to-device copies a "
+        f"step {cached_n:.2f} against {streamed_n:.2f}, bytes {cached_b} "
+        f"against {streamed_b} (a batch: {batch_bytes})")
     return out
 
 
@@ -4927,12 +5040,12 @@ def cache_rig_rank(world, over: dict, roidb, load_image) -> dict:
     return out
 
 
-def cache_worlds(roidb, load_image, cached_sha: str, card: str) -> dict:
+def cache_worlds(roidb, load_image, card: str) -> dict:
     """Step (e): the phase 14 rig (two ranks over gloo on cuda:0 twice)
     cached against streamed at ``shuffle=False`` (byte-equal states),
-    each rank's ``shuffle=True`` epochs its own shard exactly once; then
-    the NCCL world of one's cached run against step (b)'s plain cached
-    run (byte-equal)."""
+    each rank's ``shuffle=True`` epochs its own shard exactly once.  The
+    NCCL world of one's cached run is held in phase 14
+    (``dp_cli_world_of_one``)."""
     from mx_rcnn_tpu_torch.data.loader import StreamLoader
     from mx_rcnn_tpu_torch.parallel.dp import launch
 
@@ -4961,48 +5074,39 @@ def cache_worlds(roidb, load_image, cached_sha: str, card: str) -> dict:
     if len(shas) != 1 or not own_once or not split:
         raise AssertionError(f"the cached rig: {ranks}")
     check_launches("the cached rig", launches, 2, steps)
-    t0 = time.perf_counter()
-    (one,) = launch(cache_rig_rank, 1, ["cuda:0"], "nccl",
-                    args=(CACHE_OVER, roidb, load_image), timeout_s=600)
-    nccl_s = time.perf_counter() - t0
-    equal = one["cached_True"]["sha256"] == cached_sha
-    log(f"the NCCL world of one ({card}), cached, shuffle=False: byte-equal "
-        f"to the plain cached run {equal} ({nccl_s:.1f} s); launches "
-        f"{one['cached_True']['launches']}")
-    if not equal:
-        raise AssertionError("the NCCL world of one's cached run differs")
-    check_launches("the cached NCCL world of one",
-                   [one["cached_True"]["launches"]], 1,
-                   one["cached_True"]["steps"])
-    return dict(rig=ranks, rig_s=rig_s, nccl_world_of_one=one,
-                nccl_s=nccl_s)
+    return dict(rig=ranks, rig_s=rig_s)
 
 
 def cache_hard_cli(card: str) -> dict:
     """Step (f): ``tools/train.py --dataset synthetic_hard --device_cache
-    --dataset_kw "{'num_images': 16}"`` in a process of its own: 4
+    --dataset_kw "{'num_images': 16}"``, its ``main`` in this process: 4
     ResNet-101 steps from the staged 240x320 bucket at phase 10's lr
     1e-4 (random weights), exit 0."""
+    from mx_rcnn_tpu_torch.tools import train as train_tool
+
     t0 = time.perf_counter()
-    res = _train_process(
-        ["--network", "resnet101", "--dataset", "synthetic_hard",
-         "--root_path", str(CACHE_DIR), "--dataset_path",
-         str(CACHE_DIR / "synthetic_hard"), "--dataset_kw",
-         "{'num_images': 16}", "--device_cache", "--batch_images", "2",
-         "--steps", "4", "--frequent", "1", "--lr", SCHEDULE_LR],
-        OUT_DIR / "cache_hard_cli.txt")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_tool.main(
+            ["--network", "resnet101", "--dataset", "synthetic_hard",
+             "--root_path", str(CACHE_DIR), "--dataset_path",
+             str(CACHE_DIR / "synthetic_hard"), "--dataset_kw",
+             "{'num_images': 16}", "--device_cache", "--batch_images", "2",
+             "--steps", "4", "--frequent", "1", "--lr", SCHEDULE_LR])
+    text = buf.getvalue()
+    (OUT_DIR / "cache_hard_cli.txt").write_text(text)
     wall = time.perf_counter() - t0
-    staged = _parse(r"device cache: (\d+) batches of (\d+) images", res.stdout,
+    staged = _parse(r"device cache: (\d+) batches of (\d+) images", text,
                     "device cache line")
-    final = _parse(r"^final .*loss=([-0-9.naif]+)$", res.stdout.strip()
+    final = _parse(r"^final .*loss=([-0-9.naif]+)$", text.strip()
                    .splitlines()[-1], "final line")
-    speeds = res.stdout.count(" Speed: ")
+    speeds = text.count(" Speed: ")
     log(f"tools/train.py --dataset synthetic_hard --device_cache ({card}): "
         f"{staged.group(1)} batches of {staged.group(2)} staged, {speeds} "
         f"steps, final loss {final.group(1)}, exit 0 in {wall:.1f} s")
     if staged.group(1) != "16" or speeds != 4 or \
             not math.isfinite(float(final.group(1))):
-        raise AssertionError(f"the hard-set CLI run:\n{res.stdout[-2000:]}")
+        raise AssertionError(f"the hard-set CLI run:\n{text[-2000:]}")
     return dict(wall_s=wall, batches=int(staged.group(1)), steps=speeds,
                 final_loss=float(final.group(1)))
 
@@ -5066,10 +5170,10 @@ def phase_device_cache(dev, card: str) -> dict:
         done("cached = streamed")
         turns = cache_turns(dev, roidb, load_image, card)
         done("cached and streamed in turns")
-        sigterm = cache_sigterm(card)
+        sigterm = cache_sigterm(dev, roidb, load_image, card)
         done("SIGTERM and resume")
-        worlds = cache_worlds(roidb, load_image, plain["sha256"], card)
-        done("rig and NCCL world of one")
+        worlds = cache_worlds(roidb, load_image, card)
+        done("rig")
         hard = cache_hard_cli(card)
         done("hard-set CLI")
         bench = cache_data_bench(card)
@@ -5806,7 +5910,8 @@ def quant_engine(prefix: str, dev) -> dict:
 
 def quant_smoke_on_card() -> dict:
     """``tools/quant_smoke.py --check`` on the card (tiny network), its
-    ``main`` in this process: exit 0."""
+    ``main`` in this process: exit 0, the export round trip and the
+    store's admission refusals among its checks."""
     from mx_rcnn_tpu_torch.tools import quant_smoke
 
     out = OUT_DIR / "quant_smoke.txt"
@@ -5823,7 +5928,12 @@ def quant_smoke_on_card() -> dict:
                           if ln.startswith('{"metric": "quant_smoke"')))
     log(f"tools/quant_smoke.py --check on the card: exit 0 in {wall:.1f} s; "
         f"mAP fp {rec['mAP_fp']}, int8 {rec['mAP_int8']}, red team "
-        f"{rec['mAP_redteam_2bit']} (budget {rec['budget']})")
+        f"{rec['mAP_redteam_2bit']} (budget {rec['budget']}); the int8 "
+        f"store bit-equal {rec['export_bit_equal']}, joined in "
+        f"{rec['join']['total_s']} s, {rec['burst_served']} of 8 served "
+        f"after it with {rec['post_join_builds']} builds; refuses an fp "
+        f"config {rec['refuses_fp_config']} and another estimator "
+        f"{rec['refuses_estimator_mismatch']}")
     return dict(wall_s=wall, record=rec)
 
 
@@ -6330,6 +6440,394 @@ def phase_obs(dev, card: str) -> dict:
                 wall_s=wall)
 
 
+# ---- phase 18: bulk scoring over an export-warmed engine ---------------------
+
+BULK_DIR = REPO / "_chip" / "bulk"   # the tree, checkpoint, store, sinks
+BULK_IMAGES = 20           # val2017 JPEGs, 480x640 and 640x480 in turns
+BULK_KILL_AT = 2           # the killed run's SIGKILL after shard 2 commits
+# the rate pass: the corpus listed this many times over (320 entries),
+# bulk.shard_batches at its default, so the steady state outweighs the
+# loader's start and the tail batches
+BULK_RATE_REPEAT = 16
+BULK_MODEL = "bulk@1"      # the sinks' weights identity
+# seeded weights spread a ROI's scores over 81 classes (phase 11's scaled
+# classifier): a floor under serve.score_thresh's 0.05 keeps detections
+# on every image to compare
+BULK_SCORE_THRESH = 0.01
+# a child of phase 18: the package from the first path (a copy whose
+# _build/ starts empty), chip_smoke from the second
+BULK_CHILD = ("import sys; sys.path[:0] = sys.argv[1:3]; "
+              "import chip_smoke; sys.exit(chip_smoke.bulk_child(sys.argv[3]))")
+
+
+def bulk_config(**over):
+    """ResNet-101, 81 COCO classes, bf16, the serving defaults (batch 4)
+    but a score floor of BULK_SCORE_THRESH, one plan batch a shard, over
+    phase 18's tree."""
+    from mx_rcnn_tpu_torch.config import generate_config
+
+    return generate_config(
+        "resnet101", "coco", dataset__root_path=str(BULK_DIR),
+        dataset__dataset_path=str(BULK_DIR / "coco"),
+        **{"serve__score_thresh": BULK_SCORE_THRESH,
+           "bulk__shard_batches": 1, **over})
+
+
+def bulk_child(mode: str) -> int:
+    """One process of phase 18 over a copy of the package: the predictor
+    from the store's weights, ``warm_from_export`` into an empty
+    ``_build/`` (its join record printed at once), then ``kill``: the
+    corpus into the killed sink, SIGKILLed after shard BULK_KILL_AT
+    commits; or ``full``: the control run (every launch count set to 0
+    just before, read just after, with the engine's batches), the killed
+    sink's resume, a closed loop of 8 clients over the same engine (4 s)
+    and the rate pass (the corpus BULK_RATE_REPEAT times over, 16 plan
+    batches a shard): one BULK_RESULT line."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import StreamTestLoader
+    from mx_rcnn_tpu_torch.obs.metrics import Registry
+    from mx_rcnn_tpu_torch.serve.bulk import (BulkRunner, BulkSink,
+                                              make_sink_manifest)
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.serve.export import (ExportStore,
+                                                predictor_from_variables)
+    from mx_rcnn_tpu_torch.tools.loadgen import run_closed_loop
+
+    if Path(kernels.__file__).resolve().parents[1] == REPO:
+        raise AssertionError("the child imported the repo's package, not "
+                             "the copy")
+    cfg = bulk_config()
+    store = ExportStore(str(BULK_DIR / "store"))
+    t0 = time.perf_counter()
+    pred = predictor_from_variables(store.load_variables(), cfg, "cuda")
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    engine = ServingEngine(pred, cfg)
+    join = engine.warm_from_export(store)
+    join["weights_s"] = weights_s
+    print("BULK_JOIN " + json.dumps(join), flush=True)
+    imdb, roidb = load_gt_roidb(cfg, training=False)
+
+    def run(sink, fault=None, reg=None, records=roidb, run_cfg=cfg):
+        loader = StreamTestLoader(records, run_cfg, imdb.load_image,
+                                  batch_images=ENGINE_BATCH,
+                                  raw_images=False)
+        return BulkRunner(engine, loader, BulkSink(
+            str(BULK_DIR / sink), make_sink_manifest(
+                run_cfg, records, 0, ENGINE_BATCH, model=BULK_MODEL)),
+            run_cfg, registry=reg, fault=fault).run()
+
+    if mode == "kill":
+        def fault(k):
+            if k == BULK_KILL_AT:
+                os.kill(os.getpid(), signal.SIGKILL)
+
+        run("killed", fault=fault)
+        raise AssertionError("the killed run outlived its SIGKILL")
+    reg = Registry()
+    batches0 = engine.metrics.snapshot()["counters"].get("batches", 0)
+    kernels.reset_launch_counts()
+    control = run("control", reg=reg)
+    launches = kernels.launch_counts()
+    batches = engine.metrics.snapshot()["counters"]["batches"] - batches0
+    resumed = run("killed")
+    images = [np.ascontiguousarray(imdb.load_image(r)) for r in roidb[:8]]
+    closed = run_closed_loop(engine, images, 4.0, 8, 0)
+    rate_reg = Registry()
+    rate = run("rate", reg=rate_reg, records=roidb * BULK_RATE_REPEAT,
+               run_cfg=bulk_config(bulk__shard_batches=16))
+    rate["sink_commit_ms"] = rate_reg.snapshot()["hists"].get(
+        "bulk.sink_commit_ms")
+    engine.close()
+    print("BULK_RESULT " + json.dumps(dict(
+        join=join, control=control, resumed=resumed, rate=rate,
+        launches=launches,
+        batches=batches, sink_commit_ms=reg.snapshot()["hists"].get(
+            "bulk.sink_commit_ms"), closed_loop=closed,
+        closed_images_per_s=closed["client"]["ok"] / closed["wall_s"],
+        load_events=kernels.load_events())), flush=True)
+    return 0
+
+
+def bulk_process(mode: str, copy_root: Path) -> dict:
+    """:func:`bulk_child` in a process of its own, its copy's _build/
+    emptied first; (exit code, its JSON lines by tag, wall s)."""
+    build = copy_root / "mx_rcnn_tpu_torch" / "_build"
+    shutil.rmtree(build, ignore_errors=True)
+    build.mkdir()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", BULK_CHILD, str(copy_root),
+                          str(REPO), mode], cwd=BULK_DIR,
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    (OUT_DIR / f"bulk_{mode}.txt").write_text(res.stdout)
+    (OUT_DIR / f"bulk_{mode}.err").write_text(res.stderr)
+    lines = {}
+    for line in res.stdout.splitlines():
+        tag, _, body = line.partition(" ")
+        if tag in ("BULK_JOIN", "BULK_RESULT"):
+            lines[tag] = json.loads(body)
+    if "BULK_JOIN" not in lines:
+        raise AssertionError(f"bulk {mode}: exit {res.returncode}, no join"
+                             f"\n{res.stderr[-3000:]}")
+    return dict(exit=res.returncode, wall_s=wall, **lines)
+
+
+def bulk_offline_equal(pred, cfg) -> dict:
+    """Each line of the control sink against the offline path: the plan
+    batch of its image, composed as the engine composes a batch (zero pad
+    rows with im_info (bh, bw, 1)), ``Predictor.raw`` and
+    ``_postprocess_batch`` at the engine's batch, ``detections_from_keep``
+    and ``detections_line``: byte-equal, line by line."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.core.tester import (_postprocess_batch,
+                                               detections_from_keep,
+                                               tiled_bbox_stats)
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import StreamTestLoader
+    from mx_rcnn_tpu_torch.serve.bulk import BulkSink, detections_line
+
+    imdb, roidb = load_gt_roidb(cfg, training=False)
+    sink = BulkSink(str(BULK_DIR / "control"))
+    got = {}
+    for k in range(sink.committed_shards()):
+        for line in sink.read_lines(k):
+            got[json.loads(line)["i"]] = line
+    stds, means = tiled_bbox_stats(cfg, cfg.num_classes, pred.device)
+    loader = StreamTestLoader(roidb, cfg, imdb.load_image,
+                              batch_images=ENGINE_BATCH, raw_images=False)
+    loader.set_epoch(0)
+    n = ENGINE_BATCH
+    equal = dets = 0
+    for batch, indices, _ in loader:
+        bh, bw = batch.images.shape[1:3]
+        images = np.zeros((n, bh, bw, 3), np.float32)
+        im_info = np.tile(np.array([bh, bw, 1.0], np.float32), (n, 1))
+        images[:len(indices)] = batch.images
+        im_info[:len(indices)] = batch.im_info
+        outs = pred.raw(images, im_info)
+        info = torch.from_numpy(im_info).to(pred.device)
+        with torch.inference_mode():
+            post = _postprocess_batch(*outs, info, info[:, 2], stds, means,
+                                      nms_thresh=cfg.test.nms,
+                                      score_thresh=cfg.serve.score_thresh)
+        host = [t.cpu().numpy() for t in post]
+        for j, i in enumerate(indices):
+            d = detections_from_keep(*host, j)
+            dets += sum(len(v) for v in d.values())
+            equal += detections_line(i, d) == got.get(i)
+    return dict(lines=len(got), equal=equal, detections=dets)
+
+
+def bulk_refusals(cfg, store_root: str, dev) -> dict:
+    """The store refuses a changed ``serve.score_thresh`` and an int8
+    engine (a calibration sweep over the tree's train2017, then
+    ``warm_from_export``)."""
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.serve.export import ExportMismatch, ExportStore
+    from mx_rcnn_tpu_torch.tools.loadgen import init_predictor
+
+    store = ExportStore(store_root)
+    out = {}
+    try:
+        store.check(cfg.replace_in("serve", score_thresh=0.2), device=dev)
+    except ExportMismatch as e:
+        out["score_thresh"] = str(e)[-160:]
+    qcfg = cfg.replace_in("quant", enabled=True)
+    engine = ServingEngine(init_predictor(qcfg, str(BULK_DIR / "m"), 1,
+                                          device=dev), qcfg, start=False)
+    try:
+        engine.warm_from_export(store)
+    except ExportMismatch as e:
+        out["int8_engine"] = str(e)[-160:]
+    if set(out) != {"score_thresh", "int8_engine"}:
+        raise AssertionError(f"the store admitted a mismatch: {out}")
+    return out
+
+
+def bulk_demo(prefix: str, card: str) -> dict:
+    """``tools/demo.py --prefix --epoch --image --out`` on the card over a
+    portrait val2017 image: a PNG of the image's size."""
+    from PIL import Image
+
+    from mx_rcnn_tpu_torch.tools import demo
+
+    image = BULK_DIR / "coco" / "val2017" / f"{1:012d}.jpg"
+    out = BULK_DIR / "demo.png"
+    t0 = time.perf_counter()
+    with open(OUT_DIR / "bulk_demo.txt", "w") as f, \
+            contextlib.redirect_stdout(f):
+        (dets,) = demo.main(["--network", "resnet101", "--dataset", "coco",
+                             "--prefix", prefix, "--epoch", "1", "--image",
+                             str(image), "--out", str(out), "--vis_thresh",
+                             str(BULK_SCORE_THRESH)])
+    wall = time.perf_counter() - t0
+    with Image.open(image) as a, Image.open(out) as b:
+        sizes = (a.size, b.size)
+    n = sum(len(v) for v in dets.values())
+    log(f"tools/demo.py --prefix --epoch 1 --image (640x480) --out on the "
+        f"card ({card}): {n} detections drawn, PNG {sizes[1]} for an image "
+        f"of {sizes[0]}, {wall:.1f} s")
+    if sizes[0] != sizes[1]:
+        raise AssertionError(f"the demo's PNG is {sizes[1]}, its image "
+                             f"{sizes[0]}")
+    return dict(detections=n, size=list(sizes[1]), wall_s=wall)
+
+
+def phase_bulk(dev, card: str) -> dict:
+    """Phase 18: a COCO tree under ``_chip/bulk`` (BULK_IMAGES val2017
+    images on both buckets, 4 train2017 for calibration) and a seeded
+    81-class ResNet-101 bf16 checkpoint (phase 11's scaled classifier):
+    (a) the store with its weights; (b) in processes of their own over a
+    copy of the package whose ``_build/`` is empty, ``warm_from_export``
+    with 0 kernel builds; (c) ``StreamTestLoader`` → ``BulkRunner`` over
+    that engine → ``BulkSink``, every image once, each line byte-equal to
+    the offline batch; (d) a run SIGKILLed after shard BULK_KILL_AT and
+    its resume byte-equal to the control; (e) the store's refusals; (f)
+    K1 2 and K2 1 launches per engine batch; (g) bulk images/s beside the
+    engine's closed loop, and over the corpus BULK_RATE_REPEAT times over
+    (the rate pass); (i) the checkpoint demo on the card.  Its files
+    are removed at the end."""
+    import torch
+
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.serve.export import export_serve_programs
+    from mx_rcnn_tpu_torch.tools.loadgen import init_predictor
+    from mx_rcnn_tpu_torch.utils.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    shutil.rmtree(BULK_DIR, ignore_errors=True)
+    BULK_DIR.mkdir(parents=True)
+    try:
+        write_coco_tree(BULK_DIR, seed=5, counts=(4, BULK_IMAGES),
+                        portrait_every=2)
+        cfg = bulk_config()
+        prefix = str(BULK_DIR / "m")
+        model = build_model(cfg, dev, seed=0, train=True)
+        with torch.no_grad():
+            model.cls_score.weight.mul_(SERVE_CLS_SCALE)
+        save_params(prefix, 1, model.state_dict())
+        del model
+        pred = init_predictor(cfg, prefix, 1, device=dev)
+        done("tree and checkpoint")
+        t1 = time.perf_counter()
+        report = export_serve_programs(pred, cfg, str(BULK_DIR / "store"),
+                                       bundle_variables=True)
+        export_s = time.perf_counter() - t1
+        log(f"phase 18: store written in {export_s:.2f} s, programs "
+            f"{[p['name'] for p in report['programs']]} bit-equal "
+            f"{report['bit_equal']}, kernel libraries {report['kernels']}, "
+            f"{report['bytes']} bytes bundled")
+        if report["kernels"] != ["nms_sweep", "roi_align_fwd"]:
+            raise AssertionError(f"the store bundles {report['kernels']}")
+        done("store")
+        refusals = bulk_refusals(cfg, str(BULK_DIR / "store"), dev)
+        log(f"the store refuses serve.score_thresh 0.2 and an int8 engine: "
+            f"{sorted(refusals)}")
+        done("refusals")
+        copy_root = BULK_DIR / "pkg"
+        shutil.copytree(REPO / "mx_rcnn_tpu_torch",
+                        copy_root / "mx_rcnn_tpu_torch",
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        killed = bulk_process("kill", copy_root)
+        full = bulk_process("full", copy_root)
+        done("processes")
+        offline = bulk_offline_equal(pred, cfg)
+        done("offline")
+        from mx_rcnn_tpu_torch.serve.bulk import BulkSink
+
+        shards = {}
+        for tag in ("control", "killed"):
+            sink = BulkSink(str(BULK_DIR / tag))
+            shards[tag] = [Path(sink.shard_path(k)).read_bytes()
+                           for k in range(sink.committed_shards())]
+        demo = bulk_demo(prefix, card)
+        done("demo")
+    finally:
+        shutil.rmtree(BULK_DIR, ignore_errors=True)
+    res = full.get("BULK_RESULT") or {}
+    ctrl, resumed = res.get("control", {}), res.get("resumed", {})
+    joins = {m: p["BULK_JOIN"] for m, p in (("kill", killed),
+                                            ("full", full))}
+    launches, batches = res.get("launches", {}), res.get("batches", 0)
+    commit = res.get("sink_commit_ms") or {}
+    wall = time.perf_counter() - t0
+    for m, j in joins.items():
+        log(f"bulk {m} process: joined from the store in {j['total_s']} s "
+            f"(weights {j['weights_s']:.2f} s before it; libraries placed "
+            f"{j['kernels_placed']}), load events {j['load_events_before']}"
+            f" -> {j['load_events_after']}")
+    log(f"bulk over the export-warmed engine ({card}): "
+        f"{ctrl.get('accounted_images')} of {ctrl.get('planned_images')} "
+        f"images in {ctrl.get('shards')} shards, lost {ctrl.get('lost')}, "
+        f"{ctrl.get('imgs_per_sec')} images/s against the engine's closed "
+        f"loop at concurrency 8 {res.get('closed_images_per_s', 0):.2f} "
+        f"images/s in the same process; sink commit ms p50 "
+        f"{commit.get('p50')} mean {commit.get('mean')}; launches "
+        f"{launches} over {batches} engine batches")
+    rate = res.get("rate", {})
+    rate_commit = rate.get("sink_commit_ms") or {}
+    log(f"bulk rate pass ({card}): {rate.get('accounted_images')} of "
+        f"{rate.get('planned_images')} images (the corpus "
+        f"{BULK_RATE_REPEAT} times over) in {rate.get('shards')} shards of "
+        f"16 plan batches, lost {rate.get('lost')}, {rate.get('wall_s')} s, "
+        f"{rate.get('imgs_per_sec')} images/s; sink commit ms p50 "
+        f"{rate_commit.get('p50')} mean {rate_commit.get('mean')}")
+    log(f"the SIGKILLed run: exit {killed['exit']}, resumed "
+        f"{resumed.get('resumed_shards')} shards, scored "
+        f"{resumed.get('scored_images')}; its shards byte-equal to the "
+        f"control's {shards['killed'] == shards['control']}; offline "
+        f"batch equal on {offline['equal']} of {offline['lines']} lines "
+        f"({offline['detections']} detections)")
+    want = {"nms_sweep": 2 * batches, "roi_align_fwd": batches,
+            "roi_align_bwd": 0, "quantize_act": 0, "qconv_s8": 0,
+            "qconv_e4m3": 0}
+    if (full["exit"] or killed["exit"] != -9
+            or any(j["load_events_after"]["builds"] for j in joins.values())
+            or any(j["kernels_placed"] != ["nms_sweep", "roi_align_fwd"]
+                   for j in joins.values())
+            or ctrl.get("lost") != 0 or ctrl.get("accounted_images")
+            != BULK_IMAGES or resumed.get("accounted_images") != BULK_IMAGES
+            or resumed.get("resumed_shards") != BULK_KILL_AT + 1
+            or rate.get("lost") != 0 or rate.get("accounted_images")
+            != BULK_IMAGES * BULK_RATE_REPEAT
+            or shards["killed"] != shards["control"]
+            or len(shards["control"]) != ctrl.get("shards")
+            or offline["equal"] != BULK_IMAGES
+            or offline["lines"] != BULK_IMAGES
+            or offline["detections"] == 0 or not batches
+            or launches != want
+            or res.get("load_events", {}).get("builds")):
+        raise AssertionError(f"phase 18: {json.dumps(res)[:3000]} killed "
+                             f"{killed} offline {offline}")
+    log(f"phase 18 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(store=report, export_s=export_s, refusals=refusals,
+                joins=joins, control=ctrl, resumed=resumed,
+                rate=rate, launches=launches, batches=batches,
+                sink_commit_ms=commit,
+                closed_loop=res.get("closed_loop"),
+                closed_images_per_s=res.get("closed_images_per_s"),
+                offline=offline, killed_exit=killed["exit"],
+                process_s={"kill": killed["wall_s"],
+                           "full": full["wall_s"]},
+                demo=demo, parts_s=parts, wall_s=wall)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -6392,6 +6890,7 @@ def main() -> int:
     device_cache = phase_device_cache(dev, card)
     quant = phase_quant(dev, card)
     obs = phase_obs(dev, card)
+    bulk = phase_bulk(dev, card)
 
     # no single PyTorch call computes any of K1-K3 (the repo's bilinear
     # rules are not torchvision's, which is absent), so library_ms is
@@ -6421,7 +6920,7 @@ def main() -> int:
         training=training, evaluation=evaluation, alternate=alternate,
         engine=engine, real_data=real_data, long_run=long_run,
         data_parallel=data_parallel, device_cache=device_cache,
-        quant=quant, obs=obs), indent=1))
+        quant=quant, obs=obs, bulk=bulk), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -189,6 +189,38 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class FleetConfig:
+    """The fields of ``mx_rcnn_tpu.config.FleetConfig`` that the port
+    reads, with the JAX package's defaults: ``replicas`` (the bulk tier's
+    in-flight bound, ``serve/bulk.py — auto_inflight``) and
+    ``export_dir`` (the export store, ``serve/export.py``).  The replica
+    fleet's own fields come with ``serve/fleet.py``."""
+
+    # replica engines in the fleet
+    replicas: int = 1
+    # export store directory ("" = warm each replica by running it)
+    export_dir: str = ""
+
+
+@dataclass(frozen=True)
+class BulkConfig:
+    """Mirrors ``mx_rcnn_tpu.config.BulkConfig``: the bulk scoring tier
+    (``serve/bulk.py``), a corpus streamed through the serving engine's
+    bucket lanes into a sharded sink with exactly-once accounting."""
+
+    # images between submit_prepared and their terminal state at once
+    # (the feeder blocks past it); 0 = 2 x serve.batch_size x
+    # fleet.replicas, clamped under the lane's shed watermark
+    max_inflight: int = 0
+    # plan batches per committed sink shard: the atomicity and resume
+    # unit (tmp → fsync → rename; the cursor is the committed prefix)
+    shard_batches: int = 16
+    # resubmits per image after a FAILED or SHED end; past it the run
+    # aborts, it never drops an image
+    retries: int = 8
+
+
+@dataclass(frozen=True)
 class FTConfig:
     """Mirrors ``mx_rcnn_tpu.config.FTConfig``: the policy of the
     checkpoint writer and of ``--resume auto`` (``ft/``).  Its
@@ -304,6 +336,8 @@ class Config:
     default: DefaultConfig = field(default_factory=DefaultConfig)
     bucket: BucketConfig = field(default_factory=BucketConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    bulk: BulkConfig = field(default_factory=BulkConfig)
     data: DataConfig = field(default_factory=DataConfig)
     ft: FTConfig = field(default_factory=FTConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)

@@ -1,4 +1,4 @@
-"""COCO: the instances-json reader and its bbox evaluator.
+"""COCO: the instances-json reader and its bbox and segm evaluators.
 
 Counterpart of ``mx_rcnn_tpu/data/coco.py — COCODataset`` without
 pycocotools: the image index and annotations of
@@ -6,9 +6,10 @@ pycocotools: the image index and annotations of
 ``<dataset_path>/<set>/``), crowd and zero-area boxes left out of the
 training roidb, category ids mapped to contiguous classes 1..80 (0 is
 the background), ``evaluate_detections`` through ``data/coco_eval.py``
-and the results json in the standard xywh format.  The segmentation
-side (``ann_rle``, ``evaluate_segmentations``) waits for the RLE mask
-port.
+and the results json in the standard xywh format; ``ann_rle`` turns an
+annotation's polygon, uncompressed or compressed RLE (or, lacking one,
+its box) into a ``native`` RLE dict, and ``evaluate_segmentations``
+scores mask detections with crowds as ignore regions.
 """
 
 from __future__ import annotations
@@ -107,6 +108,57 @@ class COCODataset(IMDB):
             os.makedirs(out_dir, exist_ok=True)
             self._write_results_json(all_boxes, out_dir)
         return evaluate_bbox(dets, gts, list(range(1, self.num_classes)))
+
+    def ann_rle(self, a: dict, image_id: int) -> dict:
+        """An annotation's segmentation as a ``native`` RLE dict
+        (pycocotools ``annToRLE``): polygons (the union of their
+        fills), uncompressed RLE (counts as an int list), compressed RLE
+        (a counts string), else the bbox rectangle."""
+        from mx_rcnn_tpu_torch import native
+
+        info = self.images[image_id]
+        h, w = info["height"], info["width"]
+        seg = a.get("segmentation")
+        if isinstance(seg, list) and seg:
+            return native.merge([native.from_poly(p, h, w) for p in seg])
+        if isinstance(seg, dict):
+            counts = seg["counts"]
+            if isinstance(counts, list):  # uncompressed (crowd) RLE
+                return native.from_uncompressed(seg["size"], counts)
+            if isinstance(counts, str):
+                counts = counts.encode()
+            return {"size": list(seg["size"]), "counts": counts}
+        x, y, bw, bh = a["bbox"]
+        return native.from_bbox([x, y, bw, bh], h, w)
+
+    def evaluate_segmentations(self, dets_by_image_cat,
+                               out_dir: str = None) -> Dict[str, float]:
+        """COCO segm AP over mask detections: ``dets_by_image_cat`` maps
+        image id → {class id → list of (rle, score) pairs}, each rle a
+        ``native`` RLE dict.  The ground-truth masks come from
+        :meth:`ann_rle`, crowds as ignore regions; returns the bbox
+        evaluator's metric dict."""
+        from mx_rcnn_tpu_torch.data.coco_eval import evaluate_segm
+
+        gts: Dict[int, dict] = {}
+        for image_id in self.image_index:
+            per_cat: Dict[int, dict] = {}
+            for a in self.anns_by_image.get(image_id, []):
+                c = self.cat_to_class[a["category_id"]]
+                e = per_cat.setdefault(c, {"rles": [], "iscrowd": [],
+                                           "area": []})
+                e["rles"].append(self.ann_rle(a, image_id))
+                e["iscrowd"].append(bool(a.get("iscrowd", 0)))
+                bw, bh = a["bbox"][2], a["bbox"][3]
+                e["area"].append(a.get("area", bw * bh))
+            gts[image_id] = {
+                c: {"rles": e["rles"],
+                    "iscrowd": np.asarray(e["iscrowd"], bool),
+                    "area": np.asarray(e["area"], float)}
+                for c, e in per_cat.items()
+            }
+        return evaluate_segm(dets_by_image_cat, gts,
+                             list(range(1, self.num_classes)))
 
     def _write_results_json(self, all_boxes, out_dir: str) -> None:
         """The standard COCO results file (xywh boxes)."""

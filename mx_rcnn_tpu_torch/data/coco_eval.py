@@ -1,14 +1,15 @@
-"""COCO bbox AP, without pycocotools.
+"""COCO bbox and segm AP, without pycocotools.
 
-Counterpart of ``mx_rcnn_tpu/data/coco_eval.py`` (bbox mode:
-``_iou_xyxy``, ``_last_argmax``, ``_evaluate_image``, ``_match_image``,
-``evaluate_bbox``, ``_run_eval``), the protocol of pycocotools'
-``COCOeval`` in numpy: greedy score-ordered matching per (category, IoU
-threshold), crowd boxes as ignore regions, 101-point interpolated
-precision averaged over IoU 0.50:0.95:0.05, AP50/AP75, the
-small/medium/large breakdown and AR at 100 detections.  The matcher is
-vectorised over the 10 thresholds.  Segm mode waits for the RLE mask
-port.
+Counterpart of ``mx_rcnn_tpu/data/coco_eval.py`` (``_iou_xyxy``,
+``_last_argmax``, ``_evaluate_image``, ``_match_image``,
+``evaluate_bbox``, ``evaluate_segm``, ``_run_eval``), the protocol of
+pycocotools' ``COCOeval`` in numpy: greedy score-ordered matching per
+(category, IoU threshold), crowd annotations as ignore regions,
+101-point interpolated precision averaged over IoU 0.50:0.95:0.05,
+AP50/AP75, the small/medium/large breakdown and AR at 100 detections.
+The matcher is vectorised over the 10 thresholds.  Segm mode takes its
+IoUs and areas from RLE masks (``native/``) and shares the matcher and
+the accumulation with bbox mode, as pycocotools' iouType switch does.
 """
 
 from __future__ import annotations
@@ -171,6 +172,49 @@ def evaluate_bbox(
         d_area = (dets_s[:, 2] - dets_s[:, 0]) \
             * (dets_s[:, 3] - dets_s[:, 1])
         return dets_s[:, 4], d_area, ious, gt_boxes.shape[0], areas, iscrowd
+
+    return _run_eval(list(gt_by_image_cat.keys()), categories, fetch)
+
+
+def evaluate_segm(
+    dets_by_image_cat: Mapping[str, Mapping[int, Sequence]],
+    gt_by_image_cat: Mapping[str, Mapping[int, Dict]],
+    categories: Sequence[int],
+    max_dets: int = 100,
+) -> Dict[str, float]:
+    """COCO segmentation (mask) AP: :func:`evaluate_bbox`'s protocol with
+    mask IoUs (pycocotools' iouType='segm').
+
+    ``dets_by_image_cat``: image id → {category → list of (rle, score)
+    pairs}, each ``rle`` a ``native`` RLE dict.  ``gt_by_image_cat``:
+    image id → {category → dict(rles (n,), iscrowd (n,) bool, area (n,),
+    optional: the masks' areas by default)}.  Returns the metric dict of
+    :func:`evaluate_bbox`."""
+    from mx_rcnn_tpu_torch import native
+
+    def fetch(img, cat):
+        gt = gt_by_image_cat[img].get(cat)
+        if gt is None:
+            gt_rles, iscrowd, areas = [], np.zeros(0, bool), np.zeros(0)
+        else:
+            gt_rles = list(gt["rles"])
+            iscrowd = np.asarray(
+                gt.get("iscrowd", np.zeros(len(gt_rles), bool)), bool)
+            areas = np.asarray(
+                gt["area"] if "area" in gt
+                else [native.area(r) for r in gt_rles], float)
+        dets = dets_by_image_cat.get(img, {}).get(cat) or []
+        if not dets and not gt_rles:
+            return None
+        scores = np.asarray([s for _, s in dets], float)
+        order = np.argsort(-scores, kind="mergesort")[:max_dets]
+        d_rles = [dets[i][0] for i in order]
+        d_scores = scores[order]
+        d_area = np.asarray([native.area(r) for r in d_rles], float)
+        ious = None
+        if d_rles and gt_rles:
+            ious = native.iou_matrix(d_rles, gt_rles, iscrowd)
+        return d_scores, d_area, ious, len(gt_rles), areas, iscrowd
 
     return _run_eval(list(gt_by_image_cat.keys()), categories, fetch)
 

@@ -1,7 +1,7 @@
 """Training and eval batches from a roidb.
 
 Counterpart of ``mx_rcnn_tpu/data/loader.py``: ``AnchorLoader``,
-``StreamLoader``, ``ROIIter``, ``TestLoader`` and ``ROITestLoader``, with
+``StreamLoader``, ``StreamTestLoader``, ``ROIIter``, ``TestLoader`` and ``ROITestLoader``, with
 their batch plans and ``_make_batch`` semantics, the image source
 (``_ImageSource``: decode cache, decode pool, ``raw_images`` and the
 decode count), the assembly threads (``_prefetched``) and the cache and
@@ -20,7 +20,8 @@ A resumed run positions a :class:`StreamLoader` mid-epoch by the
 manifest's data cursor (:meth:`StreamLoader.resume_at`).  In a
 data-parallel run each rank's training loader owns a row shard of every
 batch of the global plan (:meth:`AnchorLoader.set_shard`).
-Not ported yet: ``StreamTestLoader``.
+:class:`StreamTestLoader` runs the streaming plan over a corpus to
+score, every image once.
 """
 
 from __future__ import annotations
@@ -497,13 +498,16 @@ class StreamLoader(AnchorLoader):
         return seq
 
     def _plan(self, epoch: int, batch_images: int,
-              offsets: Optional[Dict] = None) -> Plan:
+              offsets: Optional[Dict] = None,
+              orders: Optional[Dict] = None) -> Plan:
         """The epoch's batch plan [(bucket, indices), ...] at
         ``batch_images``, each bucket's stream starting past its consumed
-        prefix ``offsets[bucket]``."""
+        prefix ``offsets[bucket]`` (``orders``: the epoch's
+        :meth:`_bucket_orders`, when the caller has them)."""
         off = offsets or {}
-        streams = {b: o[off.get(b, 0):]
-                   for b, o in self._bucket_orders(epoch).items()}
+        if orders is None:
+            orders = self._bucket_orders(epoch)
+        streams = {b: o[off.get(b, 0):] for b, o in orders.items()}
         counts = {b: len(s) // batch_images for b, s in streams.items()}
         pos = {b: 0 for b in streams}
         plan = []
@@ -558,6 +562,59 @@ class StreamLoader(AnchorLoader):
             return self._plan(epoch, old_bi)[images // old_bi:]
         return self._plan(epoch, self.batch_images,
                           self._consumed_offsets(epoch, images, old_bi))
+
+
+class StreamTestLoader(StreamLoader):
+    """The :class:`StreamLoader` plan pointed at inference (the bulk
+    tier, ``serve/bulk.py``): iterating yields ``(Batch, indices,
+    scales)`` as :class:`TestLoader` does (zero gt fields, roidb
+    positions, each image's ``im_scale``), over the StreamLoader plan
+    extended to every image: after the interleaved full batches, each
+    bucket's remainder follows as one partial batch, in bucket order, so
+    a pass decodes each image exactly once.
+
+    The plan is a pure function of (seed, epoch 0): a resumed run
+    recomputes it and repositions with :meth:`skip_next_batches`, and its
+    batch k is the uninterrupted run's batch k (bucket, indices, row
+    order).  ``shuffle=False`` by default: scoring keeps the roidb order
+    within each bucket."""
+
+    def __init__(self, roidb: Sequence[Dict], cfg: Config,
+                 load_image: LoadImage, batch_images: int = None,
+                 shuffle: bool = False, seed: int = 0, **source):
+        super().__init__(roidb, cfg, load_image,
+                         batch_images or cfg.test.batch_images, shuffle,
+                         seed, **source)
+
+    def __len__(self) -> int:
+        return sum(-(-len(self._indices_for(bucket)) // self.batch_images)
+                   for bucket in set(self._bucket_ids))
+
+    def _plan(self, epoch: int, batch_images: int,
+              offsets: Optional[Dict] = None,
+              orders: Optional[Dict] = None) -> Plan:
+        if orders is None:  # built once: the parent reuses them
+            orders = self._bucket_orders(epoch)
+        plan = super()._plan(epoch, batch_images, offsets, orders=orders)
+        consumed: Dict = {}
+        for bucket, idx in plan:
+            consumed[bucket] = consumed.get(bucket, 0) + len(idx)
+        off = offsets or {}
+        for bucket in sorted(orders):
+            tail = orders[bucket][off.get(bucket, 0):][
+                consumed.get(bucket, 0):]
+            if tail:
+                plan.append((bucket, tail))
+        return plan
+
+    def make_batch(self, indices: Sequence[int], bucket
+                   ) -> Tuple[Batch, List[int], np.ndarray]:
+        n = len(indices)
+        g = self.cfg.train.max_gt_boxes
+        images, im_info, _ = self._make_images(indices, bucket)
+        batch = Batch(images, im_info, np.zeros((n, g, 4), np.float32),
+                      np.zeros((n, g), np.int32), np.zeros((n, g), bool))
+        return batch, list(indices), im_info[:, 2].copy()
 
 
 class ROIIter(AnchorLoader):

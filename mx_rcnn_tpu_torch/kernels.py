@@ -13,7 +13,9 @@ Every kernel keeps an integer launch count that its wrapper bumps once
 per successful launch; :func:`reset_launch_counts` zeroes them.
 :func:`load_events` counts the libraries built and loaded in this
 process, so a steady state can be checked to build and load nothing
-(the JAX package's "zero new lowerings").  Many
+(the JAX package's "zero new lowerings"); :meth:`CudaKernel.install`
+places a library built elsewhere (an export store's) and loads it, so a
+process can launch without ``nvcc``.  Many
 threads may launch (the serving engine runs a dispatcher per bucket):
 a kernel is built and loaded once, under its lock, whichever thread
 reaches it first, each build writes a staging file of its own, and
@@ -139,6 +141,30 @@ class CudaKernel:
                 fn = self._fn
         return fn
 
+    def install(self, blob: bytes) -> bool:
+        """Place ``blob``, a library built elsewhere from these sources
+        and flags (an export store's copy, ``serve/export.py``), where
+        :meth:`fn` loads it, and load it: under the lock a build takes,
+        so no thread launches from a half-written file.  Returns True if
+        the file was placed, False if this process had it already."""
+        lib = self.library_path()
+        with self._lock:
+            placed = not lib.exists()
+            if placed:
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                # a staging file of its own, as a build writes: a failed
+                # write leaves a stray .tmp, never a torn library
+                fd, tmp = tempfile.mkstemp(prefix=lib.stem + ".",
+                                           suffix=".tmp", dir=BUILD_DIR)
+                with os.fdopen(fd, "wb") as f:
+                    f.write(blob)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, lib)
+            if self._fn is None:
+                self._fn = self._load()
+        return placed
+
     def _load(self):
         lib = ctypes.CDLL(str(self.library_path()))
         _count("loads")
@@ -219,6 +245,7 @@ QCONV_E4M3 = CudaKernel(
 
 KERNELS: Tuple[CudaKernel, ...] = (NMS_SWEEP, ROI_ALIGN_FWD, ROI_ALIGN_BWD,
                                    QUANTIZE_ACT, QCONV_S8, QCONV_E4M3)
+BY_NAME: Dict[str, CudaKernel] = {k.name: k for k in KERNELS}
 
 
 def build_all() -> Dict[str, str]:

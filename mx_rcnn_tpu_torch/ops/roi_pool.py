@@ -1,4 +1,4 @@
-"""ROIAlign over NHWC feature maps.
+"""ROIAlign (and the reference-parity ROI max pooling) over NHWC maps.
 
 Counterpart of ``mx_rcnn_tpu/ops/roi_pool.py``.  The bilinear weights are
 the repo's own (not torchvision's): sample positions clipped into
@@ -18,7 +18,8 @@ of kernel K3 (``csrc/roi_align_bwd.cu``), the feature gradient
 
 :func:`roi_align` (the forward, for serving) and :func:`roi_align_batched`
 (differentiable, for training) dispatch: the kernels for a CUDA tensor,
-the plain versions for a CPU tensor.
+the plain versions for a CPU tensor.  :func:`roi_pool` is the JAX
+package's quantized max pooling, a plain function on any device.
 """
 
 from __future__ import annotations
@@ -238,3 +239,60 @@ def roi_align_batched(features: torch.Tensor, rois: torch.Tensor,
         return roi_align_plain(features, rois.detach(), output_size,
                                spatial_scale, sampling_ratio)
     raise ValueError(f"unsupported device {features.device}")
+
+
+def roi_pool(features: torch.Tensor, rois: torch.Tensor,
+             output_size: Tuple[int, int] = (7, 7),
+             spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """Reference-parity quantized max ROI pooling (``mx.symbol.
+    ROIPooling``), features (H, W, C), rois (R, 4) → (R, ph, pw, C) in
+    the features' dtype: corners rounded at feature scale with
+    ``floor(x * scale + 0.5)`` (C's half away from zero, not half to
+    even), extents floored at 1, bin edges ``floor(p·rh/ph)`` and
+    ``ceil((p+1)·rh/ph)`` (``/ph`` as a product with the fp32
+    reciprocal, as XLA runs the JAX op) clipped to the map, the max over each bin
+    (bins may overlap), 0 for an empty bin.  The JAX package's op lies on
+    no main path, and neither does this plain one: it has no kernel."""
+    ph, pw = output_size
+    h, w, _ = features.shape
+    dev = features.device
+    feat32 = features.to(torch.float32)
+    neg = torch.tensor(-3.4e38, dtype=torch.float32, device=dev)
+    r = rois.to(torch.float32).reshape(-1, 4)
+
+    def rnd(v):
+        return torch.floor(v * spatial_scale + 0.5).to(torch.int32)
+
+    x1, y1, x2, y2 = (rnd(r[:, i]) for i in range(4))
+    rh = torch.clamp(y2 - y1 + 1, min=1).to(torch.float32)[:, None]
+    rw = torch.clamp(x2 - x1 + 1, min=1).to(torch.float32)[:, None]
+
+    def edges(n, extent, start, size):
+        # the division by the bin count as the JAX op computes it: XLA
+        # multiplies by the count's fp32 reciprocal (so 7 * 3 / 7 reads
+        # 3.0000002 and its ceil is 4)
+        inv = torch.tensor(1.0 / n, dtype=torch.float32, device=dev)
+        p = torch.arange(n, dtype=torch.float32, device=dev)[None]
+        lo = torch.floor(p * extent * inv).to(torch.int32) + start[:, None]
+        hi = torch.ceil((p + 1) * extent * inv).to(torch.int32) \
+            + start[:, None]
+        return lo.clamp(0, size), hi.clamp(0, size)
+
+    hstart, hend = edges(ph, rh, y1, h)
+    wstart, wend = edges(pw, rw, x1, w)
+    hidx = torch.arange(h, device=dev)
+    widx = torch.arange(w, device=dev)
+    # (R, ph, H) and (R, pw, W): which rows and columns each bin covers
+    hmask = (hidx >= hstart[..., None]) & (hidx < hend[..., None])
+    wmask = (widx >= wstart[..., None]) & (widx < wend[..., None])
+    out = []
+    for i in range(len(r)):
+        tmp = torch.where(wmask[i][:, None, :, None], feat32[None],
+                          neg).amax(dim=2)                  # (pw, H, C)
+        out.append(torch.where(hmask[i][:, None, :, None], tmp[None],
+                               neg).amax(dim=2))            # (ph, pw, C)
+    pooled = (torch.stack(out) if out else
+              torch.zeros((0, ph, pw, features.shape[2]), dtype=torch.float32,
+                          device=dev))
+    return torch.where(pooled <= neg / 2, torch.zeros_like(pooled),
+                       pooled).to(features.dtype)

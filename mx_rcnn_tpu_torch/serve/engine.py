@@ -24,9 +24,14 @@ admission and its batch records ``serve.queue_wait`` per rider and one
 ``serve.batch`` span (launches, forward, postprocess and the result's
 copy to the host, the batch's one sync); a request with a distributed
 context (``tctx``) records ``serve.lane_wait`` and ``serve.compute``
-under it.  Not ported: the JAX package's bulk (``submit_prepared``),
-remote wire (``submit_source``) and AOT export (``warm_from_export``)
-seams.
+under it.
+
+Two more ways in, as in the JAX package: ``submit_prepared`` takes a
+canvas already padded and normalised (the bulk tier's loader rows), and
+``submit_source`` a resized uint8 image whose bucket is known (it pays
+only ``pad_normalize``, after the shed check).  ``warm_from_export``
+joins from an export store (``serve/export.py``): its checks, its kernel
+libraries, each bucket's dummy batch held to the recorded digests.
 """
 
 from __future__ import annotations
@@ -39,11 +44,13 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from mx_rcnn_tpu_torch import kernels
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.tester import (Predictor, _postprocess_batch,
                                            detections_from_keep,
                                            tiled_bbox_stats)
-from mx_rcnn_tpu_torch.data.image import estimate_bucket, prepare_image
+from mx_rcnn_tpu_torch.data.image import (estimate_bucket, pad_normalize,
+                                          prepare_image)
 from mx_rcnn_tpu_torch.obs import trace as obs_trace
 from mx_rcnn_tpu_torch.obs.metrics import ServeMetrics
 from mx_rcnn_tpu_torch.serve.queue import (EXPIRED, FAILED, SERVED, SHED,
@@ -90,6 +97,7 @@ class ServingEngine:
         self._threads: List[threading.Thread] = []
         self._closed = False
         self._warm: List[Tuple[int, int]] = []
+        self._export_root = None    # the store warm_from_export joined
         self._run_fn = run_fn
         if start:
             self.start()
@@ -111,9 +119,7 @@ class ServingEngine:
         ``serve.default_timeout_ms`` (0: no deadline).  ``tctx``: an
         inbound distributed trace context (None costs one check)."""
         now = time.monotonic()
-        t = (self.cfg.serve.default_timeout_ms if timeout_ms is None
-             else timeout_ms)
-        deadline = now + t / 1000.0 if t and t > 0 else None
+        deadline = self._deadline(now, timeout_ms)
         # the dims-only check first: a request refused under overload
         # pays no resize or pad (offer stays the authoritative check)
         h, w = img.shape[:2]
@@ -121,25 +127,87 @@ class ServingEngine:
                                 self.cfg.bucket.max_size, self.buckets)
         if self._closed or (len(self.queues[rough])
                             >= self.queues[rough].shed_watermark):
-            req = ServeRequest(None, None, rough, deadline, now)
-            req.tctx = tctx
-            self._trace_admit(req)
-            self.metrics.count("submitted")
-            req._finish(SHED)
-            self.metrics.count("shed")
-            return req
+            return self._admit(None, None, rough, deadline, now, tctx)
         t0 = time.perf_counter()
         data, im_info, bucket = self.preprocess(img)
         self.metrics.observe("preprocess_ms",
                              (time.perf_counter() - t0) * 1e3)
-        req = ServeRequest(data, im_info, bucket, deadline, now)
+        return self._admit(data, im_info, bucket, deadline, now, tctx)
+
+    def _deadline(self, now: float, timeout_ms: float = None):
+        t = (self.cfg.serve.default_timeout_ms if timeout_ms is None
+             else timeout_ms)
+        return now + t / 1000.0 if t and t > 0 else None
+
+    def _check_bucket(self, bucket) -> Tuple[int, int]:
+        bucket = tuple(bucket)
+        if bucket not in self.queues:
+            raise ValueError(f"bucket {bucket} is not a configured shape "
+                             f"bucket {sorted(self.queues)}")
+        return bucket
+
+    def _admit(self, data, im_info, bucket, deadline, now, tctx
+               ) -> ServeRequest:
+        """Queue a prepared request, or end it SHED at the watermark."""
+        req = ServeRequest(data, None if im_info is None else
+                           np.asarray(im_info, np.float32), bucket,
+                           deadline, now)
         req.tctx = tctx
         self._trace_admit(req)
         self.metrics.count("submitted")
-        if self._closed or not self.queues[bucket].offer(req):
+        if data is None or self._closed or not self.queues[bucket].offer(req):
             req._finish(SHED)
             self.metrics.count("shed")
         return req
+
+    def submit_prepared(self, data: np.ndarray, im_info: np.ndarray,
+                        bucket: Tuple[int, int], timeout_ms: float = None,
+                        tctx: "obs_trace.TraceContext" = None
+                        ) -> ServeRequest:
+        """Admit one image already preprocessed: ``data`` the (bh, bw, 3)
+        fp32 canvas :meth:`preprocess` would build (a
+        ``StreamTestLoader`` row with ``raw_images=False`` is that canvas
+        bit for bit), ``im_info`` its (3,) record.  Everything after the
+        resize is :meth:`submit`'s path.  A bucket that is not
+        configured, or a canvas of another shape or dtype, raises."""
+        bucket = self._check_bucket(bucket)
+        data = np.asarray(data)
+        if data.shape != bucket + (3,) or data.dtype != np.float32:
+            # a uint8 raw row would skip the normalisation
+            raise ValueError(
+                f"prepared image must be float32 {bucket + (3,)}, got "
+                f"{data.dtype} {data.shape} (build the loader with "
+                f"raw_images=False)")
+        now = time.monotonic()
+        return self._admit(data, im_info, bucket,
+                           self._deadline(now, timeout_ms), now, tctx)
+
+    def submit_source(self, img: np.ndarray, im_info: np.ndarray,
+                      bucket: Tuple[int, int], timeout_ms: float = None,
+                      tctx: "obs_trace.TraceContext" = None
+                      ) -> ServeRequest:
+        """Admit one resized, unnormalised (h, w, 3) uint8 image whose
+        bucket and im_info the caller resolved.  The shed check runs
+        before the pixel work; then ``data/image.py — pad_normalize``,
+        the step every preprocess ends with, builds the canvas (bit-equal
+        to :meth:`preprocess`'s), on the caller's thread as in the JAX
+        package."""
+        bucket = self._check_bucket(bucket)
+        img = np.asarray(img)
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError(f"source image must be uint8 (h, w, 3), "
+                             f"got {img.dtype} {tuple(img.shape)}")
+        h, w = img.shape[:2]
+        if h > bucket[0] or w > bucket[1]:
+            raise ValueError(f"source image ({h}, {w}) does not fit "
+                             f"bucket {bucket}")
+        now = time.monotonic()
+        deadline = self._deadline(now, timeout_ms)
+        if self._closed or (len(self.queues[bucket])
+                            >= self.queues[bucket].shed_watermark):
+            return self._admit(None, None, bucket, deadline, now, tctx)
+        data = pad_normalize(img, self.cfg.network.pixel_means, bucket)
+        return self._admit(data, im_info, bucket, deadline, now, tctx)
 
     @staticmethod
     def _trace_admit(req: ServeRequest) -> None:
@@ -290,6 +358,53 @@ class ServingEngine:
                     n)
         return len(self._warm)
 
+    def warm_from_export(self, store) -> Dict:
+        """Join from an export store (``serve/export.py``): its
+        :meth:`~ExportStore.check` against this process (config,
+        versions, device, serving knobs, quant block with this
+        predictor's calibration fingerprint, kernel library names), its
+        kernel libraries installed where ``kernels.py`` loads them, then
+        each bucket's dummy batch (and the postprocess) run and held to
+        the recorded digests bit for bit.  Any mismatch raises
+        ``ExportMismatch``.  Returns the join record: its seconds, the
+        programs held, the libraries placed and ``kernels.load_events()``
+        before and after (a process whose ``_build/`` was empty builds
+        none)."""
+        from mx_rcnn_tpu_torch.serve.export import (SERVE_POST,
+                                                    _dummy_batch,
+                                                    serve_fwd_name)
+
+        t0 = time.monotonic()
+        before = kernels.load_events()
+        p = self.predictor
+        store.check(self.cfg, quant_fingerprint=p.quant_fingerprint,
+                    device=p.device)
+        placed = store.install_kernels()
+        t_load = time.monotonic() - t0
+        n = self.cfg.serve.batch_size
+        programs = []
+        for bucket in self.buckets:
+            name = serve_fwd_name(bucket, n)
+            images, im_info = _dummy_batch(bucket, n)
+            out = store.load(name, p)(images, im_info)
+            store.require_digest(name, out)
+            programs.append(name)
+            if SERVE_POST not in programs:
+                info = torch.from_numpy(im_info).to(p.device)
+                store.require_digest(SERVE_POST, store.load(SERVE_POST, p)(
+                    *out, info, info[:, 2], self._stds, self._means))
+                programs.append(SERVE_POST)
+            if bucket not in self._warm:
+                self._warm.append(bucket)
+        self._export_root = store.root
+        total = time.monotonic() - t0
+        logger.info("serve join from %s: %d program(s) bit-equal to the "
+                    "store in %.3f s", store.root, len(programs), total)
+        return {"programs": programs, "kernels_placed": placed,
+                "load_s": round(t_load, 3), "total_s": round(total, 3),
+                "export_root": store.root, "load_events_before": before,
+                "load_events_after": kernels.load_events()}
+
     def depth(self) -> int:
         """Admitted requests not yet terminal, queued or in a batch."""
         return self.metrics.in_flight()
@@ -322,6 +437,7 @@ class ServingEngine:
             "buckets": [list(b) for b in self.buckets],
             "batch_size": self.cfg.serve.batch_size,
             "warm_buckets": [list(b) for b in self._warm],
+            "export_root": self._export_root,   # None: warmed by running
             "device": str(self.predictor.device),
             "queue_depths": {f"{b[0]}x{b[1]}": len(q)
                              for b, q in self.queues.items()},

@@ -14,8 +14,9 @@ its batch ran ends EXPIRED, never as a late success) and in the caller's
 ``obs/trace.py`` collects spans) and its distributed context (``tctx``,
 from an ``X-MXR-Trace`` header): whichever thread ends it closes its
 ``serve.request`` interval and records exactly one ``terminal.<state>``
-span.  The JAX package's done callback (``add_done_callback``, its fleet
-router's hook) waits for the fleet tier.
+span.  ``add_done_callback`` runs a callback once at the terminal
+transition, on whichever thread makes it (the bulk tier's completion
+hook, and the JAX package's fleet router's).
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ class ServeRequest:
 
     __slots__ = ("image", "im_info", "bucket", "enqueue_t", "deadline",
                  "state", "result", "error", "dispatch_t", "done_t",
-                 "batch_rows", "trace_id", "tctx", "_event", "_lock")
+                 "batch_rows", "trace_id", "tctx", "_event", "_lock",
+                 "_on_done")
 
     def __init__(self, image: np.ndarray, im_info: np.ndarray,
                  bucket: Tuple[int, int], deadline: Optional[float],
@@ -81,6 +83,7 @@ class ServeRequest:
         self.tctx = None            # inbound TraceContext (None: none)
         self._event = threading.Event()
         self._lock = threading.Lock()
+        self._on_done = None        # add_done_callback's hook
 
     def _finish(self, state: str, result=None,
                 error: BaseException = None, now: float = None) -> bool:
@@ -103,7 +106,21 @@ class ServeRequest:
                 self.tctx, f"terminal.{state}", 0.0,
                 total_ms=round((self.done_t - self.enqueue_t) * 1e3, 3))
         self._event.set()
+        cb = self._on_done
+        if cb is not None:
+            cb(self)  # once: a second _finish returned above
         return True
+
+    def add_done_callback(self, cb: Callable[["ServeRequest"], None]
+                          ) -> None:
+        """Call ``cb(request)`` once the request is terminal, from the
+        thread that ends it; a request already terminal (one shed inside
+        ``submit``) calls it at once, on the caller's thread."""
+        with self._lock:
+            if self.state == PENDING:
+                self._on_done = cb
+                return
+        cb(self)
 
     def expired(self, now: float) -> bool:
         return self.deadline is not None and now >= self.deadline

@@ -1,7 +1,7 @@
 """Prove the quantized inference path end to end on the tiny network.
 
-Counterpart of the first three legs of ``mx_rcnn_tpu/tools/quant_smoke.py``:
-train the tiny network briefly on synthetic data, then check
+Counterpart of ``mx_rcnn_tpu/tools/quant_smoke.py``: train the tiny
+network briefly on synthetic data, then check
 
 * **fp bit-identity with quant off**: the Predictor's outputs are
   bit-equal to the model's own forward, and the quantized model's
@@ -11,11 +11,19 @@ train the tiny network briefly on synthetic data, then check
   sweep → int8 forward) stays within ``quant.map_delta_budget`` mAP of
   the fp eval of the same checkpoint;
 * **the red-team arm fires the gate**: ``weight_bits=2`` loses more
-  than the budget, so the gate has teeth.
+  than the budget, so the gate has teeth;
+* **the quantized export round-trips**: ``export_serve_programs`` over
+  the int8 predictor (each program's bits verified), then a fresh engine
+  over a fresh calibration joins from the store (its calibration
+  fingerprint admitted) and serves an 8-image burst, every request
+  SERVED, with no kernel library built after the join
+  (``post_join_builds``, from ``kernels.load_events()``; the JAX tool
+  counts lowerings);
+* **admission refuses mismatches**: an fp config and a quant config
+  calibrated by another estimator are both refused by the store.
 
-The JAX tool's export round trip and store admission legs wait for the
-port of ``serve/export.py``.  ``--check`` turns the checks into the exit
-code.  Runs on the card by default; ``--device cpu`` on the CPU.
+``--check`` turns the checks into the exit code.  Runs on the card by
+default; ``--device cpu`` on the CPU.
 
 The run uses PyTorch's deterministic algorithms in full fp32
 (:func:`reproducible`), so it reads the same mAPs every time and from
@@ -39,12 +47,17 @@ import tempfile
 import numpy as np
 import torch
 
+from mx_rcnn_tpu_torch import kernels
 from mx_rcnn_tpu_torch.config import generate_config
-from mx_rcnn_tpu_torch.core.tester import Predictor
+from mx_rcnn_tpu_torch.core.tester import Predictor, quant_predictor
 from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+from mx_rcnn_tpu_torch.serve.export import (ExportMismatch, ExportStore,
+                                            export_serve_programs)
+from mx_rcnn_tpu_torch.tools.loadgen import synthetic_images
 from mx_rcnn_tpu_torch.tools.test import test_rcnn
 from mx_rcnn_tpu_torch.tools.train import train_net
-from mx_rcnn_tpu_torch.utils.checkpoint import load_model
+from mx_rcnn_tpu_torch.utils.checkpoint import load_model, load_state_dict
 from mx_rcnn_tpu_torch.utils.device import resolve_device
 
 # the JAX smoke's miniature recipe (tools/obs_smoke.py — _TINY): a
@@ -101,7 +114,7 @@ def reproducible():
 
 def run_smoke(workdir: str, num_images: int, epochs: int,
               device="cuda") -> dict:
-    """Train, then gather the three checks' evidence, all under
+    """Train, then gather the checks' evidence, all under
     :func:`reproducible`; returns the record."""
     with reproducible():
         return _run_smoke(workdir, num_images, epochs, device)
@@ -157,15 +170,70 @@ def _run_smoke(workdir: str, num_images: int, epochs: int,
     })
     ev["accuracy_gate_pass"] = abs(ev["quant_delta"]) <= budget
     ev["redteam_gate_fires"] = ev["redteam_delta"] < -budget
+
+    # ---- the quantized export round trip ------------------------------
+    sd = load_state_dict(prefix, epochs)
+    qpred = quant_predictor(qcfg, sd, dev, dataset_kw=dataset_kw)
+    ev["calibration_fingerprint"] = qpred.quant_fingerprint
+    store_dir = os.path.join(workdir, "export")
+    report = export_serve_programs(qpred, qcfg, store_dir)
+    ev["export_bit_equal"] = bool(report["bit_equal"])
+    ev["export_programs"] = len(report["programs"])
+    # a fresh engine over a fresh calibration: the join's admission
+    # compares its fingerprint with the manifest's
+    engine = ServingEngine(quant_predictor(qcfg, sd, dev,
+                                           dataset_kw=dataset_kw), qcfg)
+    served = lost = 0
+    try:
+        ev["join"] = engine.warm_from_export(ExportStore(store_dir))
+        builds = kernels.load_events()["builds"]
+        handles = [engine.submit(img, timeout_ms=0)
+                   for img in synthetic_images(qcfg, 8)]
+        for h in handles:
+            try:
+                h.wait(timeout=120)
+                served += 1
+            except Exception:  # noqa: BLE001 — counted, then checked
+                lost += 1
+    finally:
+        engine.close()
+    ev.update({"burst_served": served, "burst_lost": lost,
+               "post_join_builds": kernels.load_events()["builds"] - builds})
+
+    # ---- admission refusals -------------------------------------------
+    store = ExportStore(store_dir)
+    try:
+        store.check(cfg, device=dev)   # fp config, quantized store
+        ev["refuses_fp_config"] = False
+    except ExportMismatch:
+        ev["refuses_fp_config"] = True
+    est_cfg = qcfg.replace_in("quant", estimator="percentile")
+    ppred = quant_predictor(est_cfg, sd, dev, dataset_kw=dataset_kw)
+    try:
+        store.check(est_cfg, quant_fingerprint=ppred.quant_fingerprint,
+                    device=dev)
+        ev["refuses_estimator_mismatch"] = False
+    except ExportMismatch:
+        ev["refuses_estimator_mismatch"] = True
     return ev
 
 
 def check(ev: dict) -> list:
     """The checks; returns a list of problems."""
-    return [f"{flag} is false" for flag in
-            ("fp_bit_identical", "param_tree_unchanged",
-             "accuracy_gate_pass", "redteam_gate_fires")
-            if not ev.get(flag)]
+    problems = [f"{flag} is false" for flag in
+                ("fp_bit_identical", "param_tree_unchanged",
+                 "accuracy_gate_pass", "redteam_gate_fires",
+                 "export_bit_equal", "refuses_fp_config",
+                 "refuses_estimator_mismatch")
+                if not ev.get(flag)]
+    if ev.get("burst_lost"):
+        problems.append(f"{ev['burst_lost']} burst request(s) lost")
+    if ev.get("burst_served", 0) < 8:
+        problems.append(f"only {ev.get('burst_served')} of 8 served")
+    if ev.get("post_join_builds"):
+        problems.append(f"{ev['post_join_builds']} kernel librar(ies) built "
+                        "after the join from the store")
+    return problems
 
 
 def main(argv=None) -> int:
@@ -192,7 +260,8 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"CHECK OK: fp bit-identical, |quant delta| "
           f"{abs(ev['quant_delta']):.4f} <= {ev['budget']}, red-team delta "
-          f"{ev['redteam_delta']:.4f} fired the gate")
+          f"{ev['redteam_delta']:.4f} fired the gate, export round trip "
+          f"bit-equal with {ev['post_join_builds']} builds after the join")
     return 0
 
 

@@ -1,11 +1,16 @@
-"""The port's COCO bbox evaluator held against the JAX package's.
+"""The port's COCO bbox and segm evaluators held against the JAX
+package's.
 
 ``evaluate_bbox`` must give the JAX function's numbers exactly (AP,
 AP50, AP75, AP by area and AR_100; nan where both give nan) on seeded
 random scenes with crowds, ignored areas, tied scores and tied IoUs;
 the matcher agrees with the JAX one and with the loop transcription of
 pycocotools' ``evaluateImg`` in ``tests/test_coco_eval.py``; and the
-worked goldens of that file hold for the port.
+worked goldens of that file hold for the port.  ``evaluate_segm`` and
+``COCODataset.evaluate_segmentations`` give the JAX functions' numbers
+exactly on a generated COCO tree whose annotations are polygons,
+compressed and uncompressed RLE (crowds) and bare boxes, with the JAX
+masks on its NumPy path and on its C++ library.
 """
 
 import numpy as np
@@ -140,3 +145,148 @@ def test_golden_equal_iou_tie_goes_to_later_gt():
     assert m[:, 0].all() and m[:, 1].all()
     np.testing.assert_array_equal(
         _evaluate_image_transcription(dets, gt, none, none, 100)[1], m)
+
+
+# ---- segm mode ----------------------------------------------------------------
+
+
+def _blob(rng, h, w):
+    m = np.zeros((h, w), np.uint8)
+    y, x = rng.randint(0, h - 4), rng.randint(0, w - 4)
+    m[y:y + rng.randint(3, h // 2), x:x + rng.randint(3, w // 2)] = 1
+    if rng.rand() < 0.5:
+        y, x = rng.randint(0, h - 4), rng.randint(0, w - 4)
+        m[y:y + rng.randint(2, 12), x:x + rng.randint(2, 12)] = 1
+    return m
+
+
+def _segm_tree(root, seed, n_images=5, h=60, w=80):
+    """A COCO tree's annotation file (the evaluator reads no pixel):
+    categories 3, 9, 12; per image a few annotations, each a polygon, a
+    compressed RLE, an uncompressed crowd RLE or a bare box; and the
+    detections (rle, score) per (image, class): jittered copies of the
+    gt masks and random false positives, scores on a few levels."""
+    import json
+    import os
+
+    from mx_rcnn_tpu_torch import native
+
+    rng = np.random.RandomState(seed)
+    cats = [{"id": c, "name": f"c{c}"} for c in (3, 9, 12)]
+    images, anns, dets = [], [], {}
+    for i in range(n_images):
+        iid = 10 + i
+        images.append({"id": iid, "file_name": f"{iid}.jpg", "width": w,
+                       "height": h})
+        dets[iid] = {}
+        for _ in range(rng.randint(1, 5)):
+            cat = cats[rng.randint(0, 3)]["id"]
+            kind = rng.randint(0, 4)
+            m = _blob(rng, h, w)
+            ys, xs = np.nonzero(m)
+            bbox = [float(xs.min()), float(ys.min()),
+                    float(xs.max() - xs.min() + 1),
+                    float(ys.max() - ys.min() + 1)]
+            a = {"id": len(anns) + 1, "image_id": iid, "category_id": cat,
+                 "bbox": bbox, "iscrowd": 0}
+            if kind == 0:      # polygons: the blob's box and a triangle
+                x0, y0, bw, bh = bbox
+                a["segmentation"] = [
+                    [x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0, y0 + bh],
+                    [x0, y0, x0 + bw / 2, y0 + bh + 5.5, x0 - 3.25,
+                     y0 + bh]]
+            elif kind == 1:    # compressed RLE, counts as a str
+                r = native.encode(m)
+                a["segmentation"] = {"size": [h, w],
+                                     "counts": r["counts"].decode()}
+                a["area"] = float(m.sum())
+            elif kind == 2:    # a crowd region, uncompressed RLE
+                r = native.encode(m)
+                a["segmentation"] = {"size": [h, w], "counts": [
+                    int(c) for c in native._string_to_counts(r["counts"])]}
+                a["iscrowd"] = 1
+            # kind 3: no segmentation, the box stands in
+            anns.append(a)
+            cls = 1 + [c["id"] for c in cats].index(cat)
+            for _ in range(rng.randint(0, 3)):
+                jm = np.roll(m, (rng.randint(-3, 4), rng.randint(-3, 4)),
+                             (0, 1))
+                dets[iid].setdefault(cls, []).append(
+                    (native.encode(jm), float(np.round(rng.rand(), 1))))
+        for _ in range(rng.randint(0, 3)):
+            cls = rng.randint(1, 4)
+            dets[iid].setdefault(cls, []).append(
+                (native.encode(_blob(rng, h, w)),
+                 float(np.round(rng.rand(), 1))))
+    ds = os.path.join(str(root), "coco")
+    os.makedirs(os.path.join(ds, "annotations"), exist_ok=True)
+    with open(os.path.join(ds, "annotations", "instances_val2017.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": cats}, f)
+    return ds, dets
+
+
+@pytest.fixture(params=["numpy", "native"])
+def jax_masks(request, monkeypatch):
+    """The JAX package's RLE module on its NumPy path or its C++ one."""
+    from mx_rcnn_tpu import native as jnative
+
+    if request.param == "numpy":
+        monkeypatch.setattr(jnative, "_load", lambda: None)
+    else:
+        assert jnative.ensure_built()
+    return request.param
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_evaluate_segmentations_equals_jax(tmp_path, seed, jax_masks):
+    from mx_rcnn_tpu.data.coco import COCODataset as JCOCO
+    from mx_rcnn_tpu_torch.data.coco import COCODataset as TCOCO
+
+    ds, dets = _segm_tree(tmp_path, seed)
+    t = TCOCO("val2017", str(tmp_path), ds)
+    j = JCOCO("val2017", str(tmp_path), ds)
+    for iid in t.image_index:
+        for a in t.anns_by_image.get(iid, []):
+            assert t.ann_rle(a, iid) == j.ann_rle(a, iid)
+    got = t.evaluate_segmentations(dets)
+    want = j.evaluate_segmentations(dets)
+    assert list(got) == list(want)
+    np.testing.assert_equal(got, want)
+    assert np.isfinite(got["AP"])
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("max_dets", [100, 2])
+def test_evaluate_segm_equals_jax(seed, max_dets, jax_masks):
+    """The function itself, with gts given with and without areas and a
+    category neither side has."""
+    from mx_rcnn_tpu_torch import native
+
+    rng = np.random.RandomState(100 + seed)
+    h, w = 48, 40
+    dets, gts = {}, {}
+    for img in range(4):
+        dets[img], gts[img] = {}, {}
+        for cat in (1, 2, 3):
+            n = rng.randint(0, 4)
+            masks = [_blob(rng, h, w) for _ in range(n)]
+            if n:
+                g = {"rles": [native.encode(m) for m in masks],
+                     "iscrowd": rng.rand(n) < 0.25}
+                if rng.rand() < 0.5:
+                    g["area"] = np.asarray([m.sum() for m in masks],
+                                           float) * rng.choice([0.5, 1], n)
+                gts[img][cat] = g
+            rows = [(native.encode(np.roll(m, rng.randint(-2, 3), 1)),
+                     float(np.round(rng.rand(), 1))) for m in masks]
+            rows += [(native.encode(_blob(rng, h, w)),
+                      float(np.round(rng.rand(), 1)))
+                     for _ in range(rng.randint(0, 3))]
+            if rows:
+                dets[img][cat] = rows
+    got = tce.evaluate_segm(dets, gts, [1, 2, 3, 4], max_dets=max_dets)
+    want = jce.evaluate_segm(dets, gts, [1, 2, 3, 4], max_dets=max_dets)
+    assert list(got) == list(want)
+    np.testing.assert_equal(got, want)

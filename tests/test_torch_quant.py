@@ -706,7 +706,9 @@ def test_serving_predictor_is_the_quantized_one(tmp_path):
 
 def test_quant_smoke_check_on_cpu(tmp_path):
     """tools/quant_smoke.py --device cpu --check: fp bit-identity, the
-    int8 gate passes and the 2-bit red team fires it."""
+    int8 gate passes and the 2-bit red team fires it, the quantized
+    store round-trips (an 8-image burst served after the join) and
+    refuses an fp config and another estimator."""
     from mx_rcnn_tpu_torch.tools import quant_smoke
 
     buf = io.StringIO()
