@@ -3,7 +3,8 @@
 evaluation, the alternate schedule, the serving engine, the
 real-dataset input plane, the long training run, data parallelism, the
 device-resident training epoch, quantized inference, the observability
-plane and bulk scoring over an export-warmed engine on one NVIDIA card.
+plane, bulk scoring over an export-warmed engine and the serving fleet
+on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -134,11 +135,12 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    the commit, the files byte-equal, also when the weights change as soon
    as ``save_epoch`` returns) and phase 10's schedule read for its
    checkpoint time; ``tools/train.py`` over a generated VOCdevkit in
-   processes of their own (deterministic cuDNN): two epochs straight, a
-   run stopped by SIGTERM in epoch 1 (exit 0, an interrupt checkpoint
-   with its data cursor), ``--resume auto`` to the end byte-equal to the
-   straight run, again past a corrupted newest epoch file, and a resume
-   at batch 1 refused; in fp32, one ``grad_accum=2`` step at batch 1
+   processes of their own (deterministic cuDNN; they run beside the
+   ImageNet start and the accumulation parity, which time nothing): two
+   epochs straight beside a run stopped by SIGTERM in epoch 1 (exit 0,
+   an interrupt checkpoint with its data cursor), ``--resume auto`` to
+   the end byte-equal to the straight run, again past a corrupted newest
+   epoch file, and a resume at batch 1 refused; in fp32, one ``grad_accum=2`` step at batch 1
    through the kernels and the plain versions (sampled rois and labels
    equal, metrics and gradients close) and ``remat_backbone`` on and off
    (gradients bit-equal); in bf16, ms per optimizer step, peak memory and
@@ -174,10 +176,14 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    2 and up to 4 of them, ``tools/train.py --num_devices`` on up to 4
    through ``fit`` (ms per step, launches per rank) and ``tools/test.py
    --num_devices`` equal to one card's eval (else one line says why
-   not); ``tools/multihost_demo.py``'s launcher (here; its workers in
-   processes of their own) on the cards (NCCL; a world of one on one
-   card) and its refusal of more workers than cards;
-   ``dryrun_multichip(2)`` on the rig;
+   not); ``tools/multihost_demo.py``'s launcher (in a process of its
+   own, its workers in theirs) on the cards (NCCL; a world of one on one
+   card) and its refusal of more workers than cards (here);
+   ``dryrun_multichip(2)`` on the rig, in a process of its own.  The legs
+   in processes of their own (the NCCL worlds of one, the unbroken run,
+   the SIGTERM run and its resume, the demo, the dry run) start with the
+   phase and run beside the parity and the two-rank rig, so the times of
+   all of these are taken beside other processes on the card;
 15. the device-resident epoch, the ninth main path (``tools/train.py
    --device_cache`` → ``core/fit.py`` → ``data/device_cache.py``), on a
    generated COCO tree (12 train2017 480x640 JPEGs and their flips: 24
@@ -196,9 +202,9 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    SIGTERM in the middle of the second, and its ``--resume auto``
    through ``main`` here, restored, byte-equal to the run here (two
    cached runs byte-equal); (e) the phase 14 rig (two ranks over gloo on
-   cuda:0) cached against streamed at ``shuffle=False`` (byte-equal),
-   each rank's shuffled epochs its own shard once (the cached NCCL world
-   of one is phase 14's); (f) ``tools/train.py --dataset synthetic_hard
+   cuda:0, beside (c)) cached against streamed at ``shuffle=False``
+   (byte-equal), each rank's shuffled epochs its own shard once (the
+   cached NCCL world of one is phase 14's); (f) ``tools/train.py --dataset synthetic_hard
    --device_cache --dataset_kw "{'num_images': 16}"`` (its ``main``
    here), 4 steps, exit 0;
    (g) ``tools/data_bench.py --smoke --check`` on the card, exit 0;
@@ -274,7 +280,28 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     (bulk images/s beside it) and a rate pass over the corpus 16 times
     over (320 images, 16 plan batches a shard); each control line byte-equal to the
     offline batch here; ``tools/demo.py --prefix --epoch --image
-    --out`` on the card (a PNG of the image's size).
+    --out`` on the card (a PNG of the image's size);
+19. the serving fleet, the thirteenth main path (``serve/fleet.py``:
+    ``RestartPolicy`` → ``ReplicaManager`` → ``FleetRouter``, each
+    replica a ``ServingEngine`` joined from the store; phase 18's
+    configuration) under ``_chip/fleet``: each request image's detections
+    byte-equal at every row of a batch; the store by ``tools/fleet.py
+    export`` (K1/K2 libraries); a 2-replica fleet (replica k on card k
+    where there are two, else both on card 0) joining with 0 builds; a
+    closed loop of 8 s through ``FleetRouter.detect`` (lost 0, K1 2 and K2
+    1 launches per engine batch summed over the replicas, each on its
+    replica's card), 8 requests alone in their batches bit-equal to the
+    offline batch; 1 against 2 replicas; a replica killed mid-burst (lost
+    0, ejected, a scrape reading it down, ``fleet-degraded`` CRITICAL
+    then OK, relaunched from the store with 0 builds); the card's memory
+    back within 64 MiB after each fleet closes; then processes over a
+    copy of the package whose ``_build/`` is empty: ``tools/bulk.py
+    --protocol kill_resume --replicas 2 --check`` over 48 train2017
+    images (the union byte-equal to the control) and ``tools/fleet.py
+    join_bench`` by warm-up (builds K1 and K2; it and the HTTP service
+    start beside the protocol's killed child) and from the store (builds
+    none); last ``tools/fleet.py serve --replicas 2`` (4 ``/detect``,
+    ``/healthz``, ``/metrics``, SIGINT).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -286,7 +313,7 @@ eval, times at the per-ROI stage-4 bn1 and 1x1); the last line is ``{"ok": true,
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
 directory and remove them at their end, and phases 13–18 their
-weight files, checkpoints and datasets likewise.
+weight files, checkpoints and datasets likewise, and phase 19 too.
 """
 
 from __future__ import annotations
@@ -303,6 +330,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -349,7 +377,35 @@ def fp_launches() -> dict:
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # past any ``redirect_stdout`` of the main thread, so that a leg run
+    # by :func:`in_background` meanwhile logs to the script's output
+    print(msg, file=sys.__stdout__, flush=True)
+
+
+def in_background(fn, *args):
+    """``fn(*args)`` in a thread started now; the returned function joins
+    it and gives its result, or raises what it raised.  Only for legs
+    whose work runs in processes of their own: the launch counts and
+    cuDNN's settings are this process's, so such a leg touches neither
+    the card nor them here."""
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — raised by the join
+            box["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    return join
 
 
 def card_line() -> str:
@@ -3552,33 +3608,65 @@ def _train_process(args, out: Path, timeout: int = 600):
     return res
 
 
-def sigterm_resume(card: str) -> dict:
+def _start_process(cmd, out: Path, timeout: int = 600):
+    """``cmd`` in a process of its own, started now, its stdout to ``out``
+    and its stderr to ``out``.err; the returned function waits for it
+    (killed past ``timeout`` s from its start) and gives its
+    ``CompletedProcess`` and its seconds from its start to its exit."""
+    t0 = time.perf_counter()
+    fo, fe = open(out, "w"), open(out.with_suffix(".err"), "w")
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=fo, stderr=fe, text=True)
+    ended = []
+    watcher = threading.Thread(
+        target=lambda: ended.append((proc.wait(), time.perf_counter())),
+        daemon=True)
+    watcher.start()
+
+    def wait():
+        watcher.join(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        if not ended:
+            proc.kill()
+            watcher.join()
+        fo.close()
+        fe.close()
+        return (subprocess.CompletedProcess(
+            cmd, proc.returncode, out.read_text(),
+            out.with_suffix(".err").read_text()), ended[0][1] - t0)
+
+    return wait
+
+
+def long_args(devkit) -> list:
+    """The SIGTERM runs' ``tools/train.py`` arguments: ResNet-101 in bf16
+    at batch 2 over the generated VOCdevkit, two epochs."""
+    return ["--network", "resnet101", "--dataset", "PascalVOC",
+            "--root_path", str(LONG_DIR), "--dataset_path", str(devkit),
+            "--image_set", "2007_trainval", "--batch_images", "2", "--seed",
+            "0", "--frequent", "1", "--end_epoch", "2"]
+
+
+def sigterm_resume(card: str, devkit) -> dict:
     """ResNet-101 in bf16 at batch 2 over a generated VOCdevkit (16
     images, both buckets, and their flips: 16 steps an epoch), two epochs,
-    each run in a process of its own: straight; stopped by SIGTERM in
-    the middle of epoch 1 (exit 0, an interrupt checkpoint with its data
-    cursor); continued with ``--resume auto`` to the end, byte-equal to
-    the straight run; its newest epoch file corrupted, ``--resume auto``
-    again, falling back to epoch 1 with a warning and ending byte-equal;
-    then a resume at batch 1 refused."""
+    each run in a process of its own: straight, and beside it one
+    stopped by SIGTERM in the middle of epoch 1 (exit 0, an interrupt
+    checkpoint with its data cursor); continued with ``--resume auto`` to
+    the end, byte-equal to the straight run; its newest epoch file
+    corrupted, ``--resume auto`` again, falling back to epoch 1 with a
+    warning and ending byte-equal.  Its work is in those processes, so
+    it runs :func:`in_background`; the devkit's roidb cache is written
+    before (the two first runs would race to write it)."""
     import signal
 
-    from mx_rcnn_tpu_torch.tools import train as train_cli
     from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                     interrupt_path,
                                                     read_manifest)
 
-    devkit = write_voc_devkit(LONG_DIR)
-    base = ["--network", "resnet101", "--dataset", "PascalVOC", "--root_path",
-            str(LONG_DIR), "--dataset_path", str(devkit), "--image_set",
-            "2007_trainval", "--batch_images", "2", "--seed", "0",
-            "--frequent", "1", "--end_epoch", "2"]
+    base = long_args(devkit)
     straight, prefix = str(LONG_DIR / "straight"), str(LONG_DIR / "run")
-    t0 = time.perf_counter()
-    _train_process(base + ["--prefix", straight],
-                   OUT_DIR / "long_straight.txt")
-    straight_s = time.perf_counter() - t0
-    want = _sha256(checkpoint_path(straight, 2))
+    wait_straight = _start_process(
+        [sys.executable, "-c", TRAIN_PROCESS, *base, "--prefix", straight],
+        OUT_DIR / "long_straight.txt")
 
     t0 = time.perf_counter()
     err_path = OUT_DIR / "long_sigterm.err"
@@ -3602,6 +3690,11 @@ def sigterm_resume(card: str) -> dict:
     stop_s = time.perf_counter() - (sent or t0)
     err = err_path.read_text()
     (OUT_DIR / "long_sigterm.txt").write_text("".join(lines))
+    res, straight_s = wait_straight()
+    if res.returncode:
+        raise AssertionError(f"the straight run: exit {res.returncode}\n"
+                             f"{res.stderr[-3000:]}")
+    want = _sha256(checkpoint_path(straight, 2))
     manifest = read_manifest(interrupt_path(prefix)) or {}
     log(f"SIGTERM after step {16 + SIGTERM_AFTER + 1} (epoch 1, batch "
         f"{SIGTERM_AFTER}): exit {rc}, {stop_s:.2f} s from the signal to the "
@@ -3643,11 +3736,20 @@ def sigterm_resume(card: str) -> dict:
     if not warned or again != want or \
             "resumed from verified" not in res.stdout:
         raise AssertionError("the fallback past a corrupt file failed")
+    return dict(straight_s=straight_s, sigterm_exit=rc,
+                signal_to_exit_s=stop_s, interrupt_manifest=manifest,
+                resume_s=resume_s, fallback_s=fallback_s,
+                byte_equal=True)
 
+
+def resize_refused(devkit) -> str:
+    """After :func:`sigterm_resume`: a resume of its run at batch 1 is
+    refused (``tools/train.py``'s ``main`` here)."""
+    args = long_args(devkit)[:-2] + [
+        "--end_epoch", "3", "--batch_images", "1", "--prefix",
+        str(LONG_DIR / "run"), "--resume", "auto"]
     try:
-        _train_cli(base[:-2] + ["--end_epoch", "3", "--batch_images", "1",
-                                "--prefix", prefix, "--resume", "auto"],
-                   OUT_DIR / "long_resize.txt")
+        _train_cli(args, OUT_DIR / "long_resize.txt")
     except ValueError as e:
         refused = str(e)
     else:
@@ -3655,10 +3757,7 @@ def sigterm_resume(card: str) -> dict:
     if "effective global batch" not in refused:
         raise AssertionError(f"the resize failed otherwise: {refused}")
     log(f"a resume at batch 1 is refused: {refused[:160]}...")
-    return dict(straight_s=straight_s, sigterm_exit=rc,
-                signal_to_exit_s=stop_s, interrupt_manifest=manifest,
-                resume_s=resume_s, fallback_s=fallback_s,
-                byte_equal=True, resize_refused=refused)
+    return refused
 
 
 def accum_parity(dev) -> dict:
@@ -3800,6 +3899,9 @@ def phase_long_run(dev, card: str, alternate: dict) -> dict:
     removed at the end."""
     import torch
 
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.tools.train import config_from_args, parse_args
+
     t0 = time.perf_counter()
     parts = {}
 
@@ -3809,16 +3911,22 @@ def phase_long_run(dev, card: str, alternate: dict) -> dict:
     shutil.rmtree(LONG_DIR, ignore_errors=True)
     LONG_DIR.mkdir(parents=True)
     try:
+        devkit = write_voc_devkit(LONG_DIR)
+        load_gt_roidb(config_from_args(parse_args(long_args(devkit))),
+                      training=True)
+        # the SIGTERM runs' processes beside the legs that time nothing
+        runs = in_background(sigterm_resume, card, devkit)
         imagenet = imagenet_start(dev, card)
         done("ImageNet start")
-        snapshots = snapshot_costs(dev, card, alternate["schedule"])
-        done("snapshots")
-        resume = sigterm_resume(card)
-        done("SIGTERM and resume")
         torch.backends.cudnn.deterministic = True
         parity = accum_parity(dev)
         torch.backends.cudnn.deterministic = False
         done("accumulation and remat parity")
+        resume = runs()
+        resume["resize_refused"] = resize_refused(devkit)
+        done("SIGTERM and resume (the rest)")
+        snapshots = snapshot_costs(dev, card, alternate["schedule"])
+        done("snapshots")
         costs = accum_costs(dev, card)
         done("accumulation and remat costs")
     finally:
@@ -4118,37 +4226,50 @@ def dp_rig(roidb, load_image, devices, backend: str, card: str,
     return out
 
 
-def dp_cli_world_of_one(dev, card: str) -> dict:
+def dp_cli_argv() -> list:
+    """Step 2's ``tools/train.py`` arguments, less the prefix."""
+    return ["--network", DP_NETWORK, "--dataset", "coco", "--root_path",
+            str(DP_DIR), "--dataset_path", str(DP_DIR / "coco"),
+            "--batch_images", "2", "--no_flip", "--no_shuffle", "--seed",
+            "0", "--frequent", "1", "--end_epoch", "1", "--num_devices", "1"]
+
+
+def dp_cli_runs() -> dict:
+    argv = dp_cli_argv()
+    return {"nccl": argv + ["--prefix", str(DP_DIR / "nccl")],
+            "nccl_cached": argv + ["--prefix", str(DP_DIR / "nccl_cached"),
+                                   "--device_cache"]}
+
+
+def dp_cli_start():
+    """Step 2's process (:func:`dp_cli_world_of_one`), started now; the
+    returned function waits for it."""
+    runs = dp_cli_runs()
+    return _start_process([sys.executable, "-c", TRAIN_TWICE_PROCESS,
+                           *runs["nccl"], "--then", *runs["nccl_cached"]],
+                          OUT_DIR / "dp_cli_nccl.txt")
+
+
+def dp_cli_world_of_one(dev, card: str, started) -> dict:
     """Step 2: ``tools/train.py --num_devices 1`` streamed, then with
     ``--device_cache`` (one spawned rank each, NCCL at world size 1; the
     cached rank's row shard staged on the card), both in one process of
-    their own (:data:`TRAIN_TWICE_PROCESS`) over the COCO tree (no flips,
-    no shuffle: one epoch at batch 2), and ``train_net`` here on the
-    CLI's own config without the world, streamed and cached: each
-    checkpoint, restored, byte-equal to its kind's end state (NCCL at
-    world size 1, streamed and from the device cache)."""
+    their own (:data:`TRAIN_TWICE_PROCESS`, ``started`` by
+    :func:`dp_cli_start`) over the COCO tree (no flips, no shuffle: one
+    epoch at batch 2), and ``train_net`` here on the CLI's own config
+    without the world, streamed and cached: each checkpoint, restored,
+    byte-equal to its kind's end state (NCCL at world size 1, streamed
+    and from the device cache)."""
     from mx_rcnn_tpu_torch.tools.train import (config_from_args, parse_args,
                                                train_net)
     from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                     read_manifest)
 
-    prefixes = {k: str(DP_DIR / k) for k in ("nccl", "nccl_cached")}
-    argv = ["--network", DP_NETWORK, "--dataset", "coco", "--root_path",
-            str(DP_DIR), "--dataset_path", str(DP_DIR / "coco"),
-            "--batch_images", "2", "--no_flip", "--no_shuffle", "--seed",
-            "0", "--frequent", "1", "--end_epoch", "1", "--num_devices", "1"]
-    runs = {"nccl": argv + ["--prefix", prefixes["nccl"]],
-            "nccl_cached": argv + ["--prefix", prefixes["nccl_cached"],
-                                   "--device_cache"]}
+    runs = dp_cli_runs()
+    prefixes = {k: v[v.index("--prefix") + 1] for k, v in runs.items()}
+    argv = dp_cli_argv()
     out = {}
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", TRAIN_TWICE_PROCESS,
-                          *runs["nccl"], "--then", *runs["nccl_cached"]],
-                         cwd=REPO, capture_output=True, text=True,
-                         timeout=600)
-    out["nccl_s"] = time.perf_counter() - t0
-    (OUT_DIR / "dp_cli_nccl.txt").write_text(res.stdout)
-    (OUT_DIR / "dp_cli_nccl.err").write_text(res.stderr)
+    res, out["nccl_s"] = started()
     if res.returncode:
         raise AssertionError(f"the NCCL worlds of one: exit "
                              f"{res.returncode}\n{res.stderr[-3000:]}")
@@ -4174,7 +4295,8 @@ def dp_cli_world_of_one(dev, card: str) -> dict:
                topology=manifest["topology"], fit=fits)
     log(f"tools/train.py --num_devices 1 (NCCL, world of one, {card}), "
         f"streamed then --device_cache: {out['nccl_s']:.1f} s in a process "
-        f"of their own, against train_net here streamed and cached "
+        f"of their own (beside the phase's other processes), against "
+        f"train_net here streamed and cached "
         f"{out['plain_s']:.1f} s, "
         f"{manifest['step']} steps; through fit "
         f"{fits['nccl']['ms_per_step']:.2f} streamed and "
@@ -4238,7 +4360,8 @@ def dp_unbroken(prefix_u: str, card: str) -> dict:
     steps = read_manifest(checkpoint_path(prefix_u, 2))["step"]
     fit = fit_numbers(res.stdout, 1, 4)
     log(f"two ranks through tools/train.py's launcher and fit (gloo, "
-        f"cuda:0 twice; a test rig, its times are not NCCL's; {card}), 2 "
+        f"cuda:0 twice; a test rig, its times are not NCCL's; beside the "
+        f"phase's other processes; {card}), 2 "
         f"images a rank, bf16: {fit['ms_per_step']:.2f} ms per optimizer "
         f"step (median of epoch 2's {fit['steps_timed']} past its first); "
         f"launches per "
@@ -4247,12 +4370,14 @@ def dp_unbroken(prefix_u: str, card: str) -> dict:
     return dict(steps=steps, **fit)
 
 
-def dp_sigterm(prefix_u: str, card: str) -> dict:
+def dp_sigterm(card: str) -> dict:
     """Step 5: the two-rank rig's launcher in a process of its own over
     the COCO tree, SIGTERM after ``Epoch[1] Batch [DP_SIGTERM_AT]``: exit
     0, both ranks ended at the same step, one interrupt checkpoint with
     ``topology.devices = 2``; then ``--resume auto`` in the same world to
-    the end of epoch 2, byte-equal to the unbroken run ``prefix_u``."""
+    the end of epoch 2, held by :func:`dp_sigterm_equal` against the
+    unbroken run.  Its work is in those processes: it runs
+    :func:`in_background`."""
     import signal
 
     from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
@@ -4302,17 +4427,28 @@ def dp_sigterm(prefix_u: str, card: str) -> dict:
                          capture_output=True, text=True, timeout=600)
     (OUT_DIR / "dp_resume.txt").write_text(res.stdout + res.stderr)
     resume_s = time.perf_counter() - t0
-    got = _sha256(checkpoint_path(prefix, 2))
-    want = _sha256(checkpoint_path(prefix_u, 2))
-    log(f"--resume auto in the same world: {resume_s:.1f} s, epoch 2 "
-        f"byte-equal to the unbroken run {got == want}")
-    if res.returncode or got != want or \
+    if res.returncode or \
             "resumed mid-epoch from verified" not in res.stdout:
-        raise AssertionError(f"the resumed two-rank run differs:\n"
+        raise AssertionError(f"the resumed two-rank run:\n"
                              f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
     return dict(exit=rc, signal_to_exit_s=stop_s, ranks_ended_at=steps,
                 interrupt_manifest=manifest, resume_s=resume_s,
-                byte_equal=True)
+                prefix=prefix)
+
+
+def dp_sigterm_equal(sig: dict, prefix_u: str) -> dict:
+    """:func:`dp_sigterm`'s resumed epoch 2 byte-equal to the unbroken
+    run ``prefix_u``'s."""
+    from mx_rcnn_tpu_torch.utils.checkpoint import checkpoint_path
+
+    got = _sha256(checkpoint_path(sig["prefix"], 2))
+    want = _sha256(checkpoint_path(prefix_u, 2))
+    log(f"--resume auto in the same world: {sig['resume_s']:.1f} s, epoch "
+        f"2 byte-equal to the unbroken run {got == want}")
+    if got != want:
+        raise AssertionError("the resumed two-rank run differs from the "
+                             "unbroken one")
+    return dict(sig, byte_equal=True)
 
 
 def dp_resize(dev, prefix_u: str) -> dict:
@@ -4517,25 +4653,32 @@ def dp_cards(roidb, load_image, card: str, eval_prefix: str,
     return out
 
 
-def dp_demo(card: str) -> dict:
-    """``tools/multihost_demo.py --launch N`` (its ``main`` here, the
-    workers in processes of their own) on the cards (its default device;
-    N = min(count, 4), a world of one over NCCL on a machine of one
-    card): exit 0, every worker's loss equal at each step, NCCL named;
-    then one worker more than the machine has cards, refused before any
-    worker starts."""
+def dp_demo_start():
+    """:func:`dp_demo`'s launcher run, ``tools/multihost_demo.py --launch
+    N`` in a process of its own (the workers in theirs), started now."""
+    import torch
+
+    n = min(torch.cuda.device_count(), 4)
+    return n, _start_process(
+        [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.multihost_demo",
+         "--launch", str(n), "--steps", "2"], OUT_DIR / "dp_demo_run.txt")
+
+
+def dp_demo(card: str, started) -> dict:
+    """``tools/multihost_demo.py --launch N`` (``started`` by
+    :func:`dp_demo_start`) on the cards (its default device; N = min(count,
+    4), a world of one over NCCL on a machine of one card): exit 0, every
+    worker's loss equal at each step, NCCL named; then one worker more
+    than the machine has cards, refused before any worker starts (its
+    ``main`` here)."""
     import torch
 
     from mx_rcnn_tpu_torch.tools import multihost_demo
 
-    n = min(torch.cuda.device_count(), 4)
-    t0 = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = multihost_demo.main(["--launch", str(n), "--steps", "2"])
-    text = buf.getvalue()
-    (OUT_DIR / "dp_demo_run.txt").write_text(text)
-    run = dict(workers=n, exit=rc, wall_s=time.perf_counter() - t0)
+    n, wait = started
+    res, wall = wait()
+    text = res.stdout
+    run = dict(workers=n, exit=res.returncode, wall_s=wall)
     more = torch.cuda.device_count() + 1
     refused = ""
     try:
@@ -4544,7 +4687,8 @@ def dp_demo(card: str) -> dict:
         refused = str(e)
     log(f"tools/multihost_demo.py --launch {n} on the card(s) (NCCL, "
         f"{card}): exit {run['exit']} in {run['wall_s']:.1f} s, "
-        f"{text.count('AGREE')} steps agreed; --launch {more}: refused "
+        f"{text.count('AGREE')} steps agreed (beside the phase's other "
+        f"processes); --launch {more}: refused "
         f"({refused[:80]})")
     if run["exit"] or "MULTIHOST DEMO: OK" not in text or \
             "backend nccl" not in text or \
@@ -4553,13 +4697,48 @@ def dp_demo(card: str) -> dict:
     return dict(run=run, refused=dict(workers=more, error=refused))
 
 
+DRYRUN_PROCESS = """
+import json, sys, torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from mx_rcnn_tpu_torch.parallel.dryrun import dryrun_multichip
+res = dryrun_multichip(2, devices=sys.argv[1].split(","), backend="gloo")
+print("DRYRUN " + json.dumps(res), flush=True)
+"""
+
+
+def dp_dryrun_start():
+    """``dryrun_multichip(2)`` on the rig in a process of its own (its step
+    of a world of one and its eval touch the card), started now."""
+    return _start_process([sys.executable, "-c", DRYRUN_PROCESS,
+                           ",".join(DP_RIG)], OUT_DIR / "dp_dryrun.txt")
+
+
+def dp_dryrun(started) -> dict:
+    """:func:`dp_dryrun_start`'s process: exit 0, its three OK lines."""
+    res, wall = started()
+    oks = [ln for ln in res.stdout.splitlines()
+           if ln.startswith("dryrun_multichip(2): OK")]
+    for ln in oks:
+        log(ln)
+    recs = [json.loads(ln.split(" ", 1)[1]) for ln in res.stdout.splitlines()
+            if ln.startswith("DRYRUN ")]
+    log(f"dryrun_multichip(2) in a process of its own (beside the phase's "
+        f"other processes): exit {res.returncode} in {wall:.1f} s")
+    if res.returncode or len(oks) != 3 or not recs:
+        raise AssertionError(f"dryrun_multichip(2): exit {res.returncode}\n"
+                             f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    return dict(recs[0], wall_s=wall)
+
+
 def phase_data_parallel(dev, card: str) -> dict:
     """Phase 14 (see the module docstring), its files under ``_chip/dp``,
     removed at the end."""
     import torch
 
     from mx_rcnn_tpu_torch.data import load_gt_roidb
-    from mx_rcnn_tpu_torch.parallel.dryrun import dryrun_multichip
     from mx_rcnn_tpu_torch.utils.checkpoint import load_state_dict, save_params
 
     t0 = time.perf_counter()
@@ -4580,21 +4759,29 @@ def phase_data_parallel(dev, card: str) -> dict:
             f"{DP_VAL_IMAGES} val2017 480x640 JPEGs, {len(roidb)} training "
             f"records with flips; {torch.cuda.device_count()} card(s)")
         done("generate")
+        # the legs whose work is in processes of their own start now and
+        # run beside the parity and the rig (the roidb cache is written)
+        prefix_u = str(DP_DIR / "unbroken")
+        cli_started = dp_cli_start()
+        unbroken_bg = in_background(dp_unbroken, prefix_u, card)
+        sigterm_bg = in_background(dp_sigterm, card)
+        demo_started = dp_demo_start()
+        dry_started = dp_dryrun_start()
         parity = dp_parity(dev, card)
         done("parity")
-        cli = dp_cli_world_of_one(dev, card)
-        done("NCCL world of one")
         rig = dp_rig(roidb, imdb.load_image, DP_RIG, "gloo",
                      card, "two ranks (gloo, cuda:0 twice; a test rig, its "
-                     "times are not NCCL's)")
+                     "times are not NCCL's; beside the phase's other "
+                     "processes)")
         done("two-rank rig")
-        prefix_u = str(DP_DIR / "unbroken")
-        unbroken = dp_unbroken(prefix_u, card)
-        done("unbroken two-rank run")
+        cli = dp_cli_world_of_one(dev, card, cli_started)
+        done("NCCL world of one (the rest)")
+        unbroken = unbroken_bg()
+        done("unbroken two-rank run (the rest)")
         resize = dp_resize(dev, prefix_u)
         done("resize")
-        sigterm = dp_sigterm(prefix_u, card)
-        done("SIGTERM and resume")
+        sigterm = dp_sigterm_equal(sigterm_bg(), prefix_u)
+        done("SIGTERM and resume (the rest)")
         state = load_state_dict(prefix_u, 2)
         state["cls_score.weight"] = state["cls_score.weight"] * \
             SERVE_CLS_SCALE
@@ -4605,10 +4792,10 @@ def phase_data_parallel(dev, card: str) -> dict:
         more = dp_cards(roidb, imdb.load_image, card,
                         str(DP_DIR / "scaled"), evaluation["single"])
         done("NCCL across cards")
-        demo = dp_demo(card)
-        done("multihost demo")
-        dry = dryrun_multichip(2, devices=DP_RIG, backend="gloo", log=log)
-        done("dryrun_multichip")
+        demo = dp_demo(card, demo_started)
+        done("multihost demo (the rest)")
+        dry = dp_dryrun(dry_started)
+        done("dryrun_multichip (the rest)")
     finally:
         torch.backends.cudnn.deterministic = False
         shutil.rmtree(DP_DIR, ignore_errors=True)
@@ -5045,7 +5232,9 @@ def cache_worlds(roidb, load_image, card: str) -> dict:
     cached against streamed at ``shuffle=False`` (byte-equal states),
     each rank's ``shuffle=True`` epochs its own shard exactly once.  The
     NCCL world of one's cached run is held in phase 14
-    (``dp_cli_world_of_one``)."""
+    (``dp_cli_world_of_one``).  The ranks are processes of their own and
+    this process does no work on the card here, so it runs
+    :func:`in_background`."""
     from mx_rcnn_tpu_torch.data.loader import StreamLoader
     from mx_rcnn_tpu_torch.parallel.dp import launch
 
@@ -5170,10 +5359,13 @@ def phase_device_cache(dev, card: str) -> dict:
         done("cached = streamed")
         turns = cache_turns(dev, roidb, load_image, card)
         done("cached and streamed in turns")
+        # the rig's ranks are processes of their own: beside the SIGTERM
+        # leg, which times nothing
+        worlds_bg = in_background(cache_worlds, roidb, load_image, card)
         sigterm = cache_sigterm(dev, roidb, load_image, card)
         done("SIGTERM and resume")
-        worlds = cache_worlds(roidb, load_image, card)
-        done("rig")
+        worlds = worlds_bg()
+        done("rig (the rest)")
         hard = cache_hard_cli(card)
         done("hard-set CLI")
         bench = cache_data_bench(card)
@@ -6828,6 +7020,601 @@ def phase_bulk(dev, card: str) -> dict:
                 demo=demo, parts_s=parts, wall_s=wall)
 
 
+# ---- phase 19: the serving fleet, the thirteenth main path ---------------
+
+FLEET_DIR = REPO / "_chip" / "fleet"   # the tree, checkpoint, store, sinks
+FLEET_REPLICAS = 2
+FLEET_BULK_IMAGES = 48     # train2017 JPEGs, 480x640 and 640x480 in turns
+FLEET_LOOP_S = 8.0         # the 2-replica closed loop through detect
+FLEET_ONE_S = 4.0          # 1 and 2 replicas at one concurrency
+FLEET_KILL_S = 5.0         # the kill-mid-burst leg's burst
+FLEET_MEM_SLACK = 64 << 20  # bytes a closed fleet may leave on the card
+
+
+def fleet_overrides() -> dict:
+    """Phase 18's configuration over phase 19's tree."""
+    return {"dataset__root_path": str(FLEET_DIR),
+            "dataset__dataset_path": str(FLEET_DIR / "coco"),
+            "serve__score_thresh": BULK_SCORE_THRESH}
+
+
+def fleet_sets() -> list:
+    return [a for k, v in fleet_overrides().items()
+            for a in ("--set", f"{k}={v!r}" if isinstance(v, str)
+                      else f"{k}={v}")]
+
+
+def fleet_model_args(prefix: str) -> list:
+    return ["--network", "resnet101", "--dataset", "coco", "--prefix",
+            prefix, "--epoch", "1"]
+
+
+def fleet_memory(devices) -> tuple:
+    """Bytes allocated on the fleet's cards after a collection: as read,
+    and with PyTorch's cached cuBLAS workspaces released (one a thread's
+    handle, kept after the thread exits: a dispatcher thread's matmul
+    leaves one behind, which is no replica's state; PyTorch's own memory
+    leak check releases them the same way)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    raw = sum(torch.cuda.memory_allocated(d) for d in set(devices))
+    torch._C._cuda_clearCublasWorkspaces()
+    return raw, sum(torch.cuda.memory_allocated(d) for d in set(devices))
+
+
+def fleet_loop(router, images, seconds: float, concurrency: int) -> dict:
+    """A closed loop through ``router.detect``; its served rate, lost
+    count, and each replica's engine batches over the loop."""
+    from mx_rcnn_tpu_torch.tools.loadgen import _drain, run_closed_loop
+
+    b0 = [r.engine.metrics.counters["batches"]
+          for r in router.manager.replicas]
+    router.metrics.reset()
+    run = run_closed_loop(router, images, seconds, concurrency, 20_000.0)
+    _drain(router)
+    snap = router.metrics.snapshot()
+    c = snap["counters"]
+    batches = [r.engine.metrics.counters["batches"] - b
+               for r, b in zip(router.manager.replicas, b0)]
+    return dict(served=c["served"], failed=c["failed"], shed=c["shed"],
+                expired=c["expired"], lost=c["submitted"] - snap["terminated"],
+                images_per_s=c["served"] / run["wall_s"],
+                wall_s=run["wall_s"], p50_ms=snap["total_ms"]["p50"],
+                p99_ms=snap["total_ms"]["p99"], batches=batches,
+                rows_per_batch=c["served"] / max(sum(batches), 1),
+                concurrency=concurrency)
+
+
+def fleet_rows(engine) -> dict:
+    """Each bucket's four request images in one batch, in four
+    rotations: each image's detections byte-equal at every row, so a
+    bulk run's shards do not depend on the replica or row that scored an
+    image (``models/rpn.py``).  Returns each bucket's images that
+    differed (none) and how many detections were compared."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch.core.tester import (_postprocess_batch,
+                                               detections_from_keep)
+
+    p, cfg, n = engine.predictor, engine.cfg, ENGINE_BATCH
+    imgs = request_images()
+    out = {}
+    for group in (imgs[:n], imgs[n:]):
+        canv = [engine.preprocess(img) for img in group]
+        seen, dets = [set() for _ in canv], 0
+        for shift in range(n):
+            order = [(j + shift) % n for j in range(n)]
+            images = np.stack([canv[i][0] for i in order])
+            info = np.stack([canv[i][1] for i in order]).astype(np.float32)
+            outs = p.raw(images, info)
+            info_t = torch.from_numpy(info).to(p.device)
+            with torch.inference_mode():
+                post = [t.cpu().numpy() for t in _postprocess_batch(
+                    *outs, info_t, info_t[:, 2], engine._stds, engine._means,
+                    nms_thresh=cfg.test.nms,
+                    score_thresh=cfg.serve.score_thresh)]
+            for row, i in enumerate(order):
+                d = detections_from_keep(*post, row)
+                dets += sum(len(v) for v in d.values())
+                seen[i].add(tuple(sorted((c, v.tobytes())
+                                         for c, v in d.items())))
+        bh, bw = canv[0][2]
+        out[f"{bh}x{bw}"] = dict(differed=[i for i, s in enumerate(seen)
+                                           if len(s) != 1], detections=dets)
+    return out
+
+
+def fleet_health_watch(cfg):
+    """``watch`` of ``tools/loadgen.py — _kill_mid_burst_leg``: at the
+    kill, wait for the eject, then scrape the fleet
+    (``collector_for_fleet``) and judge ``default_rules`` on it; after
+    the rejoin, the same."""
+    from mx_rcnn_tpu_torch.obs import health as obs_health
+    from mx_rcnn_tpu_torch.obs.collect import (collector_for_fleet,
+                                               view_to_snapshot)
+    from mx_rcnn_tpu_torch.obs.metrics import Registry
+    from mx_rcnn_tpu_torch.obs.timeseries import TimeSeriesStore
+    from mx_rcnn_tpu_torch.serve.fleet import R_READY
+
+    store = TimeSeriesStore(64)
+    engine = obs_health.HealthEngine(obs_health.default_rules(cfg), store,
+                                     registry=Registry())
+
+    def watch(router, phase):
+        victim = router.manager.replicas[0]
+        if phase == "killed":
+            deadline = time.monotonic() + 10.0
+            while victim.state == R_READY and time.monotonic() < deadline:
+                time.sleep(0.01)
+        router.manager.export_gauges()
+        view = collector_for_fleet(router).collect()
+        store.append_snapshot(view_to_snapshot(view))
+        doc = engine.evaluate()
+        return dict(state=victim.state,
+                    up={k: v["up"] for k, v in view["sources"].items()},
+                    ready_gauge=view_to_snapshot(view)["gauges"].get(
+                        "fleet.replicas_ready"),
+                    verdict=doc["verdict"], firing=doc["firing"])
+
+    return watch
+
+
+def fleet_package(root: Path) -> Path:
+    """A copy of the package under ``root`` whose ``_build/`` is empty."""
+    from mx_rcnn_tpu_torch.tools.loadgen import fresh_package
+
+    return fresh_package(str(root))
+
+
+def fleet_bulk(prefix: str, store: str, at_kill=None) -> dict:
+    """``tools/bulk.py --protocol kill_resume --replicas 2 --check`` in a
+    process over a copy of the package whose ``_build/`` is empty (its
+    three children import the copy too).  ``at_kill()`` runs when the
+    protocol starts its killed child, whose run nothing measures (after
+    the control's serve baseline and rate)."""
+    copy = fleet_package(FLEET_DIR / "bulk_pkg")
+    cmd = [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.bulk",
+           "--protocol", "kill_resume", "--replicas", str(FLEET_REPLICAS),
+           "--num_images", str(FLEET_BULK_IMAGES), "--batch_images",
+           str(ENGINE_BATCH), "--root_path", str(FLEET_DIR),
+           "--dataset_path", str(FLEET_DIR / "coco"), "--export_dir",
+           store, "--workdir", str(FLEET_DIR / "bulk"), "--baseline_s", "2",
+           "--min_ratio_vs_serve", "0.4", "--check",
+           "--set", f"serve__score_thresh={BULK_SCORE_THRESH}",
+           "--set", "bulk__shard_batches=2",
+           "--set", "data__ram_ceiling_mb=16384"] + fleet_model_args(prefix)
+    env = dict(os.environ, PYTHONPATH=str(copy))
+    out_path, err_path = OUT_DIR / "fleet_bulk.txt", OUT_DIR / "fleet_bulk.err"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=str(copy), env=env, stdout=out,
+                                stderr=err)
+        try:
+            while proc.poll() is None:
+                if at_kill is not None and "KILL run" in err_path.read_text():
+                    at_kill()
+                    at_kill = None
+                if time.perf_counter() - t0 > 420:
+                    raise AssertionError("tools/bulk.py kill_resume ran "
+                                         "past 420 s")
+                time.sleep(0.2)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    stdout, stderr = out_path.read_text(), err_path.read_text()
+    recs = [json.loads(ln) for ln in stdout.splitlines()
+            if ln.startswith("{")]
+    if proc.returncode != 0 or not recs:
+        raise AssertionError(f"tools/bulk.py kill_resume exited "
+                             f"{proc.returncode}:\n{stderr[-3000:]}")
+    rec = recs[-1]
+    for run in ("control", "resume"):
+        if not rec[run]["package"].startswith(str(copy)):
+            raise AssertionError(f"the bulk {run} imported "
+                                 f"{rec[run]['package']}")
+    return dict(rec, wall_s=wall,
+                built=sorted(p.name for p in (copy / "mx_rcnn_tpu_torch"
+                                              / "_build").iterdir()))
+
+
+def fleet_join(mode: str, store: str) -> dict:
+    """``tools/fleet.py join_bench --mode trace`` (by warm-up) or
+    ``export`` (from the store) in a process over a fresh copy of the
+    package."""
+    from mx_rcnn_tpu_torch.tools.loadgen import _run_join_bench
+
+    t0 = time.perf_counter()
+    rec = _run_join_bench(
+        mode, "resnet101", "coco", fleet_overrides(),
+        export_dir=store if mode == "export" else None, timeout_s=300,
+        device="cuda", workdir=str(FLEET_DIR / "join"))
+    return dict(rec, process_s=time.perf_counter() - t0)
+
+
+def fleet_http_start(prefix: str, store: str) -> tuple:
+    """Start ``tools/fleet.py serve --replicas 2`` in a process of its
+    own; it builds and joins beside the bulk protocol's killed child
+    (once up it idles until :func:`fleet_http` asks it)."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    err = open(OUT_DIR / "fleet_serve.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.fleet", "serve",
+         "--replicas", str(FLEET_REPLICAS), "--export_dir", store, "--port",
+         str(port)] + fleet_model_args(prefix) + fleet_sets(),
+        cwd=str(REPO), stdout=subprocess.DEVNULL, stderr=err)
+    return proc, port, err, time.perf_counter()
+
+
+def fleet_http(started: tuple, card: str) -> dict:
+    """The started service: its ``/healthz`` with 2 ready replicas, 4
+    ``/detect`` (200), ``/metrics`` with the ``fleet.*`` counters,
+    SIGINT: exit 0 within 10 s."""
+    import base64
+    import signal
+    import urllib.request
+
+    import numpy as np
+
+    proc, port, err, t0 = started
+    url = f"http://127.0.0.1:{port}"
+
+    def get(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                url + path, data=data), timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+
+    try:
+        health = None
+        deadline = time.monotonic() + 180
+        while health is None and time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"tools/fleet.py serve exited "
+                                     f"{proc.returncode} before serving")
+            try:
+                health = get("/healthz")[1]
+            except OSError:
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        statuses, dets = [], []
+        for img in request_images()[2:6]:
+            img = np.ascontiguousarray(img)
+            status, body = get("/detect", {
+                "pixels_b64": base64.b64encode(img.tobytes()).decode(),
+                "shape": list(img.shape)})
+            statuses.append(status)
+            dets.append(len(body["detections"]))
+        _, metrics = get("/metrics")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed after 10 s"
+        err.close()
+    reg = metrics.get("registry", {}).get("counters", {})
+    log(f"tools/fleet.py serve --replicas 2 on {card}: /healthz with "
+        f"{health['ready']} ready replicas {up_s:.1f} s after its start "
+        f"(beside the bulk protocol's killed child); /detect "
+        f"{statuses}, detections {dets}; /metrics fleet.served "
+        f"{reg.get('fleet.served')}; SIGINT -> exit {rc}")
+    if (health["ready"] != FLEET_REPLICAS or statuses != [200] * 4
+            or reg.get("fleet.served") != 4 or rc != 0
+            or not any(k.startswith("fleet.") for k in reg)):
+        raise AssertionError(f"fleet serve: healthz {health} statuses "
+                             f"{statuses} metrics {reg} exit {rc}")
+    return dict(up_s=up_s, statuses=statuses, detections=dets,
+                healthz=health, fleet_counters=reg, exit=rc)
+
+
+def phase_fleet(dev, card: str) -> dict:
+    """Phase 19: the serving fleet (module docstring), its files under
+    ``_chip/fleet``, removed at the end."""
+    import numpy as np
+    import torch
+
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.obs.metrics import registry
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.serve.export import predictor_variables
+    from mx_rcnn_tpu_torch.serve.fleet import build_fleet
+    from mx_rcnn_tpu_torch.tools import fleet as fleet_tool
+    from mx_rcnn_tpu_torch.tools.loadgen import (_kill_mid_burst_leg,
+                                                 init_predictor,
+                                                 synthetic_images)
+    from mx_rcnn_tpu_torch.utils.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    http_proc = None
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", k)
+               for k in range(min(n_cards, FLEET_REPLICAS))]
+    try:
+        write_coco_tree(FLEET_DIR, seed=6, counts=(FLEET_BULK_IMAGES, 0),
+                        portrait_every=2)
+        cfg = generate_config("resnet101", "coco", **fleet_overrides())
+        fcfg = cfg.replace_in("fleet", replicas=FLEET_REPLICAS,
+                              health_interval_s=0.2)
+        prefix = str(FLEET_DIR / "m")
+        model = build_model(cfg, dev, seed=0, train=True)
+        with torch.no_grad():
+            model.cls_score.weight.mul_(SERVE_CLS_SCALE)
+        save_params(prefix, 1, model.state_dict())
+        del model
+        pred = init_predictor(cfg, prefix, 1, device=dev)
+        variables = predictor_variables(pred)
+        offline = ServingEngine(pred, cfg, start=False)
+        rows = fleet_rows(offline)
+        log(f"each request image at every row of a batch of "
+            f"{ENGINE_BATCH} on {card}: images whose detections differed "
+            f"between rows, per bucket: "
+            + "; ".join(f"{k}: {v['differed']} ({v['detections']} "
+                        f"detections)" for k, v in rows.items()))
+        if any(v["differed"] or not v["detections"] for v in rows.values()):
+            raise AssertionError(f"detections follow the batch row: {rows}")
+        done("tree and checkpoint")
+
+        # (a) the store through the CLI's main
+        store = str(FLEET_DIR / "store")
+        with open(OUT_DIR / "fleet_export.txt", "w") as f, \
+                contextlib.redirect_stdout(f):
+            fleet_tool.main(["export", "--out", store]
+                            + fleet_model_args(prefix) + fleet_sets())
+        report = json.loads((OUT_DIR / "fleet_export.txt").read_text()
+                            .strip().splitlines()[-1])
+        log(f"phase 19: tools/fleet.py export in {report['export_s']} s, "
+            f"bit-equal {report['bit_equal']}, kernel libraries "
+            f"{report['kernels']}, {report['bytes']} bytes")
+        if report["kernels"] != ["nms_sweep", "roi_align_fwd"] \
+                or not report["bit_equal"]:
+            raise AssertionError(f"the fleet store: {report}")
+        done("store")
+
+        # (b) + (c) the 2-replica fleet, its loop and the bit-equality
+        mem0 = fleet_memory(devices)
+        t1 = time.perf_counter()
+        router = build_fleet(fcfg, variables, export_root=store,
+                             devices=devices)
+        build_s = time.perf_counter() - t1
+        try:
+            joins = [r.joins[-1] for r in router.manager.replicas]
+            placed = [str(r.engine.predictor.device)
+                      for r in router.manager.replicas]
+            builds = [j["load_events_after"]["builds"]
+                      - j["load_events_before"]["builds"] for j in joins]
+            log(f"fleet of {FLEET_REPLICAS} on {n_cards} card(s): replicas "
+                f"on {placed}, joins {[j['join_s'] for j in joins]} s "
+                f"(warm {[j['warm_s'] for j in joins]}), kernel builds "
+                f"{builds}, {build_s:.2f} s for the fleet")
+            want_dev = [str(devices[k % len(devices)])
+                        for k in range(FLEET_REPLICAS)]
+            if builds != [0] * FLEET_REPLICAS or placed != want_dev \
+                    or any(j["export_root"] != store for j in joins):
+                raise AssertionError(f"the fleet's joins: {joins} on "
+                                     f"{placed}")
+            images = synthetic_images(cfg, 16, seed=0)
+            kernels.reset_launch_counts()
+            two = fleet_loop(router, images, FLEET_LOOP_S,
+                             4 * ENGINE_BATCH * FLEET_REPLICAS)
+            launches = fp_launches()
+            by_dev = kernels.launch_counts_by_device()
+            batches = sum(two["batches"])
+            want = {"nms_sweep": 2 * batches, "roi_align_fwd": batches,
+                    "roi_align_bwd": 0}
+            per_card = {str(devices[k % len(devices)]): (
+                by_dev["nms_sweep"].get(devices[k % len(devices)].index, 0),
+                by_dev["roi_align_fwd"].get(devices[k % len(devices)].index,
+                                            0)) for k in range(FLEET_REPLICAS)}
+            log(f"fleet closed loop {FLEET_LOOP_S:.0f} s at concurrency "
+                f"{two['concurrency']} on {card}: {two['served']} served, "
+                f"{two['images_per_s']:.2f} images/s, p50/p99 "
+                f"{two['p50_ms']}/{two['p99_ms']} ms, lost {two['lost']}, "
+                f"engine batches per replica {two['batches']}; launches "
+                f"{launches}; K1/K2 per card {per_card}")
+            if two["lost"] or two["failed"] or not two["served"] \
+                    or launches != want or not all(two["batches"]):
+                raise AssertionError(f"the fleet loop: {two} launches "
+                                     f"{launches}, want {want}")
+            if len(devices) > 1:
+                for k in range(FLEET_REPLICAS):
+                    d = devices[k].index
+                    if (by_dev["nms_sweep"].get(d), by_dev["roi_align_fwd"]
+                            .get(d)) != (2 * two["batches"][k],
+                                         two["batches"][k]):
+                        raise AssertionError(f"replica {k}'s launches are "
+                                             f"not on card {d}: {by_dev}")
+            equal, seen, dets = 0, set(), 0
+            for img in request_images():
+                freq = router.submit(img, timeout_ms=0)
+                got = freq.wait(timeout=120.0)
+                want_d = offline_detections(offline, img)
+                seen.add(freq.replica_id)
+                dets += sum(len(v) for v in want_d.values())
+                equal += sorted(got) == sorted(want_d) and all(
+                    np.array_equal(got[c], want_d[c]) for c in want_d)
+            log(f"fleet detect alone in its batch: {equal} of "
+                f"{len(request_images())} bit-equal to the offline batch "
+                f"({dets} detections, replicas {sorted(seen)})")
+            if equal != len(request_images()) or not dets \
+                    or seen != set(range(FLEET_REPLICAS)):
+                raise AssertionError(f"fleet bit-equality {equal}, replicas "
+                                     f"{seen}, detections {dets}")
+            # the same fleet at the 1-replica leg's concurrency
+            two_16 = fleet_loop(router, images, FLEET_ONE_S,
+                                4 * ENGINE_BATCH)
+        finally:
+            router.close()
+        del router
+        mem_two = [a - b for a, b in zip(fleet_memory(devices), mem0)]
+        done("two replicas")
+
+        # (d) one replica, the same traffic
+        router = build_fleet(fcfg.replace_in("fleet", replicas=1), variables,
+                             export_root=store, devices=devices)
+        try:
+            one = fleet_loop(router, images, FLEET_ONE_S, 4 * ENGINE_BATCH)
+        finally:
+            router.close()
+        del router
+        log(f"1 against 2 replicas on {n_cards} card(s) ({card}): "
+            f"{one['images_per_s']:.2f} against {two_16['images_per_s']:.2f} "
+            f"images/s served at concurrency {one['concurrency']} (p50 "
+            f"{one['p50_ms']} / {two_16['p50_ms']} ms, rows a batch "
+            f"{one['rows_per_batch']:.2f} / {two_16['rows_per_batch']:.2f}; "
+            f"2 replicas at concurrency {two['concurrency']}: "
+            f"{two['rows_per_batch']:.2f}), lost {one['lost']} and "
+            f"{two_16['lost']}"
+            + (" (one card: the router's overhead, not scaling)"
+               if n_cards == 1 else ""))
+        if one["lost"] or not one["served"] or two_16["lost"] \
+                or not two_16["served"]:
+            raise AssertionError(f"the 1-replica loop: {one}; 2 at its "
+                                 f"concurrency {two_16}")
+        done("one replica")
+
+        # (e) kill mid-burst, watched
+        registry().reset("fleet.")
+        kill = _kill_mid_burst_leg(cfg, variables, store, FLEET_KILL_S,
+                                   20_000.0, images, device=dev,
+                                   watch=fleet_health_watch(fcfg))
+        mem_kill = [a - b for a, b in zip(fleet_memory(devices), mem0)]
+        w = kill["watch"]
+        rejoin = kill["rejoin"] or {}
+        rejoin_builds = (rejoin.get("load_events_after", {}).get("builds", 1)
+                         - rejoin.get("load_events_before", {}).get(
+                             "builds", 0))
+        log(f"kill mid-burst on {card}: {kill['served']} served, "
+            f"{kill['served_after_kill']} after the kill, lost "
+            f"{kill['lost']}, rerouted {kill['rerouted']}, ejects "
+            f"{kill['ejects']}, relaunched {kill['relaunched']} (rejoin "
+            f"{kill['rejoin_s']} s, join {rejoin.get('join_s')} s, builds "
+            f"{rejoin_builds}); at the kill: {w['killed']['state']}, "
+            f"scrape up {w['killed']['up']}, ready gauge "
+            f"{w['killed']['ready_gauge']}, verdict {w['killed']['verdict']} "
+            f"{w['killed']['firing']}; after the rejoin: verdict "
+            f"{w['rejoined']['verdict']} {w['rejoined']['firing']}")
+        log(f"the card's memory after each fleet closed, against before, "
+            f"as read / with the cached cuBLAS workspaces released: "
+            f"{mem_two[0] / 2 ** 20:+.1f} / {mem_two[1] / 2 ** 20:+.1f} MiB "
+            f"(2 replicas), {mem_kill[0] / 2 ** 20:+.1f} / "
+            f"{mem_kill[1] / 2 ** 20:+.1f} MiB (the kill leg)")
+        if (kill["lost"] or kill["ejects"] != 1 or not kill["relaunched"]
+                or kill["served_after_kill"] <= 0 or rejoin_builds != 0
+                or rejoin.get("export_root") != store
+                or w["killed"]["up"].get("replica-0")
+                or w["killed"]["verdict"] != "CRITICAL"
+                or "fleet-degraded" not in w["killed"]["firing"]
+                or w["rejoined"]["verdict"] != "OK"
+                or abs(mem_two[1]) > FLEET_MEM_SLACK
+                or abs(mem_kill[1]) > FLEET_MEM_SLACK):
+            raise AssertionError(f"the kill leg: {kill}; memory "
+                                 f"{mem_two} {mem_kill}")
+        done("kill")
+        del offline, pred, variables
+
+        # (f) processes over a copy of the package with an empty _build/;
+        # (g)'s service and join_bench by warm-up start beside the killed
+        # child
+        trace_join = {}
+
+        def run_trace_join():
+            try:
+                trace_join.update(fleet_join("trace", store))
+            except BaseException as e:  # noqa: BLE001 — raised below
+                trace_join["error"] = e
+
+        trace_thread = threading.Thread(target=run_trace_join, daemon=True)
+
+        def at_kill():
+            nonlocal http_proc
+            http_proc = fleet_http_start(prefix, store)
+            trace_thread.start()
+
+        bulk = fleet_bulk(prefix, store, at_kill=at_kill)
+        if http_proc is None:
+            at_kill()
+        ctrl, resume = bulk["control"], bulk["resume"]
+        log(f"tools/bulk.py kill_resume ({card}): {bulk['wall_s']:.1f} s, "
+            f"{ctrl['bulk']['accounted_images']} of {FLEET_BULK_IMAGES} "
+            f"images in {bulk['shards']} shards, lost {ctrl['bulk']['lost']}"
+            f", {ctrl['bulk']['imgs_per_sec']} images/s against a serve "
+            f"baseline of {ctrl['serve_baseline']['imgs_per_sec']} "
+            f"(ratio {ctrl.get('ratio_vs_serve_baseline')}); killed after "
+            f"shard {bulk['kill_after_shard']}, resumed "
+            f"{resume['bulk']['resumed_shards']}; union byte-equal "
+            f"{bulk['union_bit_identical']}; join builds "
+            f"{ctrl['join_kernel_builds']}, {resume['join_kernel_builds']}; "
+            f"peak RSS {ctrl['peak_rss_mb']} MiB; the copy's _build/ "
+            f"{bulk['built']}")
+        if not bulk["union_bit_identical"] or not all(
+                bulk["checks"].values()) or ctrl["join_kernel_builds"] \
+                or resume["join_kernel_builds"]:
+            raise AssertionError(f"fleet bulk: {json.dumps(bulk)[:3000]}")
+        done("bulk")
+        ex = fleet_join("export", store)
+        trace_thread.join(timeout=300)
+        if "error" in trace_join or trace_thread.is_alive():
+            raise AssertionError(f"join_bench --mode trace: "
+                                 f"{trace_join.get('error', 'past 300 s')}")
+        tr = trace_join
+        joins_bench = dict(trace=tr, export=ex,
+                           ratio=ex["overhead_s"] / tr["overhead_s"])
+        log(f"join_bench ({card}): by warm-up (its process beside the bulk "
+            f"protocol's killed and resumed children) overhead "
+            f"{tr['overhead_s']} s (first {tr['first_s']}, second "
+            f"{tr['second_s']}), builds {tr['kernel_builds']}, process "
+            f"{tr['process_s']:.1f} s; from "
+            f"the store overhead {ex['overhead_s']} s (load {ex['load_s']}, "
+            f"first {ex['first_s']}, second {ex['second_s']}), builds "
+            f"{ex['kernel_builds']}, placed {ex['kernels_placed']}, process "
+            f"{ex['process_s']:.1f} s; ratio {joins_bench['ratio']:.4f}")
+        if tr["kernel_builds"] != 2 or ex["kernel_builds"] != 0:
+            raise AssertionError(f"join_bench builds: {joins_bench}")
+        done("join_bench")
+
+        # (g) the HTTP service
+        http = fleet_http(http_proc, card)
+        done("http")
+    finally:
+        if http_proc is not None and http_proc[0].poll() is None:
+            http_proc[0].kill()
+            http_proc[0].wait()
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 19 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(store=report, joins=joins, placed=placed, two=two, one=one,
+                two_at_one_concurrency=two_16, rows=rows,
+                launches=launches, launches_by_device=by_dev,
+                kill=kill, memory_after_close={"two": mem_two,
+                                               "kill": mem_kill},
+                bulk=bulk, join_bench=joins_bench, http=http, parts_s=parts,
+                wall_s=wall, cards=n_cards)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -6856,6 +7643,7 @@ def main() -> int:
     # fp32 comparisons run in full fp32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    script_t0 = time.perf_counter()
     card = card_line()
     host = host_info(torch.device("cuda", 0))
     log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
@@ -6874,23 +7662,36 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     sass = qconv_sass(build_logs)
 
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
-    k3 = phase_k3(dev)
-    parity = phase_forward_parity(dev)
-    train_parity = phase_train_parity(dev)
-    serving = phase_serving(dev, card)
-    training = phase_training(dev, card)
-    evaluation = phase_eval(dev, card)
-    alternate = phase_alternate(dev, card)
-    engine = phase_engine(dev, card)
-    real_data = phase_real_data(dev, card)
-    long_run = phase_long_run(dev, card, alternate)
-    data_parallel = phase_data_parallel(dev, card)
-    device_cache = phase_device_cache(dev, card)
-    quant = phase_quant(dev, card)
-    obs = phase_obs(dev, card)
-    bulk = phase_bulk(dev, card)
+    phase_s = {1: build_s}
+
+    def timed(n: int, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        phase_s[n] = time.perf_counter() - t
+        return res
+
+    k1 = timed(2, phase_k1, dev)
+    k2 = timed(3, phase_k2, dev)
+    k3 = timed(4, phase_k3, dev)
+    parity = timed(5, phase_forward_parity, dev)
+    train_parity = timed(6, phase_train_parity, dev)
+    serving = timed(7, phase_serving, dev, card)
+    training = timed(8, phase_training, dev, card)
+    evaluation = timed(9, phase_eval, dev, card)
+    alternate = timed(10, phase_alternate, dev, card)
+    engine = timed(11, phase_engine, dev, card)
+    real_data = timed(12, phase_real_data, dev, card)
+    long_run = timed(13, phase_long_run, dev, card, alternate)
+    data_parallel = timed(14, phase_data_parallel, dev, card)
+    device_cache = timed(15, phase_device_cache, dev, card)
+    quant = timed(16, phase_quant, dev, card)
+    obs = timed(17, phase_obs, dev, card)
+    bulk = timed(18, phase_bulk, dev, card)
+    fleet = timed(19, phase_fleet, dev, card)
+    script_s = time.perf_counter() - script_t0
+    log("seconds a phase (phase 1 the build): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; the script {script_s:.1f} s from its start")
 
     # no single PyTorch call computes any of K1-K3 (the repo's bilinear
     # rules are not torchvision's, which is absent), so library_ms is
@@ -6920,7 +7721,9 @@ def main() -> int:
         training=training, evaluation=evaluation, alternate=alternate,
         engine=engine, real_data=real_data, long_run=long_run,
         data_parallel=data_parallel, device_cache=device_cache,
-        quant=quant, obs=obs, bulk=bulk), indent=1))
+        quant=quant, obs=obs, bulk=bulk, fleet=fleet,
+        phase_s={str(k): v for k, v in phase_s.items()},
+        script_s=script_s), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -190,16 +190,30 @@ class ServeConfig:
 
 @dataclass(frozen=True)
 class FleetConfig:
-    """The fields of ``mx_rcnn_tpu.config.FleetConfig`` that the port
-    reads, with the JAX package's defaults: ``replicas`` (the bulk tier's
-    in-flight bound, ``serve/bulk.py — auto_inflight``) and
-    ``export_dir`` (the export store, ``serve/export.py``).  The replica
-    fleet's own fields come with ``serve/fleet.py``."""
+    """Mirrors ``mx_rcnn_tpu.config.FleetConfig``: the serving fleet's
+    policy (``serve/fleet.py``), N replica engines over device subsets
+    behind a join-shortest-queue router, each joining from an export
+    store (``serve/export.py``) or by running its warm-up.  Same 3-level
+    precedence as every section (defaults < presets < ``--set
+    fleet__field=value``); outside the config fingerprint."""
 
-    # replica engines in the fleet
+    # replica engines in the fleet (tools/fleet.py serve --replicas)
     replicas: int = 1
     # export store directory ("" = warm each replica by running it)
     export_dir: str = ""
+    # cards per replica (0 = divide the cards evenly; replicas beyond the
+    # supply share them round-robin).  A subset of several cards splits
+    # each batch across them (core/tester.py — Predictor(devices=))
+    devices_per_replica: int = 0
+    # health monitor cadence: a dead replica is ejected from the routing
+    # set and, with ``relaunch``, rebuilt on the RestartPolicy schedule
+    health_interval_s: float = 1.0
+    # re-dispatches of a request whose replica died under it (0 = fail
+    # it); a reroute never extends the request's deadline
+    reroute_retries: int = 1
+    # relaunch dead replicas (RestartPolicy paces them and turns repeated
+    # identical failures into a crash-loop verdict)
+    relaunch: bool = True
 
 
 @dataclass(frozen=True)

@@ -10,7 +10,10 @@ of a kernel) builds, and :func:`build_all` starts one ``nvcc`` per source
 in parallel.
 
 Every kernel keeps an integer launch count that its wrapper bumps once
-per successful launch; :func:`reset_launch_counts` zeroes them.
+per successful launch, and the same count per card
+(:func:`launch_counts_by_device`: the card current at the launch, which
+each wrapper sets to its tensors' card); :func:`reset_launch_counts`
+zeroes them.
 :func:`load_events` counts the libraries built and loaded in this
 process, so a steady state can be checked to build and load nothing
 (the JAX package's "zero new lowerings"); :meth:`CudaKernel.install`
@@ -87,6 +90,7 @@ class CudaKernel:
         self.replaces = replaces
         self.flags = NVCC_FLAGS + tuple(extra_flags)
         self.launches = 0
+        self.launches_by_device: Dict[int, int] = {}
         self.build_log = ""
         self._fn = None
         # guards the one-time build and the counts; the fast path of
@@ -181,8 +185,21 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {rc}")
+        card = _current_card()
         with self._lock:
             self.launches += 1
+            self.launches_by_device[card] = \
+                self.launches_by_device.get(card, 0) + 1
+
+
+def _current_card() -> int:
+    """The current CUDA device's index; -1 where CUDA was never
+    initialised (a stub entry point in a CPU test).  A wrapper launches on
+    a card's tensors, so CUDA is up and torch loaded by then."""
+    import torch
+
+    return (torch.cuda.current_device() if torch.cuda.is_initialized()
+            else -1)
 
 
 NMS_SWEEP = CudaKernel(
@@ -270,6 +287,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         with k._lock:
             k.launches = 0
+            k.launches_by_device = {}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -277,4 +295,13 @@ def launch_counts() -> Dict[str, int]:
     for k in KERNELS:
         with k._lock:
             out[k.name] = k.launches
+    return out
+
+
+def launch_counts_by_device() -> Dict[str, Dict[int, int]]:
+    """Each kernel's launches per card index."""
+    out = {}
+    for k in KERNELS:
+        with k._lock:
+            out[k.name] = dict(k.launches_by_device)
     return out

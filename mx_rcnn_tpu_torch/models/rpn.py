@@ -28,7 +28,20 @@ class RPNHead(nn.Module):
                                         init="normal:0.01")
 
     def forward(self, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """feat (N, C, H, W) → (cls logits (N, H*W*A, 2), deltas (N, H*W*A, 4))."""
+        """feat (N, C, H, W) → (cls logits (N, H*W*A, 2), deltas (N, H*W*A, 4)).
+
+        In eval mode one image at a time: on the card, the batched head
+        gives an image at row 0 of a 608x1024 batch other bits than at
+        rows 1-3 (``tools/row_probe.py``), and an image's detections must
+        not depend on the row it rides (a bulk run's shards are
+        byte-equal whichever replica and row scored each image).  Training
+        keeps the batched convolutions."""
+        if not self.training:
+            outs = [self._head(f) for f in feat.split(1)]
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return self._head(feat)
+
+    def _head(self, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = F.relu(self.rpn_conv_3x3(feat))
         cls = self.rpn_cls_score(x).permute(0, 2, 3, 1)
         box = self.rpn_bbox_pred(x).permute(0, 2, 3, 1)

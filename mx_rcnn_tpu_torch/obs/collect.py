@@ -1,8 +1,8 @@
 """Cross-process metric collection: N registries → one labeled view.
 
 Counterpart of ``mx_rcnn_tpu/obs/collect.py`` (``RegistrySource``,
-``HttpSource``, ``Collector``, ``view_to_snapshot``,
-``sources_from_urls``).  Two source kinds, one scrape contract,
+``HttpSource``, ``Collector``, ``collector_for_fleet``,
+``view_to_snapshot``, ``sources_from_urls``).  Two source kinds, one scrape contract,
 ``scrape() -> (snapshot, labels) | None``:
 
 * :class:`RegistrySource` — an in-process registry, resolved through a
@@ -22,8 +22,9 @@ nothing else.  :meth:`Collector.collect` returns::
              "gauges": {name: {source: value}}}}
 
 Counters sum across sources (each source is a distinct registry); gauges
-stay per source.  Not ported: ``collector_for_fleet``, which reads the
-fleet router (``serve/fleet.py``), a tier the port does not have yet.
+stay per source.  :func:`collector_for_fleet` reads a
+``serve/fleet.py — FleetRouter``: one source per replica, and the
+router's registry.
 """
 
 from __future__ import annotations
@@ -235,6 +236,35 @@ class Collector:
         view["up"] = up
         view["agg"] = {"counters": agg_counters, "gauges": agg_gauges}
         return view
+
+
+def collector_for_fleet(router, extra_sources: Optional[List] = None
+                        ) -> Collector:
+    """One source per managed replica, resolved through the replica on
+    every scrape: an ejected replica reads down, a relaunched one reads
+    its new engine's registry under its new ``generation`` label.  Plus
+    the router's registry as ``router`` (the ``fleet.*`` gauges of
+    ``ReplicaManager.export_gauges``)."""
+    from mx_rcnn_tpu_torch.obs.metrics import registry as process_registry
+
+    def replica_resolve(r):
+        with r._lock:
+            eng, gen, state = r.engine, r.generation, r.state
+        if eng is None:
+            return None
+        return eng.metrics.registry, {"generation": gen, "state": state}
+
+    sources: List = [
+        RegistrySource(f"replica-{r.id}",
+                       (lambda r=r: replica_resolve(r)))
+        for r in router.manager.replicas
+    ]
+    sources.append(RegistrySource("router", router.manager.registry
+                                  if router.manager.registry is not None
+                                  else process_registry()))
+    for s in extra_sources or []:
+        sources.append(s)
+    return Collector(sources)
 
 
 def view_to_snapshot(view: Dict) -> Dict:

@@ -245,13 +245,10 @@ def default_rules(cfg) -> List[Rule]:
     """The stock SLO set over the gauges the planes export, thresholds
     from the run's config; the JAX package's rules, in its order.  Every
     rule is ``missing_ok``: a training run never resolves the serving
-    rules, and the fleet, elastic and skew rules wait for planes the
-    port has not ported (they read the JAX package's default of one
-    fleet replica)."""
+    or fleet rules, and the elastic and skew rules wait for planes the
+    port has not ported."""
     deadline = cfg.serve.default_timeout_ms or 2000.0
     w = cfg.obs.health_window_s
-    fleet = getattr(cfg, "fleet", None)
-    replicas = fleet.replicas if fleet is not None else 1
     return [
         # p99 at 90% of the request deadline: the tail is about to expire
         Rule("serve-p99-budget", "serve.total_ms", "p99", ">",
@@ -262,7 +259,7 @@ def default_rules(cfg) -> List[Rule]:
         # fewer ready replicas than configured; a state readout, so one
         # sample fires and clears it
         Rule("fleet-degraded", "fleet.replicas_ready", "gauge", "<",
-             float(replicas), window_s=15.0,
+             float(cfg.fleet.replicas), window_s=15.0,
              severity=CRITICAL, for_samples=1, clear_samples=1),
         # resumes should land within the snapshot cadence
         Rule("elastic-recovery", "elastic.recovery_ms", "p99", ">",

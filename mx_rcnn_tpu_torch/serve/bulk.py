@@ -23,12 +23,14 @@ Counterpart of ``mx_rcnn_tpu/serve/bulk.py``:
   skips the committed batches and writes shards byte-identical to an
   unbroken run's.
 
-The router is anything with ``submit_prepared`` (one ``ServingEngine``
-in the port; the JAX package's fleet router waits for ``serve/fleet.py``).
-Given a registry (``obs/metrics.py``), the runner records ``bulk.*``:
+The router is anything with ``submit_prepared``: a
+``serve/fleet.py — FleetRouter`` (``tools/bulk.py`` builds one) or a bare
+``ServingEngine``.  Given a registry (``obs/metrics.py``), the runner
+records ``bulk.*``:
 the ``imgs_per_s``, ``inflight`` and ``committed_shards`` gauges, the
 ``committed_images`` and ``retries`` counters and the
-``sink_commit_ms`` histogram.
+``sink_commit_ms`` histogram; given a run record (``obs/runrec.py``),
+``bulk_shard_commit`` and ``bulk_abort`` events.
 """
 
 from __future__ import annotations
@@ -192,17 +194,20 @@ class BulkRunner:
     """One corpus pass: feed → score → in-order shard commit.
 
     ``fault(k)`` runs after shard ``k`` commits (the kill-and-resume
-    rigs stop the process there).
+    rigs stop the process there).  ``record``: a run record for the
+    shard commits and an abort.
     """
 
     def __init__(self, router, loader, sink: BulkSink, cfg: Config,
                  registry=None,
-                 fault: Optional[Callable[[int], None]] = None):
+                 fault: Optional[Callable[[int], None]] = None,
+                 record=None):
         self.router = router
         self.loader = loader
         self.sink = sink
         self.cfg = cfg
         self.rec = registry
+        self.run_record = record
         self.fault = fault
         self._cond = threading.Condition(threading.Lock())
         self._inflight_bound = auto_inflight(cfg)
@@ -325,6 +330,10 @@ class BulkRunner:
                         "bulk.imgs_per_s",
                         round(self.committed_images
                               / max(time.perf_counter() - t0, 1e-9), 2))
+                if self.run_record is not None:
+                    self.run_record.event("bulk_shard_commit", shard=k,
+                                          images=len(lines),
+                                          commit_ms=round(commit_ms, 3))
                 if self.fault is not None:
                     self.fault(k)
         except BaseException as e:  # noqa: BLE001 — re-raised in run()
@@ -406,6 +415,10 @@ class BulkRunner:
         if self._error is not None:
             from mx_rcnn_tpu_torch.obs import flightrec
 
+            if self.run_record is not None:
+                self.run_record.event("bulk_abort",
+                                      error=repr(self._error)[:500],
+                                      committed_shards=self.committed_shards)
             flightrec.trigger("bulk-abort", error=repr(self._error)[:500])
             raise self._error
         wall = time.perf_counter() - t0

@@ -97,6 +97,11 @@ class ServingEngine:
         self._threads: List[threading.Thread] = []
         self._closed = False
         self._warm: List[Tuple[int, int]] = []
+        self._warm_programs = 0
+        # seconds of each bucket's first batch in the last warm-up (or
+        # join): tools/fleet.py join_bench pairs two warm-ups to split
+        # the join's own cost from the model's
+        self.last_warmup_run_s: List[float] = []
         self._export_root = None    # the store warm_from_export joined
         self._run_fn = run_fn
         if start:
@@ -350,10 +355,14 @@ class ServingEngine:
         client pays a kernel build or a first-call cost; returns the
         number of warm buckets."""
         n = self.cfg.serve.batch_size
+        self.last_warmup_run_s = []
         for bucket in self.buckets:
+            t0 = time.perf_counter()
             self._run(*self._compose(bucket, []))
+            self.last_warmup_run_s.append(time.perf_counter() - t0)
             if bucket not in self._warm:
                 self._warm.append(bucket)
+        self._warm_programs = self.program_count()
         logger.info("serve warmup: %d bucket(s) at batch %d", len(self._warm),
                     n)
         return len(self._warm)
@@ -383,7 +392,9 @@ class ServingEngine:
         t_load = time.monotonic() - t0
         n = self.cfg.serve.batch_size
         programs = []
+        self.last_warmup_run_s = []
         for bucket in self.buckets:
+            t1 = time.perf_counter()
             name = serve_fwd_name(bucket, n)
             images, im_info = _dummy_batch(bucket, n)
             out = store.load(name, p)(images, im_info)
@@ -394,8 +405,10 @@ class ServingEngine:
                 store.require_digest(SERVE_POST, store.load(SERVE_POST, p)(
                     *out, info, info[:, 2], self._stds, self._means))
                 programs.append(SERVE_POST)
+            self.last_warmup_run_s.append(time.perf_counter() - t1)
             if bucket not in self._warm:
                 self._warm.append(bucket)
+        self._warm_programs = self.program_count()
         self._export_root = store.root
         total = time.monotonic() - t0
         logger.info("serve join from %s: %d program(s) bit-equal to the "
@@ -404,6 +417,14 @@ class ServingEngine:
                 "load_s": round(t_load, 3), "total_s": round(total, 3),
                 "export_root": store.root, "load_events_before": before,
                 "load_events_after": kernels.load_events()}
+
+    def program_count(self) -> int:
+        """The warm serving programs: one forward per warmed bucket, plus
+        the postprocess they share.  The port keeps no program cache,
+        so this counts what a warm-up ran, and growth after it cannot
+        happen; a steady state that builds nothing shows as
+        ``kernels.load_events()["builds"]`` unchanged."""
+        return len(self._warm) + (1 if self._warm else 0)
 
     def depth(self) -> int:
         """Admitted requests not yet terminal, queued or in a batch."""
@@ -437,6 +458,8 @@ class ServingEngine:
             "buckets": [list(b) for b in self.buckets],
             "batch_size": self.cfg.serve.batch_size,
             "warm_buckets": [list(b) for b in self._warm],
+            "warm_programs": self._warm_programs,
+            "programs": self.program_count(),
             "export_root": self._export_root,   # None: warmed by running
             "device": str(self.predictor.device),
             "queue_depths": {f"{b[0]}x{b[1]}": len(q)

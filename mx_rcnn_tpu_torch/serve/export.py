@@ -126,10 +126,12 @@ def predictor_variables(predictor) -> Dict:
     return variables
 
 
-def predictor_from_variables(variables: Dict, cfg, device="cuda"):
+def predictor_from_variables(variables: Dict, cfg, device="cuda",
+                             devices=None):
     """The :class:`Predictor` of ``cfg`` on ``device`` (CUDA unless the
     caller asks for the CPU) with a variables tree's weights (and its
-    ``quant`` scales when ``cfg.quant`` is on)."""
+    ``quant`` scales when ``cfg.quant`` is on); over ``devices``, when
+    given, as :class:`Predictor` splits a batch."""
     from mx_rcnn_tpu_torch.core.tester import Predictor
     from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
     from mx_rcnn_tpu_torch.utils.bridge import from_flax, load_quant
@@ -143,7 +145,7 @@ def predictor_from_variables(variables: Dict, cfg, device="cuda"):
             raise ExportMismatch("cfg.quant is on but the variables carry "
                                  "no quant scales")
         load_quant(model, variables["quant"])
-    return Predictor(model, cfg, dev)
+    return Predictor(model, cfg, dev, devices=devices)
 
 
 # ---- outputs ----------------------------------------------------------------

@@ -16,7 +16,7 @@ from an ``X-MXR-Trace`` header): whichever thread ends it closes its
 ``serve.request`` interval and records exactly one ``terminal.<state>``
 span.  ``add_done_callback`` runs a callback once at the terminal
 transition, on whichever thread makes it (the bulk tier's completion
-hook, and the JAX package's fleet router's).
+hook, and the fleet router's).
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ resume byte-identical, in process and by a SIGKILL in a spawned process;
 and the port's shards byte-equal to the JAX ``BulkRunner``'s over the
 same stub ``run_fn`` (the JAX side through ``build_fleet`` with stub
 replicas, as ``tests/test_bulk.py`` drives it; the port side through one
-``ServingEngine``).  The model path is the content-dependent stub of
-``tests/torch_bulk_workers.py``: no model runs in this file.
+``ServingEngine``; then both sides through 2-replica fleets).  The model
+path is the content-dependent stub of ``tests/torch_bulk_workers.py``: no
+model runs in this file.
 """
 
 import json
@@ -297,8 +298,7 @@ def test_bulk_config_and_auto_inflight_equal_jax():
         jcfg = j_generate_config("tiny", "synthetic", **kw)
         assert auto_inflight(cfg) == jbulk.auto_inflight(jcfg)
         assert repr(cfg.bulk) == repr(jcfg.bulk)
-        assert (cfg.fleet.replicas, cfg.fleet.export_dir) == \
-            (jcfg.fleet.replicas, jcfg.fleet.export_dir)
+        assert repr(cfg.fleet) == repr(jcfg.fleet)
 
 
 def test_detections_line_equals_jax():
@@ -448,3 +448,33 @@ def test_shards_byte_equal_to_the_jax_runner(tmp_path, devkit, corpus):
     assert ours == theirs
     assert open(tmp_path / "port" / "MANIFEST.json").read() == \
         open(tmp_path / "jax" / "MANIFEST.json").read()
+    # and with both sides scoring through 2-replica fleets
+    from mx_rcnn_tpu_torch.serve.fleet import build_fleet as t_build_fleet
+
+    cfg2 = cfg.replace_in("fleet", replicas=2)
+    jcfg2 = jcfg.replace_in("fleet", replicas=2)
+    out = {}
+    for side, build, c, roids, mk in (
+            ("jax2", lambda c: build_fleet(
+                c, None, {}, run_fn_factory=lambda rid: run_fn),
+             jcfg2, jroidb, lambda c, r: JStreamTestLoader(
+                 r, c, batch_images=2, raw_images=False, num_workers=0)),
+            ("port2", lambda c: t_build_fleet(
+                c, None, run_fn_factory=lambda rid: run_fn, device="cpu"),
+             cfg2, roidb, lambda c, r: StreamTestLoader(
+                 r, c, imdb.load_image, batch_images=2, raw_images=False,
+                 num_workers=0))):
+        mod = jbulk if side == "jax2" else bulk
+        router = build(c)
+        try:
+            sink = mod.BulkSink(str(tmp_path / side), mod.make_sink_manifest(
+                c, roids, 0, 2))
+            out[side] = mod.BulkRunner(router, mk(c, roids), sink, c).run()
+            assert len(router.manager.replicas) == 2
+            assert all(r.engine.metrics.counters["served"] > 0
+                       for r in router.manager.replicas)
+        finally:
+            router.close()
+    assert out["port2"]["accounted_images"] == \
+        out["jax2"]["accounted_images"] == 13
+    assert _shards(tmp_path / "port2") == _shards(tmp_path / "jax2") == ours

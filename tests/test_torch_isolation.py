@@ -209,6 +209,54 @@ def test_observability_plane_imports_without_jax_or_torch():
     assert out.returncode == 0, out.stderr
 
 
+_FLEET_MODULES = [PKG / rel for rel in (
+    "serve/fleet.py", "ft/supervisor.py", "tools/fleet.py", "tools/bulk.py",
+    "tools/loadgen.py", "obs/collect.py")]
+
+
+@pytest.mark.parametrize("path", _FLEET_MODULES,
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_fleet_modules_stand_alone(path):
+    """The serving fleet, its restart policy, its CLIs and the fleet
+    collector import nothing of JAX or the JAX package, and are among
+    the modules the fresh-interpreter import test loads."""
+    assert not _imported_roots(path) & set(_FORBIDDEN)
+    assert path in _port_sources()
+
+
+def test_fleet_entry_points_refuse_to_drop_to_the_cpu(tmp_path):
+    """The fleet's CLIs and ``build_fleet`` raise without a card unless
+    asked for the CPU, before they read or write anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.serve.fleet import build_fleet, default_devices
+    from mx_rcnn_tpu_torch.tools import bulk, fleet, loadgen
+
+    missing = str(tmp_path / "nonexistent")
+    calls = [
+        lambda: fleet.main(["export", "--out", missing]),
+        lambda: fleet.main(["serve", "--port", "0"]),
+        lambda: fleet.main(["join_bench", "--mode", "trace"]),
+        lambda: fleet.main(["join_bench", "--mode", "export",
+                            "--export_dir", missing]),
+        lambda: bulk.main(["--workdir", str(tmp_path / "w"),
+                           "--root_path", missing]),
+        lambda: bulk.main(["--protocol", "kill_resume", "--workdir",
+                           str(tmp_path / "w"), "--root_path", missing]),
+        lambda: loadgen.main(["--smoke", "--fleet", "2"]),
+        lambda: loadgen.main(["--fleet_smoke", "--workdir",
+                              str(tmp_path / "fb")]),
+        lambda: build_fleet(generate_config("tiny", "synthetic"), {}),
+        lambda: default_devices(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not (tmp_path / "nonexistent").exists()
+    assert default_devices("cpu") == [torch.device("cpu")]
+
+
 def test_obs_smoke_refuses_to_drop_to_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")

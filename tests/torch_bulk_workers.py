@@ -2,8 +2,8 @@
 that import no JAX: a spawned process (the SIGKILL rig, the export join)
 imports this module, not the test file.
 
-``content_stub_run_fn`` is the JAX package's content-dependent stub
-(``mx_rcnn_tpu/tools/loadgen.py — make_content_stub_run_fn``): each
+``content_stub_run_fn`` is the content-dependent stub
+(``tools/loadgen.py — make_content_stub_run_fn``, the JAX package's): each
 output row a pure function of that row's pixels, so an image scores the
 same in any batch and two images score differently, and byte-equal
 sinks mean the same images in the same slots.
@@ -11,7 +11,6 @@ sinks mean the same images in the same slots.
 
 import os
 import signal
-import time
 import types
 
 import numpy as np
@@ -23,6 +22,7 @@ from mx_rcnn_tpu_torch.data.loader import StreamTestLoader
 from mx_rcnn_tpu_torch.serve.bulk import (BulkRunner, BulkSink,
                                           make_sink_manifest)
 from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+from mx_rcnn_tpu_torch.tools.loadgen import make_content_stub_run_fn
 
 # the tiny toy recipe (tests/test_torch_datasets.py — SMALL) with the
 # JAX bulk tests' serving and shard knobs
@@ -36,25 +36,7 @@ BULK = dict(train__rpn_pre_nms_top_n=256, train__rpn_post_nms_top_n=64,
 
 
 def content_stub_run_fn(cfg, model_ms: float = 0.0):
-    r = cfg.test.rpn_post_nms_top_n
-    c = cfg.num_classes
-
-    def run_fn(images, im_info):
-        if model_ms:
-            time.sleep(model_ms / 1000.0)
-        n = images.shape[0]
-        boxes = np.zeros((n, r, 4 * c), np.float32)
-        scores = np.zeros((n, r, c), np.float32)
-        keep = np.zeros((n, c, r), bool)
-        for j in range(n):
-            m = np.float32(np.abs(images[j]).sum())
-            x = np.float32(m % np.float32(37.0))
-            boxes[j, 0, 4:8] = [x, x + 1.0, x + 5.0, x + 7.0]
-            scores[j, 0, 1] = np.float32(0.5) + x / np.float32(100.0)
-            keep[j, 1, 0] = True
-        return boxes, scores, keep
-
-    return run_fn
+    return make_content_stub_run_fn(cfg, model_ms)
 
 
 def bulk_overrides(root: str, devkit: str, **kw) -> dict:
