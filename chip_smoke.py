@@ -3,8 +3,8 @@
 evaluation, the alternate schedule, the serving engine, the
 real-dataset input plane, the long training run, data parallelism, the
 device-resident training epoch, quantized inference, the observability
-plane, bulk scoring over an export-warmed engine and the serving fleet
-on one NVIDIA card.
+plane, bulk scoring over an export-warmed engine, the serving fleet and
+the cross-host serving tier on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -301,7 +301,29 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     join_bench`` by warm-up (builds K1 and K2; it and the HTTP service
     start beside the protocol's killed child) and from the store (builds
     none); last ``tools/fleet.py serve --replicas 2`` (4 ``/detect``,
-    ``/healthz``, ``/metrics``, SIGINT).
+    ``/healthz``, ``/metrics``, SIGINT);
+20. the cross-host serving tier, the fourteenth main path
+    (``serve/remote.py — RemoteEngine`` over the binary wire →
+    ``tools/agent.py`` processes: ``serve/agent.py — ReplicaAgent`` →
+    ``FleetRouter`` → ``ServingEngine``; ``serve/scheduler.py``) under
+    ``_chip/crosshost``, at phase 19's configuration: phase 19's store
+    (exported here when the phase runs alone) served by
+    ``make_store_server``; two agent processes (agent k on card k mod
+    the card count), started beside phase 19's killed bulk child, each
+    over a copy of the package whose ``_build/`` is empty, pulling it
+    (each file shipped once an agent) and joining with 0 kernel builds;
+    through
+    ``build_crosshost_router`` (the backlog feed on), every request image
+    as a v1 fp32 frame, a v2 u8 source frame and in envelopes, each
+    response byte-equal to the offline batch, the agents' K1 2 and K2 1
+    launches per engine batch (from their ``/healthz``), v2 at most 0.30
+    of v1's bytes an image; one sampled request's tree merged by
+    ``tools/trace.py`` across the processes (the wire span before the
+    agent's); closed loops of 1 and 2 agents at concurrency 16 (lost 0;
+    scaling judged only on two cards); one agent SIGKILLed mid-burst
+    under the live ``FleetScheduler`` (lost 0, no failure or expiry, the
+    survivor grown from its store with 0 builds) and the cards' free
+    memory back after the agents are gone.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -313,7 +335,8 @@ eval, times at the per-ROI stage-4 bn1 and 1x1); the last line is ``{"ok": true,
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
 directory and remove them at their end, and phases 13–18 their
-weight files, checkpoints and datasets likewise, and phase 19 too.
+weight files, checkpoints and datasets likewise, and phases 19 and 20
+too.
 """
 
 from __future__ import annotations
@@ -2554,7 +2577,7 @@ def engine_traffic(prefix: str, card: str) -> dict:
     rate neither shed nor expired)."""
     base = ["--network", "resnet101", "--dataset", "PascalVOC", "--prefix",
             prefix, "--epoch", "1"]
-    runs = {"closed": _loadgen(base + ["--duration", "8", "--concurrency",
+    runs = {"closed": _loadgen(base + ["--duration", "6", "--concurrency",
                                        str(2 * ENGINE_BATCH)],
                                OUT_DIR / "loadgen_closed.json")}
     closed = runs["closed"]
@@ -2565,7 +2588,7 @@ def engine_traffic(prefix: str, card: str) -> dict:
         f"{rates[0.5]} and 1.5 x {rates[1.5]} arrivals/s")
     for k, rate in rates.items():
         runs[f"open_{k}x"] = _loadgen(
-            base + ["--mode", "open", "--duration", "6", "--qps",
+            base + ["--mode", "open", "--duration", "5", "--qps",
                     f"{k * rate:.3f}", "--timeout_ms", "2000"],
             OUT_DIR / f"loadgen_open_{k}x.json")
     for name, r in runs.items():
@@ -7025,8 +7048,8 @@ def phase_bulk(dev, card: str) -> dict:
 FLEET_DIR = REPO / "_chip" / "fleet"   # the tree, checkpoint, store, sinks
 FLEET_REPLICAS = 2
 FLEET_BULK_IMAGES = 48     # train2017 JPEGs, 480x640 and 640x480 in turns
-FLEET_LOOP_S = 8.0         # the 2-replica closed loop through detect
-FLEET_ONE_S = 4.0          # 1 and 2 replicas at one concurrency
+FLEET_LOOP_S = 6.0         # the 2-replica closed loop through detect
+FLEET_ONE_S = 3.0          # 1 and 2 replicas at one concurrency
 FLEET_KILL_S = 5.0         # the kill-mid-burst leg's burst
 FLEET_MEM_SLACK = 64 << 20  # bytes a closed fleet may leave on the card
 
@@ -7552,7 +7575,12 @@ def phase_fleet(dev, card: str) -> dict:
             nonlocal http_proc
             http_proc = fleet_http_start(prefix, store)
             trace_thread.start()
+            # phase 20's agents boot here too, beside the killed child
+            _CROSS.update(cross_start(store))
 
+        # phase 20's reference: the agents' cards with this phase's
+        # fleets closed and no process of this phase or the next on them
+        _CROSS["free_ref"] = cross_free(cross_devices())
         bulk = fleet_bulk(prefix, store, at_kill=at_kill)
         if http_proc is None:
             at_kill()
@@ -7598,6 +7626,9 @@ def phase_fleet(dev, card: str) -> dict:
         # (g) the HTTP service
         http = fleet_http(http_proc, card)
         done("http")
+    except BaseException:
+        cross_stop()
+        raise
     finally:
         if http_proc is not None and http_proc[0].poll() is None:
             http_proc[0].kill()
@@ -7613,6 +7644,404 @@ def phase_fleet(dev, card: str) -> dict:
                                                "kill": mem_kill},
                 bulk=bulk, join_bench=joins_bench, http=http, parts_s=parts,
                 wall_s=wall, cards=n_cards)
+
+
+# ---- phase 20: the cross-host serving tier, the fourteenth main path -------
+
+CROSS_DIR = REPO / "_chip" / "crosshost"   # store, agents' stores, packages
+CROSS_EXPORT = REPO / "_chip" / "crosshost_export"   # the store, run alone
+CROSS_AGENTS = 2
+CROSS_LOOP_S = 3.0          # each closed loop of (c)
+CROSS_KILL_S = 6.0          # the kill leg's burst
+CROSS_CONCURRENCY = 16
+CROSS_MAX_BYTES_RATIO = 0.30    # tools/loadgen.py --max_wire_bytes_ratio
+CROSS_MIN_SCALING = 1.5     # 2 agents against 1, judged on 2 cards only
+CROSS_MEM_SLACK = 64 << 20  # bytes the dead agents may leave on the card
+
+
+def cross_overrides() -> dict:
+    """Phase 19's configuration, the agents' span rings keeping every
+    tree (part (e) merges one sampled request's)."""
+    return dict(fleet_overrides(), obs__trace_ring=256,
+                obs__trace_slow_pct=0.0)
+
+
+def cross_source(img, cfg):
+    """``img`` as a v2 source frame carries it: resized but not
+    normalized (uint8), its im_info and its bucket, as the engine's
+    preprocess resolves them."""
+    import numpy as np
+
+    from mx_rcnn_tpu_torch.data.image import (choose_bucket, fit_to_bucket,
+                                              resize_keep_ratio)
+
+    resized, s = resize_keep_ratio(np.asarray(img), cfg.bucket.scale,
+                                   cfg.bucket.max_size)
+    bucket = choose_bucket(*resized.shape[:2],
+                           tuple(tuple(b) for b in cfg.bucket.shapes))
+    resized, s = fit_to_bucket(resized, s, bucket)
+    h, w = img.shape[:2]
+    info = np.array([round(h * s), round(w * s), s], np.float32)
+    return np.ascontiguousarray(resized), info, tuple(bucket)
+
+
+def _submit_source(target, item, timeout_ms: float):
+    img, info, bucket = item
+    return target.submit_source(img, info, bucket, timeout_ms=timeout_ms)
+
+
+def cross_wire_counts(router) -> dict:
+    """The head's wire counters summed over its remote engines."""
+    out = {"tx": 0, "frames": 0, "envelopes": 0}
+    for r in router.manager.replicas:
+        eng = r.engine
+        if eng is None:
+            continue
+        reg = eng.metrics.registry
+        out["tx"] += reg.counter("serve.wire_tx_bytes")
+        out["frames"] += reg.counter("serve.wire_frames")
+        out["envelopes"] += reg.counter("serve.envelopes")
+    return out
+
+
+def cross_free(devices) -> int:
+    """Free bytes on the agents' cards as CUDA reports them, plus
+    what this process's allocator holds: constant while no other process
+    holds memory there."""
+    import torch
+
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return sum(torch.cuda.mem_get_info(d)[0] + torch.cuda.memory_reserved(d)
+               for d in devices)
+
+
+def cross_cards() -> list:
+    """Agent k's device: card k mod the card count."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [f"cuda:{i % n}" for i in range(CROSS_AGENTS)]
+
+
+def cross_devices() -> list:
+    import torch
+
+    return sorted({torch.device(c) for c in cross_cards()}, key=str)
+
+
+# phase 20's store server and agents, started beside phase 19's killed
+# bulk child (work that nothing times) and taken over by phase 20
+_CROSS: dict = {}
+
+
+def cross_start(store_src: str) -> dict:
+    """Link ``store_src`` into ``CROSS_DIR/store``, serve it from
+    ``make_store_server`` in this process and start the agents (each over
+    a package copy with an empty ``_build/``, pulling the store): their
+    boot runs beside whatever this process does next."""
+    from mx_rcnn_tpu_torch.serve.agent import make_store_server
+    from mx_rcnn_tpu_torch.tools import crosshost
+
+    shutil.rmtree(CROSS_DIR, ignore_errors=True)
+    CROSS_DIR.mkdir(parents=True)
+    store = CROSS_DIR / "store"
+    shutil.copytree(store_src, store, copy_function=os.link)
+    srv = make_store_server(str(store))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    t0 = time.perf_counter()
+    agents = [crosshost.AgentProc(
+        str(OUT_DIR), f"cross_agent{i}", cross_overrides(),
+        network="resnet101", dataset="coco", device=card, store_url=url,
+        export_dir=str(CROSS_DIR / f"agent{i}_store"),
+        package_root=str(fleet_package(CROSS_DIR / f"pkg{i}")))
+        for i, card in enumerate(cross_cards())]
+    return dict(store=str(store), srv=srv, agents=agents, t0=t0)
+
+
+def cross_stop() -> None:
+    """Kill phase 20's agents and stop its store server, if started."""
+    for a in _CROSS.pop("agents", []):
+        if a.proc.poll() is None:
+            a.kill()
+    srv = _CROSS.pop("srv", None)
+    if srv is not None:
+        srv.shutdown()
+        srv.server_close()
+
+
+def cross_same(got, want) -> bool:
+    return sorted(got) == sorted(want) and all(
+        got[c].dtype == want[c].dtype and got[c].tobytes() == want[c].tobytes()
+        for c in want)
+
+
+def phase_crosshost(dev, card: str) -> dict:
+    """Phase 20: the cross-host tier (module docstring), its files under
+    ``_chip/crosshost`` (phase 19 links its store there and starts the
+    agents), removed at the end."""
+    import torch
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor
+    from mx_rcnn_tpu_torch.data.image import pad_normalize
+    from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
+    from mx_rcnn_tpu_torch.obs import trace as obs_trace
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.serve.export import (ExportStore,
+                                                export_serve_programs,
+                                                predictor_from_variables)
+    from mx_rcnn_tpu_torch.serve.remote import build_crosshost_router
+    from mx_rcnn_tpu_torch.tools import crosshost
+    from mx_rcnn_tpu_torch.tools.loadgen import _drain, _fleet_leg_record
+    from mx_rcnn_tpu_torch.tools.trace import _merge_now
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    n_cards = torch.cuda.device_count()
+    cards, devices = cross_cards(), cross_devices()
+    try:
+        cfg = generate_config("resnet101", "coco", **cross_overrides())
+        beside = "agents" in _CROSS
+        if not beside:
+            # run alone: no phase 19 started the agents; export a store of
+            # the same seeded model and start them here
+            _CROSS["free_ref"] = cross_free(devices)
+            store = str(CROSS_EXPORT)
+            shutil.rmtree(store, ignore_errors=True)
+            model = build_model(cfg, dev, seed=0)
+            with torch.no_grad():
+                model.cls_score.weight.mul_(SERVE_CLS_SCALE)
+            export_serve_programs(Predictor(model, cfg, dev), cfg, store,
+                                  bundle_variables=True)
+            del model
+            _CROSS.update(cross_start(store))
+        agents, store_srv = _CROSS["agents"], _CROSS["srv"]
+        st = ExportStore(_CROSS["store"])
+        report = st.manifest()
+        if sorted(report.get("kernels", {})) != ["nms_sweep",
+                                                 "roi_align_fwd"]:
+            raise AssertionError(f"the cross-host store: {report}")
+        pred = predictor_from_variables(st.load_variables(), cfg, dev)
+        done("store")
+
+        # (a) the agents, started beside phase 19's killed bulk child (or
+        # above, run alone); the offline batch meanwhile
+        offline = ServingEngine(pred, cfg, start=False)
+        imgs = request_images()
+        want = [offline_detections(offline, img) for img in imgs]
+        canvases = [offline.preprocess(img) for img in imgs]
+        sources = [cross_source(img, cfg) for img in imgs]
+        for (src, info, b), (canvas, cinfo, cb) in zip(sources, canvases):
+            if (b != tuple(cb) or info.tobytes() != cinfo.tobytes()
+                    or pad_normalize(src, cfg.network.pixel_means,
+                                     b).tobytes() != canvas.tobytes()):
+                raise AssertionError("a source frame's canvas differs from "
+                                     "the engine's preprocess")
+        waited = time.perf_counter()
+        ready = [a.wait_ready(300) for a in agents]
+        boot_s = time.perf_counter() - _CROSS["t0"]
+        waited = time.perf_counter() - waited
+        urls = [a.url for a in agents]
+        health = [crosshost._healthz(u) for u in urls]
+        with store_srv.stats_lock:
+            reqs = list(store_srv.requests)
+        shipped = {rel: sum(1 for r in reqs if r["rel"] == rel)
+                   for rel in store_srv.index}
+        loads = [h["kernel_load_events"] for h in health]
+        log(f"phase 20: {CROSS_AGENTS} agents (tools/agent.py) on {cards} "
+            f"({card}) ready {boot_s:.1f} s after their start"
+            + (" beside phase 19's killed bulk child and its join_bench and "
+               "HTTP service" if beside else "")
+            + f" ({waited:.1f} s waited here): pulls "
+            + "; ".join(f"{r['store_pull']['files']} files "
+                        f"{r['store_pull']['bytes']} bytes in "
+                        f"{r['store_pull']['transfer_s']} s, warm "
+                        f"{r['warm_s']} s" for r in ready)
+            + f"; each store file shipped {sorted(set(shipped.values()))} "
+            f"time(s); kernel builds after the warm "
+            f"{[h['kernel_builds_after_warm'] for h in health]}, library "
+            f"events {loads}")
+        if (set(shipped.values()) != {CROSS_AGENTS}
+                or any(r["start"] for r in reqs)
+                or any(h["kernel_builds_after_warm"] for h in health)
+                or any(e["builds"] or e["loads"] != 2 for e in loads)
+                or any(h["ready"] != 1 for h in health)):
+            raise AssertionError(f"the agents' joins: shipped {shipped}, "
+                                 f"health {health}")
+        free_up = cross_free(devices)
+        free0 = _CROSS["free_ref"]
+        done("agents")
+
+        # (b) the wire, bit for bit, through the router of this process
+        # four connections of up to four frames: an agent sees up to 16
+        # requests at once, four engine batches
+        ccfg = cfg.replace_in("crosshost", connections=4, pipeline_depth=8,
+                              frames_per_send=4, scrape_interval_s=0.2,
+                              io_timeout_s=60.0)
+        router, feed = build_crosshost_router(ccfg, urls)
+        try:
+            got = {"v1": [], "v2": [], "envelope": []}
+            c0 = cross_wire_counts(router)
+            for canvas, info, b in canvases:
+                got["v1"].append(router.submit_prepared(
+                    canvas, info, b, timeout_ms=0).wait(120.0))
+            c1 = cross_wire_counts(router)
+            for item in sources:
+                got["v2"].append(_submit_source(router, item, 0).wait(120.0))
+            c2 = cross_wire_counts(router)
+            handles = [_submit_source(router, item, 0) for item in sources]
+            got["envelope"] = [h.wait(120.0) for h in handles]
+            c3 = cross_wire_counts(router)
+            _drain(router)
+            feed.tick()
+            lanes_seen = sorted({k for r in router.manager.replicas
+                                 for k in r.engine._scraped_lanes})
+        finally:
+            feed.close()
+            router.close()
+        after = [crosshost._healthz(u) for u in urls]
+        batches = sum(a["engine_batches"] - h["engine_batches"]
+                      for a, h in zip(after, health))
+        launches = {k: sum(a["kernel_launches"][k] - h["kernel_launches"][k]
+                           for a, h in zip(after, health))
+                    for k in health[0]["kernel_launches"]}
+        equal = {m: sum(cross_same(g, w) for g, w in zip(v, want))
+                 for m, v in got.items()}
+        per_v1 = (c1["tx"] - c0["tx"]) / max(c1["frames"] - c0["frames"], 1)
+        per_v2 = (c2["tx"] - c1["tx"]) / max(c2["frames"] - c1["frames"], 1)
+        ratio = per_v2 / per_v1
+        dets = sum(len(v) for w in want for v in w.values())
+        log(f"the wire on {card}: detections byte-equal to the offline "
+            f"batch, of {len(imgs)}: v1 {equal['v1']}, v2 {equal['v2']}, "
+            f"envelopes {equal['envelope']} "
+            f"({c3['envelopes'] - c2['envelopes']} envelopes, {dets} "
+            f"detections an image set); bytes an image "
+            f"v1 {per_v1:.0f}, v2 {per_v2:.0f}, ratio {ratio:.4f}; agents' "
+            f"engine batches {batches}, launches {launches}; scraped lanes "
+            f"{lanes_seen}")
+        want_l = {"nms_sweep": 2 * batches, "roi_align_fwd": batches}
+        if (any(n != len(imgs) for n in equal.values()) or not dets
+                or c3["envelopes"] <= c2["envelopes"]
+                or ratio > CROSS_MAX_BYTES_RATIO or not batches
+                or {k: launches[k] for k in want_l} != want_l
+                or any(v for k, v in launches.items() if k not in want_l)):
+            raise AssertionError(f"the wire: equal {equal}, ratio {ratio}, "
+                                 f"launches {launches} for {batches} "
+                                 f"batches, counts {c0} {c1} {c2} {c3}")
+        done("wire")
+
+        # (e) one sampled request traced through the real agents
+        obs_trace.reset_distributed()
+        obs_trace.configure_distributed(host="head")
+        tcfg = ccfg.replace_in("obs", trace_sample=1.0, trace_ring=64,
+                               trace_slow_pct=0.0)
+        trouter, tfeed = build_crosshost_router(tcfg, urls)
+        try:
+            traced = _submit_source(trouter, sources[0], 0).wait(120.0)
+            time.sleep(0.25)    # the worker closes the trace after the wait
+            merged = _merge_now(urls, path=str(OUT_DIR / "cross_trace.json"))
+            trees = obs_trace.kept_trees()
+        finally:
+            tfeed.close()
+            trouter.close()
+            obs_trace.reset_distributed()
+        spans = merged["traces"].get(trees[-1]["trace"], []) if trees else []
+        hosts = sorted({s.get("host") for s in spans})
+        wire = [s for s in spans if s["name"] == "remote.wire"]
+        hop = [s for s in spans if s["name"] == "agent.request"]
+        ordered = bool(wire and hop) and wire[0]["ts"] <= hop[0]["ts"]
+        log(f"one traced request: {len(spans)} spans on hosts {hosts} "
+            f"({sorted({s['name'] for s in spans})}), complete "
+            f"{obs_trace.tree_complete(spans)}, monotonic "
+            f"{obs_trace.tree_monotonic(spans)}, the wire span before the "
+            f"agent's {ordered}, skew offsets "
+            f"{merged['metadata']['offsets_ms']} ms")
+        if (len(hosts) < 2 or not ordered or not cross_same(traced, want[0])
+                or not obs_trace.tree_complete(spans)
+                or not obs_trace.tree_monotonic(spans)):
+            raise AssertionError(f"the traced request's tree: {spans}")
+        done("trace")
+
+        # (c) 1 agent, then 2, at one concurrency
+        def loop(us):
+            r, f = build_crosshost_router(ccfg, us)
+            try:
+                run = crosshost._run_prepared_closed(
+                    r, sources, CROSS_LOOP_S, CROSS_CONCURRENCY, 20_000.0,
+                    submit=_submit_source)
+                _drain(r)
+                return _fleet_leg_record(run, r.metrics.snapshot())
+            finally:
+                f.close()
+                r.close()
+
+        one = loop(urls[:1])
+        two = loop(urls)
+        scaling = two["imgs_per_sec"] / max(one["imgs_per_sec"], 1e-9)
+        log(f"closed loop {CROSS_LOOP_S:.0f} s at concurrency "
+            f"{CROSS_CONCURRENCY} on {n_cards} card(s) ({card}): 1 agent "
+            f"{one['imgs_per_sec']} images/s (p50/p99 {one['p50_ms']}/"
+            f"{one['p99_ms']} ms, lost {one['lost']}), 2 agents "
+            f"{two['imgs_per_sec']} (p50/p99 {two['p50_ms']}/"
+            f"{two['p99_ms']} ms, lost {two['lost']}); scaling "
+            f"{scaling:.3f}"
+            + (" (one card: two contexts time-slice its SMs; not judged)"
+               if n_cards < 2 else ""))
+        if (one["lost"] or two["lost"] or not one["served"]
+                or not two["served"]
+                or (n_cards >= 2 and scaling < CROSS_MIN_SCALING)):
+            raise AssertionError(f"the closed loops: {one} {two}")
+        done("loops")
+
+        # (d) SIGKILL one agent mid-burst under the live scheduler
+        problems = []
+        kill = crosshost.host_kill_leg(
+            ccfg, {}, agents, sources, CROSS_KILL_S, CROSS_CONCURRENCY,
+            20_000.0, problems, submit=_submit_source,
+            restore_timeout_s=60.0, sched_over={"cooldown_s": 20.0})
+        deadline = time.monotonic() + 20.0
+        free_end = cross_free(devices)
+        while (abs(free_end - free0) > CROSS_MEM_SLACK
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+            free_end = cross_free(devices)
+        log(f"kill mid-burst with the live scheduler ({card}): "
+            f"{kill['served']} served, {kill['served_after_kill']} after the "
+            f"kill, lost {kill['lost']}, client {kill['client']}, rerouted "
+            f"{kill['rerouted']}, ejects {kill['ejects']}; the survivor "
+            f"grown in {kill['capacity_restore_s']} s (joins "
+            f"{kill['survivor_joins']} s, builds "
+            f"{kill['survivor_builds_after_warm']}), actions "
+            f"{kill['scheduler_actions']}; the agents' cards' free memory "
+            f"with both up {(free_up - free0) / 2 ** 20:+.1f} MiB, after "
+            f"the agents are gone {(free_end - free0) / 2 ** 20:+.1f} MiB")
+        if problems or abs(free_end - free0) > CROSS_MEM_SLACK:
+            raise AssertionError(f"the kill leg: {problems}; {kill}; free "
+                                 f"{free0} {free_end}")
+        done("kill")
+        del offline, pred
+    finally:
+        cross_stop()
+        _CROSS.clear()
+        shutil.rmtree(CROSS_DIR, ignore_errors=True)
+        shutil.rmtree(CROSS_EXPORT, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 20 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(store=sorted(report.get("kernels", {})), ready=ready, boot_s=boot_s, shipped=shipped,
+                health=health, equal=equal, bytes_v1=per_v1,
+                bytes_v2=per_v2, bytes_ratio=ratio, batches=batches,
+                launches=launches, trace_hosts=hosts, one=one, two=two,
+                scaling=scaling, kill=kill,
+                free_mib={"up": (free_up - free0) / 2 ** 20,
+                          "end": (free_end - free0) / 2 ** 20},
+                parts_s=parts, wall_s=wall, cards=n_cards)
 
 
 def kernel_line(kern, res: dict, launches: int) -> dict:
@@ -7688,6 +8117,7 @@ def main() -> int:
     obs = timed(17, phase_obs, dev, card)
     bulk = timed(18, phase_bulk, dev, card)
     fleet = timed(19, phase_fleet, dev, card)
+    cross = timed(20, phase_crosshost, dev, card)
     script_s = time.perf_counter() - script_t0
     log("seconds a phase (phase 1 the build): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -7721,7 +8151,7 @@ def main() -> int:
         training=training, evaluation=evaluation, alternate=alternate,
         engine=engine, real_data=real_data, long_run=long_run,
         data_parallel=data_parallel, device_cache=device_cache,
-        quant=quant, obs=obs, bulk=bulk, fleet=fleet,
+        quant=quant, obs=obs, bulk=bulk, fleet=fleet, crosshost=cross,
         phase_s={str(k): v for k, v in phase_s.items()},
         script_s=script_s), indent=1))
     print(card)

@@ -217,6 +217,71 @@ class FleetConfig:
 
 
 @dataclass(frozen=True)
+class CrosshostConfig:
+    """Mirrors ``mx_rcnn_tpu.config.CrosshostConfig``: the cross-host
+    serving tier (``serve/remote.py``, ``serve/agent.py``,
+    ``serve/scheduler.py``), per-host agents behind the fleet's
+    ``Replica`` seam over keep-alive HTTP and the binary wire, a store
+    pull per joining host, and a scheduler that adds and drains replicas
+    on the agents' gauges.  Same 3-level precedence as every section
+    (defaults < presets < ``--set crosshost__field=value``); outside the
+    config fingerprint."""
+
+    # comma-separated agent URLs ("host:port,host:port"): the router's
+    # membership when build_crosshost_router is given none
+    agents: str = ""
+    # keep-alive connections per remote replica, each a pipeline of its
+    # own: up to connections x pipeline_depth frames in flight
+    connections: int = 2
+    # frames admitted per connection; past connections x pipeline_depth
+    # the head sheds instead of queueing toward a slow host
+    pipeline_depth: int = 4
+    # frames packed into one MXE1 envelope per send (1: every frame
+    # alone): one sendmsg, one round trip, one agent wakeup
+    frames_per_send: int = 1
+    # 0 keeps pipeline_depth fixed; >= 1 tunes each engine's depth in
+    # [1, pipeline_depth_max] by AIMD on the windowed wire RTT
+    pipeline_depth_max: int = 0
+    # socket timeout of agent RPCs: a backstop above any deadline
+    io_timeout_s: float = 60.0
+    # the backlog feed's scrape cadence of every agent's /metrics
+    scrape_interval_s: float = 0.25
+    # consecutive transport or scrape failures before a remote replica
+    # reads dead and the manager ejects it
+    dead_after_failures: int = 3
+    # the store server a joining agent pulls fleet.export_dir from
+    # ("": the store is on local disk already)
+    store_url: str = ""
+    # replica engines each agent runs
+    agent_replicas: int = 1
+    # wire body cap (MB) both ways: the agent answers 413 above it, the
+    # head fails a response above it
+    max_body_mb: float = 64.0
+    # the scheduler's resize RPC deadline (AgentAdminTimeout past it)
+    admin_timeout_s: float = 5.0
+    # deadline of every store-pull request (StorePullError past it)
+    pull_timeout_s: float = 30.0
+    # --- the scheduler (serve/scheduler.py) ----------------------------
+    # ready replicas wanted fleet-wide (0: adopt what the fleet first
+    # reports); ready < target is the host-death signal
+    target_replicas: int = 0
+    min_replicas: int = 1            # never drain below
+    max_replicas: int = 8            # never add above
+    # scale up when the windowed shed ratio passes this ...
+    up_shed_ratio: float = 0.05
+    # ... or the lane backlog per ready replica passes this many images
+    up_backlog: float = 2.0
+    # ticks a trigger must hold before the scheduler acts ...
+    for_samples: int = 2
+    # ... and quiet ticks before it drains
+    idle_samples: int = 8
+    # no further action until the last one is this old
+    cooldown_s: float = 5.0
+    interval_s: float = 0.5          # the scheduler's tick
+    window_s: float = 10.0           # the rate and ratio window
+
+
+@dataclass(frozen=True)
 class BulkConfig:
     """Mirrors ``mx_rcnn_tpu.config.BulkConfig``: the bulk scoring tier
     (``serve/bulk.py``), a corpus streamed through the serving engine's
@@ -351,6 +416,7 @@ class Config:
     bucket: BucketConfig = field(default_factory=BucketConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
+    crosshost: CrosshostConfig = field(default_factory=CrosshostConfig)
     bulk: BulkConfig = field(default_factory=BulkConfig)
     data: DataConfig = field(default_factory=DataConfig)
     ft: FTConfig = field(default_factory=FTConfig)

@@ -1,8 +1,7 @@
 """Load generator for the serving engine and the serving fleet: closed
 or open loop, one JSON record.
 
-Counterpart of ``mx_rcnn_tpu/tools/loadgen.py`` but its wire and
-cross-host legs (they wait for ``serve/remote.py``).  Replays synthetic
+Counterpart of ``mx_rcnn_tpu/tools/loadgen.py``.  Replays synthetic
 images against an in-process
 :class:`~mx_rcnn_tpu_torch.serve.engine.ServingEngine` (no network in the
 measured path; the HTTP front end has its own tests) and prints one JSON
@@ -42,6 +41,17 @@ killed mid-burst (0 lost, rerouted, relaunched, rejoined).  With one
 card every replica shares it, so real-model scaling measures the
 router's overhead, not the silicon; the stub legs measure the router.
 
+The cross-host tier: ``--crosshost_bench`` / ``--crosshost_smoke`` run
+``tools/crosshost.py`` (agent processes on loopback: the store pull and
+join, the binary against the JSON wire, host scaling, a host killed
+under the live scheduler, bulk over 2 hosts), ``--wire_bench`` /
+``--wire_smoke`` run ``tools/wire_bench.py`` (the v1-fp32, v2-u8,
+coalesced and adaptive arms, bit-equal detections, a host killed mid
+envelope); each prints one record, and ``--check`` holds it to the
+``--min_crosshost_scaling``, ``--min_wire_ratio``,
+``--max_wire_bytes_ratio`` and ``--min_wire_speedup`` gates.  The
+agents run on ``--device``.
+
 The record has the JAX package's keys but ``recompiles_after_warmup``
 (the port compiles no program, so there is nothing to count), and adds
 ``preprocess_ms_p50`` (resize and pad of one request on the caller's
@@ -55,6 +65,10 @@ is imported, and ``--check`` fails on what it found.
         --dataset PascalVOC --duration 8                        # card
     python -m mx_rcnn_tpu_torch.tools.loadgen --smoke --device cpu --check
     python -m mx_rcnn_tpu_torch.tools.loadgen --fleet_smoke --device cpu \
+        --check
+    python -m mx_rcnn_tpu_torch.tools.loadgen --crosshost_smoke \
+        --device cpu --check
+    python -m mx_rcnn_tpu_torch.tools.loadgen --wire_smoke --device cpu \
         --check
 """
 
@@ -758,6 +772,36 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--workdir", default=None,
                    help="the fleet bench's directory (stores, package "
                         "copies; default: a new temporary one)")
+    # the cross-host tier (tools/crosshost.py, tools/wire_bench.py)
+    p.add_argument("--crosshost_bench", action="store_true",
+                   help="the cross-host battery (agent processes, the "
+                        "binary wire, the store pull, the live "
+                        "scheduler): one record")
+    p.add_argument("--crosshost_smoke", action="store_true",
+                   help="--crosshost_bench at gate scale (2 hosts, short "
+                        "bursts)")
+    p.add_argument("--crosshost_sweep", default="1,2,4",
+                   help="host counts of the cross-host scaling legs")
+    p.add_argument("--min_wire_ratio", type=float, default=1.05,
+                   help="--check floor of the binary over the JSON "
+                        "prepared wire's throughput")
+    p.add_argument("--min_crosshost_scaling", type=float, default=1.9,
+                   help="--check floor of the 2-host stand-in scaling "
+                        "(4 hosts: twice this)")
+    p.add_argument("--wire_bench", action="store_true",
+                   help="the wire data-plane battery (v1-fp32, v2-u8, "
+                        "coalesced and adaptive arms, SIGKILL mid "
+                        "envelope): one record")
+    p.add_argument("--wire_smoke", action="store_true",
+                   help="--wire_bench at gate scale (short windows, the "
+                        "same arms and kill leg)")
+    p.add_argument("--max_wire_bytes_ratio", type=float, default=0.30,
+                   help="--check ceiling of v2-u8 over v1-fp32 bytes an "
+                        "image (the counters and the production bucket's "
+                        "codec arithmetic)")
+    p.add_argument("--min_wire_speedup", type=float, default=1.8,
+                   help="--check floor of the coalesced over the v1 "
+                        "arm's throughput")
     p.add_argument("--set", action="append", metavar="SEC__FIELD=VAL",
                    help="override a config field (repeatable)")
     return p.parse_args(argv)
@@ -767,6 +811,14 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     args = parse_args(argv)
+    if args.wire_bench or args.wire_smoke:
+        from mx_rcnn_tpu_torch.tools.wire_bench import run_wire_bench
+
+        return run_wire_bench(args)
+    if args.crosshost_bench or args.crosshost_smoke:
+        from mx_rcnn_tpu_torch.tools.crosshost import run_crosshost_bench
+
+        return run_crosshost_bench(args)
     if args.fleet_bench or args.fleet_smoke:
         if args.max_join_ratio is None:
             args.max_join_ratio = 0.5 if args.fleet_smoke else 0.10

@@ -18,7 +18,9 @@ registry (so ``/metrics`` is the unified scrape), the kept ring of
 ``X-MXR-Trace``-traced requests, and with ``obs__timeseries``,
 ``obs__health`` and ``obs__flight`` the time series on ``/metrics``, the
 verdict on ``/healthz`` and the flight recorder (the engine's
-``healthz`` in its dumps).  ``MXRCNN_THREAD_SANITIZER`` arms the lock
+``healthz`` in its dumps).  Once bound, one JSON line on stdout names
+the host and port (``--port 0`` binds a free one).
+``MXRCNN_THREAD_SANITIZER`` arms the lock
 sanitizer before the package is imported.  Not ported: the JAX CLI's
 compile cache.
 
@@ -36,6 +38,7 @@ from mx_rcnn_tpu_torch.analysis import sanitizer  # isort: skip
 sanitizer.maybe_install_from_env()
 
 import argparse  # noqa: E402
+import json  # noqa: E402
 import logging  # noqa: E402
 
 from mx_rcnn_tpu_torch.config import (NETWORKS,  # noqa: E402
@@ -131,6 +134,11 @@ def main(argv=None) -> None:
         srv = make_server(engine, args.host, args.port, class_names=names,
                           max_body_mb=cfg.serve.max_body_mb)
         host, port = srv.server_address[:2]
+        # the ready line: a caller that asked for --port 0 reads the
+        # bound port here instead of picking one that another process
+        # can take before this one binds it
+        print(json.dumps({"ready": True, "host": host, "port": port}),
+              flush=True)
         logger.info("serving on http://%s:%d  (POST /detect, GET /healthz, "
                     "GET /metrics)", host, port)
         srv.serve_forever()

@@ -685,30 +685,34 @@ def test_entry_points_refuse_to_drop_to_the_cpu(tmp_path):
 
 def test_serve_cli_serves_a_checkpoint_and_exits_on_sigint(tmp_path):
     """``tools/serve.py --device cpu`` on a tiny checkpoint: warm, one
-    request served, ``/metrics`` counts it, SIGINT ends it with 0."""
+    request served, ``/metrics`` counts it, SIGINT ends it with 0.  The
+    CLI binds ``--port 0`` and names the port on its ready line: a port
+    picked here and closed before the child binds it can be taken by
+    any other process in between."""
     cfg = generate_config("tiny", "synthetic", **_CANVAS)
     prefix = str(tmp_path / "m")
     save_params(prefix, 1, build_model(cfg, "cpu", seed=3,
                                        train=True).state_dict())
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     sets = [a for k, v in _CANVAS.items() for a in ("--set", f"{k}={v}")]
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.serve", "--device",
-         "cpu", "--network", "tiny", "--dataset", "synthetic", "--prefix",
-         prefix, "--epoch", "1", "--port", str(port)] + sets, cwd=REPO,
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-    url = f"http://127.0.0.1:{port}"
+    err_path = tmp_path / "serve.err"
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.serve",
+             "--device", "cpu", "--network", "tiny", "--dataset",
+             "synthetic", "--prefix", prefix, "--epoch", "1", "--port", "0"]
+            + sets, cwd=REPO, stdout=subprocess.PIPE, stderr=err, text=True)
     try:
-        deadline = time.monotonic() + 90
-        health = None
-        while health is None and time.monotonic() < deadline:
-            assert proc.poll() is None, proc.stderr.read()
-            try:
-                health = _http(url + "/healthz")[1]
-            except OSError:
-                time.sleep(0.1)
+        box = {}
+        reader = threading.Thread(
+            target=lambda: box.update(line=proc.stdout.readline()),
+            daemon=True)
+        reader.start()
+        reader.join(90)
+        assert box.get("line"), err_path.read_text()[-3000:]
+        ready = json.loads(box["line"])
+        assert ready["ready"] and ready["port"] > 0
+        url = f"http://127.0.0.1:{ready['port']}"
+        health = _http(url + "/healthz")[1]
         assert health["warm_buckets"] == [[128, 160], [160, 128]]
         status, body = _http(url + "/detect", _pixels(_img(False, seed=4)))
         assert status == 200 and body["batch_rows"] == 1
@@ -716,4 +720,4 @@ def test_serve_cli_serves_a_checkpoint_and_exits_on_sigint(tmp_path):
     finally:
         proc.send_signal(signal.SIGINT)
         rc = proc.wait(timeout=30)
-    assert rc == 0
+    assert rc == 0, err_path.read_text()[-3000:]
