@@ -3,8 +3,8 @@
 evaluation, the alternate schedule, the serving engine, the
 real-dataset input plane, the long training run, data parallelism, the
 device-resident training epoch, quantized inference, the observability
-plane, bulk scoring over an export-warmed engine, the serving fleet and
-the cross-host serving tier on one NVIDIA card.
+plane, bulk scoring over an export-warmed engine, the serving fleet, the
+cross-host serving tier and the rollout plane on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -323,7 +323,25 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     scaling judged only on two cards); one agent SIGKILLed mid-burst
     under the live ``FleetScheduler`` (lost 0, no failure or expiry, the
     survivor grown from its store with 0 builds) and the cards' free
-    memory back after the agents are gone.
+    memory back after the agents are gone;
+21. the rollout plane, the fifteenth main path (``serve/rollout.py —
+    RolloutController`` → ``AgentRolloutPort`` → each agent's ``POST
+    /rollout``: the pull, the canary lane, the shadow pairs, the swap and
+    the rollback through ``FleetRouter`` and ``ServingEngine``), driven
+    by ``tools/rollout.py``'s legs over phase 20's agents before its kill
+    leg, at phase 19's configuration: stores v2 (the boot weights, a
+    child of the boot store), v2d (``tools/rollout.py``'s damage of every
+    matrix at scale 10; its outputs must be finite) and an unrooted v1;
+    the lineage truth
+    table; v1 → v2 mid-burst (lost 0, each v2 file shipped once an
+    agent, second pulls ``already``, 0 kernel builds in the burst after
+    the swap, both hosts all-v2, every shadow delta exactly 0.0); v2d
+    (it passes lineage, the gate refuses it on finite deltas, the
+    controller rolls back by itself, both hosts base-only, lost 0, a
+    second rollback through ``FleetScheduler.rollback`` a recorded
+    no-op); the agents' K1 2 and K2 1 per engine batch plus, per
+    replica joined from a store, K1 once a bucket plus once and K2 once
+    a bucket.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -335,7 +353,7 @@ eval, times at the per-ROI stage-4 bn1 and 1x1); the last line is ``{"ok": true,
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
 directory and remove them at their end, and phases 13–18 their
-weight files, checkpoints and datasets likewise, and phases 19 and 20
+weight files, checkpoints and datasets likewise, and phases 19–21
 too.
 """
 
@@ -7810,8 +7828,9 @@ def phase_crosshost(dev, card: str) -> dict:
         beside = "agents" in _CROSS
         if not beside:
             # run alone: no phase 19 started the agents; export a store of
-            # the same seeded model and start them here
-            _CROSS["free_ref"] = cross_free(devices)
+            # the same seeded model and start them here.  The cards'
+            # reference is read after the export, once this process's first
+            # forward has set up what it keeps outside its allocator
             store = str(CROSS_EXPORT)
             shutil.rmtree(store, ignore_errors=True)
             model = build_model(cfg, dev, seed=0)
@@ -7820,6 +7839,7 @@ def phase_crosshost(dev, card: str) -> dict:
             export_serve_programs(Predictor(model, cfg, dev), cfg, store,
                                   bundle_variables=True)
             del model
+            _CROSS["free_ref"] = cross_free(devices)
             _CROSS.update(cross_start(store))
         agents, store_srv = _CROSS["agents"], _CROSS["srv"]
         st = ExportStore(_CROSS["store"])
@@ -7999,6 +8019,11 @@ def phase_crosshost(dev, card: str) -> dict:
             raise AssertionError(f"the closed loops: {one} {two}")
         done("loops")
 
+        # phase 21, the rollout plane, over these agents before the kill
+        rollout = phase_rollout(dev, card, cfg, pred, agents, canvases,
+                                _CROSS["store"])
+        done("rollout")
+
         # (d) SIGKILL one agent mid-burst under the live scheduler
         problems = []
         kill = crosshost.host_kill_leg(
@@ -8041,7 +8066,199 @@ def phase_crosshost(dev, card: str) -> dict:
                 scaling=scaling, kill=kill,
                 free_mib={"up": (free_up - free0) / 2 ** 20,
                           "end": (free_end - free0) / 2 ** 20},
-                parts_s=parts, wall_s=wall, cards=n_cards)
+                parts_s=parts, wall_s=wall, cards=n_cards, rollout=rollout)
+
+
+# ---- phase 21: the rollout plane, the fifteenth main path -------------------
+
+ROLLOUT_BURST_S = 8.0       # each leg's burst (the swap runs under it)
+ROLLOUT_POST_S = 3.0        # the mixed-bucket burst after the swap
+ROLLOUT_DAMAGE = 10.0       # tools/rollout.py's red-team noise scale
+
+
+def rollout_finite(pred, cfg) -> bool:
+    """Whether ``pred``'s raw outputs on each bucket's dummy batch are all
+    finite (judged on the host: no kernel this process has not run)."""
+    import numpy as np
+
+    from mx_rcnn_tpu_torch.serve.export import _dummy_batch
+
+    for b in cfg.bucket.shapes:
+        out = pred.raw(*_dummy_batch(tuple(b), cfg.serve.batch_size))
+        if not all(np.isfinite(t.float().cpu().numpy()).all() for t in out
+                   if t.is_floating_point()):
+            return False
+    return True
+
+
+def rollout_damaged(pred, cfg, dev):
+    """The red-team arm's predictor: ``tools/rollout.py``'s damage of
+    every matrix at ROLLOUT_DAMAGE.  Its outputs must be finite through
+    the full depth: a refusal of non-finite scores would be for the wrong
+    reason."""
+    from mx_rcnn_tpu_torch.serve.export import (predictor_from_variables,
+                                                predictor_variables)
+    from mx_rcnn_tpu_torch.tools.rollout import _damaged_variables
+
+    damaged = predictor_from_variables(
+        _damaged_variables(predictor_variables(pred), ROLLOUT_DAMAGE), cfg,
+        dev)
+    if not rollout_finite(damaged, cfg):
+        raise AssertionError("the damaged weights give non-finite outputs")
+    return damaged
+
+
+def phase_rollout(dev, card: str, cfg, pred, agents, prepared,
+                  boot_store: str) -> dict:
+    """Phase 21: the rollout plane (module docstring) over phase 20's
+    agents, before its kill leg; its stores under ``CROSS_DIR/rollout``.
+    ``pred`` holds the boot store's weights, ``prepared`` phase 20's
+    request canvases."""
+    import gc
+
+    import torch
+
+    from mx_rcnn_tpu_torch.serve.agent import make_store_server
+    from mx_rcnn_tpu_torch.serve.export import (ExportStore,
+                                                export_serve_programs,
+                                                manifest_sha)
+    from mx_rcnn_tpu_torch.serve.remote import build_crosshost_router
+    from mx_rcnn_tpu_torch.serve.rollout import AgentRolloutPort
+    from mx_rcnn_tpu_torch.serve.scheduler import AgentAdmin
+    from mx_rcnn_tpu_torch.tools import crosshost
+    from mx_rcnn_tpu_torch.tools import rollout as rollout_tool
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    work = CROSS_DIR / "rollout"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    roots = {v: str(work / f"store_{v}") for v in ("v2", "v2d", "v1")}
+    servers = []
+    try:
+        # the stores: v2 the boot weights, a child of the boot store; v2d
+        # damaged, the same parent; v1 a versioned store without a parent
+        # (the truth table's unrooted case; no weights bundled)
+        export_serve_programs(pred, cfg, roots["v2"], version="v2",
+                              parent=boot_store, bundle_variables=True)
+        damaged = rollout_damaged(pred, cfg, dev)
+        export_serve_programs(damaged, cfg, roots["v2d"], version="v2d",
+                              parent=boot_store, bundle_variables=True)
+        del damaged
+        gc.collect()
+        torch.cuda.empty_cache()
+        export_serve_programs(pred, cfg, roots["v1"], version="v1")
+        problems = []
+        lineage = rollout_tool._lineage_leg(
+            cfg, pred, str(work), boot_store, roots["v2"], problems,
+            unrooted_root=roots["v1"], legacy_root=boot_store)
+        v2d_lineage = ExportStore(roots["v2d"]).check_lineage(
+            known_parents={manifest_sha(boot_store)})
+        log(f"phase 21: stores v2, v2d (damage x{ROLLOUT_DAMAGE:g} on every "
+            f"matrix, finite outputs), v1 exported on {card}; the lineage "
+            f"table "
+            + ", ".join(f"{k} {'refused' if v['refused'] else 'admitted'}"
+                        for k, v in lineage["cases"].items())
+            + f"; v2d's lineage {v2d_lineage}")
+        if problems or v2d_lineage.get("legacy"):
+            raise AssertionError(f"the lineage table: {problems} {lineage}")
+        done("stores")
+
+        urls = {}
+        for v in ("v2", "v2d"):
+            srv = make_store_server(roots[v])
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            servers.append(srv)
+            urls[v] = f"http://127.0.0.1:{srv.server_address[1]}"
+        agent_urls = [a.url for a in agents]
+        rcfg = rollout_tool.rollout_config(cfg)
+        admin = AgentAdmin.from_config(agent_urls, rcfg)
+        port = AgentRolloutPort(admin)
+        before = [crosshost._healthz(u) for u in agent_urls]
+        router, feed = build_crosshost_router(rcfg, agent_urls)
+        try:
+            swap = rollout_tool.live_swap_leg(
+                router, port, admin, agents, rcfg, prepared, urls["v2"],
+                ROLLOUT_BURST_S, ROLLOUT_POST_S, 20_000.0, problems)
+            mid = [crosshost._healthz(u) for u in agent_urls]
+            done("swap")
+            red = rollout_tool.redteam_leg(
+                router, port, admin, rcfg, prepared, urls["v2d"],
+                ROLLOUT_BURST_S, 20_000.0, problems)
+            done("redteam")
+        finally:
+            feed.close()
+            router.close()
+        after = [crosshost._healthz(u) for u in agent_urls]
+        with servers[0].stats_lock:
+            v2_reqs = [r["rel"] for r in servers[0].requests]
+        shipped = {rel: v2_reqs.count(rel) for rel in servers[0].index}
+        swap_deltas, red_deltas = swap["shadow_deltas"], red["shadow_deltas"]
+
+        def delta(key, a, b):
+            return sum(y[key] - x[key] for x, y in zip(a, b))
+
+        batches = delta("engine_batches", before, after)
+        warms = delta("replica_warms", before, after)
+        launches = {k: sum(y["kernel_launches"][k] - x["kernel_launches"][k]
+                           for x, y in zip(before, after))
+                    for k in before[0]["kernel_launches"]}
+        # a replica's join from its store runs each bucket's forward and
+        # the postprocess once: K1 once a bucket plus once, K2 once a
+        # bucket; every engine batch launches K1 twice and K2 once
+        n_b = len(cfg.bucket.shapes)
+        want = {"nms_sweep": 2 * batches + (n_b + 1) * warms,
+                "roi_align_fwd": batches + n_b * warms}
+        builds = [h["kernel_builds_after_warm"] for h in after]
+        log(f"phase 21 live swap v1 -> v2 mid-burst on {card}: "
+            f"{swap['phase']}, {swap['served']} served of "
+            f"{swap['submitted']}, lost {swap['lost']}, events "
+            f"{swap['events']}; hosts {swap['hosts']}; each v2 file shipped "
+            f"{sorted(set(shipped.values()))} time(s), second pulls "
+            f"already {swap['repull_already']}; kernel builds in the "
+            f"post-swap burst {swap['builds_during_post_swap_burst']}; "
+            f"the gate {swap['gate']}; shadow deltas {swap_deltas}")
+        log(f"phase 21 red team (v2d) on {card}: {red['phase']} "
+            f"({red['rollback_reason']}, rollback {red['rollback_s']} s), "
+            f"{red['served']} served of {red['submitted']}, lost "
+            f"{red['lost']}, events {red['events']}; hosts {red['hosts']}; "
+            f"the gate {red['gate']}; shadow deltas {red_deltas}; the "
+            f"scheduler's second rollback {red['rollback_noop']}")
+        log(f"phase 21 launches over both legs, summed over the agents: "
+            f"{launches} for {batches} engine batches and {warms} replica "
+            f"joins from a store (want K1 {want['nms_sweep']}, K2 "
+            f"{want['roi_align_fwd']}); kernel builds after the warm "
+            f"{builds}")
+        if (problems or set(shipped.values()) != {len(agents)}
+                or any(d != 0.0 for d in swap_deltas) or not swap_deltas
+                or not red_deltas
+                or not all(math.isfinite(d) for d in red_deltas)
+                or any(builds) or not batches
+                or {k: launches[k] for k in want} != want
+                or any(v for k, v in launches.items() if k not in want)):
+            raise AssertionError(
+                f"phase 21: {problems}; shipped {shipped}; deltas "
+                f"{swap_deltas} {red_deltas}; launches {launches} want "
+                f"{want}; builds {builds}")
+        done("checks")
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 21 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(lineage=lineage, swap=swap, redteam=red,
+                shipped=shipped, batches=batches,
+                warms=warms, launches=launches, want=want, mid=[
+                    {k: h[k] for k in ("engine_batches", "replica_warms",
+                                       "kernel_launches")} for h in mid],
+                parts_s=parts, wall_s=wall)
 
 
 def kernel_line(kern, res: dict, launches: int) -> dict:
@@ -8118,6 +8335,10 @@ def main() -> int:
     bulk = timed(18, phase_bulk, dev, card)
     fleet = timed(19, phase_fleet, dev, card)
     cross = timed(20, phase_crosshost, dev, card)
+    # phase 21 runs inside phase 20, over its agents before its kill leg
+    rollout = cross.pop("rollout")
+    phase_s[21] = rollout["wall_s"]
+    phase_s[20] -= phase_s[21]
     script_s = time.perf_counter() - script_t0
     log("seconds a phase (phase 1 the build): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -8152,6 +8373,7 @@ def main() -> int:
         engine=engine, real_data=real_data, long_run=long_run,
         data_parallel=data_parallel, device_cache=device_cache,
         quant=quant, obs=obs, bulk=bulk, fleet=fleet, crosshost=cross,
+        rollout=rollout,
         phase_s={str(k): v for k, v in phase_s.items()},
         script_s=script_s), indent=1))
     print(card)

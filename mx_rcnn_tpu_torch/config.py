@@ -407,6 +407,65 @@ class ObsConfig:
 
 
 @dataclass(frozen=True)
+class SimConfig:
+    """Mirrors ``mx_rcnn_tpu.config.SimConfig``: the fleet simulator's
+    knobs (``sim/``), a virtual-time harness that runs the port's own
+    scheduler, health engine, collector and router key over hundreds of
+    simulated hosts.  Request semantics (batch size, shed watermark,
+    deadline) are read from ``cfg.serve`` and ``cfg.crosshost``, so a
+    policy is judged under the knobs it ships with."""
+
+    hosts: int = 100            # simulated agent hosts (one registry each)
+    duration_s: float = 240.0   # trace length in virtual seconds
+    seed: int = 0               # root seed of every sim RNG substream
+    # collector scrape, health and scheduler cadence in virtual seconds
+    scrape_interval_s: float = 1.0
+    # the simulator's virtual service time of one dispatch at the
+    # smallest bucket (a batch is padded to serve.batch_size rows, so
+    # the cost follows the bucket, not the occupancy); larger buckets
+    # scale by their pixel ratio
+    service_ms: float = 430.0
+    service_jitter: float = 0.10   # lognormal sigma on service draws
+    warmup_s: float = 5.0          # resize(+1) cold-join delay (virtual)
+    relaunch_s: float = 8.0        # host drain-to-relaunch dark time
+    util: float = 0.65             # the generators' base demand, a
+                                   # fraction of the boot fleet's capacity
+    settle_s: float = 60.0         # post-trace drain budget before a
+                                   # request still queued counts lost
+
+
+@dataclass(frozen=True)
+class RolloutConfig:
+    """Mirrors ``mx_rcnn_tpu.config.RolloutConfig``: the rollout plane
+    (``serve/rollout.py``): versioned export stores, per-host rolling
+    updates, the canary lane with its online paired gate, rollback."""
+
+    # the share of traffic the router sends down the canary version's
+    # lane while the gate observes (a deterministic fraction accumulator)
+    canary_fraction: float = 0.25
+    # the online paired gate: the equivalence budget on the shadow-score
+    # scale (CI inside +-budget) and the pairs needed before judging
+    gate_budget: float = 0.02
+    gate_min_pairs: int = 12
+    # shadow-score every Nth controller tick of the canary phase
+    gate_sample_every: int = 4
+    # the canary's dwell before rolling, even once min_pairs is reached
+    bake_s: float = 10.0
+    # per-host swap step bound: a host silent this long is deferred and
+    # re-checked in FINALIZE (the kill-mid-rollout path)
+    step_timeout_s: float = 60.0
+    # hosts rolled at once (the wave width)
+    wave: int = 1
+    # the controller's re-check cadence while pulls, warms and drains run
+    settle_s: float = 1.0
+    # the simulator's store-pull time (virtual seconds)
+    pull_s: float = 3.0
+    # the red-team arm's shadow-score damage to the canary (simulator and
+    # rig only; 0.0: healthy)
+    redteam_damage: float = 0.0
+
+
+@dataclass(frozen=True)
 class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     test: TestConfig = field(default_factory=TestConfig)
@@ -422,10 +481,16 @@ class Config:
     ft: FTConfig = field(default_factory=FTConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    sim: SimConfig = field(default_factory=SimConfig)
+    rollout: RolloutConfig = field(default_factory=RolloutConfig)
 
     @property
     def num_classes(self) -> int:
         return self.dataset.num_classes
+
+    def replace(self, **kw: Any) -> "Config":
+        """New Config with whole sections replaced."""
+        return dataclasses.replace(self, **kw)
 
     def replace_in(self, section: str, **kw: Any) -> "Config":
         """New Config with fields replaced inside one section."""

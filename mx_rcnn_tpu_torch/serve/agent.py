@@ -18,14 +18,17 @@ process a host that
   ``GET /metrics`` (the merged local view with each bucket's
   ``lane.<h>x<w>.depth``, the head's routing signal), ``GET /trace``,
   and ``POST /prepared`` (one binary frame), ``/frames`` (an envelope),
-  ``/prepared_json``, ``/detect`` and ``/replicas`` (the scheduler's
-  lever).
+  ``/prepared_json``, ``/detect``, ``/replicas`` (the scheduler's
+  lever) and ``/rollout`` (the rollout plane's verbs: ``pull``,
+  ``swap``, ``rollback``, ``canary``, ``shadow``, ``status``, driven by
+  ``serve/rollout.py — AgentRolloutPort``).
 
 The port's differences: the JAX agent counts XLA lowerings after its
 warm (``agent.lowered_after_warm``); this one counts kernel library
 builds (``kernels.load_events()``) and publishes
-``agent.kernel_builds_after_warm``.  ``POST /rollout`` and the rollout
-verbs are not here yet: the route answers 404 as an unknown one does.
+``agent.kernel_builds_after_warm``.  A pulled version's replicas are
+built by ``serve/fleet.py — make_engine_build_fn`` from that store's
+bundled weights and join from it (its ``kernels/`` included).
 
 The HTTP front end follows ``serve/server.py``: HTTP/1.1 and a
 Content-Length on every reply, so the head's keep-alive connections
@@ -56,7 +59,7 @@ from mx_rcnn_tpu_torch.netio import (BodyError, check_timeout_ms,
                                      read_request_body)
 from mx_rcnn_tpu_torch.obs import trace as obs_trace
 from mx_rcnn_tpu_torch.obs.metrics import Registry
-from mx_rcnn_tpu_torch.serve.export import MANIFEST_NAME
+from mx_rcnn_tpu_torch.serve.export import ExportMismatch, MANIFEST_NAME
 from mx_rcnn_tpu_torch.serve.queue import (DeadlineExceeded, RequestFailed,
                                            ShedError)
 from mx_rcnn_tpu_torch.serve.remote import (DTYPE_U8, ENV_EXPIRED, ENV_FAILED,
@@ -344,6 +347,17 @@ class ReplicaAgent:
             registry=self.registry, record=record)
         self.manager = self.router.manager
         self.warm_s = round(time.perf_counter() - t0, 3)
+        # the rollout plane (serve/rollout.py drives it over POST
+        # /rollout): the boot model is version None ('base'); each pulled
+        # version keeps its store beside the boot store and a build_fn
+        self._variables = variables
+        self._run_fn_factory = run_fn_factory
+        self._device = device
+        self._boot_build_fn = self.manager._build_fn
+        self._target_replicas = cfg.fleet.replicas
+        self._versions: Dict[str, Dict] = {}
+        self._rollout_lock = threading.Lock()
+        self._shadow_seq = 0
         # builds from here on are after the warm: a replica the
         # scheduler adds joins from the local store and builds none
         self._builds_at_warm = kernels.load_events()["builds"]
@@ -355,10 +369,15 @@ class ReplicaAgent:
 
     def healthz(self) -> Dict:
         h = self.router.healthz()
-        batches = 0
+        # engine batches and warm launches of this process, drained
+        # replicas' included
+        with self.manager._counts_lock:
+            batches = self.manager.retired["batches"]
+            warms = self.manager.retired["generations"]
         for r in list(self.manager.replicas):
             with r._lock:
                 eng = r.engine
+                warms += r.generation
             if eng is not None:
                 batches += eng.metrics.counters["batches"]
         h.update({
@@ -372,6 +391,8 @@ class ReplicaAgent:
             "kernel_load_events": kernels.load_events(),
             "kernel_launches": kernels.launch_counts(),
             "engine_batches": batches,
+            "replica_warms": warms,
+            "pulled_versions": sorted(self._versions),
         })
         return h
 
@@ -417,6 +438,195 @@ class ReplicaAgent:
         return {"replicas": len(self.manager.replicas),
                 "ready": len(self.manager.ready_replicas()),
                 "added": added, "drained": drained}
+
+    # -- the rollout plane (serve/rollout.py).  Every verb is a pump:
+    # cheap, idempotent, and safe for the controller to send again until
+    # the host reports done; a controller (or host) killed mid-verb
+    # loses no invariant, it just pumps again.
+
+    def rollout_pull(self, url: Optional[str], version: str,
+                     train_fingerprint: str = None) -> Dict:
+        """Pull a version's export store ONCE into a version-keyed
+        sibling of the boot export root, run the LINEAGE admission
+        (``ExportStore.check_lineage`` — the boot store's manifest sha
+        is the only known parent), and register a per-version build_fn.
+        A repeat pull of a known version is a recorded no-op
+        (``already``) — the one-transfer-per-host invariant.  ``url``
+        empty registers a label-only version (stub agents: same
+        run_fn factory, distinct routing version).  The version's
+        replicas are built from the pulled store's bundled weights (the
+        boot weights when it bundles none) and join from that store.
+        ``train_fingerprint``, when given, must be the store's (the
+        port's addition: the JAX verb takes none).  A refused lineage
+        raises ``ExportMismatch``, which ``POST /rollout`` answers 400."""
+        from mx_rcnn_tpu_torch.serve.fleet import version_label
+
+        if not version or not isinstance(version, str):
+            raise ValueError("rollout pull needs a version id")
+        with self._rollout_lock:
+            known = self._versions.get(version)
+            if known is not None:
+                return {**known.get("pull", {}), "version": version,
+                        "already": True}
+            if not url:
+                # label-only: replicas build exactly like boot ones but
+                # carry the version tag (the stub tier has no stores)
+                self._versions[version] = {
+                    "root": None, "pull": {},
+                    "build_fn": self._boot_build_fn}
+                return {"version": version, "already": False,
+                        "label_only": True}
+            boot_root = self.cfg.fleet.export_dir
+            if not boot_root:
+                raise ValueError("rollout pull needs fleet.export_dir "
+                                 "as the local placement root")
+            from mx_rcnn_tpu_torch.serve.export import (ExportStore,
+                                                        manifest_sha)
+            from mx_rcnn_tpu_torch.serve.fleet import make_engine_build_fn
+
+            dest = f"{boot_root.rstrip('/')}@{version_label(version)}"
+            pull = pull_store(url, dest,
+                              timeout_s=self.cfg.crosshost.pull_timeout_s)
+            store = ExportStore(dest)
+            known_parents = None
+            boot_manifest = os.path.join(boot_root, MANIFEST_NAME)
+            if os.path.exists(boot_manifest):
+                known_parents = {manifest_sha(boot_root)}
+            lineage = store.check_lineage(
+                known_parents=known_parents,
+                expect_train_fingerprint=train_fingerprint)
+            variables = (store.load_variables()
+                         if store.manifest().get("variables")
+                         else self._variables)
+            if self._run_fn_factory is not None:
+                build_fn = self._boot_build_fn
+            else:
+                build_fn = make_engine_build_fn(
+                    self.cfg, variables, export_root=dest,
+                    device=self._device)
+            self._versions[version] = {"root": dest, "pull": pull,
+                                       "lineage": lineage,
+                                       "build_fn": build_fn}
+            logger.info("agent rollout pull %s: %s", version, pull)
+            return {**pull, "version": version, "already": False,
+                    "lineage": lineage}
+
+    def _pump_toward(self, version: Optional[str], build_fn) -> Dict:
+        """One step of the rolling replace toward ``version``: keep the
+        replica count at the boot target, never drop below one ready
+        replica, and retire the outgoing version one GRACEFUL drain at a
+        time (the shipped drain path — queued work finishes serving).
+        Max overshoot is one replica (the incoming one warms while its
+        victim still serves)."""
+        want = self._target_replicas
+        replicas = list(self.manager.replicas)
+        target = [r for r in replicas if r.version == version]
+        old = [r for r in replicas if r.version != version]
+        target_ready = [r for r in target if r.ready()]
+        starting = [r for r in target if not r.ready()]
+        if not old and len(target) >= want and not starting:
+            return {"done": True, "remaining": 0}
+        if starting:
+            return {"pending": True, "remaining": len(old)}
+        if old and len(replicas) > want and target_ready:
+            victim = max([r for r in old if r.ready()] or old,
+                         key=lambda r: r.id)
+            rid = self.manager.drain_replica(rid=victim.id)
+            return {"swapped": rid, "remaining": max(len(old) - 1, 0)}
+        if len(target) < want:
+            r = self.manager.add_replica(build_fn=build_fn,
+                                         version=version)
+            return {"added": r.id, "pending": True,
+                    "remaining": len(old)}
+        return {"pending": True, "remaining": len(old)}
+
+    def rollout_swap(self, version: str) -> Dict:
+        """One rolling-replace step toward a PULLED version (400 via
+        ValueError otherwise).  When the host completes, scheduler
+        resizes keep building the new version."""
+        with self._rollout_lock:
+            entry = self._versions.get(version)
+            if entry is None:
+                raise ValueError(
+                    f"version {version!r} not pulled on this host")
+            res = self._pump_toward(version, entry["build_fn"])
+            if res.get("done"):
+                # repoint the default build path: post-rollout resize
+                # adds must build v2, not resurrect v1
+                self.manager._build_fn = entry["build_fn"]
+                self.manager.default_version = version
+            return res
+
+    def rollout_rollback(self) -> Dict:
+        """One rolling step back to the BOOT version — the first-class
+        rollback verb's per-host half.  Idempotent: a host already all
+        boot-version reports done without actuating anything."""
+        with self._rollout_lock:
+            res = self._pump_toward(None, self._boot_build_fn)
+            if res.get("done"):
+                self.manager._build_fn = self._boot_build_fn
+                self.manager.default_version = None
+            return res
+
+    def rollout_canary(self, version: Optional[str],
+                       fraction: float) -> Dict:
+        """Set (or clear) the local router's canary version lane."""
+        self.router.set_canary(version or None, float(fraction or 0.0))
+        c = self.router.canary()
+        return {"canary": list(c) if c is not None else None}
+
+    def rollout_status(self) -> Dict:
+        return {"versions": self.manager.versions(),
+                "pulled": sorted(self._versions),
+                "canary": self.rollout_canary_state(),
+                "replicas": len(self.manager.replicas)}
+
+    def rollout_canary_state(self) -> Optional[List]:
+        c = self.router.canary()
+        return list(c) if c is not None else None
+
+    def rollout_shadow(self) -> Dict:
+        """One paired shadow sample: the SAME deterministic canvas
+        through one base-arm replica and one canary-arm replica,
+        bypassing the router (the canary lane must not skew the pair),
+        scored by ``detection_score``.  Returns ``pair: null`` when the
+        host does not hold both arms ready — the controller's sampler
+        just tries another host."""
+        from mx_rcnn_tpu_torch.serve.rollout import detection_score
+
+        c = self.router.canary()
+        if c is None:
+            return {"pair": None, "reason": "no canary lane"}
+        version = c[0]
+        base = [r for r in self.manager.ready_replicas()
+                if r.version != version]
+        canary = [r for r in self.manager.ready_replicas()
+                  if r.version == version]
+        if not base or not canary:
+            return {"pair": None, "reason": "arms not resident"}
+        with self._rollout_lock:
+            seq = self._shadow_seq
+            self._shadow_seq += 1
+        bh, bw = min((tuple(b) for b in self.cfg.bucket.shapes),
+                     key=lambda b: b[0] * b[1])
+        rng = np.random.RandomState(seq % (1 << 31))
+        data = (rng.rand(bh, bw, 3) * 255.0).astype(np.float32)
+        im_info = np.array([bh, bw, 1.0], np.float32)
+        scores = []
+        for r in (base[0], canary[0]):
+            with r._lock:
+                eng = r.engine
+            if eng is None:
+                return {"pair": None, "reason": "replica raced away"}
+            req = eng.submit_prepared(
+                data.copy(), im_info.copy(), (bh, bw),
+                timeout_ms=self.cfg.serve.default_timeout_ms)
+            try:
+                dets = req.wait(timeout=30.0)
+            except Exception as e:
+                return {"pair": None, "reason": f"{type(e).__name__}"}
+            scores.append(detection_score(dets))
+        return {"pair": [scores[0], scores[1]], "seq": seq}
 
     def close(self, timeout: float = 10.0) -> None:
         self.router.close(timeout)
@@ -737,15 +947,46 @@ class _AgentHandler(BaseHTTPRequestHandler):
                         ctx.child(root_sid), root_sid, ctx.parent,
                         t_recv_us, "agent.resize")
                 self._reply_json(200, res)
+            elif self.path == "/rollout":
+                t_recv_us = obs_trace.epoch_us()
+                ctx = self._inbound_ctx()
+                body = json.loads(self._read_body().decode() or "{}")
+                if not isinstance(body, dict):
+                    raise ValueError("body must be a JSON object")
+                op = body.get("op")
+                if ctx is not None:
+                    root_sid = obs_trace.new_span_id()
+                    self._close_agent_trace(
+                        ctx.child(root_sid), root_sid, ctx.parent,
+                        t_recv_us, f"agent.rollout.{op}")
+                if op == "pull":
+                    self._reply_json(200, agent.rollout_pull(
+                        body.get("url"), body.get("version"),
+                        body.get("train_fingerprint")))
+                elif op == "swap":
+                    self._reply_json(200, agent.rollout_swap(
+                        body.get("version")))
+                elif op == "rollback":
+                    self._reply_json(200, agent.rollout_rollback())
+                elif op == "canary":
+                    self._reply_json(200, agent.rollout_canary(
+                        body.get("version"), body.get("fraction")))
+                elif op == "shadow":
+                    self._reply_json(200, agent.rollout_shadow())
+                elif op == "status":
+                    self._reply_json(200, agent.rollout_status())
+                else:
+                    raise ValueError(f"unknown rollout op {op!r}")
             else:
                 self._reply_json(404, {"error": f"no route {self.path}"})
         except BodyError as e:
             # 411 absent Content-Length / 413 over cap / 400 short body
             self._reply_json(e.status, {"error": str(e)})
-        except (ValueError, KeyError, TypeError) as e:
+        except (ValueError, KeyError, TypeError, ExportMismatch) as e:
             # malformed input is the CLIENT's fault: missing JSON keys
             # (KeyError) and wrong-typed fields (TypeError) are 400s,
-            # never 500s
+            # never 500s, and so is a store whose lineage this host
+            # refuses (the JAX agent answers that one 500)
             self._reply_json(400, {"error": f"{type(e).__name__}: {e}"})
         except Exception as e:
             logger.exception("agent POST %s failed", self.path)

@@ -271,6 +271,9 @@ class ReplicaManager:
         self.record = record
         self.ejects = 0
         self.relaunches = 0
+        # what drained replicas did (engine batches served, warm
+        # launches), so the set's totals outlive a rolling swap
+        self.retired = {"batches": 0, "generations": 0}
         # the monitor and the relaunch threads bump these concurrently
         self._counts_lock = threading.Lock()
         self._stop = threading.Event()
@@ -371,9 +374,14 @@ class ReplicaManager:
         with r._lock:
             r.closed = True
             eng, r.engine, r.state = r.engine, None, R_DEAD
+        batches = 0
         for e in (eng, r.take_dead_engine()):
             if e is not None:
                 e.close()
+                batches += e.metrics.counters["batches"]
+        with self._counts_lock:
+            self.retired["batches"] += batches
+            self.retired["generations"] += r.generation
         # frozen per-replica gauges would read as a live replica forever
         self.registry.reset(f"fleet.replica{r.id}.")
         if self.record is not None:

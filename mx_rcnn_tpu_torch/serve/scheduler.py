@@ -33,9 +33,10 @@ Each signal is judged with ``obs/health.py``'s hysteresis:
 ``for_samples`` consecutive breaches to act, ``idle_samples`` quiet
 ticks to shrink, and ``cooldown_s`` after any action, so one noisy tick
 (or a replica's ready dip while it relaunches) never flaps the fleet.
-The rollback verb waits for the rollout plane, which the port does not
-have yet: :meth:`FleetScheduler.rollback` records that no controller is
-attached.
+The third verb, :meth:`FleetScheduler.rollback`, reaches the
+``serve/rollout.py — RolloutController`` attached as
+``FleetScheduler.rollout``; with none attached it records
+``NoRolloutController``.
 """
 
 from __future__ import annotations
