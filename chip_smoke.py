@@ -335,9 +335,10 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     the lineage truth
     table; v1 → v2 mid-burst (lost 0, each v2 file shipped once an
     agent, second pulls ``already``, 0 kernel builds in the burst after
-    the swap, both hosts all-v2, every shadow delta exactly 0.0); v2d
-    (it passes lineage, the gate refuses it on finite deltas, the
-    controller rolls back by itself, both hosts base-only, lost 0, a
+    the swap, both hosts all-v2, every shadow pair's base score above 0
+    and its delta exactly 0.0); v2d (it passes lineage, the gate refuses
+    it on finite deltas, judged worse: mean delta below 0 and the CI
+    wholly below −budget; the controller rolls back by itself, both hosts base-only, lost 0, a
     second rollback through ``FleetScheduler.rollback`` a recorded
     no-op); the agents' K1 2 and K2 1 per engine batch plus, per
     replica joined from a store, K1 once a bucket plus once and K2 once
@@ -8221,12 +8222,14 @@ def phase_rollout(dev, card: str, cfg, pred, agents, prepared,
             f"{sorted(set(shipped.values()))} time(s), second pulls "
             f"already {swap['repull_already']}; kernel builds in the "
             f"post-swap burst {swap['builds_during_post_swap_burst']}; "
-            f"the gate {swap['gate']}; shadow deltas {swap_deltas}")
+            f"the gate {swap['gate']}; shadow pairs (base, canary) "
+            f"{swap['shadow_pairs']}")
         log(f"phase 21 red team (v2d) on {card}: {red['phase']} "
             f"({red['rollback_reason']}, rollback {red['rollback_s']} s), "
             f"{red['served']} served of {red['submitted']}, lost "
             f"{red['lost']}, events {red['events']}; hosts {red['hosts']}; "
-            f"the gate {red['gate']}; shadow deltas {red_deltas}; the "
+            f"the gate {red['gate']}; shadow pairs (base, canary) "
+            f"{red['shadow_pairs']}; the "
             f"scheduler's second rollback {red['rollback_noop']}")
         log(f"phase 21 launches over both legs, summed over the agents: "
             f"{launches} for {batches} engine batches and {warms} replica "

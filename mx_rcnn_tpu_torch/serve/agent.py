@@ -369,17 +369,7 @@ class ReplicaAgent:
 
     def healthz(self) -> Dict:
         h = self.router.healthz()
-        # engine batches and warm launches of this process, drained
-        # replicas' included
-        with self.manager._counts_lock:
-            batches = self.manager.retired["batches"]
-            warms = self.manager.retired["generations"]
-        for r in list(self.manager.replicas):
-            with r._lock:
-                eng = r.engine
-                warms += r.generation
-            if eng is not None:
-                batches += eng.metrics.counters["batches"]
+        totals = self.manager.totals()
         h.update({
             "agent": True,
             "warm_s": self.warm_s,
@@ -390,9 +380,8 @@ class ReplicaAgent:
             "kernel_builds_after_warm": self.kernel_builds_after_warm(),
             "kernel_load_events": kernels.load_events(),
             "kernel_launches": kernels.launch_counts(),
-            "engine_batches": batches,
-            "replica_warms": warms,
-            "pulled_versions": sorted(self._versions),
+            "engine_batches": totals["batches"],
+            "replica_warms": totals["warms"],
         })
         return h
 

@@ -319,6 +319,21 @@ class ReplicaManager:
             out[lbl] = out.get(lbl, 0) + 1
         return out
 
+    def totals(self) -> Dict[str, int]:
+        """Engine batches served and warm launches made by this set,
+        drained replicas' included (a rolling swap retires replicas but
+        not what they did)."""
+        with self._counts_lock:
+            batches = self.retired["batches"]
+            warms = self.retired["generations"]
+        for r in list(self.replicas):
+            with r._lock:
+                eng = r.engine
+                warms += r.generation
+            if eng is not None:
+                batches += eng.metrics.counters["batches"]
+        return {"batches": batches, "warms": warms}
+
     # ---- resize ---------------------------------------------------------------
 
     def add_replica(self, build_fn: Callable = None,

@@ -199,10 +199,28 @@ def _burst(router, prepared, duration_s: float, concurrency: int,
     return box
 
 
+class _PairLog:
+    """The rollout port as the controller sees it, keeping every shadow
+    pair ``(base score, canary score)`` it hands the gate."""
+
+    def __init__(self, port):
+        self._port = port
+        self.pairs: List[List[float]] = []
+
+    def __getattr__(self, name):
+        return getattr(self._port, name)
+
+    def shadow_pair(self):
+        pair = self._port.shadow_pair()
+        if pair is not None:
+            self.pairs.append([float(x) for x in pair])
+        return pair
+
+
 def _controller(port, cfg: Config, version: str, store_url: str):
     from mx_rcnn_tpu_torch.serve.rollout import RolloutController
 
-    return RolloutController(port, cfg, version=version,
+    return RolloutController(_PairLog(port), cfg, version=version,
                              store_url=store_url)
 
 
@@ -250,14 +268,14 @@ def rollout_config(cfg: Config) -> Config:
 
 def live_swap_leg(router, port, admin, agents, cfg: Config, prepared,
                   store_url: str, burst_s: float, post_s: float,
-                  timeout_ms: float, problems: List[str],
-                  version: str = "v2") -> Dict:
-    """Leg 2: ``version`` rolled out mid-burst, then a mixed-bucket
-    burst after the swap (no kernel may build)."""
+                  timeout_ms: float, problems: List[str]) -> Dict:
+    """Leg 2: v2 (the boot weights) rolled out mid-burst, then a
+    mixed-bucket burst after the swap (no kernel may build).  Every
+    shadow pair must score the base arm above 0 and both arms alike."""
     from mx_rcnn_tpu_torch.serve.rollout import DONE
 
     batch = cfg.serve.batch_size
-    ctrl = _controller(port, cfg, version, store_url)
+    ctrl = _controller(port, cfg, "v2", store_url)
     router.metrics.reset()  # per-leg accounting
     box = _burst(router, prepared, burst_s, concurrency=2 * batch * 2,
                  timeout_ms=timeout_ms)
@@ -273,6 +291,7 @@ def live_swap_leg(router, port, admin, agents, cfg: Config, prepared,
     leg = _swap_leg_record(ctrl, box["run"], router.metrics.snapshot(),
                            hosts)
     leg["shadow_deltas"] = list(ctrl.gate._deltas)
+    leg["shadow_pairs"] = ctrl.port.pairs
     leg["post_swap_client"] = post["client"]
     leg["builds_during_post_swap_burst"] = {
         s: (None if hosts_after[s]["kernel_builds_after_warm"] is None
@@ -282,7 +301,7 @@ def live_swap_leg(router, port, admin, agents, cfg: Config, prepared,
         for s in hosts}
     # one transfer a host: a second pull is a recorded no-op
     leg["repull_already"] = [
-        bool((port.pull(s, store_url, version) or {}).get("already"))
+        bool((port.pull(s, store_url, "v2") or {}).get("already"))
         for s in sorted(admin.by_source)]
     leg["per_version_counters"] = {
         a.name: _ver_counters(a.url) for a in agents}
@@ -291,9 +310,9 @@ def live_swap_leg(router, port, admin, agents, cfg: Config, prepared,
                         f"(events: {leg['events']})")
     _check_exactly_once("live swap", leg, problems)
     for src, h in hosts.items():
-        if h["versions"] != {version: 1}:
+        if h["versions"] != {"v2": 1}:
             problems.append(f"live swap: {src} ended "
-                            f"{h['versions']}, not all-{version}")
+                            f"{h['versions']}, not all-v2")
     for src, delta in leg["builds_during_post_swap_burst"].items():
         if delta != 0:
             problems.append(
@@ -307,6 +326,11 @@ def live_swap_leg(router, port, admin, agents, cfg: Config, prepared,
                         "transfer a host is broken")
     if not leg["gate"]["judged"] or leg["gate"]["refused"]:
         problems.append(f"live swap gate did not pass: {leg['gate']}")
+    if not leg["shadow_pairs"] or any(
+            b <= 0.0 or c != b for b, c in leg["shadow_pairs"]):
+        problems.append(f"live swap: the shadow pairs "
+                        f"{leg['shadow_pairs']} are not equal arms with a "
+                        "base score above 0")
     if not any(k.endswith(".dispatched") for k in
                {c for d in leg["per_version_counters"].values()
                 for c in d}):
@@ -317,9 +341,10 @@ def live_swap_leg(router, port, admin, agents, cfg: Config, prepared,
 
 def redteam_leg(router, port, admin, cfg: Config, prepared,
                 store_url: str, burst_s: float, timeout_ms: float,
-                problems: List[str], version: str = "v2d") -> Dict:
-    """Leg 3: the damaged ``version`` refused by the gate and rolled back
-    by the controller; a second rollback, the scheduler's verb
+                problems: List[str]) -> Dict:
+    """Leg 3: the damaged v2d refused by the gate, judged worse (mean
+    delta below 0, the CI wholly below −budget), and rolled back by the
+    controller; a second rollback, the scheduler's verb
     (``FleetScheduler.rollback`` with the controller attached), must be a
     recorded no-op."""
     from mx_rcnn_tpu_torch.obs.timeseries import TimeSeriesStore
@@ -327,7 +352,7 @@ def redteam_leg(router, port, admin, cfg: Config, prepared,
     from mx_rcnn_tpu_torch.serve.scheduler import FleetScheduler
 
     batch = cfg.serve.batch_size
-    ctrl = _controller(port, cfg, version, store_url)
+    ctrl = _controller(port, cfg, "v2d", store_url)
     router.metrics.reset()
     box = _burst(router, prepared, burst_s, concurrency=2 * batch * 2,
                  timeout_ms=timeout_ms)
@@ -338,6 +363,7 @@ def redteam_leg(router, port, admin, cfg: Config, prepared,
     leg = _swap_leg_record(ctrl, box["run"], router.metrics.snapshot(),
                            hosts)
     leg["shadow_deltas"] = list(ctrl.gate._deltas)
+    leg["shadow_pairs"] = ctrl.port.pairs
     leg["rollback_reason"] = ctrl.status()["rollback_reason"]
     leg["rollback_s"] = ctrl.rollback_s
     scheduler = FleetScheduler(TimeSeriesStore(), admin, cfg)
@@ -349,9 +375,14 @@ def redteam_leg(router, port, admin, cfg: Config, prepared,
     if leg["rollback_reason"] != "gate_refused":
         problems.append(f"red-team rollback reason "
                         f"{leg['rollback_reason']!r}, not the gate")
-    if not leg["gate"]["refused"]:
+    gate = leg["gate"]
+    if not gate["refused"]:
         problems.append(f"gate did not refuse the damaged "
-                        f"model: {leg['gate']}")
+                        f"model: {gate}")
+    elif not (gate["mean_delta"] < 0
+              and gate["ci95"][1] < -gate["budget"]):
+        problems.append(f"the gate refused the damaged model without "
+                        f"judging it worse: {gate}")
     _check_exactly_once("red-team", leg, problems)
     for src, h in hosts.items():
         if h["versions"] != {"base": 1}:

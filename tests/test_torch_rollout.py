@@ -12,12 +12,16 @@ FINALIZE, a host abandoned after the grace, a host that cannot pull;
 as the JAX one does; and an in-process port agent (the tiny model on the
 CPU) is driven through ``AgentRolloutPort`` over ``POST /rollout``:
 pulls, lineage refusals (400), the swap, the canary lane, the shadow
-pair, rollback, and ``FleetScheduler.rollback`` reaching the attached
-controller.  The config sections and ``Config.replace`` are held to the
-JAX ones.
+pair (``(base, canary)``: a damaged canary scores below its base),
+rollback, and ``FleetScheduler.rollback`` reaching the attached
+controller.  The agents' rolling swap and rollback steps
+(``ReplicaAgent._pump_toward``) equal the JAX ones over one scripted
+replica set.  The config sections and ``Config.replace`` are held to
+the JAX ones.
 """
 
 import dataclasses
+import functools
 import http.client
 import json
 import threading
@@ -31,6 +35,7 @@ import pytest
 from mx_rcnn_tpu import config as jconfig
 from mx_rcnn_tpu.obs.health import CRITICAL as J_CRITICAL
 from mx_rcnn_tpu.serve import rollout as jr
+from mx_rcnn_tpu.serve.agent import ReplicaAgent as JReplicaAgent
 from mx_rcnn_tpu.sim.score import decision_log_bytes as j_log_bytes
 from mx_rcnn_tpu_torch import config as pconfig
 from mx_rcnn_tpu_torch.config import generate_config
@@ -43,11 +48,13 @@ from mx_rcnn_tpu_torch.serve.agent import (ReplicaAgent, make_agent_server,
                                            make_store_server)
 from mx_rcnn_tpu_torch.serve.export import (export_serve_programs,
                                             manifest_sha,
+                                            predictor_from_variables,
                                             predictor_variables)
 from mx_rcnn_tpu_torch.serve.fleet import version_label
 from mx_rcnn_tpu_torch.serve.scheduler import AgentAdmin, FleetScheduler
 from mx_rcnn_tpu_torch.sim.score import decision_log_bytes
 from mx_rcnn_tpu_torch.tools.loadgen import _smoke_overrides
+from mx_rcnn_tpu_torch.tools.rollout import _damaged_variables
 
 
 # ---- the judgments ---------------------------------------------------------
@@ -369,13 +376,17 @@ def agent_run(tmp_path_factory):
     cfg = generate_config("tiny", "synthetic", **_smoke_overrides())
     pred = Predictor(build_model(cfg, "cpu", seed=5), cfg, "cpu")
     roots = {v: str(tmp / f"store_{v}") for v in
-             ("v1", "v2", "vf", "vu", "vp")}
+             ("v1", "v2", "vf", "vu", "vp", "vd")}
     export_serve_programs(pred, cfg, roots["v1"], version="v1",
                           bundle_variables=True)
     for v, parent in (("v2", roots["v1"]), ("vf", roots["v1"]),
                       ("vu", None), ("vp", "0" * 64)):
         export_serve_programs(pred, cfg, roots[v], version=v, parent=parent,
                               bundle_variables=True)
+    damaged = predictor_from_variables(
+        _damaged_variables(predictor_variables(pred), 10.0), cfg, "cpu")
+    export_serve_programs(damaged, cfg, roots["vd"], version="vd",
+                          parent=roots["v1"], bundle_variables=True)
     servers, urls = {}, {}
     for v, root in roots.items():
         srv = make_store_server(root)
@@ -449,6 +460,13 @@ def agent_run(tmp_path_factory):
                 break
         r["ctrl_phase"] = ctrl.phase
         r["ctrl_events"] = [e["kind"] for e in ctrl.events]
+        # a damaged canary beside the base: the pair's order shows in
+        # the sign of its delta
+        port.pull("agent-0", urls["vd"], "vd")
+        port.set_canary("vd", 0.25)
+        port.swap_next("agent-0", "vd")
+        _wait(lambda: port.versions("agent-0") == {"base": 1, "vd": 1})
+        r["damaged_pairs"] = [port.shadow_pair() for _ in range(3)]
     finally:
         asrv.shutdown()
         asrv.server_close()
@@ -507,8 +525,8 @@ def test_rollback_to_base_is_idempotent(agent_run):
     assert r["rollbacks"][-1] == {"done": True, "remaining": 0}
     assert r["rollback_again"] == {"done": True, "remaining": 0}
     assert r["versions_end"] == {"base": 1}
+    assert r["status"]["pulled"] == ["v2"]
     h = r["health"]
-    assert h["pulled_versions"] == ["v2"]
     # the boot replica, the v2 replica and the base replica rolled back
     assert h["replica_warms"] == 3
     assert h["kernel_builds_after_warm"] == 0
@@ -527,3 +545,85 @@ def test_scheduler_rollback_reaches_the_attached_controller(agent_run):
     assert r["ctrl_phase"] == "rolled_back"
     assert r["ctrl_events"] == ["start", "rollback", "rollback_noop",
                                 "rolled_back"]
+
+
+def test_a_damaged_canary_scores_below_its_base(agent_run):
+    pairs = agent_run["damaged_pairs"]
+    assert all(p is not None for p in pairs)
+    assert all(base > canary for base, canary in pairs), pairs
+
+
+# ---- the rolling swap's steps against the JAX agent's ------------------------
+
+class _PumpReplica:
+    def __init__(self, rid, version, ready_at, step):
+        self.id, self.version = rid, version
+        self._ready_at, self._step = ready_at, step
+
+    def ready(self):
+        return self._step[0] >= self._ready_at
+
+
+class _PumpManager:
+    """A scripted replica set: a replica added at step ``s`` is ready at
+    ``s + warm``; boot replica 0 is ready only at ``late_boot``; a drain
+    removes its replica at once."""
+
+    def __init__(self, n_boot, warm, late_boot):
+        self.step = [0]
+        self.warm = warm
+        self.replicas = [_PumpReplica(i, None, late_boot if i == 0 else 0,
+                                      self.step) for i in range(n_boot)]
+        self._next = n_boot
+        self._build_fn = "boot"
+        self.default_version = None
+        self.built_with = []
+
+    def add_replica(self, build_fn=None, version=None):
+        r = _PumpReplica(self._next, version, self.step[0] + self.warm,
+                         self.step)
+        self._next += 1
+        self.replicas.append(r)
+        self.built_with.append(build_fn)
+        return r
+
+    def drain_replica(self, rid=None):
+        self.replicas = [r for r in self.replicas if r.id != rid]
+        return rid
+
+
+def _pump_run(cls, want, n_boot, warm, late_boot):
+    """``cls``'s rollout_swap to v2 then rollout_rollback, one step a
+    tick until done, as unbound methods over one scripted manager."""
+    mgr = _PumpManager(n_boot, warm, late_boot)
+    agent = SimpleNamespace(manager=mgr, _target_replicas=want,
+                            _rollout_lock=threading.Lock(),
+                            _boot_build_fn="boot",
+                            _versions={"v2": {"build_fn": "v2"}})
+    agent._pump_toward = functools.partial(cls._pump_toward, agent)
+    out = {}
+    for name, verb in (("swap", lambda: cls.rollout_swap(agent, "v2")),
+                       ("rollback", lambda: cls.rollout_rollback(agent))):
+        steps = []
+        while not (steps and steps[-1].get("done")):
+            steps.append(verb())
+            mgr.step[0] += 1
+            assert len(steps) < 60
+        out[name] = {"steps": steps,
+                     "replicas": [(r.id, r.version) for r in mgr.replicas],
+                     "build_fn": mgr._build_fn,
+                     "default_version": mgr.default_version}
+    out["built_with"] = mgr.built_with
+    return out
+
+
+@pytest.mark.parametrize("want,n_boot,warm,late_boot", [
+    (1, 1, 0, 0), (2, 2, 1, 0), (3, 3, 2, 0), (2, 2, 0, 3), (3, 2, 1, 0),
+    (2, 3, 1, 2)])
+def test_pump_steps_equal_jax(want, n_boot, warm, late_boot):
+    ours = _pump_run(ReplicaAgent, want, n_boot, warm, late_boot)
+    theirs = _pump_run(JReplicaAgent, want, n_boot, warm, late_boot)
+    assert json.dumps(ours) == json.dumps(theirs)
+    assert any(s.get("swapped") is not None for s in ours["swap"]["steps"])
+    assert {v for _, v in ours["swap"]["replicas"]} == {"v2"}
+    assert {v for _, v in ours["rollback"]["replicas"]} == {None}
