@@ -8039,7 +8039,8 @@ def phase_crosshost(dev, card: str) -> dict:
             free_end = cross_free(devices)
         log(f"kill mid-burst with the live scheduler ({card}): "
             f"{kill['served']} served, {kill['served_after_kill']} after the "
-            f"kill, lost {kill['lost']}, client {kill['client']}, rerouted "
+            f"kill (reaped {kill['kill_reap_s']} s after the signal), lost "
+            f"{kill['lost']}, client {kill['client']}, rerouted "
             f"{kill['rerouted']}, ejects {kill['ejects']}; the survivor "
             f"grown in {kill['capacity_restore_s']} s (joins "
             f"{kill['survivor_joins']} s, builds "

@@ -44,7 +44,12 @@ frame (FAILED: the router reroutes it within its deadline);
 ``crosshost.dead_after_failures`` consecutive transport or scrape
 failures flip ``alive()``, the manager ejects the replica, and its
 relaunch probes the agent on the RestartPolicy schedule until the host
-is back.
+is back.  The eject also aborts the frames already on the wire to that
+host: a host that stops answering without closing its sockets (power
+lost, a process stuck in its exit) would otherwise hold them until the
+socket's read timeout, past their deadline; aborted, they fail at once
+and the router reroutes them (the port's repair: the JAX engine's kill
+fails only the frames still queued).
 """
 
 from __future__ import annotations
@@ -591,6 +596,14 @@ class _WireConn:
         except OSError:
             pass
 
+    def abort(self) -> None:
+        """Wake a thread blocked on this socket from another thread: its
+        read sees the end of the stream, its write an error."""
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+
 
 class PipelineController:
     """AIMD per-connection pipeline depth from windowed wire RTT.
@@ -734,6 +747,8 @@ class RemoteEngine:
         self._cond = threading.Condition()
         self._q: deque = deque()          # (req, kind) frames to ship
         self._closed = False
+        self._killed = False    # ejected: no reconnect, no retry
+        self._conns: set = set()          # the workers' open _WireConns
         # liveness: transport and scrape failures counted separately —
         # a scrape flake must not stack onto a served-traffic blip
         self._fail_lock = threading.Lock()
@@ -902,16 +917,27 @@ class RemoteEngine:
 
     def _get_conn(self, holder) -> _WireConn:
         if holder["conn"] is None:
-            holder["conn"] = _WireConn(self._host, self._port,
-                                       self._io_timeout, self._max_body)
+            if self._killed:
+                raise RemoteTransportError("replica killed")
+            conn = _WireConn(self._host, self._port, self._io_timeout,
+                             self._max_body)
+            with self._cond:
+                killed = self._killed
+                if not killed:
+                    self._conns.add(conn)
+            if killed:  # the eject came while this one connected
+                conn.close()
+                raise RemoteTransportError("replica killed")
+            holder["conn"] = conn
             with self._fail_lock:
                 self.conns_opened += 1
         return holder["conn"]
 
-    @staticmethod
-    def _drop_conn(holder) -> None:
+    def _drop_conn(self, holder) -> None:
         conn, holder["conn"] = holder["conn"], None
         if conn is not None:
+            with self._cond:
+                self._conns.discard(conn)
             try:
                 conn.close()
             except Exception:
@@ -1006,7 +1032,8 @@ class RemoteEngine:
                                                      extra_headers=extra)
             except Exception as e:
                 self._drop_conn(holder)
-                if attempt == 0 and not req.expired(time.monotonic()):
+                if (attempt == 0 and not self._killed
+                        and not req.expired(time.monotonic())):
                     continue
                 self._note_transport(ok=False)
                 if ctx is not None:
@@ -1079,7 +1106,7 @@ class RemoteEngine:
                     "/frames", ENVELOPE_CTYPE, parts)
             except Exception as e:
                 self._drop_conn(holder)
-                if attempt == 0 and not any(
+                if attempt == 0 and not self._killed and not any(
                         req.expired(time.monotonic())
                         for req, _ in live):
                     continue
@@ -1317,10 +1344,16 @@ class RemoteEngine:
 
     def kill(self) -> None:
         """Abrupt local death (manager eject path): fail everything we
-        still hold — the router reroutes FAILED work.  The agent itself
-        is NOT touched: its local replicas keep serving whoever else
-        routes to them."""
+        still hold — the router reroutes FAILED work.  The frames on the
+        wire fail too: their sockets are aborted, and their workers
+        neither retry nor reconnect.  The agent itself is NOT touched:
+        its local replicas keep serving whoever else routes to them."""
+        with self._cond:
+            self._killed = True
+            conns = list(self._conns)
         self._shutdown(FAILED, RuntimeError("replica killed"))
+        for conn in conns:
+            conn.abort()
 
     def close(self, timeout: float = 10.0) -> None:
         self._shutdown(SHED, None)

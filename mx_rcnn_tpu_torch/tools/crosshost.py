@@ -542,6 +542,7 @@ def host_kill_leg(cfg: Config, ch_over: Dict, agents: List[AgentProc],
             bt.start()
             time.sleep(burst_s / 3.0)
             served_before = router.metrics.snapshot()["counters"]["served"]
+            t_sig = time.monotonic()
             agents[1].sigkill()
             kill_t = time.monotonic()
             # capacity restore, watched from the kill on (beside the rest
@@ -579,6 +580,9 @@ def host_kill_leg(cfg: Config, ch_over: Dict, agents: List[AgentProc],
                 "failed": c["failed"],
                 "lost": c["submitted"] - snap["terminated"],
                 "served_after_kill": c["served"] - served_before,
+                # SIGKILL to reaped: the host answers nothing meanwhile,
+                # yet its sockets stay open
+                "kill_reap_s": round(kill_t - t_sig, 3),
                 "rerouted": router.rerouted(),
                 "ejects": router.manager.ejects,
                 "client": run["client"],

@@ -729,6 +729,58 @@ def test_host_death_ejects_and_reroutes_within_deadline():
         _stop_agent(*agents[0][:2])
 
 
+@pytest.mark.parametrize("frames_per_send", [1, 4])
+def test_a_host_hung_mid_request_is_ejected_and_its_wire_frames_reroute(
+        frames_per_send):
+    """A host that stops answering without closing its sockets (power
+    lost, a process stuck in its exit) holds the frames already on the
+    wire to it.  The eject must fail them at once, with no reconnect, so
+    the router reroutes them within their deadline; left to the socket's
+    read timeout (60 s here) they would outlive it."""
+    cfg = _cfg(crosshost__connections=1, crosshost__pipeline_depth=16,
+               crosshost__frames_per_send=frames_per_send,
+               crosshost__dead_after_failures=2,
+               crosshost__scrape_interval_s=0.1,
+               crosshost__io_timeout_s=60.0,
+               fleet__health_interval_s=0.1, fleet__reroute_retries=3)
+    agents = [_start_agent(cfg, stub="plain", model_ms=5.0)
+              for _ in range(2)]
+    release = threading.Event()
+    entered = []
+
+    def hang(*_a, **_k):
+        entered.append(1)
+        release.wait(120.0)
+        raise RuntimeError("released")
+
+    router, feed = build_crosshost_router(cfg, [a[2] for a in agents])
+    try:
+        hung = agents[1][0]
+        for verb in ("submit_source", "submit_prepared"):
+            setattr(hung.router, verb, hang)
+        hung.metrics_snapshot = hang
+        hung.healthz = hang
+        t0 = time.monotonic()
+        reqs = []
+        for i in range(8):
+            img, info = _src(i)
+            reqs.append(router.submit_source(img, info, (128, 160),
+                                             timeout_ms=15_000))
+        for r in reqs:
+            assert r.wait(20.0) is not None
+        assert entered, "no frame reached the hung host"
+        assert time.monotonic() - t0 < 15.0
+        c = router.metrics.snapshot()["counters"]
+        assert c["served"] == 8 and c["failed"] == c["expired"] == 0
+        assert router.manager.ejects >= 1 and router.rerouted() >= 1
+    finally:
+        release.set()
+        feed.close()
+        router.close()
+        for a in agents:
+            _stop_agent(*a[:2])
+
+
 def test_envelope_member_failure_is_isolated_and_rollout_is_unknown():
     cfg = _cfg()
     ag, srv, url = _start_agent(cfg)
