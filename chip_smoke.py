@@ -4,7 +4,8 @@ evaluation, the alternate schedule, the serving engine, the
 real-dataset input plane, the long training run, data parallelism, the
 device-resident training epoch, quantized inference, the observability
 plane, bulk scoring over an export-warmed engine, the serving fleet, the
-cross-host serving tier and the rollout plane on one NVIDIA card.
+cross-host serving tier, the rollout plane and fault-tolerant and elastic
+training on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -136,7 +137,8 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    as ``save_epoch`` returns) and phase 10's schedule read for its
    checkpoint time; ``tools/train.py`` over a generated VOCdevkit in
    processes of their own (deterministic cuDNN; they run beside the
-   ImageNet start and the accumulation parity, which time nothing): two
+   ImageNet start and the accumulation parity, which time nothing, and
+   beside phase 22's crash loop and storm): two
    epochs straight beside a run stopped by SIGTERM in epoch 1 (exit 0,
    an interrupt checkpoint with its data cursor), ``--resume auto`` to
    the end byte-equal to the straight run, again past a corrupted newest
@@ -342,7 +344,27 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     second rollback through ``FleetScheduler.rollback`` a recorded
     no-op); the agents' K1 2 and K2 1 per engine batch plus, per
     replica joined from a store, K1 once a bucket plus once and K2 once
-    a bucket.
+    a bucket;
+22. fault-tolerant and elastic training, the sixteenth main path
+    (``ft/faults.py``, ``ft/elastic.py``, ``ft/supervisor.py``,
+    ``tools/crashloop.py``, ``tools/profile_step.py``), ResNet-101 in
+    bf16 on the 608x1024 bucket: ``tools/profile_step.py --check`` at
+    bench.py's configuration (batch 2, 81 classes, pre/post-NMS
+    6000/2000) in this process, its stage table with K1, K2 and K3 once
+    a chained iteration in their stages and no kernel built in a timed
+    pass, then ``--nms_mode per_image --quant`` (K1 once an image, K4/K5
+    in the int8 forward); ``tools/crashloop.py --smoke --check`` (a
+    control, a SIGTERM mid-epoch, a torn write and a SIGKILL past a
+    boundary, each child a ``tools/train.py`` process on 16 generated
+    images, pre/post-NMS 1024/300 as the JAX supervisor's recipe sets)
+    beside ``--elastic --smoke --check`` (a two-process world of one rank
+    each, gloo on ``cuda:0`` on one card, through a SIGTERM, a shrink to
+    one rank with grad_accum 2, a grow back and completion), beside phase
+    13's legs that time nothing: the survivor byte-equal to the control, K1/K2/K3
+    1/1/1 a step in every child, every restore bit-identical, the steps
+    per epoch unchanged, steps left when the grow lands; then
+    ``measure_snapshot_overhead(network='resnet101')`` alone, its async
+    stall under the tool's 5% ceiling.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
@@ -354,7 +376,7 @@ eval, times at the per-ROI stage-4 bn1 and 1x1); the last line is ``{"ok": true,
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
 directory and remove them at their end, and phases 13–18 their
-weight files, checkpoints and datasets likewise, and phases 19–21
+weight files, checkpoints and datasets likewise, and phases 19–22
 too.
 """
 
@@ -3936,9 +3958,10 @@ def accum_costs(dev, card: str) -> dict:
     return res
 
 
-def phase_long_run(dev, card: str, alternate: dict) -> dict:
-    """Phase 13 (see the module docstring), its files under ``_chip/``,
-    removed at the end."""
+def long_run_checks(dev, card: str) -> dict:
+    """Phase 13's legs that time nothing (see the module docstring): the
+    SIGTERM runs' processes beside the ImageNet start and the
+    accumulation parity; files under ``_chip/``, removed at the end."""
     import torch
 
     from mx_rcnn_tpu_torch.data import load_gt_roidb
@@ -3956,7 +3979,6 @@ def phase_long_run(dev, card: str, alternate: dict) -> dict:
         devkit = write_voc_devkit(LONG_DIR)
         load_gt_roidb(config_from_args(parse_args(long_args(devkit))),
                       training=True)
-        # the SIGTERM runs' processes beside the legs that time nothing
         runs = in_background(sigterm_resume, card, devkit)
         imagenet = imagenet_start(dev, card)
         done("ImageNet start")
@@ -3967,19 +3989,35 @@ def phase_long_run(dev, card: str, alternate: dict) -> dict:
         resume = runs()
         resume["resize_refused"] = resize_refused(devkit)
         done("SIGTERM and resume (the rest)")
-        snapshots = snapshot_costs(dev, card, alternate["schedule"])
-        done("snapshots")
-        costs = accum_costs(dev, card)
-        done("accumulation and remat costs")
     finally:
         torch.backends.cudnn.deterministic = False
         shutil.rmtree(LONG_DIR, ignore_errors=True)
-    wall = time.perf_counter() - t0
+    return dict(imagenet=imagenet, resume=resume, accum_parity=parity,
+                parts_s=parts)
+
+
+def phase_long_run(dev, card: str, alternate: dict, checks: dict) -> dict:
+    """Phase 13 (see the module docstring): its timed legs, after
+    :func:`long_run_checks` gave ``checks``; files under ``_chip/``,
+    removed at the end."""
+    t0 = time.perf_counter()
+    parts = dict(checks["parts_s"])
+    shutil.rmtree(LONG_DIR, ignore_errors=True)
+    LONG_DIR.mkdir(parents=True)
+    try:
+        snapshots = snapshot_costs(dev, card, alternate["schedule"])
+        parts["snapshots"] = time.perf_counter() - t0
+        costs = accum_costs(dev, card)
+        parts["accumulation and remat costs"] = \
+            time.perf_counter() - t0 - parts["snapshots"]
+    finally:
+        shutil.rmtree(LONG_DIR, ignore_errors=True)
+    wall = sum(parts.values())
     log(f"phase 13 took {wall:.1f} s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts.items()))
-    return dict(imagenet=imagenet, snapshots=snapshots, resume=resume,
-                accum_parity=parity, accum_costs=costs, parts_s=parts,
-                wall_s=wall)
+    return dict(imagenet=checks["imagenet"], snapshots=snapshots,
+                resume=checks["resume"], accum_parity=checks["accum_parity"],
+                accum_costs=costs, parts_s=parts, wall_s=wall)
 
 
 # ---- phase 14: data parallelism ----------------------------------------------
@@ -8265,6 +8303,192 @@ def phase_rollout(dev, card: str, cfg, pred, agents, prepared,
                 parts_s=parts, wall_s=wall)
 
 
+FT_DIR = REPO / "_chip" / "ft"       # the crash loop's and storm's trees
+FT_CRASH_IMAGES = 16       # synthetic 608x1024 images: 16 steps an epoch
+FT_STORM_IMAGES = 8        # on 2 ranks 4 steps an epoch (accum 2 on 1)
+# the crash loop's cadence on the card: a snapshot every 16 steps
+FT_OVERHEAD = dict(steps=32, snapshot_every=16, warmup=3)
+# bench.py's configuration (bench.py:30-34): ResNet-101 e2e, 81 classes,
+# batch 2 on the 608x1024 bucket, bf16, pre/post-NMS 6000/2000
+FT_PROFILE = ["--network", "resnet101", "--dataset", "coco",
+              "--batch_images", "2", "--shape", "608x1024", "--prenms",
+              "6000", "--check"]
+
+
+def ft_profile(args: list, out: Path) -> dict:
+    """``tools/profile_step.py`` in this process (its lines to ``out``):
+    the record, and the whole run's kernel launches."""
+    from mx_rcnn_tpu_torch import kernels
+    from mx_rcnn_tpu_torch.tools import profile_step
+
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rec = profile_step.main(args)
+    finally:
+        out.write_text(buf.getvalue())
+    rec["run_launches"] = fp_launches() if "--quant" not in args else \
+        kernels.launch_counts()
+    return rec
+
+
+def ft_leg(args: list, name: str) -> dict:
+    """``tools/crashloop.py`` in a process of its own; its JSON record."""
+    rec_path = OUT_DIR / f"{name}.json"
+    res, wall = _start_process(
+        [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.crashloop",
+         "--network", "resnet101", "--image_size", "608x1024", "--smoke",
+         "--check", "--out", str(rec_path), *args], OUT_DIR / f"{name}.txt",
+        timeout=600)()
+    if res.returncode:
+        raise AssertionError(f"phase 22: {name} exit {res.returncode}\n"
+                             f"{res.stderr[-3000:]}")
+    rec = json.loads(rec_path.read_text())
+    rec["leg_s"] = wall
+    return rec
+
+
+def ft_legs():
+    """Phase 22's (b) and (c), ``tools/crashloop.py --smoke --check`` and
+    ``--elastic --smoke --check``, run beside each other, each in
+    processes of its own: (crash loop record, storm record)."""
+    shutil.rmtree(FT_DIR, ignore_errors=True)
+    FT_DIR.mkdir(parents=True)
+    crash_bg = in_background(ft_leg, [
+        "--num_images", str(FT_CRASH_IMAGES), "--skip_overhead",
+        "--workdir", str(FT_DIR / "crash")], "crashloop")
+    storm_bg = in_background(ft_leg, [
+        "--elastic", "--num_images", str(FT_STORM_IMAGES), "--workdir",
+        str(FT_DIR / "storm")], "storm")
+    return crash_bg(), storm_bg()
+
+
+def phase_ft(dev, card: str, legs) -> dict:
+    """Phase 22: fault-tolerant and elastic training, ResNet-101 in bf16
+    on the 608x1024 bucket.  (a) ``tools/profile_step.py --check`` at
+    bench.py's configuration: the stage table, K1, K2 and K3 once a
+    chained iteration in their stages, no kernel built in a timed pass;
+    then ``--nms_mode per_image --quant``: K1 once an image in the
+    proposal stage, K4/K5 in the int8 forward.  (b) ``tools/crashloop.py
+    --smoke --check`` (control, TERM mid-epoch, a torn write and a KILL
+    at the boundary): the survivor byte-equal to the control, K1/K2/K3
+    1/1/1 a step in every child.  (c) ``--elastic --smoke --check``: TERM
+    a rank's host, shrink 2 ranks to 1 with grad_accum 2, grow back,
+    complete; every restore bit-identical, steps per epoch unchanged.
+    (b) and (c) are ``legs``, the records of :func:`ft_legs` (main runs
+    it beside phase 13's legs that time nothing); then
+    ``measure_snapshot_overhead(network='resnet101')`` alone against the
+    tool's 5% ceiling."""
+    from mx_rcnn_tpu_torch.ft.supervisor import measure_snapshot_overhead
+    from mx_rcnn_tpu_torch.tools.crashloop import MAX_OVERHEAD_PCT
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    try:
+        # (a) the step profiler
+        prof = ft_profile(FT_PROFILE + ["--iters", "8"],
+                          OUT_DIR / "profile_step.txt")
+        stages, launches = prof["stage_ms"], prof["launches"]
+        for label, ms in stages.items():
+            per = launches.get(label, {})
+            log(f"  profile_step {label:<34s} {ms:9.3f} ms  K1 "
+                f"{per.get('nms_sweep', 0):g} K2 "
+                f"{per.get('roi_align_fwd', 0):g} K3 "
+                f"{per.get('roi_align_bwd', 0):g}")
+        full = "FULL train step (donated)"
+        want = {"proposal (decode+topk+NMS)": (1, 0, 0),
+                "roi_align": (0, 1, 0),
+                "full loss fwd (no bwd)": (1, 1, 0),
+                "full loss fwd+bwd (no update)": (1, 1, 1), full: (1, 1, 1)}
+        got = {k: tuple(launches[k][n] for n in PATH_KERNELS) for k in want}
+        sum_ratio = stages["sum of pieces (approx)"] / stages[full]
+        log(f"phase 22 (a): stages' sum {stages['sum of pieces (approx)']:.3f}"
+            f" ms against the full step {stages[full]:.3f} ms (ratio "
+            f"{sum_ratio:.3f}); builds in timed passes "
+            f"{sum(prof['builds'].values())}; the run's launches "
+            f"{prof['run_launches']}; {card}")
+        if got != want or any(prof["builds"].values()) or \
+                not all(prof["run_launches"][k] for k in PATH_KERNELS):
+            raise AssertionError(f"phase 22 (a): launches {got} want {want}, "
+                                 f"builds {prof['builds']}")
+        done("profile")
+        per_image = ft_profile(FT_PROFILE + ["--iters", "2", "--nms_mode",
+                                             "per_image", "--quant"],
+                               OUT_DIR / "profile_step_per_image.txt")
+        pl = per_image["launches"]
+        prop = pl["proposal (decode+topk+NMS)"]
+        quant = pl["inference fwd (int8/native)"]
+        log(f"phase 22 (a): per_image proposal "
+            f"{per_image['stage_ms']['proposal (decode+topk+NMS)']:.3f} ms "
+            f"(batched {stages['proposal (decode+topk+NMS)']:.3f}), K1 "
+            f"{prop['nms_sweep']:g} an iteration; int8 forward "
+            f"{per_image['stage_ms']['inference fwd (int8/native)']:.3f} ms "
+            f"against fp {per_image['stage_ms']['inference fwd (fp)']:.3f},"
+            f" K4 {quant['quantize_act']:g} K5 {quant['qconv_s8']:g} an "
+            f"iteration")
+        if prop["nms_sweep"] != 2 or not quant["quantize_act"] or \
+                not quant["qconv_s8"] or any(per_image["builds"].values()):
+            raise AssertionError(f"phase 22 (a) per_image: {pl}")
+        done("profile_per_image")
+
+        # (b) and (c), run beside each other and phase 13's checks
+        crash, storm = legs
+        children = [("control", crash["control"])] + [
+            (f"attempt {a['attempt']}", a) for a in crash["attempts"]]
+        for label, c in children:
+            per = c["launches_per_step"]
+            if not c["steps_run"] or any(per[k] != 1 for k in PATH_KERNELS) \
+                    or any(per[k] for k in QUANT_KERNELS):
+                raise AssertionError(f"phase 22 (b) {label}: {c}")
+        log(f"phase 22 (b): survivor byte-equal {crash['files_identical']}, "
+            f"kills {crash['kills_survived']}/{crash['kills_planned']}, "
+            f"fallbacks {crash['fallback_events']}; control "
+            f"{crash['control_wall_s']} s to step {crash['total_steps']}; "
+            + "; ".join(f"attempt {a['attempt']} plan {a['plan']} resumed at "
+                        f"{a['resume_step']} exit {a['exit']} to step "
+                        f"{a['progress_step']}, first step "
+                        f"{a['first_step_s']} s after start, {a['wall_s']} s"
+                        for a in crash["attempts"])
+            + f"; K1/K2/K3 1/1/1 a step in all {len(children)} children (K1 "
+            f"at the JAX supervisor's pre/post-NMS 1024/300); "
+            f"{crash['leg_s']:.1f} s beside the storm and phase 13's checks; "
+            f"{card}")
+        log(f"phase 22 (c): {storm['rig']}; restores {storm['restores']} "
+            f"bit-identical {storm['restores_bit_identical']}, grad_accum "
+            f"{storm['grad_accums']}, steps per epoch "
+            f"{storm['manifest_steps_per_epoch']} (recipe "
+            f"{storm['steps_per_epoch']}), final step "
+            f"{storm['final_step']}/{storm['total_steps']}, "
+            f"{storm['steps_left_at_grow']} steps left at the grow; "
+            f"recovery ms {storm['recovery_ms']['by_kind']}; worlds "
+            f"{storm['worlds_launched']}; {storm['leg_s']:.1f} s beside the "
+            f"crash loop and phase 13's checks; {card}")
+
+        # the snapshot stall, alone on the card
+        ov = measure_snapshot_overhead(network="resnet101", **FT_OVERHEAD)
+        log(f"phase 22 (b): snapshot overhead {ov}; ceiling "
+            f"{MAX_OVERHEAD_PCT}%; {card}")
+        if ov["async_stall_overhead_pct"] > MAX_OVERHEAD_PCT:
+            raise AssertionError(
+                f"phase 22 (b): async snapshot stall "
+                f"{ov['async_stall_overhead_pct']}% > {MAX_OVERHEAD_PCT}%")
+        done("overhead")
+    finally:
+        shutil.rmtree(FT_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 22 took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(profile=prof, per_image=per_image, crashloop=crash,
+                storm={k: v for k, v in storm.items() if k != "timeline"},
+                overhead=ov, sum_ratio=sum_ratio, parts_s=parts,
+                wall_s=wall)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -8331,7 +8555,16 @@ def main() -> int:
     alternate = timed(10, phase_alternate, dev, card)
     engine = timed(11, phase_engine, dev, card)
     real_data = timed(12, phase_real_data, dev, card)
-    long_run = timed(13, phase_long_run, dev, card, alternate)
+    # phase 22's crash loop and storm (processes of their own) run beside
+    # phase 13's legs that time nothing; the wait for them past those legs
+    # counts as phase 22's
+    ft_bg = in_background(ft_legs)
+    checks = timed(13, long_run_checks, dev, card)
+    t0 = time.perf_counter()
+    ft_runs = ft_bg()
+    ft_wait = time.perf_counter() - t0
+    long_run = phase_long_run(dev, card, alternate, checks)
+    phase_s[13] = long_run["wall_s"]
     data_parallel = timed(14, phase_data_parallel, dev, card)
     device_cache = timed(15, phase_device_cache, dev, card)
     quant = timed(16, phase_quant, dev, card)
@@ -8343,6 +8576,8 @@ def main() -> int:
     rollout = cross.pop("rollout")
     phase_s[21] = rollout["wall_s"]
     phase_s[20] -= phase_s[21]
+    ft = timed(22, phase_ft, dev, card, ft_runs)
+    phase_s[22] += ft_wait
     script_s = time.perf_counter() - script_t0
     log("seconds a phase (phase 1 the build): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -8356,6 +8591,11 @@ def main() -> int:
     # torch._scaled_mm, K4 at the per-ROI stage-4 bn1 (no library call)
     launches = training[2]["launches"]
     qrun = quant["runs"]
+    # phase 22's: the bench-configuration profile run's (K1-K3) and the
+    # per-image int8 one's (K4, K5; K6 is not on it)
+    ft_runs = {**ft["profile"]["run_launches"],
+               **{k: ft["per_image"]["run_launches"][k]
+                  for k in QUANT_KERNELS}}
     lines = [kernel_line(kernels.NMS_SWEEP, k1["train_proposal"],
                          launches["nms_sweep"]),
              kernel_line(kernels.ROI_ALIGN_FWD, k2["train"]["bf16"],
@@ -8369,6 +8609,8 @@ def main() -> int:
                          qrun["int8_native"]["launches"]["qconv_s8"]),
              kernel_line(kernels.QCONV_E4M3, quant["k6"][QCONV_LINE_SHAPE],
                          qrun["fp8_native"]["launches"]["qconv_e4m3"])]
+    for line in lines:
+        line["launches_phase22"] = ft_runs[line["name"]]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
         card=card, host=host, build_s=build_s, qconv_sass=sass, k1=k1,
         k2=k2, k3=k3,
@@ -8377,7 +8619,7 @@ def main() -> int:
         engine=engine, real_data=real_data, long_run=long_run,
         data_parallel=data_parallel, device_cache=device_cache,
         quant=quant, obs=obs, bulk=bulk, fleet=fleet, crosshost=cross,
-        rollout=rollout,
+        rollout=rollout, ft=ft,
         phase_s={str(k): v for k, v in phase_s.items()},
         script_s=script_s), indent=1))
     print(card)

@@ -95,6 +95,11 @@ class NetworkConfig:
         "conv0", "stage1", "stage2", "stage3", "bn0", "bn_data",
         "gamma", "beta")
     compute_dtype: str = "bfloat16"
+    # zero-pad the stem's 3 input channels to this many before the first
+    # conv (``tools/profile_step.py --pad_stem``): the padded channels are
+    # exact zeros, so the features are unchanged, but the first conv's
+    # and ResNet's ``bn_data`` parameter shapes grow.  0 = off
+    stem_channel_pad: int = 0
 
 
 @dataclass(frozen=True)
@@ -324,6 +329,26 @@ class FTConfig:
 
 
 @dataclass(frozen=True)
+class ElasticConfig:
+    """Mirrors ``mx_rcnn_tpu.config.ElasticConfig``: the policy of the
+    elastic run controller (``ft/elastic.py``, ``tools/train.py
+    --elastic``)."""
+
+    # route tools/train.py through the controller's generation loop
+    enabled: bool = False
+    # the recipe's device count: a world of K devices trains with
+    # grad_accum = base_devices / K.  0 = recovered from the newest
+    # checkpoint's topology, else the first directive's count
+    base_devices: int = 0
+    # where directives land ("" = <prefix>.topology.json)
+    topology_path: str = ""
+    # directive poll cadence in optimizer steps (SIGUSR1 polls at once)
+    poll_steps: int = 1
+    # a run that resizes more often than this aborts
+    max_generations: int = 64
+
+
+@dataclass(frozen=True)
 class QuantConfig:
     """Mirrors ``mx_rcnn_tpu.config.QuantConfig``: the post-training
     quantized inference forward (``ops/quant.py``), per-output-channel
@@ -479,6 +504,7 @@ class Config:
     bulk: BulkConfig = field(default_factory=BulkConfig)
     data: DataConfig = field(default_factory=DataConfig)
     ft: FTConfig = field(default_factory=FTConfig)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
     sim: SimConfig = field(default_factory=SimConfig)

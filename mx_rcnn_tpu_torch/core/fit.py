@@ -274,6 +274,8 @@ def fit(state: TrainState, cfg: Config, step_fn, loader, end_epoch: int,
     failed = False
     cache = None
     try:
+        if snap is not None:
+            snap.prepare(state)  # pinned copies, before the first step
         if device_cache:
             cache, step_fn = _stage_epoch(loader, step_fn, world,
                                           grad_accum, log)

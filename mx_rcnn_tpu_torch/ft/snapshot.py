@@ -15,7 +15,12 @@ seam:
 
 At most one snapshot is being written and one waits, so at most two host
 copies are alive; the request that would make a third waits up to
-``ft.slot_timeout_s`` and then fails.  A writer's error is raised again
+``ft.slot_timeout_s`` and then fails.  On a card the copies land in
+pinned buffers that the snapshotter keeps for the run and reuses once a
+write has committed: page-locking a ResNet-101 state's 285 MB costs far
+more than the copy (PERF.md §6).  :meth:`prepare` allocates two sets
+before the first step (``core/fit.py`` calls it), so no snapshot pays
+it.  A writer's error is raised again
 on the step's thread at the next request, ``flush`` or ``close``.
 
 :class:`SyncSnapshotter` (``ft.async_snapshots=false``) does the same
@@ -36,7 +41,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 from mx_rcnn_tpu_torch.ft.integrity import gc_checkpoints
 from mx_rcnn_tpu_torch.utils.bridge import HostTrainState, host_train_state
@@ -51,10 +56,35 @@ from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
 logger = logging.getLogger("mx_rcnn_tpu_torch")
 
 
-def fetch_owned(state) -> HostTrainState:
+def fetch_owned(state, buffers: Optional[HostTrainState] = None
+                ) -> HostTrainState:
     """Owned host copies of a ``core/train.py — TrainState`` at its
-    current step, complete when this returns."""
-    return host_train_state(state.model, state.optimizer)
+    current step, complete when this returns (into ``buffers``' pinned
+    tensors, whose owner the caller must be)."""
+    return host_train_state(state.model, state.optimizer, buffers)
+
+
+class _PinnedPool:
+    """A snapshotter's pinned host copies, reused once written: the step
+    thread takes a set, the writer gives it back after its commit."""
+
+    def __init__(self):
+        self._free: List[HostTrainState] = []
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    def take(self) -> Optional[HostTrainState]:
+        with self._lock:
+            return self._free.pop() if self._free else None
+
+    def give(self, host: HostTrainState) -> None:
+        # a CPU state's copies are plain clones: nothing worth keeping
+        if any(t.is_pinned() for t in host.state_dict.values()):
+            with self._lock:
+                self._free.append(host)
 
 
 class SnapshotError(RuntimeError):
@@ -68,7 +98,7 @@ class _Job:
     def __init__(self, kind: str, path: str, host: HostTrainState,
                  epoch: Optional[int], steps_per_epoch: Optional[int],
                  config_fp: Optional[str], clear_interrupt_after: bool,
-                 gc_fn=None, topology=None, rec=None):
+                 gc_fn=None, topology=None, rec=None, release=None):
         self.kind = kind
         self.path = path
         self.host = host
@@ -78,6 +108,7 @@ class _Job:
         self.clear_interrupt_after = clear_interrupt_after
         self.gc_fn = gc_fn
         self.topology = topology
+        self.release = release
         self.rec = rec
 
 
@@ -93,6 +124,8 @@ def _write_job(job: _Job, prefix: str) -> str:
     commit_checkpoint(job.path, data, kind=job.kind, step=job.host.step,
                       epoch=job.epoch, steps_per_epoch=job.steps_per_epoch,
                       config_fp=job.config_fp, topology=job.topology)
+    if job.release is not None:
+        job.release(job.host)  # the bytes are written: the copy is free
     if job.rec is not None:
         job.rec.inc("snapshot.commits")
         job.rec.inc("snapshot.bytes", len(data))
@@ -119,11 +152,21 @@ class _SnapshotterBase:
         self.topology = topology
         self.config_fp = config_fingerprint(cfg) if cfg is not None else None
         self._last_step: Optional[int] = None
+        self._pool = _PinnedPool()
         self._rec = None
         if cfg is not None and cfg.obs.enabled:
             from mx_rcnn_tpu_torch.obs.metrics import registry
 
             self._rec = registry()
+
+    def prepare(self, state, copies: int = 2) -> None:
+        """Allocate the pinned copies of ``state`` that snapshots reuse
+        (none on the CPU): before the first step, so that no step pays
+        the page-locking."""
+        if not next(state.model.parameters()).is_cuda:
+            return
+        for _ in range(copies - len(self._pool)):
+            self._pool.give(fetch_owned(state))
 
     def _observe_stall(self, t0: float) -> None:
         """The step thread's cost of one snapshot request."""
@@ -152,20 +195,21 @@ class _SnapshotterBase:
         self._last_step = step
 
     def _epoch_job(self, epoch: int, state) -> _Job:
-        host = fetch_owned(state)
+        host = fetch_owned(state, self._pool.take())
         self._check_step(host)
         return _Job("epoch", checkpoint_path(self.prefix, epoch), host,
                     epoch, self.steps_per_epoch, self.config_fp,
                     clear_interrupt_after=True, gc_fn=self._gc_fn(),
-                    topology=self.topology, rec=self._rec)
+                    topology=self.topology, rec=self._rec,
+                    release=self._pool.give)
 
     def _interrupt_job(self, state) -> _Job:
-        host = fetch_owned(state)
+        host = fetch_owned(state, self._pool.take())
         self._check_step(host)
         return _Job("interrupt", interrupt_path(self.prefix), host, None,
                     self.steps_per_epoch, self.config_fp,
                     clear_interrupt_after=False, topology=self.topology,
-                    rec=self._rec)
+                    rec=self._rec, release=self._pool.give)
 
 
 class AsyncSnapshotter(_SnapshotterBase):

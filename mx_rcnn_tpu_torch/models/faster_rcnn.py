@@ -63,7 +63,8 @@ class FasterRCNN(nn.Module):
                  test_nms_thresh: float = 0.7, test_min_size: int = 16,
                  pixel_means: Tuple[float, ...] = (123.68, 116.779, 103.939),
                  dtype: torch.dtype = torch.float32,
-                 quant: Optional[QuantSpec] = None):
+                 quant: Optional[QuantSpec] = None,
+                 stem_channel_pad: int = 0):
         super().__init__()
         self.network = network
         self.num_classes = num_classes
@@ -78,16 +79,18 @@ class FasterRCNN(nn.Module):
         self.pixel_means = tuple(pixel_means)
         self.dtype = dtype
         self.quant = quant
+        self.stem_channel_pad = stem_channel_pad
+        cin = max(3, stem_channel_pad)
         if network == "vgg":
-            self.backbone = VGGBackbone(dtype, quant)
+            self.backbone = VGGBackbone(dtype, quant, cin)
             self.head = VGGHead(self.pooled_size, VGGBackbone.out_channels,
                                 dtype, quant=quant)
         elif network in ("resnet50", "resnet101"):
             depth = int(network.replace("resnet", ""))
-            self.backbone = ResNetBackbone(depth, dtype, quant)
+            self.backbone = ResNetBackbone(depth, dtype, quant, cin)
             self.head = ResNetHead(depth, dtype, quant)
         elif network == "tiny":
-            self.backbone = TinyBackbone(dtype, quant)
+            self.backbone = TinyBackbone(dtype, quant, cin)
             self.head = TinyHead(self.pooled_size,
                                  TinyBackbone.out_channels, dtype, quant)
         else:
@@ -133,6 +136,9 @@ class FasterRCNN(nn.Module):
         (N, H/16, W/16, C) NHWC features."""
         with scope("backbone"):
             images = normalize_images(images, im_info, self.pixel_means)
+            pad = self.stem_channel_pad - images.shape[-1]
+            if pad > 0:  # zero channels add exactly 0 to every conv sum
+                images = torch.nn.functional.pad(images, (0, pad))
             x = images.contiguous().permute(0, 3, 1, 2)  # NCHW view
             return self.backbone(x).permute(0, 2, 3, 1).contiguous()
 
@@ -283,6 +289,7 @@ def build_model(cfg: Config, device="cuda", seed: Optional[int] = 0,
         pixel_means=tuple(cfg.network.pixel_means),
         dtype=_DTYPES[cfg.network.compute_dtype],
         quant=quant,
+        stem_channel_pad=cfg.network.stem_channel_pad,
     )
     if seed is not None:
         model.init_weights(torch.Generator().manual_seed(seed))

@@ -115,12 +115,12 @@ class ResNetBackbone(nn.Module):
     out_channels = 1024
 
     def __init__(self, depth: int = 101, dtype: torch.dtype = torch.float32,
-                 quant: Optional[QuantSpec] = None):
+                 quant: Optional[QuantSpec] = None, in_channels: int = 3):
         super().__init__()
         units = STAGE_UNITS[depth]
         self.dtype = dtype
-        self.bn_data = FrozenBatchNorm(3, dtype)
-        self.conv0 = conv(3, 64, 7, 2, bias=False, quant=quant)
+        self.bn_data = FrozenBatchNorm(in_channels, dtype)
+        self.conv0 = conv(in_channels, 64, 7, 2, bias=False, quant=quant)
         self.bn0 = FrozenBatchNorm(64, dtype)
         self.units = (
             _add_stage(self, 64, 256, units[0], 1, dtype, "stage1", quant)

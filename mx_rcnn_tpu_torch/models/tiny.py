@@ -22,10 +22,10 @@ class TinyBackbone(nn.Module):
     out_channels = 32
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 quant: Optional[QuantSpec] = None):
+                 quant: Optional[QuantSpec] = None, in_channels: int = 3):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = conv(3, 16, 5, 4, quant=quant)
+        self.conv1 = conv(in_channels, 16, 5, 4, quant=quant)
         self.conv2 = conv(16, 32, 3, 4, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

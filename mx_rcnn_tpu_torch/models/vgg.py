@@ -39,11 +39,11 @@ class VGGBackbone(nn.Module):
     out_channels = 512
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 quant: Optional[QuantSpec] = None):
+                 quant: Optional[QuantSpec] = None, in_channels: int = 3):
         super().__init__()
         self.dtype = dtype
         self.blocks = []
-        cin = 3
+        cin = in_channels
         for name, n_convs, filters in VGG16_BLOCKS:
             names = []
             for j in range(n_convs):

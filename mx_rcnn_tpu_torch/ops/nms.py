@@ -1,7 +1,8 @@
 """Greedy non-maximum suppression with fixed output shapes.
 
-Counterpart of ``mx_rcnn_tpu/ops/nms.py`` (batched entry points
-``nms_batch`` / ``nms_mask_batch``):
+Counterpart of ``mx_rcnn_tpu/ops/nms.py``: the batched entry points
+``nms_batch`` / ``nms_mask_batch`` and their one-image forms ``nms`` /
+``nms_mask`` (one launch of K1 on a card, for one image):
 
 1. mask invalid scores to ``_NEG``, pad the box axis to a multiple of
    ``t = min(tile, K)``, sort by descending score (stable, like
@@ -181,3 +182,24 @@ def nms_mask_batch(boxes: torch.Tensor, scores: torch.Tensor,
     keep = torch.zeros((b, k + pad), dtype=torch.bool, device=scores.device)
     keep.scatter_(1, order, keep_sorted)
     return keep[:, :k]
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+        max_output: int, valid: Optional[torch.Tensor] = None,
+        tile_size: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS of one image: boxes (K, 4), scores (K,) → ((max_output,)
+    int64 indices by descending score padded with -1, (max_output,) bool
+    valid)."""
+    idx, ok = nms_batch(boxes[None], scores[None], iou_threshold, max_output,
+                        None if valid is None else valid[None], tile_size)
+    return idx[0], ok[0]
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+             valid: Optional[torch.Tensor] = None,
+             tile_size: int = 256) -> torch.Tensor:
+    """Greedy NMS of one image returning a (K,) keep mask in the original
+    box order."""
+    return nms_mask_batch(boxes[None], scores[None], iou_threshold,
+                          None if valid is None else valid[None],
+                          tile_size)[0]

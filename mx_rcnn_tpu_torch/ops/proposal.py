@@ -1,8 +1,10 @@
 """Fused RPN proposal generation: decode + clip + min-size + top-k + NMS + pad.
 
-Counterpart of ``mx_rcnn_tpu/ops/proposal.py — propose_batch`` (the
-batched-NMS path): fixed ``(B, post_nms_top_n, 4)`` outputs with a
-validity mask, padded slots filled with the image's best surviving box.
+Counterpart of ``mx_rcnn_tpu/ops/proposal.py``: ``propose_batch`` (the
+batched-NMS path) gives fixed ``(B, post_nms_top_n, 4)`` outputs with a
+validity mask, padded slots filled with the image's best surviving box;
+``propose`` is the one-image form (one launch of K1 on a card), the
+per-image composition of ``tools/profile_step.py --nms_mode per_image``.
 """
 
 from __future__ import annotations
@@ -66,3 +68,18 @@ def propose_batch(scores: torch.Tensor, bbox_deltas: torch.Tensor,
     keep_idx, keep_valid = nms_batch(top_boxes, top_scores, nms_thresh,
                                      post_nms_top_n, valid=top_valid)
     return _compact_rois(top_boxes, top_scores, keep_idx, keep_valid)
+
+
+def propose(scores: torch.Tensor, bbox_deltas: torch.Tensor,
+            anchors: torch.Tensor, im_info: torch.Tensor,
+            pre_nms_top_n: int = 6000, post_nms_top_n: int = 300,
+            nms_thresh: float = 0.7, min_size: int = 16
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ROIs from one image's RPN outputs: scores (N,), bbox_deltas (N, 4),
+    anchors (N, 4), im_info (3,) → rois (post, 4), roi_scores (post,),
+    roi_valid (post,)."""
+    rois, roi_scores, valid = propose_batch(
+        scores[None], bbox_deltas[None], anchors, im_info[None],
+        pre_nms_top_n=pre_nms_top_n, post_nms_top_n=post_nms_top_n,
+        nms_thresh=nms_thresh, min_size=min_size)
+    return rois[0], roi_scores[0], valid[0]

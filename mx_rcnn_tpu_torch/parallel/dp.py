@@ -342,10 +342,26 @@ def loopback_env(init_method: str) -> Dict[str, str]:
                          "lo") if local else {}
 
 
+def _die_with_parent(parent: int) -> None:
+    """Have the kernel SIGKILL this process when ``parent`` dies (Linux's
+    ``PR_SET_PDEATHSIG``), so that a launcher killed outright leaves no
+    rank behind; exit now if it is gone already."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None).prctl(1, int(signal.SIGKILL), 0, 0, 0)
+    except (OSError, AttributeError):  # not Linux: nothing to ask for
+        pass
+    if os.getppid() != parent:
+        os._exit(1)
+
+
 def _rank_main(fn, rank, size, device, backend, init_method, dcn_size,
-               settings, args, results) -> None:
+               settings, args, results, parent) -> None:
     """A spawned rank: join the world, run ``fn(world, *args)`` and put
-    (rank, True, result) or (rank, False, traceback) on ``results``."""
+    (rank, True, result) or (rank, False, traceback) on ``results``.  The
+    rank dies with its launcher, ``parent``."""
+    _die_with_parent(parent)
     for name, value in loopback_env(init_method).items():
         os.environ.setdefault(name, value)
     world = None
@@ -386,7 +402,8 @@ def launch(fn: Callable, size: int, devices: Optional[Sequence[Device]] = None,
     ``fn`` and ``args`` are pickled (``fn`` by its import path) and each
     result is pickled back: return host data.  The ranks adopt the
     launcher's thread count, TF32 and cuDNN settings.  When
-    ``stop_flag()`` turns True, every live rank is sent SIGTERM once.
+    ``stop_flag()`` turns True, every live rank is sent SIGTERM once; a
+    launcher that dies takes its ranks with it.
 
     A rank that raises makes ``launch`` raise with that rank's traceback,
     after the other ranks are killed; so does a rank that dies without a
@@ -404,7 +421,7 @@ def launch(fn: Callable, size: int, devices: Optional[Sequence[Device]] = None,
     procs = [ctx.Process(target=_rank_main, name=f"rank{first_rank + r}",
                          args=(fn, first_rank + r, world_size or size,
                                devices[r], backend, init_method, dcn_size,
-                               settings, args, results))
+                               settings, args, results, os.getpid()))
              for r in range(size)]
     out: Dict[int, Any] = {}
     deadline = time.monotonic() + (timeout_s or float("inf"))

@@ -186,17 +186,36 @@ def _host_state(port, admin) -> Dict[str, Dict]:
 
 
 def _burst(router, prepared, duration_s: float, concurrency: int,
-           timeout_ms: float) -> Dict:
-    box: Dict = {}
+           timeout_ms: float):
+    """A closed loop started now in a thread of its own: ``duration_s``,
+    then on in rounds of a second until the returned function is called,
+    which gives the rounds' sum.  A leg calls it once the controller's run
+    has returned: the canary's shadow pairs need traffic for as long as
+    the canary is open, and a slow pull can open it after a fixed burst
+    has ended."""
+    done = threading.Event()
+    rounds: List[Dict] = []
 
     def run():
-        box["run"] = _run_prepared_closed(router, prepared, duration_s,
-                                          concurrency, timeout_ms)
+        span = duration_s
+        while True:
+            rounds.append(_run_prepared_closed(router, prepared, span,
+                                               concurrency, timeout_ms))
+            if done.is_set():
+                return
+            span = 1.0
 
     t = threading.Thread(target=run, daemon=True)
     t.start()
-    box["thread"] = t
-    return box
+
+    def finish() -> Dict:
+        done.set()
+        t.join()
+        return {"wall_s": sum(r["wall_s"] for r in rounds),
+                "client": {k: sum(r["client"][k] for r in rounds)
+                           for k in rounds[0]["client"]}}
+
+    return finish
 
 
 class _PairLog:
@@ -277,10 +296,10 @@ def live_swap_leg(router, port, admin, agents, cfg: Config, prepared,
     batch = cfg.serve.batch_size
     ctrl = _controller(port, cfg, "v2", store_url)
     router.metrics.reset()  # per-leg accounting
-    box = _burst(router, prepared, burst_s, concurrency=2 * batch * 2,
-                 timeout_ms=timeout_ms)
+    finish = _burst(router, prepared, burst_s, concurrency=2 * batch * 2,
+                    timeout_ms=timeout_ms)
     phase = ctrl.run(timeout_s=300.0)
-    box["thread"].join()
+    run = finish()
     _drain(router)
     hosts = _host_state(port, admin)
     post = _run_prepared_closed(router, prepared, post_s,
@@ -288,7 +307,7 @@ def live_swap_leg(router, port, admin, agents, cfg: Config, prepared,
                                 timeout_ms=timeout_ms)
     _drain(router)
     hosts_after = _host_state(port, admin)
-    leg = _swap_leg_record(ctrl, box["run"], router.metrics.snapshot(),
+    leg = _swap_leg_record(ctrl, run, router.metrics.snapshot(),
                            hosts)
     leg["shadow_deltas"] = list(ctrl.gate._deltas)
     leg["shadow_pairs"] = ctrl.port.pairs
@@ -354,13 +373,13 @@ def redteam_leg(router, port, admin, cfg: Config, prepared,
     batch = cfg.serve.batch_size
     ctrl = _controller(port, cfg, "v2d", store_url)
     router.metrics.reset()
-    box = _burst(router, prepared, burst_s, concurrency=2 * batch * 2,
-                 timeout_ms=timeout_ms)
+    finish = _burst(router, prepared, burst_s, concurrency=2 * batch * 2,
+                    timeout_ms=timeout_ms)
     phase = ctrl.run(timeout_s=300.0)
-    box["thread"].join()
+    run = finish()
     _drain(router)
     hosts = _host_state(port, admin)
-    leg = _swap_leg_record(ctrl, box["run"], router.metrics.snapshot(),
+    leg = _swap_leg_record(ctrl, run, router.metrics.snapshot(),
                            hosts)
     leg["shadow_deltas"] = list(ctrl.gate._deltas)
     leg["shadow_pairs"] = ctrl.port.pairs

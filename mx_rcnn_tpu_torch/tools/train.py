@@ -64,6 +64,14 @@ flag, so the interrupt checkpoint is written as before.
 ``MXRCNN_THREAD_SANITIZER`` arms the lock sanitizer before the package
 is imported.
 
+``--fault_plan SPEC`` runs an ``ft/faults.py`` plan against the run
+(crash-loop certification: ``tools/crashloop.py``); with ``--num_devices``
+rank 0 runs it and its signals go to the launcher.  ``--elastic`` (or
+``elastic__enabled=true``) trains under ``ft/elastic.py — run_elastic``:
+topology directives at ``<prefix>.topology.json`` resize the run in
+process, or, for a host of a world (``--coordinator``), drain it and
+exit 77 (``EXIT_RESIZE``) for its supervisor to relaunch.
+
     python -m mx_rcnn_tpu_torch.tools.train --network resnet101 \\
         --dataset PascalVOC --root_path data --dataset_path data/VOCdevkit \\
         --batch_images 2 --prefix model/e2e --end_epoch 1             # card
@@ -105,8 +113,10 @@ from mx_rcnn_tpu_torch.data.loader import (AnchorLoader,  # noqa: E402
                                            ROIIter, StreamLoader,
                                            cache_from_config,
                                            decode_pool_from_config)
-from mx_rcnn_tpu_torch.ft.integrity import (  # noqa: E402
-    latest_valid_checkpoint)
+from mx_rcnn_tpu_torch.ft.faults import (FaultInjector,  # noqa: E402
+                                         parse_plan)
+from mx_rcnn_tpu_torch.ft.integrity import (CheckpointRef,  # noqa: E402
+                                            latest_valid_checkpoint)
 from mx_rcnn_tpu_torch.obs.metrics import registry  # noqa: E402
 from mx_rcnn_tpu_torch.obs.runrec import cli_obs  # noqa: E402
 from mx_rcnn_tpu_torch.parallel.dp import (World,  # noqa: E402
@@ -193,11 +203,12 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
                      steps_per_epoch: int, num_devices: int,
                      batch_images: int, grad_accum: int,
                      log: Callable[[str], None]
-                     ) -> Tuple[int, Optional[Dict]]:
+                     ) -> Tuple[int, Optional[Dict], Optional[CheckpointRef]]:
     """``--resume auto``: restore the newest checkpoint that verifies
     (``ft/integrity.py``), falling back past corrupt ones; an interrupt
     checkpoint also gives the data cursor.  ``batch_images`` is per
-    device.  Returns (begin epoch, data cursor or None)."""
+    device.  Returns (begin epoch, data cursor or None, the verified
+    checkpoint restored or None)."""
     ref = latest_valid_checkpoint(prefix)
     if ref is None:
         if os.path.exists(interrupt_path(prefix)) or \
@@ -205,10 +216,11 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
             log(f"--resume auto: checkpoints exist under {prefix} but none "
                 f"has a verifying manifest (pre-manifest run?) — falling "
                 f"back to UNVERIFIED legacy resume instead of starting over")
-            return _legacy_resume(state, prefix, steps_per_epoch, log), None
+            return (_legacy_resume(state, prefix, steps_per_epoch, log), None,
+                    None)
         log(f"--resume auto: nothing restorable under {prefix}, starting "
             f"fresh")
-        return 0, None
+        return 0, None, None
     fp_ckpt = ref.manifest.get("config_fingerprint")
     if fp_ckpt and fp_ckpt != config_fingerprint(cfg):
         log(f"resume: checkpoint {ref.path} was written under config "
@@ -221,7 +233,7 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
         restore_state(state, prefix, ref.epoch)
         log(f"resumed from verified {ref.path} (epoch {ref.epoch}, step "
             f"{ref.step})")
-        return ref.epoch, None
+        return ref.epoch, None, ref
     _, saved_spe = restore_interrupt(state, prefix)
     _check_spe(saved_spe, steps_per_epoch, prefix)
     step = state.step
@@ -230,7 +242,7 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
         f"{begin_epoch})")
     topo = ref.manifest.get("topology") or {}
     if not (topo.get("global_batch") and topo.get("grad_accum")):
-        return begin_epoch, None
+        return begin_epoch, None, ref
     # the images consumed in this epoch, from the state's step under the
     # topology that wrote the checkpoint
     old_bi = int(topo["global_batch"]) // int(topo["grad_accum"])
@@ -241,14 +253,14 @@ def _verified_resume(state: TrainState, cfg: Config, prefix: str,
             f"images consumed but state.step implies {images} images — "
             f"using the step-derived position")
     return begin_epoch, {"loader_batch_images": old_bi,
-                         "images_consumed_in_epoch": images}
+                         "images_consumed_in_epoch": images}, ref
 
 
 # the arguments of train_net that only its launcher reads; the others go
 # to every rank
 _LAUNCHER_ARGS = ("cfg", "num_devices", "dcn_size", "coordinator",
                   "num_processes", "process_id", "world", "stop_flag", "log",
-                  "run_record", "step_callback")
+                  "run_record")
 
 
 def train_net(cfg: Config, *, prefix: Optional[str] = None,
@@ -271,7 +283,9 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
               process_id: int = 0, world: Optional[World] = None,
               stop_flag: Optional[Callable[[], bool]] = None,
               log: Callable[[str], None] = print, run_record=None,
-              step_callback: Optional[Callable[[int], None]] = None
+              step_callback: Optional[Callable[[int], None]] = None,
+              fault_plan: Optional[str] = None,
+              post_restore_callback: Optional[Callable] = None
               ) -> Tuple[Optional[TrainState], Dict[str, float]]:
     """Train on ``device`` (CUDA unless the caller asks for the CPU);
     returns the final state and the last log window's mean metrics.
@@ -305,7 +319,15 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     writes the interrupt checkpoint and returns.  ``run_record``: the
     obs session's ``RunRecord``, which the fit loop appends its events
     to (each rank of ``num_devices`` opens its own).  ``step_callback``:
-    called with the global step after each step.
+    called with the global step after each step.  ``fault_plan``: an
+    ``ft/faults.py`` plan this run executes against itself (crash-loop
+    certification only; its injector runs before ``step_callback``).
+    ``post_restore_callback(state, ref, steps_per_epoch)``: called after
+    ``resume='auto'`` restored ``state`` from the verified checkpoint
+    ``ref`` (``ft/integrity.py — CheckpointRef``), before the first step
+    (the elastic controller's restore audit).  With ``num_devices`` the
+    two callbacks and the plan run in rank 0 alone, so they must pickle;
+    the plan's signals go to the launcher (``ft/faults.py``).
 
     ``num_devices``: train on that many devices, one spawned process
     each (:func:`_launch_ranks`, see the module docstring): the first
@@ -343,6 +365,22 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     world = world or World.single(resolve_device(device))
     if not world.lead:
         log = lambda line: None  # noqa: E731
+        step_callback = post_restore_callback = fault_plan = None
+    if fault_plan:
+        if not prefix:
+            raise ValueError("a fault plan acts on checkpoints: it needs a "
+                             "prefix")
+        # in a rank, "this process" is the launcher the supervisor watches
+        target = os.getpid() if world.group is None else os.getppid()
+        injector = FaultInjector(parse_plan(fault_plan), prefix,
+                                 kill_fn=lambda sig: os.kill(target, sig))
+        user_cb = step_callback
+
+        def step_callback(step, _inj=injector.on_step, _cb=user_cb):
+            _inj(step)
+            if _cb is not None:
+                _cb(step)
+        log(f"fault injection ACTIVE: {fault_plan}")
     if resume not in (False, True, "auto"):
         raise ValueError(f"resume must be False, True or 'auto', got "
                          f"{resume!r}")
@@ -389,9 +427,11 @@ def train_net(cfg: Config, *, prefix: Optional[str] = None,
     data_cursor = None
     if resume and begin_epoch == 0:
         if resume == "auto":
-            begin_epoch, data_cursor = _verified_resume(
+            begin_epoch, data_cursor, ref = _verified_resume(
                 state, cfg, prefix, steps_per_epoch, world.size,
                 cfg.train.batch_images, grad_accum, log)
+            if ref is not None and post_restore_callback is not None:
+                post_restore_callback(state, ref, steps_per_epoch)
         else:
             begin_epoch = _legacy_resume(state, prefix, steps_per_epoch, log)
         check_replicas(state.model, state.optimizer, world)
@@ -564,6 +604,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "of the first epoch here")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the weights, the draws and the shuffle")
+    p.add_argument("--fault_plan", default=None,
+                   help="a fault plan this run executes against itself, "
+                        "e.g. kill@step=5@sig=TERM (crash-loop "
+                        "certification only; ft/faults.py)")
+    p.add_argument("--elastic", action="store_true",
+                   help="train under the elastic controller (ft/elastic.py, "
+                        "also elastic__enabled=true): topology directives "
+                        "at <prefix>.topology.json resize the run, with "
+                        "grad_accum rescaled to keep the global batch")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--set", action="append", metavar="SEC__FIELD=VAL",
                    help="override a config field (repeatable)")
@@ -642,14 +691,19 @@ def main(argv=None) -> Dict[str, float]:
     if (args.resume or args.begin_epoch) and not args.prefix:
         raise SystemExit("--resume and --begin_epoch need --prefix")
     cfg = config_from_args(args)
+    dataset_kw = (ast.literal_eval(args.dataset_kw) if args.dataset_kw
+                  else None)
+    if args.elastic or cfg.elastic.enabled:
+        if not args.prefix:
+            raise SystemExit("--elastic needs --prefix")
+        return _elastic_main(args, cfg, dataset_kw)
     # the ranks of --num_devices open their own sessions
     obs_cfg = cfg if args.num_devices is None else \
         cfg.replace_in("obs", enabled=False)
     with sigterm_stop_flag() as stop_flag, train_obs(obs_cfg) as record:
         _, metrics = train_net(
             cfg, prefix=args.prefix, synthetic=args.synthetic,
-            dataset_kw=(ast.literal_eval(args.dataset_kw)
-                        if args.dataset_kw else None),
+            dataset_kw=dataset_kw,
             begin_epoch=args.begin_epoch, end_epoch=args.end_epoch,
             resume=args.resume, lr=args.lr, lr_step=args.lr_step,
             steps=args.steps,
@@ -661,10 +715,35 @@ def main(argv=None) -> Dict[str, float]:
             log=lambda line: print(line, flush=True),
             num_devices=args.num_devices, dcn_size=args.dcn_size,
             coordinator=args.coordinator, num_processes=args.num_processes,
-            process_id=args.process_id, run_record=record)
+            process_id=args.process_id, run_record=record,
+            fault_plan=args.fault_plan)
     print("final " + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
           flush=True)
     return metrics
+
+
+def _elastic_main(args, cfg: Config, dataset_kw) -> Dict[str, float]:
+    """``--elastic``: the run under ``ft/elastic.py — run_elastic``, which
+    exits with its code (``EXIT_RESIZE`` when a world's process set must
+    be relaunched) and returns no metrics.  ``--coordinator`` makes this
+    process one host of a world over several (its share of the ranks)."""
+    from mx_rcnn_tpu_torch.ft.elastic import run_elastic
+
+    with sigterm_stop_flag() as stop_flag, train_obs(cfg) as record:
+        code = run_elastic(
+            cfg, prefix=args.prefix, end_epoch=args.end_epoch, lr=args.lr,
+            lr_step=args.lr_step, frequent=args.frequent, seed=args.seed,
+            dataset_kw=dataset_kw, synthetic=args.synthetic,
+            pretrained=args.pretrained,
+            pretrained_epoch=args.pretrained_epoch, stop_flag=stop_flag,
+            run_record=record, fault_plan=args.fault_plan,
+            device=args.device, num_devices=args.num_devices,
+            coordinator=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id,
+            log=lambda line: print(line, flush=True))
+    if code:
+        raise SystemExit(code)
+    return {}
 
 
 if __name__ == "__main__":

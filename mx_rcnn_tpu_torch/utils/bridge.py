@@ -26,7 +26,7 @@ likewise (:func:`load_quant_stats`, :func:`quant_stats_to_flax`).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, NamedTuple, Tuple
+from typing import Any, Dict, Iterator, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -171,18 +171,24 @@ class HostTrainState(NamedTuple):
         return self.count
 
 
-def _owned_copies(tensors: Mapping[str, torch.Tensor]
+def _owned_copies(tensors: Mapping[str, torch.Tensor],
+                  into: Optional[Mapping[str, torch.Tensor]] = None
                   ) -> Dict[str, torch.Tensor]:
     """Host copies that own their memory: a CUDA tensor is copied into
     pinned memory without blocking, each on the current stream, and the
     copies are waited for once, before this returns; a CPU tensor is
-    cloned."""
+    cloned.  ``into``: pinned buffers to copy into where one has the
+    tensor's name, shape and dtype (a snapshotter's, kept for the run:
+    page-locking memory costs more than the copy)."""
     out: Dict[str, torch.Tensor] = {}
     on_card = False
     for name, t in tensors.items():
         t = t.detach()
         if t.is_cuda:
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host = (into or {}).get(name)
+            if host is None or host.shape != t.shape or \
+                    host.dtype != t.dtype:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t, non_blocking=True)
             on_card = True
         else:
@@ -195,13 +201,18 @@ def _owned_copies(tensors: Mapping[str, torch.Tensor]
     return out
 
 
-def host_train_state(model: torch.nn.Module, optimizer) -> HostTrainState:
+def host_train_state(model: torch.nn.Module, optimizer,
+                     buffers: Optional[HostTrainState] = None
+                     ) -> HostTrainState:
     """The :class:`HostTrainState` of ``model`` and its SGD
-    (``core/optim.py``), copied now."""
+    (``core/optim.py``), copied now (into ``buffers``' pinned tensors
+    where they fit; the caller must own them)."""
     return HostTrainState(
-        state_dict=_owned_copies(model.state_dict()),
+        state_dict=_owned_copies(model.state_dict(),
+                                 buffers and buffers.state_dict),
         param_names=tuple(name for name, _ in model.named_parameters()),
-        trace=_owned_copies(optimizer.trace), count=int(optimizer.count))
+        trace=_owned_copies(optimizer.trace, buffers and buffers.trace),
+        count=int(optimizer.count))
 
 
 def host_state_to_flax(host: HostTrainState) -> dict:

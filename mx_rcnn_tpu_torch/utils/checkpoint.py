@@ -31,6 +31,7 @@ fingerprint, since the two configs have different fields.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -91,9 +92,34 @@ _FINGERPRINT_SECTIONS = ("train", "network", "dataset", "default", "bucket")
 
 def config_fingerprint(cfg) -> str:
     """sha256 prefix of the port config's training sections (their
-    dataclass reprs)."""
-    parts = "\n".join(repr(getattr(cfg, s)) for s in _FINGERPRINT_SECTIONS)
+    dataclass reprs, :func:`_fingerprint_repr`)."""
+    parts = "\n".join(_fingerprint_repr(getattr(cfg, s))
+                      for s in _FINGERPRINT_SECTIONS)
     return hashlib.sha256(parts.encode()).hexdigest()[:16]
+
+
+# levers added after fingerprints were first recorded: left out of the
+# fingerprint at their default, so every earlier fingerprint still holds;
+# a lever that is set changes the model and lands in it
+_DEFAULT_STRIPPED_LEVERS = frozenset({"stem_channel_pad"})
+
+
+def _fingerprint_repr(section) -> str:
+    """``repr(section)`` without the :data:`_DEFAULT_STRIPPED_LEVERS` that
+    sit at their default (the dataclass repr's format otherwise)."""
+    if not dataclasses.is_dataclass(section):
+        return repr(section)
+    parts = []
+    for f in dataclasses.fields(section):
+        if not f.repr:
+            continue
+        v = getattr(section, f.name)
+        if (f.name in _DEFAULT_STRIPPED_LEVERS
+                and f.default is not dataclasses.MISSING
+                and v == f.default):
+            continue
+        parts.append(f"{f.name}={v!r}")
+    return f"{type(section).__qualname__}({', '.join(parts)})"
 
 
 def make_topology(num_devices: int, num_processes: int = 1,

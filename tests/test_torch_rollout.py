@@ -321,6 +321,31 @@ def test_damaged_variables_equal_jax_leaf_for_leaf():
     assert changed and all(len(clean[p].shape) >= 2 for p in changed)
 
 
+def test_a_legs_burst_runs_until_the_controller_returns():
+    """The canary opens after its pulls; the gate's shadow pairs need
+    traffic until the controller returns, past the leg's burst."""
+    from mx_rcnn_tpu_torch.tools.rollout import _burst
+
+    submitted = []
+
+    class Target:
+        def submit_prepared(self, data, im_info, bucket, timeout_ms):
+            submitted.append(time.monotonic())
+            time.sleep(0.01)
+            return SimpleNamespace(wait=lambda timeout: None)
+
+    t0 = time.monotonic()
+    finish = _burst(Target(), [(None, None, None)], 0.1, concurrency=2,
+                    timeout_ms=1000.0)
+    time.sleep(0.6)  # the controller's run, past the 0.1 s burst
+    late = sum(t - t0 > 0.4 for t in submitted)
+    run = finish()
+    assert late > 0
+    assert run["client"]["ok"] == len(submitted)
+    assert run["client"]["failed"] == run["client"]["shed"] == 0
+    assert run["wall_s"] >= 0.5
+
+
 # ---- the config sections -----------------------------------------------------
 
 @pytest.mark.parametrize("name", ["SimConfig", "RolloutConfig"])
