@@ -4,8 +4,9 @@ evaluation, the alternate schedule, the serving engine, the
 real-dataset input plane, the long training run, data parallelism, the
 device-resident training epoch, quantized inference, the observability
 plane, bulk scoring over an export-warmed engine, the serving fleet, the
-cross-host serving tier, the rollout plane and fault-tolerant and elastic
-training on one NVIDIA card.
+cross-host serving tier, the rollout plane, fault-tolerant and elastic
+training, and the durability plane and the train-step store on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -364,19 +365,34 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     1/1/1 a step in every child, every restore bit-identical, the steps
     per epoch unchanged, steps left when the grow lands; then
     ``measure_snapshot_overhead(network='resnet101')`` alone, its async
-    stall under the tool's 5% ceiling.
+    stall under the tool's 5% ceiling;
+23. the durability plane and the train-step store, the seventeenth main
+    path (``analysis/crashsim.py``, ``tools/crashsim.py``,
+    ``serve/export.py — export_train_step`` / ``load_train_step``), in
+    processes of their own beside phase 13's legs that time nothing:
+    ``tools/train.py --export_train_step`` at bench.py's configuration
+    (ResNet-101, bf16, batch 2, 608x1024, pre/post-NMS 6000/2000), the
+    live and the loaded step bit-equal under the pinned algorithms, K1,
+    K2 and K3 once a step in each and bundled with the sha of the
+    library this checkout builds; a second process over a package copy
+    with an empty ``_build/`` installs the store's libraries, builds
+    nothing and passes ``require_digest`` on the same start state and
+    batch; ``tools/crashsim.py --smoke --check --device cuda``: every
+    real arm 0 violations over at least 10 states, both planted arms
+    flagged, K1 and K2 launched by the export arm's recoveries.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
 before the last are the card's name and power limit and one
 ``{"kernels": [...]}`` JSON object (K1-K3: launches from the training
 path, times at the training shapes; K4-K6: launches from the quantized
-eval, times at the per-ROI stage-4 bn1 and 1x1); the last line is ``{"ok": true, "device":
+eval, times at the per-ROI stage-4 bn1 and 1x1; ``launches_phase22`` and,
+where phase 23 launches the kernel, ``launches_phase23``); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
 directory and remove them at their end, and phases 13–18 their
-weight files, checkpoints and datasets likewise, and phases 19–22
+weight files, checkpoints and datasets likewise, and phases 19–23
 too.
 """
 
@@ -8489,6 +8505,182 @@ def phase_ft(dev, card: str, legs) -> dict:
                 wall_s=wall)
 
 
+TS_DIR = REPO / "_chip" / "train_step"   # phase 23's stores and copies
+# bench.py's configuration (bench.py:30-34) through tools/train.py's flags:
+# ResNet-101 e2e, 81 classes, batch 2, the 608x1024 bucket (the synthetic
+# stand-in images' only one), bf16, pre/post-NMS 6000/2000
+TS_ARGS = ["--network", "resnet101", "--dataset", "coco", "--batch_images",
+           "2", "--set", "train__rpn_pre_nms_top_n=6000"]
+# the join: argv[1] the package copy's root, argv[2] the store, the rest
+# tools/train.py's flags; the store's libraries installed into the copy's
+# empty _build/, the step from the same start state and batch held to the
+# store's digest
+TS_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import json, time
+t0 = time.perf_counter()
+import mx_rcnn_tpu_torch
+from mx_rcnn_tpu_torch import kernels
+from mx_rcnn_tpu_torch.serve.export import (
+    TRAIN_STEP, ExportStore, load_train_step, pinned_algorithms,
+    train_step_inputs, train_step_outputs)
+from mx_rcnn_tpu_torch.tools import train
+args = train.parse_args(sys.argv[3:])
+cfg = train.config_from_args(args)
+store = ExportStore(sys.argv[2])
+with pinned_algorithms():
+    step = load_train_step(store, cfg, "cuda")
+    state, batch = train_step_inputs(cfg, args.seed, "cuda")
+    kernels.reset_launch_counts()
+    state, metrics = step(state, batch)
+    store.require_digest(TRAIN_STEP, train_step_outputs(state, metrics))
+print(json.dumps({"package": mx_rcnn_tpu_torch.__path__[0],
+                  "load_events": kernels.load_events(),
+                  "launches": kernels.launch_counts(),
+                  "join_s": time.perf_counter() - t0}))
+"""
+
+
+def _last_json(text: str) -> dict:
+    return json.loads([ln for ln in text.splitlines()
+                       if ln.startswith("{")][-1])
+
+
+def ts_export_leg() -> dict:
+    """Phase 23 (a): ``tools/train.py --export_train_step`` at bench.py's
+    configuration in a process of its own, then the join in a second
+    process over a copy of the package whose ``_build/`` is empty (as
+    ``join_bench --mode trace`` runs); (report, join record)."""
+    from mx_rcnn_tpu_torch.tools.loadgen import fresh_package
+
+    store = TS_DIR / "store"
+    res, wall = _start_process(
+        [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.train", *TS_ARGS,
+         "--export_train_step", str(store)],
+        OUT_DIR / "train_step_export.txt", timeout=600)()
+    if res.returncode:
+        raise AssertionError(f"phase 23 (a): export exit {res.returncode}"
+                             f"\n{res.stderr[-3000:]}")
+    report = _last_json(res.stdout)
+    report["leg_s"] = wall
+    root = fresh_package(str(TS_DIR / "join"))
+    res, wall = _start_process(
+        [sys.executable, "-c", TS_CHILD, str(root), str(store), *TS_ARGS],
+        OUT_DIR / "train_step_join.txt", timeout=600)()
+    if res.returncode:
+        raise AssertionError(f"phase 23 (a): join exit {res.returncode}"
+                             f"\n{res.stderr[-3000:]}")
+    join = _last_json(res.stdout)
+    join["leg_s"] = wall
+    join["copy"] = str(root / "mx_rcnn_tpu_torch")
+    return report, join
+
+
+def ts_crashsim_leg() -> dict:
+    """Phase 23 (b): ``tools/crashsim.py --smoke --check --device cuda``
+    in a process of its own; its record."""
+    rec_path = OUT_DIR / "crashsim.json"
+    res, wall = _start_process(
+        [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.crashsim", "--smoke",
+         "--check", "--device", "cuda", "--workdir", str(TS_DIR / "crash"),
+         "--out", str(rec_path)], OUT_DIR / "crashsim.txt", timeout=600)()
+    if res.returncode:
+        raise AssertionError(f"phase 23 (b): crashsim exit {res.returncode}"
+                             f"\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    rec = json.loads(rec_path.read_text())
+    rec["leg_s"] = wall
+    return rec
+
+
+def ts_legs():
+    """Phase 23's legs, (a) and (b) beside each other, each in processes
+    of their own: (export report, join record, crashsim record)."""
+    shutil.rmtree(TS_DIR, ignore_errors=True)
+    TS_DIR.mkdir(parents=True)
+    crash_bg = in_background(ts_crashsim_leg)
+    report, join = ts_export_leg()
+    return report, join, crash_bg()
+
+
+def phase_train_step(card: str, legs) -> dict:
+    """Phase 23: the durability plane and the train-step store.  (a)
+    ``tools/train.py --export_train_step`` at bench.py's configuration:
+    the live and the loaded step bit-equal under the pinned algorithms,
+    K1, K2 and K3 once a step in each and bundled with the sha of the
+    library this checkout builds; a second process over a package copy
+    with an empty ``_build/`` installs the store's libraries, passes
+    ``require_digest`` on the same start state and batch and builds no
+    kernel.  (b) ``tools/crashsim.py --smoke --check --device cuda``:
+    every real arm 0 violations over at least 10 states, both planted
+    arms flagged, K1 and K2 launched by the export arm's recoveries.
+    ``legs`` are :func:`ts_legs`' records (main runs it beside phase
+    13's legs that time nothing); this times nothing on the card."""
+    from mx_rcnn_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    try:
+        report, join, crash = legs
+        one = {k: 1 for k in PATH_KERNELS}
+        steps = {k: fp_only(v) for k, v in report["launches"].items()}
+        built = {k: hashlib.sha256(
+            kernels.BY_NAME[k].library_path().read_bytes()).hexdigest()
+            for k in PATH_KERNELS}
+        log(f"phase 23 (a): export {report['export_s']} s "
+            f"({report['leg_s']:.1f} s with the process), bit_equal {report['bit_equal']} under "
+            f"{report['algorithms']}, launches a step {steps}, bundled "
+            f"{ {k: v[:12] for k, v in report['kernels'].items()} } "
+            f"({report['bytes']} bytes), outputs sha256 "
+            f"{report['outputs_sha256'][:16]}, metrics {report['metrics']}; "
+            f"{card}")
+        if report["bit_equal"] is not True or \
+                any({k: v for k, v in s.items() if v} != one
+                    for s in steps.values()) or \
+                sorted(steps) != ["live", "loaded"] or \
+                report["kernels"] != built:
+            raise AssertionError(f"phase 23 (a): {report}")
+        jl = fp_only(join["launches"])
+        log(f"phase 23 (a): join over {join['copy']}: load events "
+            f"{join['load_events']}, launches {jl}, digest equal, "
+            f"{join['join_s']:.1f} s in the process ({join['leg_s']:.1f} s "
+            f"with its start); {card}")
+        if join["load_events"]["builds"] or \
+                {k: v for k, v in jl.items() if v} != one or \
+                Path(join["package"]).resolve() != \
+                Path(join["copy"]).resolve():
+            raise AssertionError(f"phase 23 (a) join: {join}")
+        for name, rep in list(crash["workloads"].items()) + \
+                list(crash["planted"].items()):
+            launched = {k: v for k, v in rep["kernel_launches"].items() if v}
+            log(f"phase 23 (b): crashsim {name}: ops {rep['ops']}, states "
+                f"{rep['states_total']} (unique {rep['states_unique']}), "
+                f"recovered {rep['recovered']}, refused {rep['refused']}, "
+                f"violations {rep['violations']}, launches {launched}, "
+                f"{rep['elapsed_s']} s; {card}")
+        exp = crash["workloads"]["export"]["kernel_launches"]
+        if not crash["check"]["ok"] or \
+                any(r["violations"] or r["states_total"] < 10
+                    for r in crash["workloads"].values()) or \
+                not all(r["violations"] for r in crash["planted"].values()) \
+                or not (exp["nms_sweep"] and exp["roi_align_fwd"]):
+            raise AssertionError(f"phase 23 (b): {crash['check']}")
+        log(f"phase 23 (b): crashsim {crash['leg_s']:.1f} s with the "
+            f"process; {card}")
+        launches = dict(join["launches"])
+        for s in report["launches"].values():
+            for k, v in s.items():
+                launches[k] = launches.get(k, 0) + v
+        for rep in list(crash["workloads"].values()) + \
+                list(crash["planted"].values()):
+            for k, v in rep["kernel_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        shutil.rmtree(TS_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    return dict(export=report, join=join, crashsim=crash,
+                launches=launches, wall_s=wall)
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -8559,10 +8751,14 @@ def main() -> int:
     # phase 13's legs that time nothing; the wait for them past those legs
     # counts as phase 22's
     ft_bg = in_background(ft_legs)
+    ts_bg = in_background(ts_legs)
     checks = timed(13, long_run_checks, dev, card)
     t0 = time.perf_counter()
     ft_runs = ft_bg()
     ft_wait = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts_runs = ts_bg()
+    ts_wait = time.perf_counter() - t0
     long_run = phase_long_run(dev, card, alternate, checks)
     phase_s[13] = long_run["wall_s"]
     data_parallel = timed(14, phase_data_parallel, dev, card)
@@ -8578,6 +8774,8 @@ def main() -> int:
     phase_s[20] -= phase_s[21]
     ft = timed(22, phase_ft, dev, card, ft_runs)
     phase_s[22] += ft_wait
+    train_step = timed(23, phase_train_step, card, ts_runs)
+    phase_s[23] += ts_wait
     script_s = time.perf_counter() - script_t0
     log("seconds a phase (phase 1 the build): " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -8611,6 +8809,8 @@ def main() -> int:
                          qrun["fp8_native"]["launches"]["qconv_e4m3"])]
     for line in lines:
         line["launches_phase22"] = ft_runs[line["name"]]
+        if train_step["launches"].get(line["name"]):
+            line["launches_phase23"] = train_step["launches"][line["name"]]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
         card=card, host=host, build_s=build_s, qconv_sass=sass, k1=k1,
         k2=k2, k3=k3,
@@ -8619,7 +8819,7 @@ def main() -> int:
         engine=engine, real_data=real_data, long_run=long_run,
         data_parallel=data_parallel, device_cache=device_cache,
         quant=quant, obs=obs, bulk=bulk, fleet=fleet, crosshost=cross,
-        rollout=rollout, ft=ft,
+        rollout=rollout, ft=ft, train_step=train_step,
         phase_s={str(k): v for k, v in phase_s.items()},
         script_s=script_s), indent=1))
     print(card)

@@ -206,6 +206,7 @@ class DecodedImageCache:
                     np.save(f, img)
                 # no fsync: the cache is rebuildable, and a torn or lost
                 # file falls through to a decode that rewrites it
+                # persistlint: disable=PL102,PL103 a rebuildable cache, not durable state: a crash-torn or lost .npy fails np.load and falls through to a fresh decode that overwrites it (tests/test_torch_input_plane.py::test_torn_disk_entry_falls_through_to_decode); an fsync per image would put disk latency on the decode pool's hot path for no correctness gain
                 os.replace(tmp, fp)
                 # evict superseded versions of this entry (same stable
                 # prefix, different mtime/size version) so regenerating the

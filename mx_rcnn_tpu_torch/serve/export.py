@@ -1,6 +1,7 @@
-"""Export stores: what a serving process needs to join warm, checked.
+"""Export stores: what a serving process needs to join warm, and a
+train step's record, checked.
 
-Counterpart of the serving half of ``mx_rcnn_tpu/serve/export.py``.  The
+Counterpart of ``mx_rcnn_tpu/serve/export.py``.  The
 JAX store holds ``jax.export`` programs and the XLA cache its verify
 pass filled.  The port's kernels are ``ctypes`` launches, not
 ``torch.library`` ops, so ``torch.export`` cannot save a forward that
@@ -29,14 +30,26 @@ mismatch raises :class:`ExportMismatch`), installs the libraries where
 ``kernels.py`` loads them (a process with an empty ``_build/`` then
 builds nothing), reruns each bucket's dummy batch and requires the
 recorded digests bit for bit.  Nothing is warned past.
+
+The train-step half (:func:`export_train_step`, :func:`load_train_step`)
+records one ``train_step`` entry: the input spec of the state's tensors
+and the batch, the digest of the step's outputs from
+:func:`train_step_inputs`, the libraries of K1, K2 and K3, and the
+algorithm settings the digest was taken under
+(:data:`PINNED_ALGORITHMS`: deterministic cuDNN, no benchmark, TF32
+off).  A loaded step is ``core/train.py``'s, admitted by ``check``, the
+recorded settings and the leaf spec.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import hashlib
 import io
 import json
 import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -583,3 +596,260 @@ def export_serve_programs(predictor, cfg, root: str = None, *,
                           store.manifest()["kernels"].values()) + \
         store.manifest().get("variables", {}).get("bytes", 0)
     return report
+
+
+# ---- the train step ---------------------------------------------------------
+
+TRAIN_STEP = "train_step"
+# the steps per epoch of the exported step's optimizer (its lr schedule's
+# boundaries), as the JAX export sets up its state
+TRAIN_STEPS_PER_EPOCH = 100
+# the algorithm settings a train-step digest is taken under: without them
+# cuDNN picks a convolution algorithm per process, and two runs of one
+# step from one state need not give one set of bits (the switches
+# ``parallel/dp.py`` hands every rank)
+PINNED_ALGORITHMS = {"matmul_tf32": False, "cudnn_tf32": False,
+                     "cudnn_deterministic": True, "cudnn_benchmark": False}
+
+
+def live_algorithms() -> Dict[str, bool]:
+    """This process's settings of :data:`PINNED_ALGORITHMS`' switches."""
+    from mx_rcnn_tpu_torch.parallel.dp import _torch_settings
+
+    return {k: v for k, v in _torch_settings().items() if k != "threads"}
+
+
+def _set_algorithms(settings: Dict[str, bool]) -> None:
+    from mx_rcnn_tpu_torch.parallel.dp import _adopt
+
+    _adopt({"threads": torch.get_num_threads(), **settings})
+
+
+@contextlib.contextmanager
+def pinned_algorithms():
+    """Run the body under :data:`PINNED_ALGORITHMS`, then restore the
+    caller's settings."""
+    was = live_algorithms()
+    _set_algorithms(PINNED_ALGORITHMS)
+    try:
+        yield
+    finally:
+        _set_algorithms(was)
+
+
+def _state_tensors(state) -> List[torch.Tensor]:
+    """What a ``core/train.py — TrainState`` step reads and writes, in a
+    fixed order: the model's state_dict, the optimizer's trace (by
+    parameter) and ``[seed, count]`` (the step's draws are seeded from
+    both)."""
+    sd = state.model.state_dict()
+    return ([sd[k] for k in sd]
+            + [state.optimizer.trace[k] for k in state.optimizer.trace]
+            + [torch.tensor([state.seed, state.optimizer.count],
+                            dtype=torch.int64)])
+
+
+def _batch_tensors(batch) -> List[torch.Tensor]:
+    """A batch's tensors (each microbatch's in turn under grad_accum)."""
+    if isinstance(batch, (list, tuple)) and batch and \
+            isinstance(batch[0], tuple):
+        return [t for mb in batch for t in mb]
+    return list(batch)
+
+
+def train_step_outputs(state, metrics: Dict[str, torch.Tensor]
+                       ) -> List[torch.Tensor]:
+    """A step's outputs as the store digests them: the new state's
+    tensors, then the metrics in sorted key order."""
+    return _state_tensors(state) + [metrics[k] for k in sorted(metrics)]
+
+
+def _synthetic_train_batch(cfg, seed: int, device="cuda",
+                           grad_accum: int = 1):
+    """The first training batch (``grad_accum`` of them, as a list, when
+    it is more than 1) at the recipe's static shapes, on ``device``: a
+    generated preset's own images, any other preset's synthetic stand-in
+    images at its canvas (no dataset is read: the export checks the
+    step's bits, not the data), through ``AnchorLoader`` unshuffled."""
+    from mx_rcnn_tpu_torch.core.train import to_device
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
+    from mx_rcnn_tpu_torch.data.loader import AnchorLoader
+    from mx_rcnn_tpu_torch.utils.device import resolve_device
+
+    n = max(cfg.train.batch_images * 2, 4) * grad_accum
+    if cfg.dataset.name.startswith("synthetic"):
+        imdb, roidb = load_gt_roidb(cfg, training=True, num_images=n)
+    else:
+        imdb, roidb = load_gt_roidb(cfg, training=True, synthetic=n)
+    loader = AnchorLoader(roidb, cfg, imdb.load_image,
+                          batch_images=cfg.train.batch_images,
+                          shuffle=False, seed=seed, num_workers=0)
+    dev = resolve_device(device)
+    it = iter(loader)
+    batches = [to_device(next(it), dev) for _ in range(grad_accum)]
+    return batches[0] if grad_accum == 1 else batches
+
+
+def train_step_inputs(cfg, seed: int = 0, device="cuda",
+                      grad_accum: int = 1):
+    """The exported step's start: ``(state, batch)``, the train state of
+    ``cfg`` from ``seed`` (``core/train.py — setup_training``) and
+    :func:`_synthetic_train_batch`.  Another process that calls this
+    with the same arguments gets the same bits, which is what
+    :meth:`ExportStore.require_digest` holds it to."""
+    from mx_rcnn_tpu_torch.core.train import setup_training
+
+    state = setup_training(cfg, device, seed,
+                           steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    return state, _synthetic_train_batch(cfg, seed, device, grad_accum)
+
+
+def _copy_state(state):
+    """A copy of a TrainState that shares nothing with it: the step
+    updates the model and the trace in place."""
+    from mx_rcnn_tpu_torch.core.train import TrainState
+
+    model = copy.deepcopy(state.model)
+    params = dict(model.named_parameters())
+    opt = copy.copy(state.optimizer)
+    opt.params = [(n, params[n]) for n, _ in state.optimizer.params]
+    opt.trace = {n: t.clone() for n, t in state.optimizer.trace.items()}
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return TrainState(model, opt, gen, state.seed)
+
+
+def _train_step_fn(m: Dict, cfg) -> Callable:
+    """The step of a train-step manifest ``m``: ``(state, batch,
+    draws=None) → (state, metrics)``, refusing other algorithm settings
+    and arguments of another leaf count or spec."""
+    from mx_rcnn_tpu_torch.core.train import make_train_step
+
+    entry = m["entries"][TRAIN_STEP]
+    spec = entry["args"]
+    step = make_train_step(cfg, grad_accum=m["grad_accum"])
+
+    def check_algorithms() -> None:
+        if live_algorithms() != m["algorithms"]:
+            raise ExportMismatch(
+                f"the train step was exported under {m['algorithms']}, "
+                f"this process runs {live_algorithms()}: its digest holds "
+                "only under the recorded settings (pinned_algorithms)")
+
+    check_algorithms()
+
+    def run(state, batch, draws=None):
+        check_algorithms()
+        args = _state_tensors(state) + _batch_tensors(batch)
+        if len(args) != len(spec):
+            raise ExportMismatch(
+                f"train-step args have {len(args)} leaves, export was "
+                f"taken with {len(spec)}")
+        got = _describe(args)
+        if got != spec:
+            bad = next(i for i, (a, b) in enumerate(zip(got, spec))
+                       if a != b)
+            raise ExportMismatch(f"train-step arg {bad} is {got[bad]}, the "
+                                 f"export took {spec[bad]}")
+        metrics = step(state, batch, draws=draws)
+        return state, metrics
+
+    return run
+
+
+def export_train_step(cfg, *, out_dir: str, num_devices: int = 1,
+                      grad_accum: int = 1, seed: int = 0,
+                      verify: bool = True, device="cuda") -> Dict:
+    """Export the train step of ``cfg`` on one device (``device``, CUDA
+    unless the caller asks for the CPU) into a store at ``out_dir``.
+
+    The port's store holds no program (module docstring): its
+    ``train_step`` entry records the input spec of the state's tensors
+    and the batch, the digest of the step's outputs (the new state's
+    tensors and the metrics) from :func:`train_step_inputs`, the
+    libraries of the kernels the step launched, the JAX manifest's
+    ``train_step``, ``num_devices``, ``grad_accum`` and ``batch_images``,
+    and the algorithm settings the digest was taken under.  The whole
+    export runs under :func:`pinned_algorithms` and restores the
+    caller's settings.  With ``verify`` the live step and the loaded
+    one run from two copies of one start state and must give the same
+    bits, else :class:`ExportMismatch` and no manifest is committed.
+    Returns the report."""
+    from mx_rcnn_tpu_torch.core.train import make_train_step
+    from mx_rcnn_tpu_torch.utils.device import resolve_device
+
+    if num_devices != 1:
+        raise NotImplementedError(
+            "train-step export covers the single-device step (the "
+            "data-parallel step runs one process per card)")
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    with pinned_algorithms():
+        state, batch = train_step_inputs(cfg, seed, dev, grad_accum)
+        start = _copy_state(state) if verify else None
+        args = _state_tensors(state) + _batch_tensors(batch)
+        n_state = len(args) - len(_batch_tensors(batch))
+        store = ExportStore.create(out_dir, cfg, extra_meta={
+            "train_step": True, "num_devices": num_devices,
+            "grad_accum": grad_accum,
+            "batch_images": cfg.train.batch_images,
+            "algorithms": dict(PINNED_ALGORITHMS)}, device=dev)
+        step = make_train_step(cfg, grad_accum=grad_accum)
+        before = kernels.launch_counts()
+        metrics = step(state, batch)
+        live = train_step_outputs(state, metrics)
+        mid = kernels.launch_counts()
+        launches = {"live": {k: mid[k] - before.get(k, 0) for k in mid}}
+        store.add(TRAIN_STEP, args, live, static={
+            "state_leaves": n_state, "seed": seed,
+            "steps_per_epoch": TRAIN_STEPS_PER_EPOCH,
+            "metrics": sorted(metrics)})
+        report: Dict = {"root": out_dir, "device": str(dev),
+                        "programs": [{"name": TRAIN_STEP}],
+                        "verified": verify, "bit_equal": None}
+        if verify:
+            got_state, got_metrics = _train_step_fn(store.manifest(), cfg)(
+                start, batch)
+            after = kernels.launch_counts()
+            launches["loaded"] = {k: after[k] - mid.get(k, 0)
+                                  for k in after}
+            eq = _bit_equal(live, train_step_outputs(got_state,
+                                                     got_metrics))
+            report["bit_equal"] = eq
+            report["programs"][0]["bit_equal"] = eq
+            if not eq:
+                raise ExportMismatch(
+                    "the loaded train step is NOT bit-equal to the live "
+                    f"step from the same state under {PINNED_ALGORITHMS}: "
+                    "refusing to commit a digest no process could be "
+                    "held to")
+        if dev.type == "cuda":
+            store.add_kernels(sorted(k for k, v in launches["live"].items()
+                                     if v))
+        report["manifest"] = store.finish()
+    m = store.manifest()
+    report["kernels"] = {k: e["sha256"] for k, e in m["kernels"].items()}
+    report["bytes"] = sum(e["bytes"] for e in m["kernels"].values())
+    report["outputs_sha256"] = m["entries"][TRAIN_STEP]["outputs_sha256"]
+    report["launches"] = launches
+    report["algorithms"] = dict(PINNED_ALGORITHMS)
+    report["metrics"] = {k: float(v) for k, v in sorted(metrics.items())}
+    report["export_s"] = round(time.perf_counter() - t0, 3)
+    return report
+
+
+def load_train_step(store: "ExportStore", cfg, device="cuda") -> Callable:
+    """The exported train step in this process: admission (``check``:
+    the config fingerprint, versions, device, kernel library names), the
+    recorded algorithm settings against this process's (run it under
+    :func:`pinned_algorithms`), the bundled libraries installed; then
+    ``(state, batch, draws=None) → (state, metrics)``, which refuses
+    arguments of another leaf count or spec and updates ``state`` in
+    place, as ``core/train.py``'s step does."""
+    m = store.check(cfg, device=device)
+    if not m.get("train_step") or TRAIN_STEP not in m["entries"]:
+        raise ExportMismatch(f"export store {store.root} holds no train "
+                             "step")
+    fn = _train_step_fn(m, cfg)
+    store.install_kernels()
+    return fn

@@ -85,6 +85,22 @@ class ServeRequest:
         self._lock = threading.Lock()
         self._on_done = None        # add_done_callback's hook
 
+    # latency accounting (None until the matching transition happened)
+    @property
+    def queue_wait_s(self) -> Optional[float]:
+        """Seconds from admission to dispatch (None until dispatched)."""
+        if self.dispatch_t is None:
+            return None
+        return self.dispatch_t - self.enqueue_t
+
+    @property
+    def total_s(self) -> Optional[float]:
+        """Seconds from admission to the terminal state (None while
+        pending)."""
+        if self.done_t is None:
+            return None
+        return self.done_t - self.enqueue_t
+
     def _finish(self, state: str, result=None,
                 error: BaseException = None, now: float = None) -> bool:
         """Move to a terminal state; False if already terminal."""

@@ -13,17 +13,19 @@ time-series plane (``obs/timeseries.py``, ``collect.py``, ``health.py``,
 * ``dump``: write a flight-style record of the current merged view (the
   manual pull in an incident);
 * ``smoke``: an observed 2-replica fleet burst with a replica killed
-  mid-burst: the merged labelled view (replicas, router, and a plain
-  registry scraped over real HTTP), the CRITICAL to OK verdict around
-  the relaunch, and a parseable flight record naming the ejected
-  replica.  The stand-in model by default (the router and the plane
-  are under test); ``--export`` runs an export-warmed fleet instead.
+  mid-burst: the merged labelled view (replicas, router, and an
+  elastic-shaped registry scraped over real HTTP), the CRITICAL to OK
+  verdict around the relaunch, and a parseable flight record naming the
+  ejected replica.  The stand-in model by default (the router and the
+  plane are under test); ``--export`` runs an export-warmed fleet
+  instead.
   It runs on the card unless ``--device cpu``.
 
-The JAX smoke's HTTP source is an elastic-shaped registry; the port has
-no elastic trainer yet, so its source is a plain registry with a gauge
-of its own.  Sources: ``--url host:port`` (repeatable, ``name=url``
-too) or ``cfg.obs.collect_urls``.
+The smoke's HTTP source, as the JAX smoke's, is an elastic-shaped
+registry: the ``elastic.generation`` and ``elastic.num_devices`` gauges
+and the ``elastic.recovery_ms`` histogram that ``ft/elastic.py``
+publishes.  Sources: ``--url host:port`` (repeatable, ``name=url`` too)
+or ``cfg.obs.collect_urls``.
 """
 
 from __future__ import annotations
@@ -198,13 +200,14 @@ def run_smoke(args) -> dict:
     The whole plane runs as production wires it — ``cli_obs`` builds
     the store/sampler/health/flight from cfg, the fleet publishes its
     gauges through ``ReplicaManager.export_gauges`` and its
-    eject/rejoin events through the run record, and a peer's registry
-    is scraped over real HTTP so the merged view crosses an HTTP
+    eject/rejoin events through the run record, and an elastic-shaped
+    registry is scraped over real HTTP so the merged view crosses an HTTP
     boundary as a live fleet's does.  Assertions
     (folded into ``ev["problems"]``):
 
     * merged view: both replicas up with ``source``/``generation``
-      labels, the HTTP peer up, counters aggregated;
+      labels, the HTTP elastic source up with its gauges, counters
+      aggregated;
     * kill-mid-burst: verdict transitions to CRITICAL on the eject and
       back to OK after the relaunch (`fleet-degraded` rule);
     * flight: a ``health-critical`` record written, parseable, schema-
@@ -269,14 +272,16 @@ def run_smoke(args) -> dict:
     obs_sess = cli_obs(cfg, "health_smoke")
     assert obs_sess is not None and obs_sess.health is not None
 
-    # a peer process's registry behind a real HTTP exporter, so the
-    # collector crosses an HTTP boundary as a live fleet's scrape does
-    peer_reg = Registry()
-    peer_reg.set_gauge("peer.generation", 1)
-    peer_reg.set_gauge("peer.num_devices", 1)
-    peer_reg.observe("peer.recovery_ms", 1500.0, lo=1.0, hi=600_000.0)
-    peer_srv = start_metrics_server(peer_reg, port=0)
-    peer_url = "http://%s:%d/metrics" % peer_srv.server_address[:2]
+    # the elastic-shaped peer: its own registry behind a real HTTP
+    # exporter, so the collector crosses an HTTP boundary as a live
+    # fleet's scrape does (the gauges mirror what ft/elastic.py publishes)
+    elastic_reg = Registry()
+    elastic_reg.set_gauge("elastic.generation", 1)
+    elastic_reg.set_gauge("elastic.num_devices", 1)
+    elastic_reg.observe("elastic.recovery_ms", 1500.0, lo=1.0,
+                        hi=600_000.0)
+    elastic_srv = start_metrics_server(elastic_reg, port=0)
+    elastic_url = "http://%s:%d/metrics" % elastic_srv.server_address[:2]
 
     router = build_fleet(cfg, variables, export_root=export_root,
                          run_fn_factory=factory, device=args.device,
@@ -297,9 +302,12 @@ def run_smoke(args) -> dict:
 
     try:
         collector = collector_for_fleet(
-            router, extra_sources=[HttpSource("peer-0", peer_url)])
+            router, extra_sources=[HttpSource("elastic-0", elastic_url)])
         view = collector.collect()
-        for want in ("replica-0", "replica-1", "peer-0", "router"):
+        ev["sources"] = sorted(view["sources"])
+        ev["elastic_gauges"] = sorted(
+            k for k in view["agg"]["gauges"] if k.startswith("elastic."))
+        for want in ("replica-0", "replica-1", "elastic-0", "router"):
             src = view["sources"].get(want)
             if not (src and src.get("up")):
                 problems.append(f"source {want} not up in merged view: "
@@ -310,9 +318,8 @@ def run_smoke(args) -> dict:
             if lab.get("source") != f"replica-{rid}" \
                     or lab.get("generation") != 1:
                 problems.append(f"replica-{rid} labels wrong: {lab}")
-        if "peer.generation" not in view["agg"]["gauges"]:
-            problems.append("the HTTP peer's gauges missing from the "
-                            "merged view")
+        if "elastic.generation" not in view["agg"]["gauges"]:
+            problems.append("elastic gauges missing from merged view")
 
         # closed-loop burst with a mid-burst kill (the
         # loadgen._kill_mid_burst_leg pattern, obs-instrumented)
@@ -424,8 +431,8 @@ def run_smoke(args) -> dict:
                             f"{snap['timeseries']}")
     finally:
         router.close()
-        peer_srv.shutdown()
-        peer_srv.server_close()
+        elastic_srv.shutdown()
+        elastic_srv.server_close()
         obs_sess.close(metric="health_smoke_requests",
                        value=None, unit="requests")
     ev["ok"] = not problems

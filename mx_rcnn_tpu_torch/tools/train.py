@@ -64,6 +64,10 @@ flag, so the interrupt checkpoint is written as before.
 ``MXRCNN_THREAD_SANITIZER`` arms the lock sanitizer before the package
 is imported.
 
+``--export_train_step DIR`` exports the recipe's train step into an
+export store at DIR (``serve/export.py — export_train_step``), prints
+its report as one JSON line and exits.
+
 ``--fault_plan SPEC`` runs an ``ft/faults.py`` plan against the run
 (crash-loop certification: ``tools/crashloop.py``); with ``--num_devices``
 rank 0 runs it and its signals go to the launcher.  ``--elastic`` (or
@@ -95,6 +99,7 @@ sanitizer.maybe_install_from_env()
 import argparse  # noqa: E402
 import ast  # noqa: E402
 import contextlib  # noqa: E402
+import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import signal  # noqa: E402
@@ -613,6 +618,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "also elastic__enabled=true): topology directives "
                         "at <prefix>.topology.json resize the run, with "
                         "grad_accum rescaled to keep the global batch")
+    p.add_argument("--export_train_step", default=None, metavar="DIR",
+                   help="export this recipe's train step into the store "
+                        "DIR (serve/export.py — export_train_step: the "
+                        "step's input spec and output digest, verified "
+                        "bit-equal twice under pinned algorithms, and "
+                        "the kernel libraries it launched), print the "
+                        "report as one JSON line and exit")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--set", action="append", metavar="SEC__FIELD=VAL",
                    help="override a config field (repeatable)")
@@ -691,6 +703,15 @@ def main(argv=None) -> Dict[str, float]:
     if (args.resume or args.begin_epoch) and not args.prefix:
         raise SystemExit("--resume and --begin_epoch need --prefix")
     cfg = config_from_args(args)
+    if args.export_train_step:
+        from mx_rcnn_tpu_torch.serve.export import export_train_step
+
+        report = export_train_step(
+            cfg, out_dir=args.export_train_step,
+            num_devices=args.num_devices or 1, grad_accum=args.grad_accum,
+            seed=args.seed, device=args.device)
+        print(json.dumps(report), flush=True)
+        return report
     dataset_kw = (ast.literal_eval(args.dataset_kw) if args.dataset_kw
                   else None)
     if args.elastic or cfg.elastic.enabled:

@@ -301,6 +301,21 @@ def combine_model(state_a: Mapping, state_b: Mapping,
     return out
 
 
+def tree_size_bytes(tree) -> int:
+    """Total bytes of a tree's leaves (for logging): nested dicts, lists
+    and tuples of numpy arrays, tensors or scalars, as the JAX
+    function sums ``jax.tree.leaves``; ``None`` is no leaf."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(tree_size_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_size_bytes(v) for v in tree)
+    if hasattr(tree, "element_size"):     # a torch tensor
+        return tree.numel() * tree.element_size()
+    return np.asarray(tree).nbytes
+
+
 def load_model(cfg, prefix: str, epoch: int, device="cuda"):
     """The test-mode model of ``cfg`` on ``device`` (CUDA unless the
     caller asks for the CPU) with the weights of ``prefix``@``epoch``."""

@@ -729,3 +729,31 @@ def test_each_rank_of_a_data_parallel_run_writes_its_own_record(tmp_path):
         assert summary["obs_failures"] == []
         steps.append(summary["steps"])
     assert steps[0] == steps[1] == 4
+
+
+def test_obs_smoke_scrapes_an_elastic_shaped_registry(tmp_path, capsys):
+    """``tools/obs.py smoke``'s HTTP source is the JAX smoke's
+    elastic-shaped registry (``mx_rcnn_tpu/tools/obs.py``): a source
+    ``elastic-0`` in the merged view whose gauges are ones that
+    ``ft/elastic.py — ElasticController.mark_applied`` publishes."""
+    from mx_rcnn_tpu_torch.ft.elastic import ElasticController, Topology
+    from mx_rcnn_tpu_torch.tools import obs as obs_cli
+
+    try:
+        rc = obs_cli.main(["smoke", "--device", "cpu", "--check",
+                           "--duration_s", "3", "--workdir", str(tmp_path)])
+        line = next(ln for ln in capsys.readouterr().out.splitlines()
+                    if ln.startswith("HEALTH_SMOKE "))
+        ev = json.loads(line[len("HEALTH_SMOKE "):])
+        t_metrics.registry().reset()
+        ElasticController(generate_config("tiny", "synthetic"),
+                          str(tmp_path / "run"), install_signal=False
+                          ).mark_applied(Topology(1, 1))
+        published = set(t_metrics.registry().snapshot()["gauges"])
+    finally:
+        t_metrics.registry().reset()
+    assert rc == 0, ev["problems"]
+    assert ev["sources"] == ["elastic-0", "replica-0", "replica-1", "router"]
+    assert ev["elastic_gauges"] == ["elastic.generation",
+                                    "elastic.num_devices"]
+    assert set(ev["elastic_gauges"]) <= published
