@@ -5,8 +5,8 @@ real-dataset input plane, the long training run, data parallelism, the
 device-resident training epoch, quantized inference, the observability
 plane, bulk scoring over an export-warmed engine, the serving fleet, the
 cross-host serving tier, the rollout plane, fault-tolerant and elastic
-training, and the durability plane and the train-step store on one
-NVIDIA card.
+training, the durability plane and the train-step store, and the
+accuracy gauntlet on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -138,12 +138,12 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
    as ``save_epoch`` returns) and phase 10's schedule read for its
    checkpoint time; ``tools/train.py`` over a generated VOCdevkit in
    processes of their own (deterministic cuDNN; they run beside the
-   ImageNet start and the accumulation parity, which time nothing, and
-   beside phase 22's crash loop and storm): two
+   ImageNet start and the accumulation parity): two
    epochs straight beside a run stopped by SIGTERM in epoch 1 (exit 0,
    an interrupt checkpoint with its data cursor), ``--resume auto`` to
-   the end byte-equal to the straight run, again past a corrupted newest
-   epoch file, and a resume at batch 1 refused; in fp32, one ``grad_accum=2`` step at batch 1
+   the end byte-equal to the straight run, beside it a copy of the
+   straight run's files past its corrupted newest epoch file, and a
+   resume at batch 1 refused; in fp32, one ``grad_accum=2`` step at batch 1
    through the kernels and the plain versions (sampled rois and labels
    equal, metrics and gradients close) and ``remat_backbone`` on and off
    (gradients bit-equal); in bf16, ms per optimizer step, peak memory and
@@ -360,8 +360,8 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     images, pre/post-NMS 1024/300 as the JAX supervisor's recipe sets)
     beside ``--elastic --smoke --check`` (a two-process world of one rank
     each, gloo on ``cuda:0`` on one card, through a SIGTERM, a shrink to
-    one rank with grad_accum 2, a grow back and completion), beside phase
-    13's legs that time nothing: the survivor byte-equal to the control, K1/K2/K3
+    one rank with grad_accum 2, a grow back and completion), beside the
+    lanes: the survivor byte-equal to the control, K1/K2/K3
     1/1/1 a step in every child, every restore bit-identical, the steps
     per epoch unchanged, steps left when the grow lands; then
     ``measure_snapshot_overhead(network='resnet101')`` alone, its async
@@ -369,7 +369,7 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
 23. the durability plane and the train-step store, the seventeenth main
     path (``analysis/crashsim.py``, ``tools/crashsim.py``,
     ``serve/export.py — export_train_step`` / ``load_train_step``), in
-    processes of their own beside phase 13's legs that time nothing:
+    processes of their own beside the lanes:
     ``tools/train.py --export_train_step`` at bench.py's configuration
     (ResNet-101, bf16, batch 2, 608x1024, pre/post-NMS 6000/2000), the
     live and the loaded step bit-equal under the pinned algorithms, K1,
@@ -377,22 +377,53 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     library this checkout builds; a second process over a package copy
     with an empty ``_build/`` installs the store's libraries, builds
     nothing and passes ``require_digest`` on the same start state and
-    batch; ``tools/crashsim.py --smoke --check --device cuda``: every
-    real arm 0 violations over at least 10 states, both planted arms
-    flagged, K1 and K2 launched by the export arm's recoveries.
+    batch; ``tools/crashsim.py --smoke --check --device cuda
+    --max_states 32``: every real arm 0 violations over at least 10
+    states, both planted arms
+    flagged, K1 and K2 launched by the export arm's recoveries;
+24. the accuracy gauntlet, the eighteenth main path
+    (``tools/gauntlet.py`` → ``train_net`` → ``test_rcnn`` on the
+    generated ``synthetic_hard`` set, under the tool's deterministic
+    pins), in processes of their own beside the lanes, each through
+    ``GT_CHILD``, which counts every
+    ``train_net`` and ``test_rcnn`` call's launches: (a) the paired
+    red-team gate at the JAX slow test's recipe (tiny, seeds 0 1, 4
+    epochs, lr 3e-3, step 3), its four cells a process each, then
+    ``--compare e2e redteam`` over their records: exit 1, every delta
+    below -budget, the mean delta below -0.05, the redteam records
+    damaged ``test__nms=0.9``, the e2e and redteam checkpoints of each
+    seed byte-equal; (b) beside the cells, ResNet-101 in bf16, seed 0,
+    one epoch of the set cut to 16 train and 8 test images (the
+    script's budget): one record with a finite mAP in [0, 1]; in both
+    K1, K2 and K3 once a training step, K1 twice and K2 once an eval
+    batch.
+
+The phases run in this order: 1-4, phase 16's kernels (K4-K6 against
+their plain versions and timed) and 5-9, with the card to themselves;
+then two lanes beside each other and beside phases 22-24's legs (each
+leg in processes of its own): lane A, phases 10, 12, the rest of 16 and
+17 in this process, and lane B, phases 13, 14 and 15 in a process of
+this script of its own (``chip_smoke.py --lane``, which dies with this
+one); when both lanes and the legs have ended, phases 11 and 18-24 with
+the card to themselves again (phase 11's open loops are set from rates
+measured just before them, and phase 20's memory check needs no other
+process on the card).  So the kernels line's times are taken alone, and
+the times of phases 10 and 12-17 beside other processes.  Each lane has
+its own launch counts and cuDNN settings.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after; each of its kernels must have launched.  The lines
 before the last are the card's name and power limit and one
 ``{"kernels": [...]}`` JSON object (K1-K3: launches from the training
 path, times at the training shapes; K4-K6: launches from the quantized
-eval, times at the per-ROI stage-4 bn1 and 1x1; ``launches_phase22`` and,
-where phase 23 launches the kernel, ``launches_phase23``); the last line is ``{"ok": true, "device":
+eval, times at the per-ROI stage-4 bn1 and 1x1; ``launches_phase22``,
+where phase 23 launches the kernel ``launches_phase23``, and for K1-K3
+``launches_phase24``); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
 directory and remove them at their end, and phases 13–18 their
-weight files, checkpoints and datasets likewise, and phases 19–23
+weight files, checkpoints and datasets likewise, and phases 19–24
 too.
 """
 
@@ -3607,14 +3638,13 @@ def imagenet_start(dev, card: str) -> dict:
         final_metrics=vgg_final), partial_refused=refused)
 
 
-def snapshot_costs(dev, card: str, schedule: dict) -> dict:
+def snapshot_costs(dev, card: str) -> dict:
     """One ResNet-101 train state (random bf16 trace) saved through
     ``make_snapshotter`` with ``ft.async_snapshots`` on and off in turns:
     the step thread's time per snapshot (host copy and handoff) and the
     time to the manifest commit; every file byte-equal, also when the
     last (background) one sees the weights change as soon as
-    ``save_epoch`` returns.  Then phase 10's schedule, run with the
-    default (background) snapshots, read for its checkpoint share."""
+    ``save_epoch`` returns."""
     import torch
 
     from mx_rcnn_tpu_torch.config import generate_config
@@ -3653,7 +3683,12 @@ def snapshot_costs(dev, card: str, schedule: dict) -> dict:
         raise AssertionError(f"snapshot bytes differ: {runs}")
     del state
     torch.cuda.empty_cache()
+    return dict(runs=runs)
 
+
+def schedule_checkpoints(schedule: dict) -> dict:
+    """Phase 10's schedule, run with the default (background) snapshots,
+    read for its checkpoint share (phase 13's record)."""
     ckpts = [w for w in schedule["checkpoints"] if "stall_s" in w]
     on_step = sum(w["stall_s"] + w.get("close_wait_s", 0.0) for w in ckpts)
     combine = sum(w["write_s"] for w in schedule["checkpoints"]
@@ -3671,7 +3706,7 @@ def snapshot_costs(dev, card: str, schedule: dict) -> dict:
         f"(the writer {writer:.3f} s), the combined model's write "
         f"{combine:.3f} s: {sched['checkpoint_s_on_the_path']:.1f} s of "
         f"checkpoint time on the path")
-    return dict(runs=runs, schedule=sched)
+    return sched
 
 
 def _train_process(args, out: Path, timeout: int = 600):
@@ -3731,11 +3766,12 @@ def sigterm_resume(card: str, devkit) -> dict:
     each run in a process of its own: straight, and beside it one
     stopped by SIGTERM in the middle of epoch 1 (exit 0, an interrupt
     checkpoint with its data cursor); continued with ``--resume auto`` to
-    the end, byte-equal to the straight run; its newest epoch file
-    corrupted, ``--resume auto`` again, falling back to epoch 1 with a
-    warning and ending byte-equal.  Its work is in those processes, so
-    it runs :func:`in_background`; the devkit's roidb cache is written
-    before (the two first runs would race to write it)."""
+    the end, byte-equal to the straight run; beside that resume, a copy
+    of the straight run's files with its newest epoch file corrupted,
+    ``--resume auto`` on it, falling back to epoch 1 with a warning and
+    ending byte-equal.  Its work is in those processes, so it runs
+    :func:`in_background`; the devkit's roidb cache is written before
+    (the two first runs would race to write it)."""
     import signal
 
     from mx_rcnn_tpu_torch.utils.checkpoint import (checkpoint_path,
@@ -3770,11 +3806,6 @@ def sigterm_resume(card: str, devkit) -> dict:
     stop_s = time.perf_counter() - (sent or t0)
     err = err_path.read_text()
     (OUT_DIR / "long_sigterm.txt").write_text("".join(lines))
-    res, straight_s = wait_straight()
-    if res.returncode:
-        raise AssertionError(f"the straight run: exit {res.returncode}\n"
-                             f"{res.stderr[-3000:]}")
-    want = _sha256(checkpoint_path(straight, 2))
     manifest = read_manifest(interrupt_path(prefix)) or {}
     log(f"SIGTERM after step {16 + SIGTERM_AFTER + 1} (epoch 1, batch "
         f"{SIGTERM_AFTER}): exit {rc}, {stop_s:.2f} s from the signal to the "
@@ -3787,27 +3818,43 @@ def sigterm_resume(card: str, devkit) -> dict:
         raise AssertionError(f"the SIGTERM run: exit {rc}, manifest "
                              f"{manifest}\n{err[-3000:]}")
 
-    t0 = time.perf_counter()
-    _train_process(base + ["--prefix", prefix, "--resume", "auto"],
-                   OUT_DIR / "long_resume.txt")
-    resume_s = time.perf_counter() - t0
-    text = (OUT_DIR / "long_resume.txt").read_text()
+    def finished(wait, what: str):
+        res, wall = wait()
+        if res.returncode:
+            raise AssertionError(f"{what}: exit {res.returncode}\n"
+                                 f"{res.stderr[-3000:]}")
+        return res, wall
+
+    wait_resume = _start_process(
+        [sys.executable, "-c", TRAIN_PROCESS, *base, "--prefix", prefix,
+         "--resume", "auto"], OUT_DIR / "long_resume.txt")
+    _, straight_s = finished(wait_straight, "the straight run")
+    want = _sha256(checkpoint_path(straight, 2))
+    # the fallback runs on a copy of the straight run's files (the same
+    # names, so their manifests hold), beside the resume
+    fb_dir = LONG_DIR / "fallback"
+    fb_dir.mkdir()
+    for f in glob.glob(f"{straight}-*"):
+        shutil.copy(f, fb_dir)
+    fb_prefix = str(fb_dir / Path(straight).name)
+    path = checkpoint_path(fb_prefix, 2)
+    data = bytearray(open(path, "rb").read())
+    data[len(data) // 2] ^= 0x01
+    open(path, "wb").write(bytes(data))
+    wait_fallback = _start_process(
+        [sys.executable, "-c", TRAIN_PROCESS, *base, "--prefix", fb_prefix,
+         "--resume", "auto"], OUT_DIR / "long_fallback.txt")
+
+    res, resume_s = finished(wait_resume, "the resumed run")
     got = _sha256(checkpoint_path(prefix, 2))
     log(f"--resume auto from the interrupt: {resume_s:.1f} s, epoch 2 "
         f"byte-equal to the straight run: {got == want}; interrupt file "
         f"removed: {not os.path.exists(interrupt_path(prefix))}")
-    if got != want or "resumed mid-epoch from verified" not in text or \
-            os.path.exists(interrupt_path(prefix)):
+    if got != want or "resumed mid-epoch from verified" not in res.stdout \
+            or os.path.exists(interrupt_path(prefix)):
         raise AssertionError("the resumed run differs from the straight one")
 
-    path = checkpoint_path(prefix, 2)
-    data = bytearray(open(path, "rb").read())
-    data[len(data) // 2] ^= 0x01
-    open(path, "wb").write(bytes(data))
-    t0 = time.perf_counter()
-    res = _train_process(base + ["--prefix", prefix, "--resume", "auto"],
-                         OUT_DIR / "long_fallback.txt")
-    fallback_s = time.perf_counter() - t0
+    res, fallback_s = finished(wait_fallback, "the fallback run")
     again = _sha256(path)
     warned = "SKIPPING" in res.stderr and path in res.stderr
     log(f"epoch 2's file corrupted by one byte: --resume auto warned "
@@ -4012,16 +4059,17 @@ def long_run_checks(dev, card: str) -> dict:
                 parts_s=parts)
 
 
-def phase_long_run(dev, card: str, alternate: dict, checks: dict) -> dict:
+def phase_long_run(dev, card: str, checks: dict) -> dict:
     """Phase 13 (see the module docstring): its timed legs, after
     :func:`long_run_checks` gave ``checks``; files under ``_chip/``,
-    removed at the end."""
+    removed at the end.  Phase 10's schedule is read for its checkpoint
+    share by :func:`schedule_checkpoints` where both lanes have ended."""
     t0 = time.perf_counter()
     parts = dict(checks["parts_s"])
     shutil.rmtree(LONG_DIR, ignore_errors=True)
     LONG_DIR.mkdir(parents=True)
     try:
-        snapshots = snapshot_costs(dev, card, alternate["schedule"])
+        snapshots = snapshot_costs(dev, card)
         parts["snapshots"] = time.perf_counter() - t0
         costs = accum_costs(dev, card)
         parts["accumulation and remat costs"] = \
@@ -6054,12 +6102,22 @@ def quant_want(arm: str) -> dict:
     return want
 
 
-def phase_quant(dev, card: str) -> dict:
-    """Phase 16: K4-K6 against their plain versions at the path's shapes
-    and timed, sim against native, the percentile; then the quantized
-    eval of a seeded ResNet-101 through tools/test.py (int8 native, fp8
-    native, int8 sim, beside the fp bf16 eval), its launches, and each
-    arm's steady images/s and device time in turns; then
+def phase_quant_kernels(dev) -> dict:
+    """Phase 16's kernels, run with the card to itself before the lanes
+    start (main): K4-K6 against their plain versions at the path's shapes
+    and timed, sim against native, the percentile."""
+    t0 = time.perf_counter()
+    out = dict(k4=check_k4(dev), k5=check_qconv(dev, "int8"),
+               k6=check_qconv(dev, "fp8"), sim=check_sim_and_percentile(dev))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_quant(dev, card: str, kern: dict) -> dict:
+    """Phase 16: ``kern``, :func:`phase_quant_kernels`' record; then the
+    quantized eval of a seeded ResNet-101 through tools/test.py (int8
+    native, fp8 native, int8 sim, beside the fp bf16 eval), its launches,
+    and each arm's steady images/s and device time in turns; then
     tools/quant_smoke.py --check on the card."""
     from mx_rcnn_tpu_torch.config import generate_config
     from mx_rcnn_tpu_torch.core.tester import pred_eval
@@ -6068,11 +6126,7 @@ def phase_quant(dev, card: str) -> dict:
 
     t0 = time.perf_counter()
     parts = {}
-    k4 = check_k4(dev)
-    k5 = check_qconv(dev, "int8")
-    k6 = check_qconv(dev, "fp8")
-    sim = check_sim_and_percentile(dev)
-    parts["kernels"] = time.perf_counter() - t0
+    k4, k5, k6, sim = kern["k4"], kern["k5"], kern["k6"], kern["sim"]
     shutil.rmtree(QUANT_DIR, ignore_errors=True)
     QUANT_DIR.mkdir(parents=True)
     try:
@@ -6118,7 +6172,8 @@ def phase_quant(dev, card: str) -> dict:
         parts["quant_smoke"] = time.perf_counter() - t0 - sum(parts.values())
     finally:
         shutil.rmtree(QUANT_DIR, ignore_errors=True)
-    wall = time.perf_counter() - t0
+    parts = {"kernels": kern["wall_s"], **parts}
+    wall = time.perf_counter() - t0 + kern["wall_s"]
     for arm, recs in steady.items():
         log(f"phase 16 {arm} on {card}: images/s "
             f"{[round(r['images_per_s'], 3) for r in recs]}, device ms per "
@@ -8393,7 +8448,7 @@ def phase_ft(dev, card: str, legs) -> dict:
     a rank's host, shrink 2 ranks to 1 with grad_accum 2, grow back,
     complete; every restore bit-identical, steps per epoch unchanged.
     (b) and (c) are ``legs``, the records of :func:`ft_legs` (main runs
-    it beside phase 13's legs that time nothing); then
+    it beside the lanes); then
     ``measure_snapshot_overhead(network='resnet101')`` alone against the
     tool's 5% ceiling."""
     from mx_rcnn_tpu_torch.ft.supervisor import measure_snapshot_overhead
@@ -8452,7 +8507,7 @@ def phase_ft(dev, card: str, legs) -> dict:
             raise AssertionError(f"phase 22 (a) per_image: {pl}")
         done("profile_per_image")
 
-        # (b) and (c), run beside each other and phase 13's checks
+        # (b) and (c), run beside each other and the lanes
         crash, storm = legs
         children = [("control", crash["control"])] + [
             (f"attempt {a['attempt']}", a) for a in crash["attempts"]]
@@ -8472,7 +8527,7 @@ def phase_ft(dev, card: str, legs) -> dict:
                         for a in crash["attempts"])
             + f"; K1/K2/K3 1/1/1 a step in all {len(children)} children (K1 "
             f"at the JAX supervisor's pre/post-NMS 1024/300); "
-            f"{crash['leg_s']:.1f} s beside the storm and phase 13's checks; "
+            f"{crash['leg_s']:.1f} s beside the storm and the lanes; "
             f"{card}")
         log(f"phase 22 (c): {storm['rig']}; restores {storm['restores']} "
             f"bit-identical {storm['restores_bit_identical']}, grad_accum "
@@ -8483,7 +8538,7 @@ def phase_ft(dev, card: str, legs) -> dict:
             f"{storm['steps_left_at_grow']} steps left at the grow; "
             f"recovery ms {storm['recovery_ms']['by_kind']}; worlds "
             f"{storm['worlds_launched']}; {storm['leg_s']:.1f} s beside the "
-            f"crash loop and phase 13's checks; {card}")
+            f"crash loop and the lanes; {card}")
 
         # the snapshot stall, alone on the card
         ov = measure_snapshot_overhead(network="resnet101", **FT_OVERHEAD)
@@ -8506,6 +8561,9 @@ def phase_ft(dev, card: str, legs) -> dict:
 
 
 TS_DIR = REPO / "_chip" / "train_step"   # phase 23's stores and copies
+# crash states a crash point (the tool's --smoke default 128): the planted
+# no-fsync arm's 3408 states took 62.9 s of a core on the card host
+TS_MAX_STATES = 32
 # bench.py's configuration (bench.py:30-34) through tools/train.py's flags:
 # ResNet-101 e2e, 81 classes, batch 2, the 608x1024 bucket (the synthetic
 # stand-in images' only one), bf16, pre/post-NMS 6000/2000
@@ -8578,13 +8636,14 @@ def ts_export_leg() -> dict:
 
 
 def ts_crashsim_leg() -> dict:
-    """Phase 23 (b): ``tools/crashsim.py --smoke --check --device cuda``
-    in a process of its own; its record."""
+    """Phase 23 (b): ``tools/crashsim.py --smoke --check --device cuda
+    --max_states TS_MAX_STATES`` in a process of its own; its record."""
     rec_path = OUT_DIR / "crashsim.json"
     res, wall = _start_process(
         [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.crashsim", "--smoke",
-         "--check", "--device", "cuda", "--workdir", str(TS_DIR / "crash"),
-         "--out", str(rec_path)], OUT_DIR / "crashsim.txt", timeout=600)()
+         "--check", "--device", "cuda", "--max_states", str(TS_MAX_STATES),
+         "--workdir", str(TS_DIR / "crash"), "--out", str(rec_path)],
+        OUT_DIR / "crashsim.txt", timeout=600)()
     if res.returncode:
         raise AssertionError(f"phase 23 (b): crashsim exit {res.returncode}"
                              f"\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
@@ -8681,6 +8740,348 @@ def phase_train_step(card: str, legs) -> dict:
                 launches=launches, wall_s=wall)
 
 
+GT_DIR = REPO / "_chip" / "gauntlet"   # phase 24's sets, checkpoints, records
+# (a) the JAX slow test's red-team recipe
+# (tests/test_gauntlet.py — test_paired_gate_fires_on_damaged_arm): each
+# of its cells (mode, seed) a process, then the gate over their records
+GT_RECIPE = ["--network", "tiny", "--epochs", "4", "--lr", "3e-3",
+             "--lr_step", "3"]
+GT_CELLS = (("e2e", 0), ("redteam", 0), ("e2e", 1), ("redteam", 1))
+GT_GATE = GT_RECIPE + ["--seeds", "0", "1", "--compare", "e2e", "redteam"]
+# (b) the flagship width: ResNet-101 in bf16 (its default compute dtype),
+# one seed, one epoch of the set cut to GT_FLAGSHIP_IMAGES (train, test)
+GT_FLAGSHIP = ["--network", "resnet101", "--seeds", "0", "--epochs", "1",
+               "--mode", "e2e"]
+GT_FLAGSHIP_IMAGES = "16,8"
+# each leg's intra-op threads: the legs share the host with both lanes
+# and phases 22's and 23's legs, and their work is on the card
+GT_THREADS = 1
+# tools/gauntlet.py's main with its train_net and test_rcnn counted: each
+# call's kernel launches, a training run's steps and its ms a step (between
+# the first and the last step's callback); one GAUNTLET_RUNS line, then the
+# tool's own exit code.  argv[1]: the generated set's (train, test) image
+# counts ('-': the tool's 400 and 100), argv[2]: the intra-op threads, the
+# rest the tool's flags
+GT_CHILD = """
+import json, os, sys, time
+os.environ["OMP_NUM_THREADS"] = sys.argv[2]
+import torch
+from mx_rcnn_tpu_torch import kernels
+from mx_rcnn_tpu_torch.data import synthetic
+from mx_rcnn_tpu_torch.tools import gauntlet, test, train
+runs = []
+net, evaluate = train.train_net, test.test_rcnn
+torch.set_num_threads(int(sys.argv[2]))
+if sys.argv[1] != "-":
+    n_train, n_test = map(int, sys.argv[1].split(","))
+    init = synthetic.HardSyntheticDataset.__init__
+
+    def cut(self, image_set="train", num_images=None, *args, **kw):
+        if num_images is None:
+            num_images = n_train if "train" in image_set else n_test
+        init(self, image_set, num_images, *args, **kw)
+
+    synthetic.HardSyntheticDataset.__init__ = cut
+
+
+def since(before):
+    return {k: v - before.get(k, 0) for k, v in kernels.launch_counts().items()}
+
+
+def counted_train(cfg, **kw):
+    marks = []
+    kw["step_callback"] = lambda step: marks.append(time.perf_counter())
+    before = kernels.launch_counts()
+    out = net(cfg, **kw)
+    torch.cuda.synchronize()
+    runs.append(dict(kind="train", prefix=kw["prefix"], steps=len(marks),
+                     ms_step=(marks[-1] - marks[0]) / (len(marks) - 1) * 1e3,
+                     launches=since(before)))
+    return out
+
+
+def counted_eval(cfg, **kw):
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    out = evaluate(cfg, **kw)
+    torch.cuda.synchronize()
+    runs.append(dict(kind="eval", prefix=kw["prefix"],
+                     s=time.perf_counter() - t0, launches=since(before)))
+    return out
+
+
+train.train_net, test.test_rcnn = counted_train, counted_eval
+rc = gauntlet.main(sys.argv[3:])
+print("GAUNTLET_RUNS " + json.dumps(runs), flush=True)
+sys.exit(rc)
+"""
+
+
+def gt_leg(name: str, args: list, images: str = "-") -> dict:
+    """``tools/gauntlet.py`` through :data:`GT_CHILD` in a process of its
+    own, over its own generated set under :data:`GT_DIR`: its exit code,
+    counted runs, JSON lines and records."""
+    root = GT_DIR / name
+    out = root / "results.json"
+    res, wall = _start_process(
+        [sys.executable, "-c", GT_CHILD, images, str(GT_THREADS), *args,
+         "--root", str(root),
+         "--workdir", str(root / "work"), "--out", str(out)],
+        OUT_DIR / f"gauntlet_{name}.txt", timeout=900)()
+    tagged = [ln for ln in res.stdout.splitlines()
+              if ln.startswith("GAUNTLET_RUNS ")]
+    if not tagged or not out.exists():
+        raise AssertionError(f"phase 24 {name}: exit {res.returncode}, no "
+                             f"record\n{res.stderr[-3000:]}")
+    return dict(rc=res.returncode, wall_s=wall,
+                runs=json.loads(tagged[-1].split(" ", 1)[1]),
+                lines=[json.loads(ln) for ln in res.stdout.splitlines()
+                       if ln.startswith("{")],
+                records=json.loads(out.read_text()), work=root / "work")
+
+
+def gt_legs():
+    """Phase 24's gauntlet runs, each in a process of its own: the four
+    red-team cells and the flagship beside each other, then the gate,
+    ``--compare e2e redteam`` over the cells' records (reused, no
+    training): (cells, gate, flagship)."""
+    shutil.rmtree(GT_DIR, ignore_errors=True)
+    GT_DIR.mkdir(parents=True)
+    cell_bgs = [in_background(gt_leg, f"{mode}-s{seed}", GT_RECIPE + [
+        "--mode", mode, "--seeds", str(seed)]) for mode, seed in GT_CELLS]
+    flagship = gt_leg("flagship", GT_FLAGSHIP, GT_FLAGSHIP_IMAGES)
+    cells = [bg() for bg in cell_bgs]
+    (GT_DIR / "gate").mkdir()
+    (GT_DIR / "gate" / "results.json").write_text(json.dumps(
+        [r for c in cells for r in c["records"]], indent=1))
+    return cells, gt_leg("gate", GT_GATE), flagship
+
+
+def gt_check_runs(name: str, leg: dict) -> dict:
+    """Every training run launched K1, K2 and K3 once a step and no
+    quantized kernel; every eval K1 twice and K2 once a batch, K3 never.
+    The summed launches of the leg."""
+    total: dict = {}
+    for run in leg["runs"]:
+        got = run["launches"]
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        if run["kind"] == "train":
+            ok = run["steps"] > 0 and all(
+                got.get(k) == run["steps"] for k in PATH_KERNELS)
+        else:
+            ok = got.get("roi_align_fwd", 0) > 0 and \
+                got.get("nms_sweep") == 2 * got["roi_align_fwd"] and \
+                not got.get("roi_align_bwd")
+        if not ok or any(got.get(k) for k in QUANT_KERNELS):
+            raise AssertionError(f"phase 24 {name}: launches {run}")
+    return total
+
+
+def phase_gauntlet(card: str, legs) -> dict:
+    """Phase 24: the accuracy gauntlet, ``tools/gauntlet.py``, in
+    processes of their own beside the lanes.
+    (a) the paired red-team gate at the JAX slow test's recipe (tiny,
+    seeds 0 1, 4 epochs, lr 3e-3, step 3): each of its four cells
+    (:data:`GT_CELLS`) a process, then ``--compare e2e redteam``
+    over their records, which trains nothing: exit 1, every delta below
+    -budget, the mean delta below -0.05, ``within_budget`` false, every
+    redteam record damaged ``test__nms=0.9``, and at each seed the e2e and
+    redteam checkpoints byte-equal though two processes wrote them (the
+    shared training bits under the tool's pins).  (b) the flagship width:
+    ResNet-101 in bf16, seed 0, one epoch of :data:`GT_FLAGSHIP_IMAGES`,
+    ``--mode e2e``, beside the cells: one record with a finite mAP in
+    [0, 1] (recorded, not judged).  In both, K1, K2 and K3 once a
+    training step, K1 twice and K2 once an eval batch.  ``legs`` are :func:`gt_legs`' records (main runs it
+    beside the lanes); this times nothing on the card."""
+    t0 = time.perf_counter()
+    try:
+        cells, gate, flag = legs
+        for name, leg in [("(a)", c) for c in cells] + [("(b)", flag)]:
+            for run in leg["runs"]:
+                what = (f"{run['steps']} steps, {run['ms_step']:.2f} ms a "
+                        f"step" if run["kind"] == "train"
+                        else f"eval {run['s']:.1f} s")
+                log(f"phase 24 {name}: {Path(run['prefix']).name} {what}, "
+                    f"launches {fp_only(run['launches'])}")
+        cmp = [ln for ln in gate["lines"] if "compare" in ln]
+        log(f"phase 24 (a): cells {[round(c['wall_s'], 1) for c in cells]} "
+            f"s with their processes, exits {[c['rc'] for c in cells]}; the "
+            f"gate exit {gate['rc']}, {cmp[-1] if cmp else None}, "
+            f"{gate['wall_s']:.1f} s; {card}")
+        if any(c["rc"] for c in cells) or gate["runs"]:
+            raise AssertionError(f"phase 24 (a): cells exit "
+                                 f"{[c['rc'] for c in cells]}, the gate "
+                                 f"trained {gate['runs']}")
+        if gate["rc"] != 1 or not cmp:
+            raise AssertionError(f"phase 24 (a): exit {gate['rc']}: the gate "
+                                 f"did not fire; {gate['lines']}")
+        cmp = cmp[-1]
+        if cmp["compare"] != "redteam-vs-e2e" or \
+                not all(d < -cmp["budget"] for d in cmp["deltas"]) or \
+                not cmp["mean_delta"] < -0.05 or \
+                cmp["within_budget"] is not False or \
+                cmp["seeds"] != [0, 1]:
+            raise AssertionError(f"phase 24 (a): {cmp}")
+        records = gate["records"]
+        if sorted((r["mode"], r["seed"]) for r in records) != [
+                ("e2e", 0), ("e2e", 1), ("redteam", 0), ("redteam", 1)] or \
+                any(r["damage"] != "test__nms=0.9" for r in records
+                    if r["mode"] == "redteam"):
+            raise AssertionError(f"phase 24 (a): records {records}")
+        same = {}
+        for seed in (0, 1):
+            a, b = (GT_DIR / f"{m}-s{seed}" / "work" /
+                    f"{m}-tiny-s{seed}-0004.ckpt" for m in ("e2e", "redteam"))
+            same[seed] = a.read_bytes() == b.read_bytes()
+        log(f"phase 24 (a): e2e and redteam checkpoints byte-equal {same}; "
+            f"mAPs {[(r['mode'], r['seed'], r['mAP']) for r in records]}")
+        if not all(same.values()):
+            raise AssertionError(f"phase 24 (a): training bits differ {same}")
+        launches: dict = {}
+        for c in cells + [flag]:
+            for k, v in gt_check_runs(c["work"].parent.name, c).items():
+                launches[k] = launches.get(k, 0) + v
+        recs = flag["records"]
+        log(f"phase 24 (b): exit {flag['rc']}, records "
+            f"{[(r['mode'], r['network'], r['seed'], r['mAP']) for r in recs]}"
+            f", {flag['wall_s']:.1f} s with the process; {card}")
+        if flag["rc"] != 0 or len(recs) != 1 or \
+                recs[0]["network"] != "resnet101" or \
+                not math.isfinite(recs[0]["mAP"]) or \
+                not 0.0 <= recs[0]["mAP"] <= 1.0:
+            raise AssertionError(f"phase 24 (b): {flag['rc']} {recs}")
+        keep = [{k: v for k, v in leg.items() if k != "work"}
+                for leg in cells + [gate, flag]]
+        (OUT_DIR / "gauntlet.json").write_text(json.dumps(keep, indent=1))
+    finally:
+        shutil.rmtree(GT_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    return dict(redteam=dict(compare=cmp, records=records,
+                             cells=[dict(runs=c["runs"], wall_s=c["wall_s"])
+                                    for c in cells],
+                             gate_s=gate["wall_s"], checkpoints_equal=same),
+                flagship=dict(records=recs, runs=flag["runs"],
+                              wall_s=flag["wall_s"]),
+                launches=launches, wall_s=wall)
+
+
+# ---- the lanes --------------------------------------------------------------
+
+# after the kernels line's timed comparisons (phases 2-4 and phase 16's
+# kernels) and phases 5-9, which run with the card to themselves, phases
+# 10, 12, the rest of 16 and 17 run here (lane A) while lane B runs the
+# phases of LANES in a process of its own (this script with LANE_FLAG),
+# and phases 22-24's legs in theirs, all beside each other; phases 11
+# and 18-22 run after them, alone
+LANE_FLAG = "--lane"
+LANE_TIMEOUT_S = 900
+LANES = {"B": (13, 14, 15)}
+
+
+def _phase13(dev, card: str) -> dict:
+    return phase_long_run(dev, card, long_run_checks(dev, card))
+
+
+# each lane phase's key in the results and its function
+LANE_PHASES = {13: ("long_run", _phase13),
+               14: ("data_parallel", phase_data_parallel),
+               15: ("device_cache", phase_device_cache)}
+
+
+def lane_phases(name: str, dev, card: str) -> dict:
+    """Lane ``name``'s phases in turn, each with its own launch counts
+    and cuDNN settings (this process's); their records by key, their
+    seconds and the lane's."""
+    t0 = time.perf_counter()
+    rec, phase_s = {}, {}
+    for n in LANES[name]:
+        t = time.perf_counter()
+        key, fn = LANE_PHASES[n]
+        rec[key] = fn(dev, card)
+        phase_s[n] = time.perf_counter() - t
+    return dict(rec, phase_s=phase_s, wall_s=time.perf_counter() - t0)
+
+
+def lane_main(name: str, out: Path, card: str, parent: int) -> int:
+    """A lane's process: killed when ``parent`` (this script's main
+    process) ends, the kernels it built loaded, TF32 off as in
+    :func:`main`, :func:`lane_phases`' record written to ``out``."""
+    import ctypes
+    import signal
+
+    # Linux's PR_SET_PDEATHSIG: SIGKILL this process when its parent's
+    # starting thread (the main thread) ends; exit now if it has
+    ctypes.CDLL(None).prctl(1, int(signal.SIGKILL), 0, 0, 0)
+    if os.getppid() != parent:
+        return 1
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from mx_rcnn_tpu_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_all()
+    rec = lane_phases(name, torch.device("cuda", 0), card)
+    out.write_text(json.dumps(rec))
+    return 0
+
+
+def start_lane(name: str, card: str):
+    """Lane ``name`` (:data:`LANES`) in a process of its own (this script
+    with :data:`LANE_FLAG`), started now from the main thread, in a
+    process group of its own and killed if this process ends first; its
+    output relayed line by line to this one's.  Returns (join, stop):
+    ``join`` waits for it and gives its record, or raises; ``stop`` kills
+    its process group."""
+    import signal
+
+    out = OUT_DIR / f"lane_{name}.json"
+    out.unlink(missing_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), LANE_FLAG, name,
+         str(out), card, str(os.getpid())], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+    def relay(src, dst):
+        for line in src:
+            print(line, end="", file=dst, flush=True)
+
+    pumps = [threading.Thread(target=relay, args=(proc.stdout, sys.__stdout__),
+                              daemon=True),
+             threading.Thread(target=relay, args=(proc.stderr, sys.__stderr__),
+                              daemon=True)]
+    for t in pumps:
+        t.start()
+
+    def stop():
+        # the group too: whatever the lane left running when it ended
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+    def join():
+        try:
+            rc = proc.wait(timeout=LANE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            stop()
+            raise AssertionError(f"lane {name} (phases {LANES[name]}) "
+                                 f"still running after {LANE_TIMEOUT_S} "
+                                 f"s") from None
+        for t in pumps:
+            t.join()
+        if rc:
+            raise AssertionError(f"lane {name} (phases {LANES[name]}): "
+                                 f"exit {rc}")
+        rec = json.loads(out.read_text())
+        rec["phase_s"] = {int(k): v for k, v in rec["phase_s"].items()}
+        return rec
+
+    return join, stop
+
+
 def kernel_line(kern, res: dict, launches: int) -> dict:
     return dict(name=kern.name, route="cuda",
                 source=str(kern.source.relative_to(REPO)),
@@ -8739,32 +9140,59 @@ def main() -> int:
     k1 = timed(2, phase_k1, dev)
     k2 = timed(3, phase_k2, dev)
     k3 = timed(4, phase_k3, dev)
+    quant_kernels = phase_quant_kernels(dev)
     parity = timed(5, phase_forward_parity, dev)
     train_parity = timed(6, phase_train_parity, dev)
     serving = timed(7, phase_serving, dev, card)
     training = timed(8, phase_training, dev, card)
     evaluation = timed(9, phase_eval, dev, card)
-    alternate = timed(10, phase_alternate, dev, card)
-    engine = timed(11, phase_engine, dev, card)
-    real_data = timed(12, phase_real_data, dev, card)
-    # phase 22's crash loop and storm (processes of their own) run beside
-    # phase 13's legs that time nothing; the wait for them past those legs
-    # counts as phase 22's
-    ft_bg = in_background(ft_legs)
-    ts_bg = in_background(ts_legs)
-    checks = timed(13, long_run_checks, dev, card)
+    # the lanes: B in a process of its own, phases 22-24's legs in
+    # theirs, all beside lane A's phases here
+    lanes = {name: start_lane(name, card) for name in LANES}
+    try:
+        ft_bg = in_background(ft_legs)
+        ts_bg = in_background(ts_legs)
+        gt_bg = in_background(gt_legs)
+        t0 = time.perf_counter()
+        alternate = timed(10, phase_alternate, dev, card)
+        real_data = timed(12, phase_real_data, dev, card)
+        quant = timed(16, phase_quant, dev, card, quant_kernels)
+        phase_s[16] += quant_kernels["wall_s"]
+        obs = timed(17, phase_obs, dev, card)
+        lane_s = {"A": time.perf_counter() - t0}
+        recs, waits = {}, {}
+        for name, (join, _) in lanes.items():
+            t0 = time.perf_counter()
+            recs[name] = join()
+            waits[name] = time.perf_counter() - t0
+            lane_s[name] = recs[name]["wall_s"]
+            phase_s.update(recs[name].pop("phase_s"))
+    finally:
+        for _, stop in lanes.values():
+            stop()
+    got = {k: v for r in recs.values() for k, v in r.items()}
+    long_run, data_parallel, device_cache = (
+        got["long_run"], got["data_parallel"], got["device_cache"])
+    long_run["snapshots"]["schedule"] = schedule_checkpoints(
+        alternate["schedule"])
+    # each leg's wait past the lanes counts as its phase's
     t0 = time.perf_counter()
     ft_runs = ft_bg()
     ft_wait = time.perf_counter() - t0
     t0 = time.perf_counter()
     ts_runs = ts_bg()
     ts_wait = time.perf_counter() - t0
-    long_run = phase_long_run(dev, card, alternate, checks)
-    phase_s[13] = long_run["wall_s"]
-    data_parallel = timed(14, phase_data_parallel, dev, card)
-    device_cache = timed(15, phase_device_cache, dev, card)
-    quant = timed(16, phase_quant, dev, card)
-    obs = timed(17, phase_obs, dev, card)
+    t0 = time.perf_counter()
+    gt_runs = gt_bg()
+    gt_wait = time.perf_counter() - t0
+    log("the lanes beside each other and phases 22-24's legs: "
+        + ", ".join(f"{k} (phases {LANES.get(k, (10, 12, 16, 17))})"
+                    f" {v:.1f} s" for k, v in lane_s.items())
+        + "; waited " + ", ".join(f"{v:.1f} s for {k}"
+                                  for k, v in waits.items())
+        + f", then {ft_wait:.1f}, {ts_wait:.1f} and {gt_wait:.1f} s for the "
+        f"legs of phases 22, 23 and 24")
+    engine = timed(11, phase_engine, dev, card)
     bulk = timed(18, phase_bulk, dev, card)
     fleet = timed(19, phase_fleet, dev, card)
     cross = timed(20, phase_crosshost, dev, card)
@@ -8776,9 +9204,11 @@ def main() -> int:
     phase_s[22] += ft_wait
     train_step = timed(23, phase_train_step, card, ts_runs)
     phase_s[23] += ts_wait
+    gauntlet = timed(24, phase_gauntlet, card, gt_runs)
+    phase_s[24] += gt_wait
     script_s = time.perf_counter() - script_t0
-    log("seconds a phase (phase 1 the build): " + ", ".join(
-        f"{k} {v:.1f}" for k, v in phase_s.items())
+    log("seconds a phase (phase 1 the build; 10 and 12-17 in the lanes"
+        "): " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(phase_s.items()))
         + f"; the script {script_s:.1f} s from its start")
 
     # no single PyTorch call computes any of K1-K3 (the repo's bilinear
@@ -8811,6 +9241,8 @@ def main() -> int:
         line["launches_phase22"] = ft_runs[line["name"]]
         if train_step["launches"].get(line["name"]):
             line["launches_phase23"] = train_step["launches"][line["name"]]
+        if line["name"] in PATH_KERNELS:
+            line["launches_phase24"] = gauntlet["launches"][line["name"]]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
         card=card, host=host, build_s=build_s, qconv_sass=sass, k1=k1,
         k2=k2, k3=k3,
@@ -8819,8 +9251,9 @@ def main() -> int:
         engine=engine, real_data=real_data, long_run=long_run,
         data_parallel=data_parallel, device_cache=device_cache,
         quant=quant, obs=obs, bulk=bulk, fleet=fleet, crosshost=cross,
-        rollout=rollout, ft=ft, train_step=train_step,
+        rollout=rollout, ft=ft, train_step=train_step, gauntlet=gauntlet,
         phase_s={str(k): v for k, v in phase_s.items()},
+        lanes=dict(seconds=lane_s, waits=waits),
         script_s=script_s), indent=1))
     print(card)
     print(json.dumps({"kernels": lines}))
@@ -8831,4 +9264,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [LANE_FLAG]:
+        sys.exit(lane_main(sys.argv[2], Path(sys.argv[3]), sys.argv[4],
+                           int(sys.argv[5])))
     sys.exit(main())

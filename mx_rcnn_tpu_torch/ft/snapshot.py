@@ -177,9 +177,9 @@ class _SnapshotterBase:
     def _gc_fn(self):
         if self.cfg is None or not self.cfg.ft.keep_last:
             return None
-        ft, prefix = self.cfg.ft, self.prefix
-        return lambda: gc_checkpoints(prefix, keep_last=ft.keep_last,
-                                      keep_every=ft.keep_every)
+        cfg, prefix = self.cfg, self.prefix
+        return lambda: gc_checkpoints(prefix, keep_last=cfg.ft.keep_last,
+                                      keep_every=cfg.ft.keep_every)
 
     def _check_step(self, host: HostTrainState) -> None:
         """Within one snapshotter the step only moves forward; a negative
@@ -244,6 +244,7 @@ class AsyncSnapshotter(_SnapshotterBase):
                             path, job.host.step)
             except BaseException as e:  # noqa: BLE001 — raised to the caller
                 logger.error("background snapshot write FAILED: %s", e)
+                # threadlint: disable=TL201 single writer thread, single reader (train); a reference store is atomic — worst case the error surfaces one snapshot later
                 self._error = e
             finally:
                 self._q.task_done()

@@ -53,10 +53,10 @@ class Histogram:
 
     def record(self, value: float) -> None:
         i = int(np.searchsorted(self.bounds, value))
-        self.counts[i] += 1
-        self.total += 1
-        self.sum += value
-        self.max = max(self.max, value)
+        self.counts[i] += 1  # threadlint: disable=TL201 guarded by Registry.lock at every call site (observe/observe_batch)
+        self.total += 1      # threadlint: disable=TL201 guarded by Registry.lock at every call site (observe/observe_batch)
+        self.sum += value    # threadlint: disable=TL201 guarded by Registry.lock at every call site (observe/observe_batch)
+        self.max = max(self.max, value)  # threadlint: disable=TL201 guarded by Registry.lock at every call site (observe/observe_batch)
 
     def percentile(self, p: float) -> Optional[float]:
         """p in [0, 100]; None when empty.  The overflow bucket reports

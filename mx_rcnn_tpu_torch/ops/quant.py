@@ -119,8 +119,10 @@ class QuantSpec:
         return torch.float8_e4m3fn if self.dtype == "fp8" else torch.int8
 
 
-def spec_from_config(qcfg, phase: str = "apply") -> QuantSpec:
-    """``cfg.quant`` → :class:`QuantSpec` (validates every knob)."""
+def spec_from_config(qcfg: "QuantConfig", phase: str = "apply") -> QuantSpec:
+    """``cfg.quant`` → :class:`QuantSpec` (validates every knob).  The
+    string annotation names the config section for configlint; ops/
+    does not import config.py."""
     return QuantSpec(dtype=qcfg.dtype, mode=qcfg.mode,
                      estimator=qcfg.estimator, percentile=qcfg.percentile,
                      weight_bits=qcfg.weight_bits, phase=phase)

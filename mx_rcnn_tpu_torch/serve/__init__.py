@@ -1,17 +1,20 @@
 """Online detection serving of the port.
 
-Counterpart of ``mx_rcnn_tpu/serve/``, its single-engine tier:
+Counterpart of ``mx_rcnn_tpu/serve/``.  The single-engine tier:
 
 * ``queue.py``  — bounded admission queues, deadlines, load shedding;
 * ``engine.py`` — per-bucket micro-batching over ``Predictor`` and the
   eval's postprocess (K1 and K2 on the card);
 * ``server.py`` — the stdlib JSON/HTTP front end (/detect /healthz
-  /metrics).
+  /metrics);
+* ``metrics.py`` — the back-compat shim over ``obs/metrics.py``.
 
-Entry points: ``python -m mx_rcnn_tpu_torch.tools.serve`` (checkpoint →
-warm HTTP service) and ``python -m mx_rcnn_tpu_torch.tools.loadgen``
-(closed and open loops, one JSON record).  The export store, the fleet,
-bulk, remote, agent, scheduler and rollout tiers are not ported.
+Above it: ``export.py`` (the export store), ``bulk.py``, ``fleet.py``,
+``remote.py`` and ``agent.py`` (the cross-host tier), ``scheduler.py``
+and ``rollout.py``.  Entry points: ``python -m
+mx_rcnn_tpu_torch.tools.serve`` (checkpoint → warm HTTP service) and
+``python -m mx_rcnn_tpu_torch.tools.loadgen`` (closed and open loops,
+one JSON record).
 """
 
 from mx_rcnn_tpu_torch.obs.metrics import Histogram, ServeMetrics  # noqa: F401

@@ -299,6 +299,7 @@ class ServingEngine:
             tracing = obs_trace.enabled()
             label = f"{bucket[0]}x{bucket[1]}"
             for r in reqs:
+                # threadlint: disable=TL201 single writer (this bucket's only dispatcher); readers observe it after the _finish lock+Event publication barrier
                 r.dispatch_t = now
                 self.metrics.observe("queue_wait_ms",
                                      (now - r.enqueue_t) * 1e3)
@@ -337,6 +338,7 @@ class ServingEngine:
                         self.metrics.count("expired")
                     continue
                 dets = detections_from_keep(boxes_b, scores_b, keep_b, j)
+                # threadlint: disable=TL201 written before the terminal transition; readers (fleet callback, loadgen) observe it only after the _finish lock+Event publication barrier
                 r.batch_rows = len(reqs)
                 if r._finish(SERVED, result=dets):
                     self.metrics.count("served")

@@ -688,7 +688,7 @@ class PipelineController:
             # steady state against a genuinely slow agent
             self._depth = min(self._depth + 1, self.depth_max)
         self.depth_peak = max(self.depth_peak, self._depth)
-        self._full = False  # under self._lock: the one caller, note_rtt
+        self._full = False  # threadlint: disable=TL201 guarded by self._lock at the only call site (note_rtt)
         self._floor = float("inf")
         self._last = now
         self.retunes += 1

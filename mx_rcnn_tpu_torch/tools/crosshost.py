@@ -153,6 +153,7 @@ class AgentProc:
         if not self.ready.get("ready"):
             raise RuntimeError(f"agent {self.name} reported unready: "
                                f"{self.ready}")
+        # threadlint: disable=TL201 one instance's port is written once, by the thread that waits on its ready line and alone reads it until wait_ready returns (tools/rollout.py — _kill_leg's relaunch)
         self.port = int(self.ready["port"])
         return self.ready
 

@@ -1,14 +1,18 @@
 """Public names the port's ported modules carry as the JAX ones do, held
 against them on the CPU: ``serve/queue.py — ServeRequest.queue_wait_s``
-and ``total_s``, and ``utils/checkpoint.py — tree_size_bytes``.
+and ``total_s``, ``utils/checkpoint.py — tree_size_bytes``, and the
+``serve/metrics.py`` back-compat shim.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mx_rcnn_tpu.serve import metrics as j_serve_metrics
 from mx_rcnn_tpu.serve import queue as j_queue
 from mx_rcnn_tpu.utils import checkpoint as j_ckpt
+from mx_rcnn_tpu_torch.obs import metrics as t_obs_metrics
+from mx_rcnn_tpu_torch.serve import metrics as t_serve_metrics
 from mx_rcnn_tpu_torch.serve import queue as t_queue
 from mx_rcnn_tpu_torch.utils import checkpoint as t_ckpt
 
@@ -72,3 +76,45 @@ def test_tree_size_bytes_counts_tensors_by_their_dtype():
         j_ckpt.tree_size_bytes(np_tree) - 8 * 2
     model = torch.nn.Linear(3, 2)
     assert t_ckpt.tree_size_bytes(model.state_dict()) == (6 + 2) * 4
+
+
+SHIM_NAMES = ("Histogram", "Registry", "ServeMetrics")
+
+
+@pytest.mark.parametrize("name", SHIM_NAMES)
+def test_serve_metrics_shim_reexports_obs_metrics(name):
+    """``serve/metrics.py`` carries the JAX shim's names, each the very
+    object ``obs/metrics.py`` defines."""
+    assert getattr(t_serve_metrics, name) is getattr(t_obs_metrics, name)
+    assert hasattr(j_serve_metrics, name)
+
+
+def test_serve_metrics_shim_has_the_jax_names_but_lowering_counter():
+    def public(mod):
+        return {n for n in vars(mod) if not n.startswith("_")
+                and isinstance(getattr(mod, n), type)}
+
+    assert public(j_serve_metrics) - public(t_serve_metrics) == \
+        {"LoweringCounter"}
+    assert public(t_serve_metrics) == set(SHIM_NAMES)
+    # the port counts kernel builds in LoweringCounter's place
+    from mx_rcnn_tpu_torch import kernels
+
+    assert set(kernels.load_events()) >= {"builds"}
+
+
+def test_serve_metrics_shim_snapshot_equals_jax():
+    """A ServeMetrics through each shim: the same snapshot after the
+    same traffic."""
+    snaps = []
+    for mod in (j_serve_metrics, t_serve_metrics):
+        m = mod.ServeMetrics()
+        for _ in range(3):
+            m.count("submitted")
+        m.count("served", 2)
+        m.count("shed")
+        for v in (0.5, 3.0, 120.0):
+            m.observe("queue_wait_ms", v)
+        m.observe_batch(3, 4, 12.5)
+        snaps.append(m.snapshot())
+    assert snaps[1] == snaps[0]
