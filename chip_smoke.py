@@ -5,8 +5,9 @@ real-dataset input plane, the long training run, data parallelism, the
 device-resident training epoch, quantized inference, the observability
 plane, bulk scoring over an export-warmed engine, the serving fleet, the
 cross-host serving tier, the rollout plane, fault-tolerant and elastic
-training, the durability plane and the train-step store, and the
-accuracy gauntlet on one NVIDIA card.
+training, the durability plane and the train-step store, the
+accuracy gauntlet, and the network surface's linter and fuzzer on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -275,15 +276,17 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     480x640 and 640x480 in turns, under ``_chip/bulk``: the store with
     its weights and the K1/K2 libraries (each program's bits twice);
     its refusals of another ``serve.score_thresh`` and of an int8
-    engine; two processes over a copy of the package whose ``_build/``
-    is empty, each joining with 0 builds: one SIGKILLed right after
-    shard 2 commits, one running the control (every image once, K1 2
-    and K2 1 launches per engine batch), the killed sink's resume
-    (shards byte-equal to the control's), a closed loop of 8 clients
-    (bulk images/s beside it) and a rate pass over the corpus 16 times
-    over (320 images, 16 plan batches a shard); each control line byte-equal to the
-    offline batch here; ``tools/demo.py --prefix --epoch --image
-    --out`` on the card (a PNG of the image's size);
+    engine; two processes beside each other, each over a copy of the
+    package whose ``_build/`` is empty, each joining with 0 builds: one
+    SIGKILLed right after shard 2 commits, one running the control
+    (every image once, K1 2 and K2 1 launches per engine batch), then,
+    once the first has exited, the killed sink's resume (shards
+    byte-equal to the control's), a closed loop of 8 clients (bulk
+    images/s beside it) and a rate pass over the corpus 16 times over
+    (320 images, 16 plan batches a shard); meanwhile ``tools/demo.py
+    --prefix --epoch --image --out`` on the card here (a PNG of the
+    image's size); each control line byte-equal to the offline batch
+    here;
 19. the serving fleet, the thirteenth main path (``serve/fleet.py``:
     ``RestartPolicy`` → ``ReplicaManager`` → ``FleetRouter``, each
     replica a ``ServingEngine`` joined from the store; phase 18's
@@ -301,9 +304,9 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     copy of the package whose ``_build/`` is empty: ``tools/bulk.py
     --protocol kill_resume --replicas 2 --check`` over 48 train2017
     images (the union byte-equal to the control) and ``tools/fleet.py
-    join_bench`` by warm-up (builds K1 and K2; it and the HTTP service
-    start beside the protocol's killed child) and from the store (builds
-    none); last ``tools/fleet.py serve --replicas 2`` (4 ``/detect``,
+    join_bench`` by warm-up (builds K1 and K2) and from the store
+    (builds none), both started with the HTTP service beside the
+    protocol's killed child; last ``tools/fleet.py serve --replicas 2`` (4 ``/detect``,
     ``/healthz``, ``/metrics``, SIGINT);
 20. the cross-host serving tier, the fourteenth main path
     (``serve/remote.py — RemoteEngine`` over the binary wire →
@@ -396,12 +399,34 @@ imports the port, ``mx_rcnn_tpu_torch``, and nothing of JAX.  Phases:
     one epoch of the set cut to 16 train and 8 test images (the
     script's budget): one record with a finite mAP in [0, 1]; in both
     K1, K2 and K3 once a training step, K1 twice and K2 once an eval
-    batch.
+    batch;
+25. the network surface's linter and fuzzer, the nineteenth main path
+    (``analysis/netlint.py``, ``analysis/wirefuzz.py``,
+    ``tools/wirefuzz.py``): (a) in processes of their own beside the
+    lanes, ``python -m mx_rcnn_tpu_torch.analysis.netlint`` over the
+    port (exit 0, no unwaived finding) and ``python -m
+    mx_rcnn_tpu_torch.tools.wirefuzz --seed 16`` in full (its stand-in
+    agents on the host): ok, 0 violations, the three planted arms
+    flagged, 572 cases as the JAX record counts; (b) inside phase 20,
+    over its two ResNet-101 agent processes before phase 21 (both
+    serving the boot weights): the agent leg aimed at agent 0 (every
+    mutated v1, v2 and traced frame and envelope 4xx, a multi-GB
+    ``Content-Length`` 413, a missing one 411, a mid-frame disconnect,
+    garbage pipelined behind a valid frame; the slow trickle stays in
+    (a), as these agents hold a 30 s body deadline), then ``/healthz``
+    200, agent 0's engine batches grown only by the good frames'
+    batches with K1 2 and K2 1 launches a batch, no kernel build after
+    the warm, each request image's detections byte-equal to the offline
+    batch through agent 0; then the proxy leg, a second router reaching
+    agent 0 through the ``FaultProxy`` (truncate, reset, delay, split,
+    black-hole) and agent 1 directly: every frame (the request images'
+    canvases) served once, byte-equal to the offline batch, 0 lost, K1
+    2 and K2 1 a batch over both agents.
 
 The phases run in this order: 1-4, phase 16's kernels (K4-K6 against
 their plain versions and timed) and 5-9, with the card to themselves;
-then two lanes beside each other and beside phases 22-24's legs (each
-leg in processes of its own): lane A, phases 10, 12, the rest of 16 and
+then two lanes beside each other and beside phases 22-24's legs and
+phase 25 (a) (each leg in processes of its own): lane A, phases 10, 12, the rest of 16 and
 17 in this process, and lane B, phases 13, 14 and 15 in a process of
 this script of its own (``chip_smoke.py --lane``, which dies with this
 one); when both lanes and the legs have ended, phases 11 and 18-24 with
@@ -417,8 +442,8 @@ before the last are the card's name and power limit and one
 ``{"kernels": [...]}`` JSON object (K1-K3: launches from the training
 path, times at the training shapes; K4-K6: launches from the quantized
 eval, times at the per-ROI stage-4 bn1 and 1x1; ``launches_phase22``,
-where phase 23 launches the kernel ``launches_phase23``, and for K1-K3
-``launches_phase24``); the last line is ``{"ok": true, "device":
+where phase 23 launches the kernel ``launches_phase23``, for K1-K3
+``launches_phase24``, and for K1 and K2 ``launches_phase25``); the last line is ``{"ok": true, "device":
 {...}}``.  Longer records (build logs, the full results, the CLIs'
 output) go to ``chiprun_out/chip_smoke/``; phases 9–12 write their
 checkpoints (and phase 12 its datasets) under the ignored ``_chip/``
@@ -429,6 +454,7 @@ too.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import glob
 import hashlib
@@ -6792,6 +6818,7 @@ BULK_KILL_AT = 2           # the killed run's SIGKILL after shard 2 commits
 # bulk.shard_batches at its default, so the steady state outweighs the
 # loader's start and the tail batches
 BULK_RATE_REPEAT = 16
+BULK_KILLED = BULK_DIR / "killed.exited"   # the killed run's process ended
 BULK_MODEL = "bulk@1"      # the sinks' weights identity
 # seeded weights spread a ROI's scores over 81 classes (phase 11's scaled
 # classifier): a floor under serve.score_thresh's 0.05 keeps detections
@@ -6825,7 +6852,8 @@ def bulk_child(mode: str) -> int:
     just before, read just after, with the engine's batches), the killed
     sink's resume, a closed loop of 8 clients over the same engine (4 s)
     and the rate pass (the corpus BULK_RATE_REPEAT times over, 16 plan
-    batches a shard): one BULK_RESULT line."""
+    batches a shard): one BULK_RESULT line.  The full run starts beside
+    the killed one and resumes its sink once BULK_KILLED exists."""
     import signal
 
     import numpy as np
@@ -6879,6 +6907,13 @@ def bulk_child(mode: str) -> int:
     control = run("control", reg=reg)
     launches = kernels.launch_counts()
     batches = engine.metrics.snapshot()["counters"]["batches"] - batches0
+    # the killed run started beside this one: resume its sink once its
+    # process has exited
+    deadline = time.monotonic() + 300
+    while not BULK_KILLED.exists():
+        if time.monotonic() > deadline:
+            raise AssertionError("the killed run did not exit in 300 s")
+        time.sleep(0.1)
     resumed = run("killed")
     images = [np.ascontiguousarray(imdb.load_image(r)) for r in roidb[:8]]
     closed = run_closed_loop(engine, images, 4.0, 8, 0)
@@ -6898,28 +6933,40 @@ def bulk_child(mode: str) -> int:
     return 0
 
 
-def bulk_process(mode: str, copy_root: Path) -> dict:
-    """:func:`bulk_child` in a process of its own, its copy's _build/
-    emptied first; (exit code, its JSON lines by tag, wall s)."""
+def bulk_process(mode: str, copy_root: Path):
+    """:func:`bulk_child` in a process of its own over ``copy_root``, its
+    copy's _build/ emptied first, started now: (the process, a function
+    that waits for it and gives its exit code, JSON lines by tag and wall
+    s)."""
     build = copy_root / "mx_rcnn_tpu_torch" / "_build"
     shutil.rmtree(build, ignore_errors=True)
     build.mkdir()
+    out = OUT_DIR / f"bulk_{mode}.txt"
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", BULK_CHILD, str(copy_root),
-                          str(REPO), mode], cwd=BULK_DIR,
-                         capture_output=True, text=True, timeout=300)
-    wall = time.perf_counter() - t0
-    (OUT_DIR / f"bulk_{mode}.txt").write_text(res.stdout)
-    (OUT_DIR / f"bulk_{mode}.err").write_text(res.stderr)
-    lines = {}
-    for line in res.stdout.splitlines():
-        tag, _, body = line.partition(" ")
-        if tag in ("BULK_JOIN", "BULK_RESULT"):
-            lines[tag] = json.loads(body)
-    if "BULK_JOIN" not in lines:
-        raise AssertionError(f"bulk {mode}: exit {res.returncode}, no join"
-                             f"\n{res.stderr[-3000:]}")
-    return dict(exit=res.returncode, wall_s=wall, **lines)
+    with open(out, "w") as fo, open(out.with_suffix(".err"), "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-c", BULK_CHILD,
+                                 str(copy_root), str(REPO), mode],
+                                cwd=BULK_DIR, stdout=fo, stderr=fe, text=True)
+
+    def wait() -> dict:
+        try:
+            proc.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        wall = time.perf_counter() - t0
+        lines = {}
+        for line in out.read_text().splitlines():
+            tag, _, body = line.partition(" ")
+            if tag in ("BULK_JOIN", "BULK_RESULT"):
+                lines[tag] = json.loads(body)
+        if "BULK_JOIN" not in lines:
+            raise AssertionError(
+                f"bulk {mode}: exit {proc.returncode}, no join\n"
+                f"{out.with_suffix('.err').read_text()[-3000:]}")
+        return dict(exit=proc.returncode, wall_s=wall, **lines)
+
+    return proc, wait
 
 
 def bulk_offline_equal(pred, cfg) -> dict:
@@ -7041,6 +7088,7 @@ def phase_bulk(dev, card: str) -> dict:
     are removed at the end."""
     import torch
 
+    from mx_rcnn_tpu_torch.data import load_gt_roidb
     from mx_rcnn_tpu_torch.models.faster_rcnn import build_model
     from mx_rcnn_tpu_torch.serve.export import export_serve_programs
     from mx_rcnn_tpu_torch.tools.loadgen import init_predictor
@@ -7054,6 +7102,7 @@ def phase_bulk(dev, card: str) -> dict:
 
     shutil.rmtree(BULK_DIR, ignore_errors=True)
     BULK_DIR.mkdir(parents=True)
+    children = {}
     try:
         write_coco_tree(BULK_DIR, seed=5, counts=(4, BULK_IMAGES),
                         portrait_every=2)
@@ -7081,13 +7130,24 @@ def phase_bulk(dev, card: str) -> dict:
         log(f"the store refuses serve.score_thresh 0.2 and an int8 engine: "
             f"{sorted(refusals)}")
         done("refusals")
-        copy_root = BULK_DIR / "pkg"
-        shutil.copytree(REPO / "mx_rcnn_tpu_torch",
-                        copy_root / "mx_rcnn_tpu_torch",
-                        ignore=shutil.ignore_patterns("_build",
-                                                      "__pycache__"))
-        killed = bulk_process("kill", copy_root)
-        full = bulk_process("full", copy_root)
+        # the killed and the full run beside each other, each over a copy
+        # of its own (each joins into an empty _build/), the demo here
+        # meanwhile; the full run resumes the killed sink once the killed
+        # process has exited.  The roidb's pickle cache is written here
+        # first, so that neither child reads the other's half-written one
+        load_gt_roidb(cfg, training=False)
+        for mode in ("kill", "full"):
+            copy_root = BULK_DIR / f"pkg_{mode}"
+            shutil.copytree(REPO / "mx_rcnn_tpu_torch",
+                            copy_root / "mx_rcnn_tpu_torch",
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            children[mode] = bulk_process(mode, copy_root)
+        demo = bulk_demo(prefix, card)
+        done("demo")
+        killed = children["kill"][1]()
+        BULK_KILLED.touch()
+        full = children["full"][1]()
         done("processes")
         offline = bulk_offline_equal(pred, cfg)
         done("offline")
@@ -7098,9 +7158,11 @@ def phase_bulk(dev, card: str) -> dict:
             sink = BulkSink(str(BULK_DIR / tag))
             shards[tag] = [Path(sink.shard_path(k)).read_bytes()
                            for k in range(sink.committed_shards())]
-        demo = bulk_demo(prefix, card)
-        done("demo")
     finally:
+        for proc, _ in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(BULK_DIR, ignore_errors=True)
     res = full.get("BULK_RESULT") or {}
     ctrl, resumed = res.get("control", {}), res.get("resumed", {})
@@ -7687,22 +7749,24 @@ def phase_fleet(dev, card: str) -> dict:
         del offline, pred, variables
 
         # (f) processes over a copy of the package with an empty _build/;
-        # (g)'s service and join_bench by warm-up start beside the killed
+        # (g)'s service and both join_bench runs start beside the killed
         # child
-        trace_join = {}
+        join_runs = {"trace": {}, "export": {}}
 
-        def run_trace_join():
+        def run_join(mode):
             try:
-                trace_join.update(fleet_join("trace", store))
+                join_runs[mode].update(fleet_join(mode, store))
             except BaseException as e:  # noqa: BLE001 — raised below
-                trace_join["error"] = e
+                join_runs[mode]["error"] = e
 
-        trace_thread = threading.Thread(target=run_trace_join, daemon=True)
+        join_threads = [threading.Thread(target=run_join, args=(m,),
+                                         daemon=True) for m in join_runs]
 
         def at_kill():
             nonlocal http_proc
             http_proc = fleet_http_start(prefix, store)
-            trace_thread.start()
+            for t in join_threads:
+                t.start()
             # phase 20's agents boot here too, beside the killed child
             _CROSS.update(cross_start(store))
 
@@ -7730,16 +7794,17 @@ def phase_fleet(dev, card: str) -> dict:
                 or resume["join_kernel_builds"]:
             raise AssertionError(f"fleet bulk: {json.dumps(bulk)[:3000]}")
         done("bulk")
-        ex = fleet_join("export", store)
-        trace_thread.join(timeout=300)
-        if "error" in trace_join or trace_thread.is_alive():
-            raise AssertionError(f"join_bench --mode trace: "
-                                 f"{trace_join.get('error', 'past 300 s')}")
-        tr = trace_join
+        for t, (mode, rec) in zip(join_threads, join_runs.items()):
+            t.join(timeout=300)
+            if "error" in rec or t.is_alive():
+                raise AssertionError(f"join_bench --mode {mode}: "
+                                     f"{rec.get('error', 'past 300 s')}")
+        tr, ex = join_runs["trace"], join_runs["export"]
         joins_bench = dict(trace=tr, export=ex,
                            ratio=ex["overhead_s"] / tr["overhead_s"])
-        log(f"join_bench ({card}): by warm-up (its process beside the bulk "
-            f"protocol's killed and resumed children) overhead "
+        log(f"join_bench ({card}; each process beside the bulk protocol's "
+            f"killed and resumed children and the other): by warm-up "
+            f"overhead "
             f"{tr['overhead_s']} s (first {tr['first_s']}, second "
             f"{tr['second_s']}), builds {tr['kernel_builds']}, process "
             f"{tr['process_s']:.1f} s; from "
@@ -7933,6 +7998,8 @@ def phase_crosshost(dev, card: str) -> dict:
 
     n_cards = torch.cuda.device_count()
     cards, devices = cross_cards(), cross_devices()
+    host = host_info()
+    log(f"phase 20 host: {host_text(host)}")
     try:
         cfg = generate_config("resnet101", "coco", **cross_overrides())
         beside = "agents" in _CROSS
@@ -8129,6 +8196,11 @@ def phase_crosshost(dev, card: str) -> dict:
             raise AssertionError(f"the closed loops: {one} {two}")
         done("loops")
 
+        # phase 25 (b), the wire fuzzer at these agents, while they serve
+        # the boot weights, which the offline batch holds
+        net = net_live(cfg, urls, canvases, want, card)
+        done("net")
+
         # phase 21, the rollout plane, over these agents before the kill
         rollout = phase_rollout(dev, card, cfg, pred, agents, canvases,
                                 _CROSS["store"])
@@ -8157,6 +8229,16 @@ def phase_crosshost(dev, card: str) -> dict:
             f"{kill['scheduler_actions']}; the agents' cards' free memory "
             f"with both up {(free_up - free0) / 2 ** 20:+.1f} MiB, after "
             f"the agents are gone {(free_end - free0) / 2 ** 20:+.1f} MiB")
+        reqs = kill["requests"]
+        slow = sorted(reqs, key=lambda r: r["end"] - r["t"])[-3:]
+        log(f"the kill leg's {len(reqs)} requests (SIGKILL at "
+            f"{kill['kill_at_s']} s; seconds from the burst's start): "
+            f"{sum(len(r['dispatches']) > 1 for r in reqs)} dispatched more "
+            f"than once, outcomes "
+            f"{dict(collections.Counter(r['outcome'] for r in reqs))}; the "
+            f"slowest " + "; ".join(
+                f"{r['t']}-{r['end']} {r['outcome']} {r['dispatches']}"
+                for r in slow))
         if problems or abs(free_end - free0) > CROSS_MEM_SLACK:
             raise AssertionError(f"the kill leg: {problems}; {kill}; free "
                                  f"{free0} {free_end}")
@@ -8177,7 +8259,8 @@ def phase_crosshost(dev, card: str) -> dict:
                 scaling=scaling, kill=kill,
                 free_mib={"up": (free_up - free0) / 2 ** 20,
                           "end": (free_end - free0) / 2 ** 20},
-                parts_s=parts, wall_s=wall, cards=n_cards, rollout=rollout)
+                parts_s=parts, wall_s=wall, cards=n_cards, rollout=rollout,
+                net=net, host=host)
 
 
 # ---- phase 21: the rollout plane, the fifteenth main path -------------------
@@ -8974,6 +9057,170 @@ def phase_gauntlet(card: str, legs) -> dict:
 # phases of LANES in a process of its own (this script with LANE_FLAG),
 # and phases 22-24's legs in theirs, all beside each other; phases 11
 # and 18-22 run after them, alone
+# ---- phase 25: the network surface's linter and fuzzer --------------------
+
+NET_SEED = 16               # tools/wirefuzz.py's default seed
+NET_CASES = 572             # the JAX record's corpus_cases at that seed
+# the agent leg's cases that send good frames, and their frames (the
+# envelope carries two): the only ones that may reach an engine
+NET_GOOD = {"http:pipelined-garbage": 1, "http:tr:good-traced-frame": 1,
+            "http:v2:good-source-frame": 1, "http:env:good-envelope": 2,
+            "aftermath:good-frame": 1}
+NET_MODES = {"pass", "truncate", "reset", "split", "delay", "blackhole"}
+
+
+def net_host_legs() -> dict:
+    """Phase 25 (a): ``python -m mx_rcnn_tpu_torch.analysis.netlint`` over
+    the port and the full ``tools/wirefuzz.py --seed 16`` (its stand-in
+    agents on the host), each in a process of its own, beside each
+    other: their exit codes, records and seconds."""
+    fuzz_path = OUT_DIR / "wirefuzz.json"
+    fuzz_path.unlink(missing_ok=True)
+    lint = _start_process(
+        [sys.executable, "-m", "mx_rcnn_tpu_torch.analysis.netlint",
+         "--json", "--show-waived"], OUT_DIR / "netlint.txt", timeout=300)
+    fuzz = _start_process(
+        [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.wirefuzz", "--seed",
+         str(NET_SEED), "--out", str(fuzz_path)], OUT_DIR / "wirefuzz.txt",
+        timeout=300)
+    (lres, lint_s), (fres, fuzz_s) = lint(), fuzz()
+    findings = [json.loads(ln) for ln in lres.stdout.splitlines()
+                if ln.startswith("{")]
+    return dict(netlint_rc=lres.returncode, netlint_s=lint_s,
+                netlint_summary=lres.stderr.strip().splitlines()[-1:],
+                waived=[f"{f['path']}:{f['line']} {f['code']}"
+                        for f in findings if f["waived"] is not None],
+                unwaived=[f for f in findings if f["waived"] is None],
+                wirefuzz_rc=fres.returncode, wirefuzz_s=fuzz_s,
+                wirefuzz=(json.loads(fuzz_path.read_text())
+                          if fuzz_path.exists() else None),
+                wirefuzz_err=fres.stderr[-3000:])
+
+
+def check_net_host(rec: dict, card: str) -> dict:
+    """Phase 25 (a)'s checks and line; the record without the leg
+    records' bulk."""
+    doc = rec["wirefuzz"] or {}
+    legs = doc.get("legs", {})
+    log(f"phase 25 (a): netlint on the port exit {rec['netlint_rc']} "
+        f"({rec['netlint_summary']}, {rec['netlint_s']:.1f} s; waived "
+        f"{rec['waived']}); tools/wirefuzz.py --seed {NET_SEED} exit "
+        f"{rec['wirefuzz_rc']} in {rec['wirefuzz_s']:.1f} s ({card}'s "
+        f"host): ok {doc.get('ok')}, {doc.get('corpus_cases')} cases, "
+        f"violations {doc.get('value')}, "
+        + ", ".join(f"{k} {v['cases']} {v['outcomes']}"
+                    for k, v in legs.items())
+        + f"; planted ok {doc.get('planted', {}).get('ok')}")
+    if (rec["netlint_rc"] or rec["unwaived"] or rec["wirefuzz_rc"]
+            or not doc.get("ok") or doc.get("value")
+            or not doc.get("planted", {}).get("ok")
+            or doc.get("corpus_cases") != NET_CASES
+            or sorted(legs) != ["agent", "codec", "httpsource", "proxy"]
+            or any(v["violations"] for v in legs.values())):
+        raise AssertionError(f"phase 25 (a): {json.dumps(rec)[:3000]}")
+    return dict(rec, wirefuzz={k: doc[k] for k in (
+        "ok", "value", "corpus_cases", "elapsed_s")} | dict(
+        legs={k: {"cases": v["cases"], "outcomes": v["outcomes"]}
+              for k, v in legs.items()}, planted=doc["planted"]))
+
+
+def net_live(cfg, urls: list, canvases: list, want: list, card: str) -> dict:
+    """Phase 25 (b): ``tools/wirefuzz.py``'s agent leg aimed at phase
+    20's agent 0 (ResNet-101 on the card, before phase 21, both buckets)
+    and its proxy leg over both agents, agent 0 behind the
+    ``FaultProxy``.  ``canvases`` are the request images' (canvas,
+    im_info, bucket) triples and ``want`` their offline detections."""
+    from urllib.parse import urlsplit
+
+    from mx_rcnn_tpu_torch.serve.remote import build_crosshost_router
+    from mx_rcnn_tpu_torch.tools import crosshost
+    from mx_rcnn_tpu_torch.tools import wirefuzz
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    def delta(a, b, key):
+        return b[key] - a[key]
+
+    def launches(a, b):
+        return {k: b["kernel_launches"][k] - a["kernel_launches"][k]
+                for k in a["kernel_launches"]}
+
+    first = urlsplit(urls[0])
+    before = [crosshost._healthz(u) for u in urls]
+    agent = wirefuzz.leg_agent(NET_SEED, target=(first.hostname,
+                                                 first.port, cfg))
+    mid = [crosshost._healthz(u) for u in urls]
+    done("agent leg")
+    batches = delta(before[0], mid[0], "engine_batches")
+    got_l = launches(before[0], mid[0])
+    frames = sum(NET_GOOD.values())
+    log(f"phase 25 (b): the agent leg at agent 0 ({card}): {agent['cases']} "
+        f"cases, {agent['outcomes']}, violations {len(agent['violations'])};"
+        f" agent 0's engine batches +{batches} for the {frames} good "
+        f"frames in {len(NET_GOOD)} requests, launches {got_l}; agent 1's "
+        f"batches +{delta(before[1], mid[1], 'engine_batches')}; kernel "
+        f"builds after the warm {[h['kernel_builds_after_warm'] for h in mid]}"
+        f"; /healthz ok {[h['ok'] for h in mid]}")
+    want_l = {"nms_sweep": 2 * batches, "roi_align_fwd": batches}
+    if (agent["violations"] or agent["cases"] < 100
+            or agent["outcomes"].get("accepted_valid") != len(NET_GOOD) + 1
+            or not len(NET_GOOD) <= batches <= frames
+            or delta(before[1], mid[1], "engine_batches")
+            or {k: got_l[k] for k in want_l} != want_l
+            or any(v for k, v in got_l.items() if k not in want_l)
+            or any(h["kernel_builds_after_warm"] for h in mid)
+            or not all(h["ok"] for h in mid)):
+        raise AssertionError(f"phase 25 (b) agent leg: {agent}; batches "
+                             f"{batches}, launches {got_l}; {mid}")
+
+    # after the attacks: a good frame of each request image, through a
+    # router to agent 0 alone, byte-equal to the offline batch
+    router, feed = build_crosshost_router(cfg, urls[:1])
+    try:
+        served = [router.submit_prepared(c, i, b, timeout_ms=0).wait(120.0)
+                  for c, i, b in canvases]
+    finally:
+        feed.close()
+        router.close()
+    equal = sum(cross_same(g, w) for g, w in zip(served, want))
+    done("good frames")
+
+    proxy = wirefuzz.leg_proxy(NET_SEED, cfg=cfg, urls=urls,
+                               frames=canvases, want=want)
+    after = [crosshost._healthz(u) for u in urls]
+    done("proxy leg")
+    all_b = sum(delta(a, b, "engine_batches") for a, b in zip(before, after))
+    all_l = {k: sum(launches(a, b)[k] for a, b in zip(before, after))
+             for k in before[0]["kernel_launches"]}
+    term = proxy["terminal"]
+    log(f"phase 25 (b): after the attacks {equal} of {len(canvases)} "
+        f"request images served by agent 0 byte-equal to the offline batch;"
+        f" the proxy leg (agent 0 behind the FaultProxy, agent 1 direct, "
+        f"{card}): {proxy['cases']} frames, {proxy['outcomes']}, terminal "
+        f"{term}, violations {len(proxy['violations'])}, faults "
+        f"{proxy['faults_applied']}; both agents' engine batches in (b) "
+        f"{all_b}, launches {all_l}; kernel builds after the warm "
+        f"{[h['kernel_builds_after_warm'] for h in after]}; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    want_all = {"nms_sweep": 2 * all_b, "roi_align_fwd": all_b}
+    if (equal != len(canvases) or proxy["violations"]
+            or term["served"] != 14 or sum(term.values()) != 14
+            or set(proxy["faults_applied"]) != NET_MODES
+            or {k: all_l[k] for k in want_all} != want_all
+            or any(v for k, v in all_l.items() if k not in want_all)
+            or any(h["kernel_builds_after_warm"] for h in after)
+            or not all(h["ok"] for h in after)):
+        raise AssertionError(f"phase 25 (b): equal {equal}, proxy {proxy}, "
+                             f"batches {all_b}, launches {all_l}; {after}")
+    return dict(agent=agent, agent_batches=batches, agent_launches=got_l,
+                equal=equal, proxy=proxy, batches=all_b, launches=all_l,
+                parts_s=parts, wall_s=time.perf_counter() - t0)
+
+
 LANE_FLAG = "--lane"
 LANE_TIMEOUT_S = 900
 LANES = {"B": (13, 14, 15)}
@@ -9153,6 +9400,7 @@ def main() -> int:
         ft_bg = in_background(ft_legs)
         ts_bg = in_background(ts_legs)
         gt_bg = in_background(gt_legs)
+        net_bg = in_background(net_host_legs)
         t0 = time.perf_counter()
         alternate = timed(10, phase_alternate, dev, card)
         real_data = timed(12, phase_real_data, dev, card)
@@ -9185,21 +9433,27 @@ def main() -> int:
     t0 = time.perf_counter()
     gt_runs = gt_bg()
     gt_wait = time.perf_counter() - t0
-    log("the lanes beside each other and phases 22-24's legs: "
+    t0 = time.perf_counter()
+    net_host = check_net_host(net_bg(), card)
+    net_wait = time.perf_counter() - t0
+    log("the lanes beside each other and phases 22-25's legs: "
         + ", ".join(f"{k} (phases {LANES.get(k, (10, 12, 16, 17))})"
                     f" {v:.1f} s" for k, v in lane_s.items())
         + "; waited " + ", ".join(f"{v:.1f} s for {k}"
                                   for k, v in waits.items())
-        + f", then {ft_wait:.1f}, {ts_wait:.1f} and {gt_wait:.1f} s for the "
-        f"legs of phases 22, 23 and 24")
+        + f", then {ft_wait:.1f}, {ts_wait:.1f}, {gt_wait:.1f} and "
+        f"{net_wait:.1f} s for the legs of phases 22, 23, 24 and 25")
     engine = timed(11, phase_engine, dev, card)
     bulk = timed(18, phase_bulk, dev, card)
     fleet = timed(19, phase_fleet, dev, card)
     cross = timed(20, phase_crosshost, dev, card)
-    # phase 21 runs inside phase 20, over its agents before its kill leg
+    # phases 21 and 25 (b) run inside phase 20, over its agents before its
+    # kill leg
     rollout = cross.pop("rollout")
     phase_s[21] = rollout["wall_s"]
-    phase_s[20] -= phase_s[21]
+    net = dict(cross.pop("net"), host_legs=net_host)
+    phase_s[25] = net["wall_s"] + net_wait
+    phase_s[20] -= phase_s[21] + net["wall_s"]
     ft = timed(22, phase_ft, dev, card, ft_runs)
     phase_s[22] += ft_wait
     train_step = timed(23, phase_train_step, card, ts_runs)
@@ -9243,6 +9497,8 @@ def main() -> int:
             line["launches_phase23"] = train_step["launches"][line["name"]]
         if line["name"] in PATH_KERNELS:
             line["launches_phase24"] = gauntlet["launches"][line["name"]]
+        if net["launches"].get(line["name"]):
+            line["launches_phase25"] = net["launches"][line["name"]]
     (OUT_DIR / "results.json").write_text(json.dumps(dict(
         card=card, host=host, build_s=build_s, qconv_sass=sass, k1=k1,
         k2=k2, k3=k3,
@@ -9252,6 +9508,7 @@ def main() -> int:
         data_parallel=data_parallel, device_cache=device_cache,
         quant=quant, obs=obs, bulk=bulk, fleet=fleet, crosshost=cross,
         rollout=rollout, ft=ft, train_step=train_step, gauntlet=gauntlet,
+        net=net,
         phase_s={str(k): v for k, v in phase_s.items()},
         lanes=dict(seconds=lane_s, waits=waits),
         script_s=script_s), indent=1))

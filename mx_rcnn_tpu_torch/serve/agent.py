@@ -241,6 +241,7 @@ def pull_store(url: str, dest: str, timeout_s: float = 30.0) -> Dict:
         # attempt resumes from the bytes already landed, so an immediate
         # retry is the cheapest recovery and backoff would only delay
         # the join; a 2nd failure raises StorePullError (no flood)
+        # netlint: disable=NL301 finite resume-retry, 2nd failure raises
         for attempt in (0, 1):
             start = (os.path.getsize(part) if os.path.exists(part)
                      else 0)

@@ -119,7 +119,7 @@ class FleetRequest(ServeRequest):
     dropped at the terminal transition."""
 
     __slots__ = ("attempts", "tried", "replica_id", "prepared", "source",
-                 "version", "tparent")
+                 "version", "tparent", "history")
 
     def __init__(self, image: np.ndarray, deadline: Optional[float],
                  now: float, im_info: np.ndarray = None,
@@ -129,6 +129,10 @@ class FleetRequest(ServeRequest):
         self.attempts = 0          # dispatches so far (1 = no reroute)
         self.tried: set = set()    # replica ids dispatched to
         self.replica_id: Optional[int] = None  # the last target
+        # one [replica id, dispatch time, end time, inner state] a
+        # dispatch (monotonic clock; the end and state once it ended,
+        # "ejected" where the replica lost its engine before the send)
+        self.history: List[list] = []
         self.version: Optional[str] = None     # the last target's version
         self.prepared = prepared
         self.source = source
@@ -727,11 +731,13 @@ class FleetRouter:
         freq.tried.add(target.id)
         freq.attempts += 1
         freq.replica_id = target.id
+        freq.history.append([target.id, now, None, None])
         freq.version = target.version
         self._count_version(freq, "dispatched")
         with target._lock:
             eng = target.engine if target.state == R_READY else None
         if eng is None:  # lost the race with an eject: try the rest
+            freq.history[-1][2:] = [now, "ejected"]
             self._dispatch(freq)
             return
         remaining_ms = (0.0 if freq.deadline is None
@@ -760,6 +766,8 @@ class FleetRouter:
         an immediate shed), and is the only place a dispatched fleet
         request ends."""
         state = inner.state
+        if freq.history:
+            freq.history[-1][2:] = [inner.done_t, state]
         if inner.tctx is not None:
             obs_trace.record_span(
                 freq.tctx, "fleet.attempt",

@@ -214,21 +214,30 @@ def _submit_prepared(target, item, timeout_ms: float):
 
 def _run_prepared_closed(target, prepared, duration_s: float,
                          concurrency: int, timeout_ms: float,
-                         submit=None) -> dict:
+                         submit=None, requests: List[dict] = None) -> dict:
     """``run_closed_loop`` over the prepared/binary hot path —
     ``target`` is anything with ``submit_prepared`` (cross-host router
     or a bare RemoteEngine).  ``submit(target, item, timeout_ms)``
-    replaces the prepared submit (a v2 source frame, a raw image)."""
+    replaces the prepared submit (a v2 source frame, a raw image).
+    ``requests``, where given, gets one record a request: its submit and
+    end times in seconds from the loop's start, its outcome and, for a
+    router's request, each dispatch as [replica, sent, ended, state]."""
     submit = submit or _submit_prepared
-    stop = time.monotonic() + duration_s
+    t_start = time.monotonic()
+    stop = t_start + duration_s
     outcomes = {"ok": 0, "shed": 0, "expired": 0, "failed": 0}
     lock = threading.Lock()
+
+    def since(t):
+        return None if t is None else round(t - t_start, 4)
 
     def worker(wid: int):
         i = wid
         while time.monotonic() < stop:
             item = prepared[i % len(prepared)]
             i += concurrency
+            req = None
+            t0 = time.monotonic()
             try:
                 req = submit(target, item, timeout_ms)
                 req.wait(timeout=timeout_ms / 1000.0 + 30.0)
@@ -243,6 +252,13 @@ def _run_prepared_closed(target, prepared, duration_s: float,
                 key = "failed"
             with lock:
                 outcomes[key] += 1
+                if requests is not None:
+                    requests.append({
+                        "t": since(t0), "end": since(time.monotonic()),
+                        "outcome": key,
+                        "dispatches": [[r, since(a), since(b), st]
+                                       for r, a, b, st in
+                                       getattr(req, "history", ())]})
 
     threads = [threading.Thread(target=worker, args=(w,), daemon=True)
                for w in range(concurrency)]
@@ -533,12 +549,15 @@ def host_kill_leg(cfg: Config, ch_over: Dict, agents: List[AgentProc],
                                kcfg).start()
         try:
             box = {}
+            requests: List[dict] = []
 
             def burst():
                 box["run"] = _run_prepared_closed(
                     router, prepared, burst_s, concurrency=concurrency,
-                    timeout_ms=timeout_ms, submit=submit)
+                    timeout_ms=timeout_ms, submit=submit,
+                    requests=requests)
 
+            t_burst = time.monotonic()
             bt = threading.Thread(target=burst, daemon=True)
             bt.start()
             time.sleep(burst_s / 3.0)
@@ -595,6 +614,10 @@ def host_kill_leg(cfg: Config, ch_over: Dict, agents: List[AgentProc],
                 "scheduler_actions": [
                     {k: a[k] for k in ("action", "source", "reason")}
                     for a in sched.actions],
+                # every request of the burst (seconds from its start;
+                # replica k is agents[k]) and the SIGKILL's time there
+                "kill_at_s": round(t_sig - t_burst, 4),
+                "requests": sorted(requests, key=lambda r: r["t"]),
             }
             if leg["lost"]:
                 problems.append(f"host-kill leg lost {leg['lost']} "

@@ -18,6 +18,7 @@ array comes back as a numpy array.
 
 from __future__ import annotations
 
+import math
 import struct
 from typing import Any, List
 
@@ -173,8 +174,11 @@ class _Reader:
         return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
 
 
-_UINT = {0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q",
-         0xd0: ">b", 0xd1: ">h", 0xd2: ">i", 0xd3: ">q"}
+# type byte -> the format of its fixed-width value (ints, float32, float64)
+_SCALAR = {0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q",
+           0xd0: ">b", 0xd1: ">h", 0xd2: ">i", 0xd3: ">q",
+           0xca: ">f", 0xcb: ">d"}
+# type byte -> the format of the length or count its header gives
 _LEN = {0xd9: ">B", 0xda: ">H", 0xdb: ">I", 0xc4: ">B", 0xc5: ">H",
         0xc6: ">I", 0xdc: ">H", 0xdd: ">I", 0xde: ">H", 0xdf: ">I",
         0xc7: ">B", 0xc8: ">H", 0xc9: ">I"}
@@ -197,25 +201,30 @@ def _read(r: _Reader) -> Any:
         return None
     if b in (0xc2, 0xc3):
         return b == 0xc3
-    if b in _UINT:
-        return r.unpack(_UINT[b])
-    if b == 0xca:
-        return r.unpack(">f")
-    if b == 0xcb:
-        return r.unpack(">d")
-    if b in (0xd9, 0xda, 0xdb):
-        return str(r.take(r.unpack(_LEN[b])), "utf-8")
-    if b in (0xc4, 0xc5, 0xc6):
-        return bytes(r.take(r.unpack(_LEN[b])))
-    if b in (0xdc, 0xdd):
-        return [_read(r) for _ in range(r.unpack(_LEN[b]))]
-    if b in (0xde, 0xdf):
-        return _read_map(r, r.unpack(_LEN[b]))
-    if b in _FIXEXT_LEN or b in (0xc7, 0xc8, 0xc9):
-        n = _FIXEXT_LEN[b] if b in _FIXEXT_LEN else r.unpack(_LEN[b])
-        code = r.unpack("b")
-        return _read_ext(code, r.take(n))
+    if b in _SCALAR:
+        # netlint: disable=NL201 _Reader.take raises ValueError on short data
+        return r.unpack(_SCALAR[b])
+    if b in _LEN:
+        # netlint: disable=NL201 _Reader.take raises ValueError on short data
+        return _read_sized(r, b, r.unpack(_LEN[b]))
+    if b in _FIXEXT_LEN:
+        return _read_sized(r, b, _FIXEXT_LEN[b])
     raise ValueError(f"msgpack type byte 0x{b:02x} is not supported")
+
+
+def _read_sized(r: _Reader, b: int, n: int) -> Any:
+    """The object of type byte ``b`` whose header gave its length or
+    count ``n``; a read past the data raises ValueError in
+    ``_Reader.take``, so ``n`` sizes nothing before the data is there."""
+    if b in (0xd9, 0xda, 0xdb):
+        return str(r.take(n), "utf-8")
+    if b in (0xc4, 0xc5, 0xc6):
+        return bytes(r.take(n))
+    if b in (0xdc, 0xdd):
+        return [_read(r) for _ in range(n)]
+    if b in (0xde, 0xdf):
+        return _read_map(r, n)
+    return _read_ext(r.unpack("b"), r.take(n))
 
 
 def _read_map(r: _Reader, n: int) -> dict:
@@ -231,13 +240,29 @@ def _read_map(r: _Reader, n: int) -> dict:
 def _read_ext(code: int, body: memoryview):
     if code not in (EXT_NDARRAY, EXT_NPSCALAR):
         raise ValueError(f"msgpack ext type {code} is not supported")
-    shape, name, raw = _read(_Reader(body))
+    head = _read(_Reader(body))
+    if not (isinstance(head, list) and len(head) == 3):
+        raise ValueError("an array's ext body is not [shape, dtype, bytes]")
+    shape, name, raw = head
+    if not (isinstance(shape, list) and isinstance(name, str)
+            and isinstance(raw, bytes)
+            and all(isinstance(d, int) and d >= 0 for d in shape)):
+        raise ValueError(f"an array's ext body holds {shape!r}, {name!r}")
     shape = tuple(shape)
-    if name == "bfloat16":
+    try:
+        itemsize = 2 if name == "bfloat16" else np.dtype(name).itemsize
+    except (TypeError, SyntaxError):   # numpy parses some names as code
+        raise ValueError(f"unknown array dtype {name!r}") from None
+    if math.prod(shape) * itemsize != len(raw):
+        raise ValueError(f"{len(raw)} bytes for a {name} array of shape "
+                         f"{shape}")
+    if name != "bfloat16":
+        arr = np.frombuffer(raw, dtype=np.dtype(name)).reshape(shape)
+    elif raw:
         arr = torch.frombuffer(bytearray(raw), dtype=torch.bfloat16)
         arr = arr.reshape(shape)
     else:
-        arr = np.frombuffer(raw, dtype=np.dtype(name)).reshape(shape)
+        arr = torch.empty(shape, dtype=torch.bfloat16)
     if code == EXT_NPSCALAR:
         return arr if isinstance(arr, torch.Tensor) else arr[()]
     return arr

@@ -121,6 +121,21 @@ def test_host_kill_under_the_live_scheduler(tmp_path):
     assert leg["served_after_kill"] > 0
     assert leg["survivor_builds_after_warm"] == 0
     assert any(a["action"] == "add" for a in leg["scheduler_actions"])
+    # every request of the burst is in the record: its outcome, and each
+    # dispatch's replica, times and state; the dead host's last ones
+    # rerouted to the survivor
+    reqs = leg["requests"]
+    assert len(reqs) == sum(leg["client"].values())
+    assert 0 < leg["kill_at_s"] < 4.0
+    for r in reqs:
+        assert r["t"] <= r["end"]
+        ds = r["dispatches"]
+        assert all(d[0] in (0, 1) for d in ds)
+        assert all(ds[i][2] <= ds[i + 1][1] for i in range(len(ds) - 1))
+        if r["outcome"] == "ok":
+            assert ds and ds[-1][3] == "served"
+    assert any(len(r["dispatches"]) > 1 and r["dispatches"][0][0] == 1
+               and r["dispatches"][-1][0] == 0 for r in reqs)
 
 
 def test_bulk_union_across_two_hosts_is_byte_identical(tmp_path):
